@@ -1,0 +1,41 @@
+"""auto_oo_tpu_torch: the PyTorch / CUDA port of auto_oo_tpu.
+
+Orbital-optimized VQE with exact hybrid gradients and Hessians, written in
+PyTorch for one NVIDIA H100 (and the CPU), beside the JAX package it is
+held against.  It imports torch, numpy and scipy, never jax.  Modules and
+public names mirror auto_oo_tpu, so each counterpart is found under the
+same name.
+
+This first slice runs the sector string-grid damped-Newton path
+(``Parameterized_circuit(..., sector=True)`` with a built-in ansatz,
+``OO_pqc.full_optimization``); its two grid-gather kernels are CUDA on the
+card (ops/grid_kernels.py, csrc/grid_gather.cu).
+"""
+
+from . import config  # noqa: F401  (TF32 off before anything runs)
+
+from .moldata import Moldata, Moldata_pyscf, ao_to_oao
+from .utils import NewtonStep, get_formal_geo
+from .ops.kappa import (
+    vector_to_skew_symmetric,
+    skew_symmetric_to_vector,
+    non_redundant_indices,
+)
+from .ops.transforms import (
+    int1e_transform,
+    int2e_transform,
+    molecular_hamiltonian_coefficients,
+)
+from .ops.linalg import expm
+from .simulator.circuit import Parameterized_circuit
+from .models import OO_energy, OO_pqc, mo_ao_to_mo_oao
+
+__all__ = [
+    "Moldata", "Moldata_pyscf", "ao_to_oao",
+    "NewtonStep", "get_formal_geo",
+    "vector_to_skew_symmetric", "skew_symmetric_to_vector",
+    "non_redundant_indices",
+    "int1e_transform", "int2e_transform",
+    "molecular_hamiltonian_coefficients", "expm",
+    "Parameterized_circuit", "OO_energy", "OO_pqc", "mo_ao_to_mo_oao",
+]

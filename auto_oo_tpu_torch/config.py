@@ -1,0 +1,50 @@
+"""Global numerical configuration for auto_oo_tpu_torch.
+
+The port works in float64 throughout (``DTYPE``); every tensor it creates
+names its dtype, and the global default dtype is left alone (the port's
+tests share a process with the JAX package's).
+
+The device is explicit: pass ``device=`` to the constructors, or set a
+process default with :func:`set_device`.  The default is ``"cpu"``; the
+port never moves to another device because CUDA is missing, and a
+``"cuda"`` request without a card fails where the first tensor is made.
+
+TF32 is switched off for matmuls and convolutions, and float32 matmuls
+run at "highest" precision: the JAX package measured that low-precision
+float32 dots derail the damped-Newton trajectory by 8e-2 Ha
+(auto_oo_tpu/models/oo_pqc.py:132-140), and TF32 keeps even fewer
+mantissa bits than the single-pass bfloat16 dots measured there.
+"""
+
+import os
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+#: Floating point dtype of energies, integrals, parameters and states.
+DTYPE = torch.float64
+
+#: CODATA-2010 Bohr radius in Angstrom (matches PySCF's param.BOHR so that
+#: geometries specified in Angstrom reproduce reference energies to 1e-10 Ha).
+BOHR = 0.52917721092
+
+#: Git-ignored directory at the repository root that receives every
+#: library the port compiles (the CUDA kernels, the native ERI engine).
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build")
+
+_DEVICE = torch.device("cpu")
+
+
+def set_device(device):
+    """Set the process default device (``"cpu"``, ``"cuda"``, ...)."""
+    global _DEVICE
+    _DEVICE = torch.device(device)
+
+
+def get_device(device=None):
+    """``device`` as a torch.device, or the process default if None."""
+    return _DEVICE if device is None else torch.device(device)

@@ -1,0 +1,333 @@
+"""OO_pqc: hybrid circuit + orbital cost with exact gradients/Hessians.
+
+Port of auto_oo_tpu/models/oo_pqc.py (reference oo_pqc.py:30-207) on the
+fused sector-grid route.  The cost is
+E(theta, kappa) = c0 + sum h~ gamma(theta) + sum g Gamma(theta) with MOs
+rotated by expm(-kappa).  One ``grad_hess`` call gives every derivative
+block:
+
+* circuit gradient / circuit-circuit Hessian: the quadratic form
+  2 J (H psi) / 2 J H J^T + d2<w, psi(theta)> with w = 2 H psi, where
+  (psi, J) come from one tangent-batched sweep of the grid gate program
+  and d2<w, psi> from one reverse sweep (simulator/grid_program.py), and
+  H applies through the grid kernels (ops/hamiltonian.py);
+* orbital gradient / orbital-orbital Hessian: closed-form generalized-Fock
+  expressions (ops/fock.py);
+* mixed block: the affine analytic-gradient map applied to the transition
+  RDMs built from J and the Phi gram.
+
+``full_optimization`` runs damped-Newton iterations from a host loop: one
+``grad_hess``, then the augmented eigh solve, an Armijo line search with
+one scalar sync per trial, and the fold of kappa into the OAO
+coefficients.
+
+Later PRs of the port bring the staged / hosted large-D routes (D >=
+2^19), ``precision="mixed"``, ``device_loop=True``,
+``energy_and_gradient`` and ``gradient_optimization``; those raise
+NotImplementedError here.
+"""
+
+import numpy as np
+import torch
+
+from ..ops import fock as _fock
+from ..ops import hamiltonian as _ham
+from ..ops import kappa as _kappa
+from ..ops import rdms as _rdms
+from ..ops import transforms as _tr
+from ..ops.grid import phi_all
+from ..ops.linalg import expm
+from ..utils.newton_raphson import damped_newton_step_pure
+from .oo_energy import OO_energy
+
+# above this sector dimension the JAX package switches to its staged
+# and hosted pipelines (auto_oo_tpu/models/oo_pqc.py:1025-1027)
+_STAGED_MIN_D = 1 << 19
+
+# tangent chunks keep the (chunk, n^2, D) Phi/Y intermediates ~256 MB
+_CHUNK_ELEMENTS = 1 << 25
+
+
+def _build_nr_core(pqc, nao, occ, act, params_idx):
+    """Geometry-independent functional core for one problem spec: the
+    molecule arrays (int1e_ao, int2e_ao, oao_coeff, nuc) are arguments of
+    every function, so one core serves every geometry."""
+    if pqc.state_dim >= _STAGED_MIN_D:
+        raise NotImplementedError(
+            f"sector dimension {pqc.state_dim} >= 2^19 takes the staged / "
+            "hosted large-D pipeline, which comes in a later PR of the "
+            "port")
+    params_idx = tuple(int(i) for i in params_idx)
+    params_idx_dev = torch.as_tensor(np.asarray(params_idx, dtype=np.int64),
+                                     device=pqc.device)
+    n_kappa = len(params_idx)
+    tril_size = nao * (nao - 1) // 2
+    nt = int(pqc.theta_shape)
+    ncas = pqc.ncas
+    n2 = ncas * ncas
+    maps = pqc.sector_maps
+
+    def k2m(kappa):
+        total = torch.zeros(tril_size, dtype=kappa.dtype,
+                            device=kappa.device)
+        total = total.index_put((params_idx_dev,), kappa)
+        return _kappa.vector_to_skew_symmetric(total, nao)
+
+    # the energy needs integrals with ALL indices in occ+act, so the
+    # 4-index transform runs with the (nao, ns) sub-coefficients
+    sub = np.asarray(tuple(occ) + tuple(act), dtype=np.int64)
+    occ_rel = tuple(range(len(occ)))
+    act_rel = tuple(range(len(occ), len(sub)))
+
+    def energy(theta, kappa, oao, int1e_ao, int2e_ao, oao_coeff, nuc):
+        mo = oao_coeff @ oao @ expm(-k2m(kappa))
+        mo_sub = mo[:, sub]
+        h1 = _tr.int1e_transform(int1e_ao, mo_sub)
+        g2 = _tr.int2e_transform(int2e_ao, mo_sub)
+        c0, c1, c2 = _tr.molecular_hamiltonian_coefficients(
+            nuc, h1, g2, occ_rel, act_rel)
+        one_rdm, two_rdm = pqc._rdms_impl(theta)
+        return _tr.energy_from_rdms(c0, c1, c2, one_rdm, two_rdm)
+
+    def pack_grad(h1, g2, g1, G2):
+        """Packed analytic orbital gradient; batch dims of the RDMs are
+        kept (one row per circuit tangent in the mixed block)."""
+        grad4 = _fock.analytic_gradient_from_integrals(h1, g2, g1, G2, occ,
+                                                       act)
+        return _kappa.skew_symmetric_to_vector(grad4)[..., params_idx_dev]
+
+    def transition_rdms(phi, psi, Jc):
+        """d(gamma, Gamma)/d theta_i for a chunk of tangents Jc, by the
+        product rule on the Phi gram."""
+        phiJ = phi_all(Jc, maps)                         # (c, n^2, D)
+        # d corr[a,b] = <dphi_a|phi_b> + <phi_a|dphi_b>
+        A = phiJ @ phi.T
+        dgram = A + A.transpose(1, 2)
+        dgamma = (phiJ @ psi + (phi @ Jc.T).T).reshape(-1, ncas, ncas)
+        dcorr = dgram.reshape(-1, ncas, ncas, ncas, ncas)
+        delta = torch.eye(ncas, dtype=psi.dtype, device=psi.device)
+        dGamma = (dcorr.permute(0, 2, 1, 3, 4)
+                  - torch.einsum("qr,ips->ipqrs", delta, dgamma))
+        return dgamma, dGamma
+
+    def grad_hess(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc):
+        """Energy, full gradient, full (theta+kappa) Hessian.
+
+        With H the fixed active-space Hamiltonian and J = d psi/d theta:
+          grad_c   = 2 J (H psi)
+          hess_cc  = 2 J (H J^T) + hess_theta <w, psi(theta)>,  w = 2 H psi
+          hess_oc  = analytic-gradient linear map applied to the
+                     transition RDMs d(gamma, Gamma)/d theta_i
+        Every state here is GRID-ordered (ops/grid.py)."""
+        mo = oao_coeff @ oao
+        h1 = _tr.int1e_transform(int1e_ao, mo)
+        g2 = _tr.int2e_transform(int2e_ao, mo)
+        c0, c1, c2 = _tr.molecular_hamiltonian_coefficients(
+            nuc, h1, g2, occ, act)
+        c1eff = _ham.c1_effective(c1, c2)
+
+        psi, J = pqc._state_and_jacobian_grid(theta)       # (D,), (nt, D)
+        Hpsi = _ham.ham_apply(c1eff, c2, psi, ncas, maps)
+        e0 = c0 + psi @ Hpsi
+        w = 2.0 * Hpsi
+        grad_c = J @ w
+        D = psi.shape[0]
+        chunk = max(1, min(nt, _CHUNK_ELEMENTS // max(1, n2 * D)))
+        chunks = [J[lo:lo + chunk] for lo in range(0, nt, chunk)]
+        HJ = torch.cat([_ham.ham_apply(c1eff, c2, Jc, ncas, maps)
+                        for Jc in chunks])
+        term2 = pqc._state_hessian_dot_grid(theta, w, psi, J)
+        hess_cc = 2.0 * (J @ HJ.T) + term2
+
+        phi = _rdms.apply_epq_all(psi, ncas, maps)         # (n^2, D)
+        gamma, Gamma = _rdms.rdms_from_gram(phi, psi, ncas)
+        grad_o = pack_grad(h1, g2, gamma, Gamma)
+        if n_kappa:
+            # the analytic gradient is affine in the RDMs: subtract its
+            # value at zero RDMs to apply the linear part to each tangent
+            G0 = pack_grad(h1, g2, torch.zeros_like(gamma),
+                           torch.zeros_like(Gamma))
+            hess_oc = torch.cat([
+                pack_grad(h1, g2, *transition_rdms(phi, psi, Jc)) - G0
+                for Jc in chunks]).T
+        else:
+            hess_oc = torch.zeros((0, nt), dtype=theta.dtype,
+                                  device=theta.device)
+        hess4 = _fock.analytic_hessian_from_integrals(
+            h1, g2, gamma, Gamma, occ, act)
+        hess_oo = _fock.full_hessian_to_matrix(hess4, params_idx, nao)
+        grad = torch.cat([grad_c, grad_o])
+        hess = torch.cat([torch.cat([hess_cc, hess_oc.T], dim=1),
+                          torch.cat([hess_oc, hess_oo], dim=1)])
+        return e0, grad, hess
+
+    def newton_update(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc, e0,
+                      grad, hess, alpha, beta, mu, rho, lambda_min):
+        """Augmented-Newton solve + Armijo line search + MO update, given
+        precomputed (e0, grad, hess)."""
+
+        def objective(flat):
+            return energy(flat[:nt], flat[nt:], oao, int1e_ao, int2e_ao,
+                          oao_coeff, nuc)
+
+        flat0 = torch.cat([theta, torch.zeros(n_kappa, dtype=theta.dtype,
+                                              device=theta.device)])
+        new_flat, lowest, t, e_t = damped_newton_step_pure(
+            objective, flat0, grad, hess, alpha=alpha, beta=beta, mu=mu,
+            rho=rho, lambda_min=lambda_min, e0=e0)
+        new_theta = new_flat[:nt]
+        new_kappa = new_flat[nt:]
+        # e_t IS the energy at (new_theta, new_oao): folding kappa into
+        # the OAO coefficients leaves the MO matrix unchanged
+        new_oao = oao @ expm(-k2m(new_kappa))
+        return new_theta, new_kappa, new_oao, e_t, lowest
+
+    def nr_iteration(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc,
+                     alpha, beta, mu, rho, lambda_min):
+        """One damped-Newton iteration: grad_hess, then newton_update."""
+        e0, grad, hess = grad_hess(theta, oao, int1e_ao, int2e_ao,
+                                   oao_coeff, nuc)
+        return newton_update(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc,
+                             e0, grad, hess, alpha, beta, mu, rho,
+                             lambda_min)
+
+    return {"energy": energy, "grad_hess": grad_hess,
+            "newton_update": newton_update, "nr_iteration": nr_iteration}
+
+
+class OO_pqc(OO_energy):
+    """Orbital-optimized PQC energy (reference oo_pqc.py:30), on the
+    circuit's device."""
+
+    def __init__(self, pqc, mol, ncas, nelecas, oao_mo_coeff=None,
+                 freeze_active=False, interface=None, newton_method=None,
+                 precision="f64"):
+        if precision != "f64":
+            raise NotImplementedError(
+                f"precision={precision!r} comes in a later PR of the port")
+        if newton_method not in (None, "eigh"):
+            raise NotImplementedError(
+                "the port solves the Newton step by eigh only")
+        super().__init__(mol, ncas, nelecas, oao_mo_coeff=oao_mo_coeff,
+                         freeze_active=freeze_active, device=pqc.device)
+        self.pqc = pqc
+        self.newton_method = newton_method
+        self.precision = precision
+        self._core = _build_nr_core(pqc, self.nao, self._occ, self._act,
+                                    self.params_idx)
+        self._mol_args = (self.int1e_ao, self.int2e_ao, self.oao_coeff,
+                          self.nuc)
+
+    def _theta(self, theta):
+        return torch.as_tensor(theta, dtype=self.oao_mo_coeff.dtype,
+                               device=self.device).reshape(-1)
+
+    def energy_from_parameters(self, theta, kappa=None):
+        """Hybrid cost E(theta, kappa) (reference oo_pqc.py:64-84)."""
+        theta = self._theta(theta)
+        if kappa is None:
+            kappa = torch.zeros(self.n_kappa, dtype=theta.dtype,
+                                device=self.device)
+        kappa = torch.as_tensor(kappa, dtype=theta.dtype, device=self.device)
+        return self._core["energy"](theta, kappa, self.oao_mo_coeff,
+                                    *self._mol_args)
+
+    def _grad_hess(self, theta):
+        return self._core["grad_hess"](self._theta(theta),
+                                       self.oao_mo_coeff, *self._mol_args)
+
+    def _nr_iteration(self, theta, oao, alpha, beta, mu, rho, lambda_min):
+        return self._core["nr_iteration"](theta, oao, *self._mol_args,
+                                          alpha, beta, mu, rho, lambda_min)
+
+    @property
+    def _nt(self):
+        return int(self.pqc.theta_shape)
+
+    # -- reference-API derivative blocks (views of one grad_hess) ---------
+
+    def circuit_gradient(self, theta):
+        """dE/dtheta (reference oo_pqc.py:86-95)."""
+        return self._grad_hess(theta)[1][:self._nt]
+
+    def orbital_gradient(self, theta):
+        """Analytic Fock gradient at the RDMs of theta
+        (reference oo_pqc.py:97-101)."""
+        return self._grad_hess(theta)[1][self._nt:]
+
+    def circuit_circuit_hessian(self, theta):
+        """d2E/dtheta2 (reference oo_pqc.py:103-111)."""
+        return self._grad_hess(theta)[2][:self._nt, :self._nt]
+
+    def orbital_circuit_hessian(self, theta):
+        """Mixed block, shape (n_kappa, n_theta)
+        (reference oo_pqc.py:113-125)."""
+        return self._grad_hess(theta)[2][self._nt:, :self._nt]
+
+    def orbital_orbital_hessian(self, theta):
+        """Analytic orbital Hessian at the RDMs of theta
+        (reference oo_pqc.py:127-130)."""
+        return self._grad_hess(theta)[2][self._nt:, self._nt:]
+
+    def full_gradient(self, theta):
+        """[circuit, orbital] gradient (reference oo_pqc.py:132-134)."""
+        return self._grad_hess(theta)[1]
+
+    def full_hessian(self, theta):
+        """2x2 block Hessian (reference oo_pqc.py:136-148)."""
+        return self._grad_hess(theta)[2]
+
+    # -- the optimizer loop ----------------------------------------------
+
+    def energy_and_gradient(self, theta):
+        raise NotImplementedError(
+            "the gradient-only pipeline comes with the staged large-D "
+            "route in a later PR of the port")
+
+    def gradient_optimization(self, theta_init, **kwargs):
+        raise NotImplementedError(
+            "gradient_optimization comes in a later PR of the port")
+
+    def full_optimization(self, theta_init, max_iterations=50,
+                          conv_tol=1e-10, verbose=0, flush=True,
+                          alpha=1e-4, beta=0.5, mu=1e-6, rho=1.1,
+                          lambda_min=1e-6, monitor=None, device_loop=False,
+                          **kwargs):
+        """Newton-Raphson on (theta, kappa) jointly
+        (reference oo_pqc.py:155-207).
+
+        Returns (energy_l, theta_l, kappa_l, oao_mo_coeff_l, hess_eig_l)
+        and leaves the final OAO coefficients in ``self.oao_mo_coeff``.
+        ``monitor.log(iteration, energy, lowest_hess_eig=...)`` is called
+        after every iteration."""
+        if device_loop:
+            raise NotImplementedError(
+                "device_loop=True comes in a later PR of the port")
+        theta = self._theta(theta_init)
+        if verbose:
+            energy_init = float(self.energy_from_parameters(theta))
+            print(f"iter = 000, energy = {energy_init:.12f}", flush=flush)
+
+        theta_l, kappa_l, oao_mo_coeff_l = [], [], []
+        energy_l, hess_eig_l = [], []
+        for n in range(max_iterations):
+            theta, kappa, new_oao, energy, lowest = self._nr_iteration(
+                theta, self.oao_mo_coeff, alpha, beta, mu, rho, lambda_min)
+            self.oao_mo_coeff = new_oao
+            theta_l.append(theta)
+            kappa_l.append(kappa)
+            oao_mo_coeff_l.append(new_oao)
+            energy_l.append(float(energy))
+            hess_eig_l.append(float(lowest))
+            if monitor is not None:
+                monitor.log(n + 1, energy_l[-1],
+                            lowest_hess_eig=hess_eig_l[-1])
+            if verbose:
+                print(f"iter = {n + 1:03}, energy = {energy_l[-1]:.12f}",
+                      flush=flush)
+            if n > 1 and abs(energy_l[-1] - energy_l[-2]) < conv_tol:
+                if verbose:
+                    print("optimization finished.")
+                    print("E_fin =", energy_l[-1])
+                break
+        return energy_l, theta_l, kappa_l, oao_mo_coeff_l, hess_eig_l

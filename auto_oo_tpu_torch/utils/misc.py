@@ -1,0 +1,15 @@
+"""Miscellaneous utilities (reference utils/miscellaneous.py parity)."""
+
+
+def get_formal_geo(alpha, phi):
+    """Formaldimine Z-matrix, the canonical test molecule
+    (reference utils/miscellaneous.py:34-45)."""
+    variables = [1.498047, 1.066797, 0.987109, 118.359375] + [alpha, phi]
+    geom = """
+                    N
+                    C 1 {0}
+                    H 2 {1}  1 {3}
+                    H 2 {1}  1 {3} 3 180
+                    H 1 {2}  2 {4} 3 {5}
+                    """.format(*variables)
+    return geom

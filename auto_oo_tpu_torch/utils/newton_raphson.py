@@ -1,0 +1,136 @@
+"""Damped / augmented-Hessian Newton-Raphson optimizer.
+
+Port of auto_oo_tpu/utils/newton_raphson.py (reference
+utils/newton_raphson.py:16-224) on the eigh path only:
+
+* the Hessian augmentation H += (mu + rho |l0|) I when the lowest
+  eigenvalue l0 < lambda_min;
+* the Armijo backtracking line search, as a host loop with one scalar
+  sync per trial, with the JAX package's exact semantics: the first trial
+  is t = 1.0 exactly, t halves (times beta) up to lmax trials, the
+  comparison carries a roundoff slack of 64 eps max(1, |e0|), and an
+  exhausted search returns t = 0 and e0;
+* the lowest Hessian eigenvalue is returned (a physics observable tracked
+  through Berry-phase loops).
+"""
+
+import numpy as np
+import torch
+
+from ..ops.linalg import eigh
+
+
+def newton_step_pure(gradient, hessian, mu=1e-6, rho=1.1, lambda_min=1e-6,
+                     aug=True):
+    """dp = -H^{-1} G with conditional augmentation H += (mu+rho|l0|) I.
+    Returns (dp, lowest_eigenvalue) as tensors."""
+    w, V = eigh(hessian)
+    lowest = w[0]
+    if aug:
+        shift = torch.where(lowest < lambda_min, mu + rho * lowest.abs(),
+                            torch.zeros_like(lowest))
+    else:
+        shift = torch.zeros_like(lowest)
+    w_aug = w + shift
+    dp = -(V @ ((V.T @ gradient) / w_aug))
+    return dp, lowest
+
+
+def backtracking_pure(objective_flat, params_flat, dp, gradient,
+                      alpha=1e-4, beta=0.5, lmax=20, e0=None):
+    """Armijo backtracking on a flat parameter vector.
+
+    objective_flat: f(flat_params) -> scalar tensor.  e0: optional
+    objective at params_flat.  Returns (new_flat_params, t, new_energy)
+    with t and new_energy as Python floats."""
+    if e0 is None:
+        e0 = objective_flat(params_flat)
+    e0 = float(e0)
+    gdp = float(torch.dot(gradient, dp))
+    # floating-point slack on the Armijo comparison: near convergence the
+    # true decrease drops below f64 resolution of the energy (~eps |e0|),
+    # and a strict test would burn all lmax halvings on roundoff
+    slack = 64.0 * np.finfo(np.float64).eps * max(1.0, abs(e0))
+    t = 1.0
+    for _ in range(lmax):
+        e_t = float(objective_flat(params_flat + t * dp))
+        if e_t <= e0 + alpha * t * gdp + slack:
+            break
+        t *= beta
+    else:
+        t, e_t = 0.0, e0
+    return params_flat + t * dp, t, e_t
+
+
+def damped_newton_step_pure(objective_flat, params_flat, gradient, hessian,
+                            alpha=1e-4, beta=0.5, mu=1e-6, rho=1.1,
+                            lambda_min=1e-6, lmax=20, aug=True, e0=None):
+    """One damped Newton step on flat parameters; returns
+    (new_flat_params, lowest_eigenvalue, t, energy_after)."""
+    dp, lowest = newton_step_pure(gradient, hessian, mu=mu, rho=rho,
+                                  lambda_min=lambda_min, aug=aug)
+    newp, t, e_t = backtracking_pure(objective_flat, params_flat, dp,
+                                     gradient, alpha=alpha, beta=beta,
+                                     lmax=lmax, e0=e0)
+    return newp, lowest, t, e_t
+
+
+def split_list_shapes(parameters, paramshapes):
+    """Split a flat vector into chunks of the given shapes
+    (reference newton_raphson.py:214-224)."""
+    chunks = []
+    num = 0
+    for shape in paramshapes:
+        size = int(np.prod(shape)) if len(shape) else 1
+        chunks.append(parameters[num:num + size].reshape(shape))
+        num += size
+    return chunks
+
+
+class NewtonStep:
+    """API-compatible wrapper around the pure functions
+    (reference newton_raphson.py:16-211)."""
+
+    def __init__(self, alpha=1e-4, beta=0.5, mu=1e-6, rho=1.1, lmax=20,
+                 lambda_min=1e-6, aug=True, verbose=0):
+        self.alpha = alpha
+        self.beta = beta
+        self.mu = mu
+        self.rho = rho
+        self.lmax = lmax
+        self.lambda_min = lambda_min
+        self.aug = aug
+        self.verbose = verbose
+
+    def newton_step(self, gradient, hessian):
+        dp, lowest = newton_step_pure(
+            gradient, hessian, mu=self.mu, rho=self.rho,
+            lambda_min=self.lambda_min, aug=self.aug)
+        if self.verbose:
+            print("lowest eigval hessian =", float(lowest))
+        return dp, float(lowest)
+
+    def backtracking(self, objective_fn, parameters, dp, gradient):
+        paramshapes = [tuple(p.shape) for p in parameters]
+
+        def objective_flat(flat):
+            return objective_fn(*split_list_shapes(flat, paramshapes))
+
+        flat = torch.cat([p.reshape(-1) for p in parameters])
+        newp, t, e_t = backtracking_pure(
+            objective_flat, flat, dp, gradient,
+            alpha=self.alpha, beta=self.beta, lmax=self.lmax)
+        if self.verbose:
+            print("line search t =", t, "new energy:", e_t)
+        if len(parameters) > 1:
+            return tuple(split_list_shapes(newp, paramshapes)), e_t
+        return newp, e_t
+
+    def damped_newton_step(self, objective_fn, parameters, gradient,
+                           hessian):
+        """Returns (new_parameters, lowest_hessian_eigenvalue) —
+        reference newton_raphson.py:194-211."""
+        dp, lowest = self.newton_step(gradient, hessian)
+        new_parameters, _ = self.backtracking(
+            objective_fn, parameters, dp, gradient)
+        return new_parameters, lowest

@@ -1,0 +1,269 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (auto_oo_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (any failure exits non-zero):
+
+1. the card's name and power limit (nvidia-smi), and the build of the
+   CUDA grid-gather kernels from auto_oo_tpu_torch/csrc/;
+2. each kernel against its plain PyTorch version on the card, on the
+   (10e,10o) sector's real grid maps (both spin halves, batch 1 and 5,
+   float64 and float32) and one ragged random shape, with times of both;
+3. the slice: 4 damped-Newton iterations of formaldimine sto-3g (10e,10o)
+   sector np_fabric L=2 in float64 from init_zeros, through
+   Parameterized_circuit / OO_pqc.full_optimization; every energy must
+   match the JAX package's CPU trajectory within 1e-8 Ha, and both kernel
+   launch counters must grow during the run;
+4. convergence: (2e,2o) sector ucc full_optimization must end within
+   1e-8 Ha of CASSCF.
+
+The line before the last is {"kernels": [...]} (per kernel: launches in
+phase 3, max abs error against the plain version, kernel and plain
+times); the last line is {"ok": true, "device": {...}}.  Without a CUDA
+device the script exits non-zero before printing any result.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+# CPU JAX trajectory of the (10e,10o) slice (energies after NR
+# iterations 1-4 from init_zeros with alpha=1e-4, beta=0.5, mu=1e-6,
+# rho=1.1, lambda_min=1e-6)
+ANCHORS_10E10O = [-92.71490202342721, -92.74063367923337,
+                  -92.74294363549987, -92.74381293885381]
+E_CASSCF_2E2O = -92.74923230445957
+TOL_ENERGY = 1e-8
+
+SOURCE = "auto_oo_tpu_torch/csrc/grid_gather.cu"
+REPLACES = {"gather_rows_scaled": "auto_oo_tpu/ops/pallas_grid.py:110",
+            "gather_reduce": "auto_oo_tpu/ops/pallas_grid.py:194"}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    return out[0]
+
+
+def time_ms(fn, torch, reps=20):
+    """Median device time of fn() in ms (CUDA events around each call,
+    after warm-up)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def kernel_phase(torch, gk, grid, dev):
+    """Kernels against their plain versions; returns per-kernel stats."""
+    tol = {("gather_rows_scaled", torch.float64): 1e-15,
+           ("gather_rows_scaled", torch.float32): 1e-6,
+           ("gather_reduce", torch.float64): 1e-13,
+           ("gather_reduce", torch.float32): 1e-5}
+    kern = {"gather_rows_scaled": (gk.gather_rows_scaled,
+                                   gk.gather_rows_scaled_plain),
+            "gather_reduce": (gk.gather_reduce, gk.gather_reduce_plain)}
+    stats = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
+             for k in kern}
+    gen = torch.Generator(device="cpu").manual_seed(1234)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen,
+                           dtype=torch.float64).to(device=dev, dtype=dtype)
+
+    def compare(name, dtype, args, label):
+        fn, plain = kern[name]
+        out = fn(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape, f"{name} {label}: shape "
+              f"{tuple(out.shape)} != {tuple(ref.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{name} {label}: non-finite")
+        err = float((out - ref).abs().max())
+        rel = err / max(float(ref.abs().max()), 1e-300)
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        check(rel <= tol[(name, dtype)],
+              f"{name} {label}: relative error {rel:.3e} > "
+              f"{tol[(name, dtype)]:.0e}")
+        return err, rel
+
+    gm = grid.build_grid_maps(10, 10, device=dev)
+    Na, Nb, n2 = gm.Na, gm.Nb, gm.n2
+    print(f"(10e,10o) grid: Na={Na} Nb={Nb} n2={n2} D={gm.dim}")
+    for dtype in (torch.float64, torch.float32):
+        sgnA, tB, sgnB, tA = gm.scales(dtype)
+        halves = {"alpha": (gm.srcA, sgnA, tB, Na, Nb),
+                  "beta": (gm.srcB, sgnB, tA, Nb, Na)}
+        for half, (src, s, t, rows, cols) in halves.items():
+            for B in (1, 3, 5):
+                x = rand((B, rows, cols), dtype)
+                Y = rand((B, n2, rows, cols), dtype)
+                for name, args in (("gather_rows_scaled", (x, src, s, t)),
+                                   ("gather_reduce", (Y, src, s, t))):
+                    label = f"{half} B={B} {str(dtype)[6:]}"
+                    err, rel = compare(name, dtype, args, label)
+                    fn, plain = kern[name]
+                    ms = time_ms(lambda: fn(*args), torch)
+                    pms = time_ms(lambda: plain(*args), torch)
+                    print(f"  {name:18s} {label:22s} max_abs_err={err:.3e} "
+                          f"rel={rel:.3e} kernel={ms:.4f} ms "
+                          f"plain={pms:.4f} ms")
+                    # the main path's heaviest call: B = 5 tangents, f64,
+                    # alpha half
+                    if (dtype == torch.float64 and B == 5
+                            and half == "alpha"):
+                        stats[name]["ms"] = ms
+                        stats[name]["plain_ms"] = pms
+    # ragged random shape with leading batch dims and invalid entries
+    g2 = torch.Generator(device="cpu").manual_seed(7)
+    ns, na, nb, k2 = 11, 13, 17, 5
+    src = torch.randint(0, ns, (k2, na), generator=g2, dtype=torch.int32)
+    invalid = torch.rand((k2, na), generator=g2) < 0.3
+    src[invalid] = 0
+    for dtype in (torch.float64, torch.float32):
+        s = torch.randn((k2, na), generator=g2, dtype=torch.float64)
+        s[invalid] = 0.0
+        t = torch.randn((k2, nb), generator=g2, dtype=torch.float64)
+        s, t = s.to(dev, dtype), t.to(dev, dtype)
+        srcd = src.to(dev)
+        x = rand((2, 3, ns, nb), dtype)
+        Y = rand((2, 3, k2, ns, nb), dtype)
+        for name, args in (("gather_rows_scaled", (x, srcd, s, t)),
+                           ("gather_reduce", (Y, srcd, s, t))):
+            err, rel = compare(name, dtype, args,
+                               f"ragged {str(dtype)[6:]}")
+            print(f"  {name:18s} ragged (2,3)x({ns},{na},{nb}) "
+                  f"{str(dtype)[6:]} max_abs_err={err:.3e} rel={rel:.3e}")
+    return stats
+
+
+def slice_phase(torch, P, gk, dev):
+    """4 NR iterations of the (10e,10o) slice; returns the kernel
+    launches counted during them."""
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    t0 = time.perf_counter()
+    mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
+    pqc = P.Parameterized_circuit(10, 10, ansatz="np_fabric", n_layers=2,
+                                  sector=True, device=dev)
+    oo = P.OO_pqc(pqc, mol, 10, 10, freeze_active=True)
+    print(f"(10e,10o) setup: {time.perf_counter() - t0:.2f} s "
+          f"(n_theta={pqc.theta_shape}, n_kappa={oo.n_kappa}, "
+          f"D={pqc.state_dim}, nao={oo.nao})")
+
+    stamps = []
+
+    class Stamp:
+        def log(self, n, energy, **kw):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    theta0 = pqc.init_zeros()
+    torch.cuda.synchronize()
+    gk.reset_launches()
+    t_start = time.perf_counter()
+    energies, thetas, _, oaos, eigs = oo.full_optimization(
+        theta0, max_iterations=4, alpha=1e-4, beta=0.5, mu=1e-6, rho=1.1,
+        lambda_min=1e-6, monitor=Stamp())
+    launches = dict(gk.LAUNCHES)
+    iter_s = [b - a for a, b in zip([t_start] + stamps[:-1], stamps)]
+    for i, (e, ref) in enumerate(zip(energies, ANCHORS_10E10O)):
+        print(f"  iter {i + 1}: E = {e:.14f}  JAX-CPU {ref:.14f}  "
+              f"diff {e - ref:+.3e}  wall {iter_s[i]:.3f} s  "
+              f"lowest eig {eigs[i]:+.6e}")
+    check(len(energies) == 4, f"ran {len(energies)} iterations, not 4")
+    for i, (e, ref) in enumerate(zip(energies, ANCHORS_10E10O)):
+        check(abs(e - ref) <= TOL_ENERGY,
+              f"(10e,10o) iteration {i + 1}: |{e} - {ref}| > {TOL_ENERGY}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched by the slice")
+    psi = pqc.state(thetas[-1])
+    torch.cuda.synchronize()
+    check(psi.shape == (pqc.state_dim,), f"state shape {tuple(psi.shape)}")
+    check(bool(torch.isfinite(psi).all()), "non-finite final state")
+    norm = float(psi @ psi)
+    check(abs(norm - 1.0) < 1e-12, f"final state norm {norm}")
+    check(bool(torch.isfinite(oaos[-1]).all()), "non-finite OAO-MO")
+    print(f"  launches: {launches}; median wall of iterations 2-4: "
+          f"{statistics.median(iter_s[1:]):.4f} s")
+    return launches
+
+
+def convergence_phase(torch, P, dev):
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
+    pqc = P.Parameterized_circuit(2, 2, ansatz="ucc", sector=True,
+                                  device=dev)
+    oo = P.OO_pqc(pqc, mol, 2, 2)
+    t0 = time.perf_counter()
+    energies, *_ = oo.full_optimization(pqc.init_zeros())
+    torch.cuda.synchronize()
+    diff = energies[-1] - E_CASSCF_2E2O
+    print(f"(2e,2o) sector ucc: {len(energies)} iterations, "
+          f"E = {energies[-1]:.14f}, CASSCF {E_CASSCF_2E2O:.14f}, "
+          f"diff {diff:+.3e}, {time.perf_counter() - t0:.2f} s")
+    check(abs(diff) <= TOL_ENERGY, f"(2e,2o) misses CASSCF by {diff}")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+
+    import auto_oo_tpu_torch as P
+    from auto_oo_tpu_torch.ops import grid, grid_kernels as gk
+
+    dev = torch.device("cuda")
+    print(card_line())
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    build_s = gk.load_library()
+    print(f"kernel build + load: {build_s:.2f} s")
+    try:
+        stats = kernel_phase(torch, gk, grid, dev)
+        launches = slice_phase(torch, P, gk, dev)
+        convergence_phase(torch, P, dev)
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[name], "launches": launches[name],
+         "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+         "plain_ms": st["plain_ms"]} for name, st in stats.items()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,150 @@
+"""The port's CUDA grid-gather kernels on the card (marker ``cuda``).
+
+The kernels against their plain PyTorch versions, the grid ops and one
+Newton core on the card against the same code on the CPU, and a failed
+build that raises.  This file imports neither jax nor the JAX package, so
+it also runs where jax is not installed; tests/conftest.py imports jax,
+so run it on the card with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Without a GPU every test skips (from the fixture, never at import).
+
+Tolerances: ``gather_rows_scaled`` takes the products in the plain
+version's order, so f64 agrees to the last bit (1e-15 relative, 1e-6 in
+f32); ``gather_reduce`` sums the pairs in another order (1e-13 relative
+in f64, 1e-5 in f32).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import auto_oo_tpu_torch as P
+from auto_oo_tpu_torch.ops import grid, grid_kernels as gk
+
+TOL = {torch.float64: {"rows": 1e-15, "reduce": 1e-13},
+       torch.float32: {"rows": 1e-6, "reduce": 1e-5}}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+def _rand(shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape))
+
+
+def _rel_err(out, ref):
+    return float((out - ref).abs().max()) / float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_kernels_match_plain(cuda_device, dtype):
+    """Both kernels against their plain versions on the card: real
+    (4e,4o) maps (both halves, batched) and a ragged random shape."""
+    pm = grid.build_grid_maps(4, 4, device=cuda_device)
+    srcA, sgnA, tB, srcB, sgnB, tA = pm.tables(
+        torch.zeros((), dtype=dtype, device=cuda_device))
+    tol = TOL[dtype]
+    for seed, (src, s, t, rows, cols) in enumerate(
+            ((srcA, sgnA, tB, pm.Na, pm.Nb), (srcB, sgnB, tA, pm.Nb, pm.Na))):
+        x = _rand((3, rows, cols), seed).to(cuda_device, dtype)
+        Y = _rand((3, pm.n2, rows, cols), 10 + seed).to(cuda_device, dtype)
+        before = dict(gk.LAUNCHES)
+        a = gk.gather_rows_scaled(x, src, s, t)
+        b = gk.gather_reduce(Y, src, s, t)
+        torch.cuda.synchronize()
+        assert gk.LAUNCHES["gather_rows_scaled"] == \
+            before["gather_rows_scaled"] + 1
+        assert gk.LAUNCHES["gather_reduce"] == before["gather_reduce"] + 1
+        assert _rel_err(a, gk.gather_rows_scaled_plain(
+            x, src.long(), s, t)) <= tol["rows"]
+        assert _rel_err(b, gk.gather_reduce_plain(
+            Y, src.long(), s, t)) <= tol["reduce"]
+    # ragged: Na, Nb not multiples of a warp, invalid (src 0, s 0) entries
+    rng = np.random.default_rng(7)
+    ns, na, nb, n2 = 11, 13, 17, 5
+    src = rng.integers(0, ns, size=(n2, na)).astype(np.int32)
+    s = rng.standard_normal((n2, na))
+    invalid = rng.random((n2, na)) < 0.3
+    src[invalid], s[invalid] = 0, 0.0
+    src = torch.from_numpy(src).to(cuda_device)
+    s = torch.from_numpy(s).to(cuda_device, dtype)
+    t = _rand((n2, nb), 8).to(cuda_device, dtype)
+    x = _rand((2, 3, ns, nb), 9).to(cuda_device, dtype)
+    Y = _rand((2, n2, ns, nb), 10).to(cuda_device, dtype)
+    assert _rel_err(gk.gather_rows_scaled(x, src, s, t),
+                    gk.gather_rows_scaled_plain(x, src.long(), s, t)) \
+        <= tol["rows"]
+    assert _rel_err(gk.gather_reduce(Y, src, s, t),
+                    gk.gather_reduce_plain(Y, src.long(), s, t)) \
+        <= tol["reduce"]
+
+
+@pytest.mark.cuda
+def test_cuda_grid_ops_match_cpu(cuda_device):
+    """phi_all / epq_sum and their VJPs on the card (kernels) against the
+    CPU (plain versions)."""
+    pm_c = grid.build_grid_maps(4, (2, 1))
+    pm_g = grid.build_grid_maps(4, (2, 1), device=cuda_device)
+    x = _rand((2, pm_c.dim), 9)
+    Y = _rand((2, pm_c.n2, pm_c.dim), 10)
+    np.testing.assert_allclose(grid.phi_all(x.to(cuda_device), pm_g).cpu(),
+                               grid.phi_all(x, pm_c), rtol=0, atol=1e-15)
+    np.testing.assert_allclose(grid.epq_sum(Y.to(cuda_device), pm_g).cpu(),
+                               grid.epq_sum(Y, pm_c), rtol=0, atol=1e-13)
+    w = _rand((2, pm_c.n2, pm_c.dim), 11)
+    grads = []
+    for dev, pm in (("cpu", pm_c), (cuda_device, pm_g)):
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        (grid.phi_all(xd, pm) * w.to(dev)).sum().backward()
+        grads.append(xd.grad.cpu())
+    np.testing.assert_allclose(grads[1], grads[0], rtol=0, atol=1e-13)
+
+
+@pytest.mark.cuda
+def test_cuda_grad_hess_matches_cpu(cuda_device):
+    """One fused grad_hess of (4e,4o) sector np_fabric on the card equals
+    the same call on the CPU, and ran both kernels."""
+    mol = P.Moldata(P.get_formal_geo(140, 80), "sto-3g")
+    theta = 0.3 * np.random.default_rng(0).standard_normal(
+        P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
+                                sector=True).theta_shape)
+    out = []
+    for dev in ("cpu", cuda_device):
+        pqc = P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
+                                      sector=True, device=dev)
+        oo = P.OO_pqc(pqc, mol, 4, 4, freeze_active=True)
+        before = dict(gk.LAUNCHES)
+        out.append([a.cpu() for a in oo._grad_hess(theta)])
+    for name, n in gk.LAUNCHES.items():
+        assert n > before[name], name
+    (e_c, g_c, h_c), (e_g, g_g, h_g) = out
+    assert abs(float(e_g) - float(e_c)) < 1e-11
+    np.testing.assert_allclose(g_g, g_c, rtol=0, atol=1e-11)
+    np.testing.assert_allclose(h_g, h_c, rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_cuda_failed_build_raises(cuda_device, monkeypatch, tmp_path):
+    """A source that does not compile raises on the first CUDA call; no
+    path falls back to the plain version."""
+    bad = tmp_path / "bad.cu"
+    bad.write_text("this is not CUDA\n")
+    monkeypatch.setattr(gk, "_LIB", None)
+    monkeypatch.setattr(gk, "_SRC", str(bad))
+    monkeypatch.setattr(gk, "BUILD_DIR", str(tmp_path))
+    pm = grid.build_grid_maps(2, 2, device=cuda_device)
+    x = torch.zeros((pm.Na, pm.Nb), dtype=torch.float64, device=cuda_device)
+    before = dict(gk.LAUNCHES)
+    srcA, sgnA, tB = pm.tables(x)[:3]
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        gk.gather_rows_scaled(x, srcA, sgnA, tB)
+    assert gk.LAUNCHES == before

@@ -1,0 +1,208 @@
+"""The port's grid-gather kernels and grid ops against the JAX package.
+
+On the CPU the wrappers run the plain PyTorch versions; these are pinned
+against the JAX package's Pallas kernels (interpret mode, as
+tests/test_pallas_grid.py runs them) and its XLA grid ops.  The CUDA
+kernels are pinned against the plain versions on the card in
+tests/test_torch_cuda.py.
+
+Tolerances: the Pallas kernels multiply x * (s * t) and the plain
+versions (x * s) * t, so random non-sign scales differ by rounding
+(1e-14 in f64, 1e-6 in f32); on the real maps the scales are +-1 and 0
+and the products are exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from auto_oo_tpu.ops import grid as jgrid
+from auto_oo_tpu.ops import pallas_grid as jpg
+from auto_oo_tpu_torch.ops import grid, grid_kernels as gk
+from auto_oo_tpu_torch.utils.interop import from_jax
+
+SECTORS = [(2, 2), (4, 4), (4, (2, 1)), (3, 4)]
+FIELDS = ("srcA", "sgnA", "tB", "srcB", "sgnB", "tA", "g2s", "s2g")
+TOL = {np.float64: 1e-14, np.float32: 1e-6}
+
+
+def _maps(ncas, nelecas):
+    jm = jgrid.build_grid_maps(ncas, nelecas)
+    return jm, from_jax(jm)
+
+
+def _rand(shape, seed, dtype=np.float64):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+@pytest.mark.parametrize("ncas,nelecas", SECTORS)
+def test_maps_equal_as_integers(ncas, nelecas):
+    jm = jgrid.build_grid_maps(ncas, nelecas)
+    tabs = grid.grid_tables(ncas, nelecas)
+    pm = grid.build_grid_maps(ncas, nelecas)
+    for f in FIELDS:
+        a = np.asarray(getattr(jm, f))
+        np.testing.assert_array_equal(tabs[f], a)
+        np.testing.assert_array_equal(getattr(pm, f).numpy(), a)
+    assert (pm.n2, pm.Na, pm.Nb, pm.dim) == (jm.n2, jm.Na, jm.Nb, jm.dim)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_gather_rows_scaled_plain_vs_pallas(dtype, lead):
+    """Partial rows (Na, Nb not multiples of any block), random src with
+    invalid (src 0, s 0) entries, leading batch dims."""
+    rng = np.random.default_rng(7)
+    ns, na, nb, n2 = 11, 13, 17, 5
+    x = rng.standard_normal(lead + (ns, nb)).astype(dtype)
+    src = rng.integers(0, ns, size=(n2, na)).astype(np.int32)
+    s = rng.standard_normal((n2, na)).astype(dtype)
+    invalid = rng.random((n2, na)) < 0.3
+    src[invalid], s[invalid] = 0, 0
+    t = rng.standard_normal((n2, nb)).astype(dtype)
+    ref = np.asarray(jpg.gather_rows_scaled(
+        jnp.asarray(x), jnp.asarray(src), jnp.asarray(s), jnp.asarray(t),
+        interpret=True))
+    out = gk.gather_rows_scaled(torch.from_numpy(x),
+                                torch.from_numpy(src).long(),
+                                torch.from_numpy(s), torch.from_numpy(t))
+    assert out.shape == ref.shape and out.dtype == torch.from_numpy(x).dtype
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_gather_reduce_plain_vs_pallas(dtype, lead):
+    rng = np.random.default_rng(8)
+    ns, na, nb, n2 = 9, 13, 17, 5
+    Y = rng.standard_normal(lead + (n2, ns, nb)).astype(dtype)
+    src = rng.integers(0, ns, size=(n2, na)).astype(np.int32)
+    s = rng.standard_normal((n2, na)).astype(dtype)
+    t = rng.standard_normal((n2, nb)).astype(dtype)
+    ref = np.asarray(jpg.gather_reduce(
+        jnp.asarray(Y), jnp.asarray(src), jnp.asarray(s), jnp.asarray(t),
+        interpret=True))
+    out = gk.gather_reduce(torch.from_numpy(Y), torch.from_numpy(src).long(),
+                           torch.from_numpy(s), torch.from_numpy(t))
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=10 * TOL[dtype])
+
+
+@pytest.mark.parametrize("ncas,nelecas", SECTORS)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_phi_all_matches_xla(ncas, nelecas, dtype):
+    jm, pm = _maps(ncas, nelecas)
+    x = _rand((2, jm.dim), 1, dtype)
+    ref = np.asarray(jgrid._phi_all_xla(jnp.asarray(x), jm))
+    out = grid.phi_all(torch.from_numpy(x), pm)
+    assert out.shape == ref.shape == (2, jm.n2, jm.dim)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("ncas,nelecas", SECTORS)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_epq_sum_matches_xla(ncas, nelecas, dtype):
+    jm, pm = _maps(ncas, nelecas)
+    Y = _rand((3, jm.n2, jm.dim), 2, dtype)
+    ref = np.asarray(jgrid._epq_sum_xla(jnp.asarray(Y), jm))
+    out = grid.epq_sum(torch.from_numpy(Y), pm)
+    assert out.shape == ref.shape == (3, jm.dim)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=10 * TOL[dtype])
+
+
+def test_phi_all_matches_pallas_wrapper():
+    """The port's phi_all against the JAX package's Pallas wrapper
+    (interpret mode), f32 as the Pallas path runs it."""
+    jm, pm = _maps(4, 4)
+    x = _rand((jm.dim,), 3, np.float32)
+    ref = np.asarray(jpg.phi_all_pallas(jnp.asarray(x), jm, interpret=True))
+    out = grid.phi_all(torch.from_numpy(x), pm)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
+
+
+def test_to_from_grid_roundtrip():
+    jm, pm = _maps(4, (2, 1))
+    x = _rand((jm.dim,), 4)
+    g = grid.to_grid(torch.from_numpy(x), pm)
+    np.testing.assert_array_equal(g.numpy(),
+                                  np.asarray(jgrid.to_grid(x, jm)))
+    np.testing.assert_array_equal(grid.from_grid(g, pm).numpy(), x)
+
+
+def test_linearity_vjps():
+    """The full-pair VJPs (E_pq^T = E_qp pair transpose) against jax.grad
+    through the XLA grid ops (tests/test_pallas_grid.py's setup)."""
+    jm, pm = _maps(3, 2)
+    x, w = _rand((jm.dim,), 5), _rand((jm.n2, jm.dim), 6)
+    gj = jax.grad(lambda v: jnp.sum(jgrid._phi_all_xla(v, jm) * w))(
+        jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (grid.phi_all(xt, pm) * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gj), rtol=0,
+                               atol=1e-13)
+
+    g, Y = _rand((jm.dim,), 7), _rand((jm.n2, jm.dim), 8)
+    sj = jax.grad(lambda v: jnp.sum(jgrid._epq_sum_xla(v, jm) * g))(
+        jnp.asarray(Y))
+    Yt = torch.from_numpy(Y).requires_grad_(True)
+    (grid.epq_sum(Yt, pm) * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(Yt.grad.numpy(), np.asarray(sj), rtol=0,
+                               atol=1e-13)
+
+
+def test_pair_slice_forward_and_vjp_raises():
+    jm, pm = _maps(3, 2)
+    sl_j, sl_p = jgrid.pair_slice(jm, 2, 7), grid.pair_slice(pm, 2, 7)
+    x = _rand((jm.dim,), 11)
+    np.testing.assert_allclose(
+        grid.phi_all(torch.from_numpy(x), sl_p).numpy(),
+        np.asarray(jgrid._phi_all_xla(jnp.asarray(x), sl_j)),
+        rtol=0, atol=1e-14)
+    Y = _rand((5, jm.dim), 12)
+    np.testing.assert_allclose(
+        grid.epq_sum(torch.from_numpy(Y), sl_p).numpy(),
+        np.asarray(jgrid._epq_sum_xla(jnp.asarray(Y), sl_j)),
+        rtol=0, atol=1e-13)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    with pytest.raises(NotImplementedError):
+        grid.phi_all(xt, sl_p).sum().backward()
+
+
+def test_wrappers_reject_other_devices_and_bad_operands():
+    """No silent fallback: a tensor on neither the CPU nor the card
+    raises, and the card's operand checks reject what the kernels do not
+    take."""
+    x = torch.zeros((3, 4), device="meta")
+    src = torch.zeros((2, 5), dtype=torch.int32, device="meta")
+    s = torch.zeros((2, 5), device="meta")
+    t = torch.zeros((2, 4), device="meta")
+    with pytest.raises(NotImplementedError):
+        gk.gather_rows_scaled(x, src, s, t)
+    with pytest.raises(NotImplementedError):
+        gk.gather_reduce(x[None], src, s, t)
+    xs = torch.zeros((3, 4), dtype=torch.float64)
+    ok = (torch.zeros((2, 5), dtype=torch.int32),
+          torch.zeros((2, 5), dtype=torch.float64),
+          torch.zeros((2, 4), dtype=torch.float64))
+    assert gk._check("k", xs, *ok, 2) == (1, 3, 4)
+    with pytest.raises(TypeError):
+        gk._check("k", xs, ok[0].long(), ok[1], ok[2], 2)
+    with pytest.raises(TypeError):
+        gk._check("k", xs.half(), *ok, 2)
+    with pytest.raises(ValueError):
+        gk._check("k", xs, ok[0], ok[1], torch.zeros((2, 5),
+                                                     dtype=torch.float64), 2)
+    with pytest.raises(ValueError):
+        gk._check("k", xs.T, *ok, 2)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(gk, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(gk.shutil, "which", lambda name: None)
+    monkeypatch.setattr(gk, "_NVCC_DEFAULT", str(tmp_path / "no-nvcc"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        gk.build()
