@@ -6,10 +6,13 @@ held against.  It imports torch, numpy and scipy, never jax.  Modules and
 public names mirror auto_oo_tpu, so each counterpart is found under the
 same name.
 
-This first slice runs the sector string-grid damped-Newton path
+The port runs the sector string-grid damped-Newton path
 (``Parameterized_circuit(..., sector=True)`` with a built-in ansatz,
-``OO_pqc.full_optimization``); its two grid-gather kernels are CUDA on the
-card (ops/grid_kernels.py, csrc/grid_gather.cu).
+``OO_pqc.full_optimization``) up to (12e,12o); its two grid-gather kernels
+are CUDA on the card (ops/grid_kernels.py, csrc/grid_gather.cu).  The
+row-gather mechanism probes (ops/gather_mechanisms.py,
+csrc/gather_mechanisms.cu) run from their own entry point,
+``python -m auto_oo_tpu_torch.scripts.experiment_gather_mechanisms``.
 """
 
 from . import config  # noqa: F401  (TF32 off before anything runs)

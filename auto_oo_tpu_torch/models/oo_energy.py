@@ -55,6 +55,12 @@ class OO_energy:
         self.ncas = ncas
         self.nelecas = nelecas
         occ, act, virt = mol.get_active_space_idx(ncas, nelecas)
+        # the JAX package accepts such a space and its gathers clamp the
+        # missing orbitals onto the last one; the port refuses it
+        if len(occ) + len(act) > self.nao:
+            raise ValueError(
+                f"{len(occ)} core + {len(act)} active orbitals exceed the "
+                f"{self.nao} orbitals of basis {mol.basis!r}")
         self.occ_idx, self.act_idx, self.virt_idx = occ, act, virt
         self._occ = tuple(int(i) for i in occ)
         self._act = tuple(int(i) for i in act)

@@ -21,16 +21,21 @@ block:
 one scalar sync per trial, and the fold of kappa into the OAO
 coefficients.
 
-Later PRs of the port bring the staged / hosted large-D routes (D >=
-2^19), ``precision="mixed"``, ``device_loop=True``,
-``energy_and_gradient`` and ``gradient_optimization``; those raise
-NotImplementedError here.
+Above D = 2^19 the JAX package splits the same math into its staged
+pipeline, only so that one XLA program does not spill; ``grad_hess`` here
+is already an eager host loop over tangent chunks, so it runs both the
+JAX package's fused and staged regimes as it is (up to (12e,12o), where
+one (n^2, D) f64 Phi still fits its 1 GB block).  Later PRs of the port
+bring the streamed and hosted routes beyond that, ``precision="mixed"``,
+``device_loop=True``, ``energy_and_gradient`` and
+``gradient_optimization``; those raise NotImplementedError here.
 """
 
 import numpy as np
 import torch
 
 from ..ops import fock as _fock
+from ..ops import grid as _grid
 from ..ops import hamiltonian as _ham
 from ..ops import kappa as _kappa
 from ..ops import rdms as _rdms
@@ -40,23 +45,35 @@ from ..ops.linalg import expm
 from ..utils.newton_raphson import damped_newton_step_pure
 from .oo_energy import OO_energy
 
-# above this sector dimension the JAX package switches to its staged
-# and hosted pipelines (auto_oo_tpu/models/oo_pqc.py:1025-1027)
+# from this sector dimension on the JAX package runs its staged pipeline
+# (auto_oo_tpu/models/oo_pqc.py:1025-1027), the same math as its fused
+# programs; the port runs both with the same eager code
 _STAGED_MIN_D = 1 << 19
 
 # tangent chunks keep the (chunk, n^2, D) Phi/Y intermediates ~256 MB
 _CHUNK_ELEMENTS = 1 << 25
 
 
+def _route(pqc):
+    """The JAX package's route for this sector: "fused" or "staged"
+    (both run here); the streamed and hosted regimes, where one (n^2, D)
+    f64 Phi does not fit its block (auto_oo_tpu/models/oo_pqc.py:610-613),
+    raise NotImplementedError."""
+    D, n2 = pqc.state_dim, pqc.ncas * pqc.ncas
+    if _grid._pair_chunk(1, D, n2, 8) < n2:
+        raise NotImplementedError(
+            f"sector dimension {D}: one ({n2}, D) f64 Phi does not fit its "
+            f"{_grid._PAIR_CHUNK_BYTES}-byte block, so the JAX package "
+            "streams (and hosts) the per-tangent rows; those routes come "
+            "in a later PR of the port (ROADMAP queue 1)")
+    return "staged" if D >= _STAGED_MIN_D else "fused"
+
+
 def _build_nr_core(pqc, nao, occ, act, params_idx):
     """Geometry-independent functional core for one problem spec: the
     molecule arrays (int1e_ao, int2e_ao, oao_coeff, nuc) are arguments of
     every function, so one core serves every geometry."""
-    if pqc.state_dim >= _STAGED_MIN_D:
-        raise NotImplementedError(
-            f"sector dimension {pqc.state_dim} >= 2^19 takes the staged / "
-            "hosted large-D pipeline, which comes in a later PR of the "
-            "port")
+    route = _route(pqc)
     params_idx = tuple(int(i) for i in params_idx)
     params_idx_dev = torch.as_tensor(np.asarray(params_idx, dtype=np.int64),
                                      device=pqc.device)
@@ -192,7 +209,8 @@ def _build_nr_core(pqc, nao, occ, act, params_idx):
                              lambda_min)
 
     return {"energy": energy, "grad_hess": grad_hess,
-            "newton_update": newton_update, "nr_iteration": nr_iteration}
+            "newton_update": newton_update, "nr_iteration": nr_iteration,
+            "route": route}
 
 
 class OO_pqc(OO_energy):

@@ -5,8 +5,7 @@ Port of auto_oo_tpu/ops/pallas_grid.py (``gather_rows_scaled`` and
 ``gather_reduce``).  The CUDA source is ``csrc/grid_gather.cu``; its
 header comment says what bounds each kernel on an H100 and what the
 design does about it.  The library is compiled with ``nvcc`` at first
-use into the git-ignored ``build/`` directory at the repository root,
-keyed by a hash of the source, and loaded with ctypes.
+use (ops/cuda_build.py).
 
 Dispatch is by the device of the operand, and nothing else: a CPU tensor
 runs the plain version beside each kernel; a CUDA tensor launches the
@@ -19,86 +18,29 @@ to the plain version or to the CPU.
 path went through.
 """
 
-import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import time
 
 import torch
 
-from ..config import BUILD_DIR
+from .cuda_build import CSRC_DIR, I32, I64, PTR, CudaLibrary
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "grid_gather.cu")
+_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+
+#: the kernel library, built from csrc/grid_gather.cu at first use
+LIBRARY = CudaLibrary(
+    os.path.join(CSRC_DIR, "grid_gather.cu"),
+    {f"grid_{kern}_{sfx}": [PTR, PTR, PTR, PTR, PTR, I64, I32, I32, I32, I32,
+                            PTR]
+     for kern in ("gather_rows_scaled", "gather_reduce")
+     for sfx in _SUFFIX.values()})
 
 #: launches of each CUDA kernel through its wrapper (plain runs excluded)
 LAUNCHES = {"gather_rows_scaled": 0, "gather_reduce": 0}
-
-_LIB = None
-
-# the CUDA toolkit's default location, used when nvcc is not on PATH
-_NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
-
-_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def _nvcc():
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists(_NVCC_DEFAULT):
-        path = _NVCC_DEFAULT
-    if path is None:
-        raise RuntimeError(
-            "nvcc not found: the grid gather kernels are built from "
-            f"{_SRC} at first use on a CUDA tensor")
-    return path
-
-
-def build():
-    """Compile csrc/grid_gather.cu (if not built yet) and return the path
-    of the shared library.  Raises on a missing nvcc or a failed build."""
-    with open(_SRC, "rb") as f:
-        tag = hashlib.sha1(f.read()).hexdigest()[:12]
-    out = os.path.join(BUILD_DIR, f"libgrid_gather-{tag}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-o", tmp, _SRC]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}) building {_SRC}:\n"
-            f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
-def load_library():
-    """The loaded kernel library (built at first call); returns the
-    seconds the build and load took on this call (0 when cached)."""
-    global _LIB
-    if _LIB is not None:
-        return 0.0
-    t0 = time.perf_counter()
-    lib = ctypes.CDLL(build())
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for kern in ("gather_rows_scaled", "gather_reduce"):
-        for sfx in _SUFFIX.values():
-            fn = getattr(lib, f"grid_{kern}_{sfx}")
-            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32,
-                           ptr]
-            fn.restype = ctypes.c_int
-    _LIB = lib
-    return time.perf_counter() - t0
 
 
 # ---- plain versions (the CPU path and the on-card reference) -------------
@@ -152,11 +94,7 @@ def _check(name, a, src, s, t, lead_ndim):
 
 
 def _launch(kern, dtype, *args):
-    load_library()
-    fn = getattr(_LIB, f"grid_{kern}_{_SUFFIX[dtype]}")
-    code = fn(*args)
-    if code != 0:
-        raise RuntimeError(f"{kern} launch failed: cudaError {code}")
+    LIBRARY.launch(f"grid_{kern}_{_SUFFIX[dtype]}", *args)
     LAUNCHES[kern] += 1
 
 

@@ -3,25 +3,43 @@
 
     python3 chip_smoke.py
 
-Phases, each of which must pass (any failure exits non-zero):
+Phases, each of which must pass (any failure exits non-zero); each
+prints its seconds:
 
-1. the card's name and power limit (nvidia-smi), and the build of the
-   CUDA grid-gather kernels from auto_oo_tpu_torch/csrc/;
-2. each kernel against its plain PyTorch version on the card, on the
-   (10e,10o) sector's real grid maps (both spin halves, batch 1 and 5,
-   float64 and float32) and one ragged random shape, with times of both;
-3. the slice: 4 damped-Newton iterations of formaldimine sto-3g (10e,10o)
-   sector np_fabric L=2 in float64 from init_zeros, through
+1. the card's name and power limit (nvidia-smi), and the build of both
+   CUDA kernel libraries from auto_oo_tpu_torch/csrc/ (one nvcc per
+   source, started together);
+2. each grid-gather kernel against its plain PyTorch version on the card,
+   on the (10e,10o) and (12e,12o) sectors' real grid maps (both spin
+   halves, float64 and float32) and one ragged random shape, with times
+   of both;
+3. the row-gather mechanism probes A, B and C against the plain gather on
+   the card, bit for bit, at the ncas = 10 and ncas = 12 shapes of their
+   entry point, float32 and float64, and one ragged shape, with times and
+   GB/s of each;
+4. their entry point (auto_oo_tpu_torch.scripts.experiment_gather_mechanisms)
+   once at ncas = 10, K = 4: every variant must run and A, B and C match
+   plain exactly, and each probe's launch counter must grow;
+5. the (10e,10o) slice: 4 damped-Newton iterations of formaldimine sto-3g
+   (10e,10o) sector np_fabric L=2 in float64 from init_zeros, through
    Parameterized_circuit / OO_pqc.full_optimization; every energy must
-   match the JAX package's CPU trajectory within 1e-8 Ha, and both kernel
-   launch counters must grow during the run;
-4. convergence: (2e,2o) sector ucc full_optimization must end within
+   match the JAX package's CPU trajectory within 1e-8 Ha, and both grid
+   kernel launch counters must grow during the run;
+6. the (12e,12o) sector np_fabric L=1 f64 path of formaldimine 6-31G
+   (D = 853,776, the JAX package's staged regime; STO-3G has 13 orbitals,
+   too few for 2 core + 12 active): 3 iterations the same way, within
+   1e-8 Ha of the JAX package's CPU energies, both grid kernels launched;
+   its setup time, iteration times and peak device memory are printed;
+7. convergence: (2e,2o) sector ucc full_optimization must end within
    1e-8 Ha of CASSCF.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
-phase 3, max abs error against the plain version, kernel and plain
-times); the last line is {"ok": true, "device": {...}}.  Without a CUDA
-device the script exits non-zero before printing any result.
+its main path's run, which is phase 6 for the grid kernels and phase 4
+for the probes, max abs error against the plain version, kernel and
+plain times at the grid kernels' (10e,10o) alpha B = 5 f64 call and at
+the probes' ncas = 12 f64 shape); the last line is {"ok": true,
+"device": {...}}.  Without a CUDA device the script exits non-zero
+before printing any result.
 """
 
 import json
@@ -30,17 +48,32 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 # CPU JAX trajectory of the (10e,10o) slice (energies after NR
 # iterations 1-4 from init_zeros with alpha=1e-4, beta=0.5, mu=1e-6,
 # rho=1.1, lambda_min=1e-6)
 ANCHORS_10E10O = [-92.71490202342721, -92.74063367923337,
                   -92.74294363549987, -92.74381293885381]
+# CPU JAX energies of the (12e,12o) sector np_fabric L=1 path of
+# formaldimine 6-31G after NR iterations 1-3 from init_zeros (same step
+# parameters)
+ANCHORS_12E12O = [-93.87081413001067, -93.87231829137146,
+                  -93.87365505167503]
 E_CASSCF_2E2O = -92.74923230445957
 TOL_ENERGY = 1e-8
 
-SOURCE = "auto_oo_tpu_torch/csrc/grid_gather.cu"
+_MECH_SCRIPT = "scripts/experiment_gather_mechanisms.py"
+SOURCE = {"gather_rows_scaled": "auto_oo_tpu_torch/csrc/grid_gather.cu",
+          "gather_reduce": "auto_oo_tpu_torch/csrc/grid_gather.cu",
+          "gather_a": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu",
+          "gather_b": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu",
+          "gather_c": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu"}
 REPLACES = {"gather_rows_scaled": "auto_oo_tpu/ops/pallas_grid.py:110",
-            "gather_reduce": "auto_oo_tpu/ops/pallas_grid.py:194"}
+            "gather_reduce": "auto_oo_tpu/ops/pallas_grid.py:194",
+            "gather_a": f"{_MECH_SCRIPT}:119",
+            "gather_b": f"{_MECH_SCRIPT}:152",
+            "gather_c": f"{_MECH_SCRIPT}:190"}
 
 
 class SmokeFailure(Exception):
@@ -111,33 +144,34 @@ def kernel_phase(torch, gk, grid, dev):
               f"{tol[(name, dtype)]:.0e}")
         return err, rel
 
-    gm = grid.build_grid_maps(10, 10, device=dev)
-    Na, Nb, n2 = gm.Na, gm.Nb, gm.n2
-    print(f"(10e,10o) grid: Na={Na} Nb={Nb} n2={n2} D={gm.dim}")
-    for dtype in (torch.float64, torch.float32):
-        sgnA, tB, sgnB, tA = gm.scales(dtype)
-        halves = {"alpha": (gm.srcA, sgnA, tB, Na, Nb),
-                  "beta": (gm.srcB, sgnB, tA, Nb, Na)}
-        for half, (src, s, t, rows, cols) in halves.items():
-            for B in (1, 3, 5):
-                x = rand((B, rows, cols), dtype)
-                Y = rand((B, n2, rows, cols), dtype)
-                for name, args in (("gather_rows_scaled", (x, src, s, t)),
-                                   ("gather_reduce", (Y, src, s, t))):
-                    label = f"{half} B={B} {str(dtype)[6:]}"
-                    err, rel = compare(name, dtype, args, label)
-                    fn, plain = kern[name]
-                    ms = time_ms(lambda: fn(*args), torch)
-                    pms = time_ms(lambda: plain(*args), torch)
-                    print(f"  {name:18s} {label:22s} max_abs_err={err:.3e} "
-                          f"rel={rel:.3e} kernel={ms:.4f} ms "
-                          f"plain={pms:.4f} ms")
-                    # the main path's heaviest call: B = 5 tangents, f64,
-                    # alpha half
-                    if (dtype == torch.float64 and B == 5
-                            and half == "alpha"):
-                        stats[name]["ms"] = ms
-                        stats[name]["plain_ms"] = pms
+    # (10e,10o): B = 1, 3, 5 tangents per call; (12e,12o): one (chunk 1)
+    for ncas, batches in ((10, (1, 3, 5)), (12, (1,))):
+        gm = grid.build_grid_maps(ncas, ncas, device=dev)
+        Na, Nb, n2 = gm.Na, gm.Nb, gm.n2
+        print(f"({ncas}e,{ncas}o) grid: Na={Na} Nb={Nb} n2={n2} D={gm.dim}")
+        for dtype in (torch.float64, torch.float32):
+            sgnA, tB, sgnB, tA = gm.scales(dtype)
+            halves = {"alpha": (gm.srcA, sgnA, tB, Na, Nb),
+                      "beta": (gm.srcB, sgnB, tA, Nb, Na)}
+            for half, (src, s, t, rows, cols) in halves.items():
+                for B in batches:
+                    x = rand((B, rows, cols), dtype)
+                    Y = rand((B, n2, rows, cols), dtype)
+                    for name, args in (("gather_rows_scaled", (x, src, s, t)),
+                                       ("gather_reduce", (Y, src, s, t))):
+                        label = f"{ncas}e {half} B={B} {str(dtype)[6:]}"
+                        err, rel = compare(name, dtype, args, label)
+                        fn, plain = kern[name]
+                        ms = time_ms(lambda: fn(*args), torch)
+                        pms = time_ms(lambda: plain(*args), torch)
+                        print(f"  {name:18s} {label:26s} "
+                              f"max_abs_err={err:.3e} rel={rel:.3e} "
+                              f"kernel={ms:.4f} ms plain={pms:.4f} ms")
+                        if (ncas == 10 and dtype == torch.float64 and B == 5
+                                and half == "alpha"):
+                            stats[name]["ms"] = ms
+                            stats[name]["plain_ms"] = pms
+                    del x, Y
     # ragged random shape with leading batch dims and invalid entries
     g2 = torch.Generator(device="cpu").manual_seed(7)
     ns, na, nb, k2 = 11, 13, 17, 5
@@ -159,6 +193,80 @@ def kernel_phase(torch, gk, grid, dev):
             print(f"  {name:18s} ragged (2,3)x({ns},{na},{nb}) "
                   f"{str(dtype)[6:]} max_abs_err={err:.3e} rel={rel:.3e}")
     return stats
+
+
+def mechanism_phase(torch, gm, exp, dev):
+    """The probes A, B, C against the plain gather, bit for bit; returns
+    per-kernel stats."""
+    names = ("gather_a", "gather_b", "gather_c")
+    stats = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
+             for k in names}
+    rng = np.random.default_rng(11)
+    ns, nb, n2, na = 24, 384, 7, 40
+    ragged = (rng.standard_normal((ns, nb)),
+              rng.integers(0, ns, (n2, na)).astype(np.int32),
+              rng.standard_normal((n2, na)))
+    cases = [(f"ncas={ncas}", ncas) for ncas in (10, 12)] + [
+        (f"ragged ({ns},{nb})x({n2},{na})", None)]
+    for label, ncas in cases:
+        for dtype in (torch.float32, torch.float64):
+            if ncas is None:
+                x, src, s = (torch.from_numpy(a).to(
+                    dev, torch.int32 if a.dtype == np.int32 else dtype)
+                    for a in ragged)
+            else:
+                x, src, s, _ = exp.make_inputs(ncas, 1, dtype, dev)
+            ref = gm.gather_rows_plain(x, src, s)
+            gb = ref.numel() * ref.element_size() / 1e9
+
+            def plain():
+                return gm.gather_rows_plain(x, src, s)
+
+            p0 = time_ms(plain, torch)
+            row = {}
+            for name in names:
+                fn = getattr(gm, name)
+                out = fn(x, src, s)
+                torch.cuda.synchronize()
+                check(out.shape == ref.shape and out.dtype == ref.dtype,
+                      f"{name} {label}: shape/dtype")
+                err = float((out - ref).abs().max())
+                stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
+                                                 err)
+                check(torch.equal(out, ref),
+                      f"{name} {label} {dtype}: not bit-identical to plain "
+                      f"(max abs err {err:.3e})")
+                del out
+                row[name] = time_ms(lambda: fn(x, src, s), torch)
+            pms = 0.5 * (p0 + time_ms(plain, torch))
+            tag = f"{label} {str(dtype)[6:]}"
+            print(f"  {tag:30s} out {gb:.3f} GB  plain {pms:.4f} ms "
+                  f"({gb / pms * 1e3:7.1f} GB/s)  " + "  ".join(
+                      f"{n[-1].upper()} {ms:.4f} ms ({gb / ms * 1e3:7.1f} "
+                      f"GB/s)" for n, ms in row.items()))
+            if ncas == 12 and dtype == torch.float64:
+                for name, ms in row.items():
+                    stats[name]["ms"] = ms
+                    stats[name]["plain_ms"] = pms
+            del ref
+    return stats
+
+
+def entry_point_phase(gm, exp):
+    """The probes' entry point once at ncas = 10, K = 4; returns the
+    launches counted during it."""
+    gm.reset_launches()
+    res = exp.main(["10", "4"])
+    launches = dict(gm.LAUNCHES)
+    for key, r in res.items():
+        check(r is not None, f"entry point: variant {key} failed")
+        if key != "plain":
+            check(r["relerr"] == 0.0,
+                  f"entry point: variant {key} relerr {r['relerr']}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched by the entry point")
+    print(f"  launches: {launches}")
+    return launches
 
 
 def slice_phase(torch, P, gk, dev):
@@ -213,6 +321,81 @@ def slice_phase(torch, P, gk, dev):
     return launches
 
 
+def sector12_phase(torch, P, gk, dev):
+    """3 NR iterations of the (12e,12o) sector path; returns the grid
+    kernel launches counted during them."""
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    t0 = time.perf_counter()
+    mol = P.Moldata(get_formal_geo(140, 80), "6-31g")
+    pqc = P.Parameterized_circuit(12, 12, ansatz="np_fabric", n_layers=1,
+                                  sector=True, device=dev)
+    oo = P.OO_pqc(pqc, mol, 12, 12, freeze_active=True)
+    torch.cuda.synchronize()
+    print(f"(12e,12o) setup: {time.perf_counter() - t0:.2f} s "
+          f"(n_theta={pqc.theta_shape}, n_kappa={oo.n_kappa}, "
+          f"D={pqc.state_dim}, route={oo._core['route']})")
+    check(oo._core["route"] == "staged",
+          f"(12e,12o) route {oo._core['route']}, expected staged")
+
+    stamps = []
+
+    class Stamp:
+        def log(self, n, energy, **kw):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    theta0 = pqc.init_zeros()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    t_start = time.perf_counter()
+    energies, thetas, _, oaos, eigs = oo.full_optimization(
+        theta0, max_iterations=len(ANCHORS_12E12O), alpha=1e-4, beta=0.5,
+        mu=1e-6, rho=1.1, lambda_min=1e-6, monitor=Stamp())
+    launches = dict(gk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    iter_s = [b - a for a, b in zip([t_start] + stamps[:-1], stamps)]
+    for i, (e, ref) in enumerate(zip(energies, ANCHORS_12E12O)):
+        print(f"  iter {i + 1}: E = {e:.14f}  JAX-CPU {ref:.14f}  "
+              f"diff {e - ref:+.3e}  wall {iter_s[i]:.3f} s  "
+              f"lowest eig {eigs[i]:+.6e}")
+    check(len(energies) == len(ANCHORS_12E12O),
+          f"ran {len(energies)} iterations, not {len(ANCHORS_12E12O)}")
+    for i, (e, ref) in enumerate(zip(energies, ANCHORS_12E12O)):
+        check(abs(e - ref) <= TOL_ENERGY,
+              f"(12e,12o) iteration {i + 1}: |{e} - {ref}| > {TOL_ENERGY}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched by the (12e,12o) run")
+    psi = pqc.state(thetas[-1])
+    torch.cuda.synchronize()
+    check(psi.shape == (pqc.state_dim,), f"state shape {tuple(psi.shape)}")
+    check(bool(torch.isfinite(psi).all()), "non-finite final state")
+    norm = float(psi @ psi)
+    check(abs(norm - 1.0) < 1e-12, f"final state norm {norm}")
+    check(bool(torch.isfinite(oaos[-1]).all()), "non-finite OAO-MO")
+    # peaks of the parts: the tangent-batched sweeps (state + J forward,
+    # circuit-Hessian reverse) and one line-search energy
+    theta = thetas[-1]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    psi_g, J = pqc._state_and_jacobian_grid(theta)
+    pqc._state_hessian_dot_grid(theta, 2.0 * psi_g, psi_g, J)
+    torch.cuda.synchronize()
+    sweeps = torch.cuda.max_memory_allocated() - base
+    del psi_g, J
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    oo.energy_from_parameters(theta)
+    torch.cuda.synchronize()
+    energy_peak = torch.cuda.max_memory_allocated() - base
+    print(f"  launches: {launches}; peak device memory of the "
+          f"iterations {peak / 1e9:.3f} GB (max_memory_allocated); above "
+          f"the resident set: J + Hessian sweeps {sweeps / 1e9:.3f} GB, "
+          f"one energy {energy_peak / 1e9:.3f} GB")
+    return launches
+
+
 def convergence_phase(torch, P, dev):
     from auto_oo_tpu_torch.utils.misc import get_formal_geo
 
@@ -239,23 +422,43 @@ def main():
         return 2
 
     import auto_oo_tpu_torch as P
-    from auto_oo_tpu_torch.ops import grid, grid_kernels as gk
+    from auto_oo_tpu_torch.ops import cuda_build, grid
+    from auto_oo_tpu_torch.ops import gather_mechanisms as gm
+    from auto_oo_tpu_torch.ops import grid_kernels as gk
+    from auto_oo_tpu_torch.scripts import experiment_gather_mechanisms as exp
 
     dev = torch.device("cuda")
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
-    build_s = gk.load_library()
-    print(f"kernel build + load: {build_s:.2f} s")
+    build_s = cuda_build.load_all([gk.LIBRARY, gm.LIBRARY])
+    print(f"kernel build + load (both libraries): {build_s:.2f} s")
+    t_all = time.perf_counter()
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        print(f"== {name}")
+        out = fn(*args)
+        print(f"== {name}: {time.perf_counter() - t0:.2f} s")
+        return out
+
     try:
-        stats = kernel_phase(torch, gk, grid, dev)
-        launches = slice_phase(torch, P, gk, dev)
-        convergence_phase(torch, P, dev)
+        stats = phase("grid kernels vs plain", kernel_phase, torch, gk, grid,
+                      dev)
+        stats.update(phase("gather mechanisms vs plain", mechanism_phase,
+                           torch, gm, exp, dev))
+        launches = phase("gather mechanism entry point", entry_point_phase,
+                         gm, exp)
+        phase("(10e,10o) slice", slice_phase, torch, P, gk, dev)
+        launches.update(phase("(12e,12o) sector", sector12_phase, torch, P,
+                              gk, dev))
+        phase("(2e,2o) convergence", convergence_phase, torch, P, dev)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    print(f"all phases: {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": st["max_abs_err"], "ms": st["ms"],
          "plain_ms": st["plain_ms"]} for name, st in stats.items()]}))

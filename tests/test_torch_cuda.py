@@ -1,8 +1,9 @@
-"""The port's CUDA grid-gather kernels on the card (marker ``cuda``).
+"""The port's CUDA kernels on the card (marker ``cuda``).
 
-The kernels against their plain PyTorch versions, the grid ops and one
-Newton core on the card against the same code on the CPU, and a failed
-build that raises.  This file imports neither jax nor the JAX package, so
+The grid-gather kernels and the row-gather mechanism probes against their
+plain PyTorch versions, the grid ops and one Newton core on the card
+against the same code on the CPU, and failed builds and launches that
+raise.  This file imports neither jax nor the JAX package, so
 it also runs where jax is not installed; tests/conftest.py imports jax,
 so run it on the card with
 
@@ -13,7 +14,8 @@ Without a GPU every test skips (from the fixture, never at import).
 Tolerances: ``gather_rows_scaled`` takes the products in the plain
 version's order, so f64 agrees to the last bit (1e-15 relative, 1e-6 in
 f32); ``gather_reduce`` sums the pairs in another order (1e-13 relative
-in f64, 1e-5 in f32).
+in f64, 1e-5 in f32).  The mechanism probes A, B and C take one product
+per element, so they equal their plain version bit for bit.
 """
 
 import numpy as np
@@ -21,7 +23,9 @@ import pytest
 import torch
 
 import auto_oo_tpu_torch as P
-from auto_oo_tpu_torch.ops import grid, grid_kernels as gk
+from auto_oo_tpu_torch.ops import cuda_build, grid, grid_kernels as gk
+from auto_oo_tpu_torch.ops import gather_mechanisms as gm
+from auto_oo_tpu_torch.scripts import experiment_gather_mechanisms as exp
 
 TOL = {torch.float64: {"rows": 1e-15, "reduce": 1e-13},
        torch.float32: {"rows": 1e-6, "reduce": 1e-5}}
@@ -138,9 +142,9 @@ def test_cuda_failed_build_raises(cuda_device, monkeypatch, tmp_path):
     path falls back to the plain version."""
     bad = tmp_path / "bad.cu"
     bad.write_text("this is not CUDA\n")
-    monkeypatch.setattr(gk, "_LIB", None)
-    monkeypatch.setattr(gk, "_SRC", str(bad))
-    monkeypatch.setattr(gk, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(gk, "LIBRARY",
+                        cuda_build.CudaLibrary(str(bad), gk.LIBRARY.symbols))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
     pm = grid.build_grid_maps(2, 2, device=cuda_device)
     x = torch.zeros((pm.Na, pm.Nb), dtype=torch.float64, device=cuda_device)
     before = dict(gk.LAUNCHES)
@@ -148,3 +152,45 @@ def test_cuda_failed_build_raises(cuda_device, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         gk.gather_rows_scaled(x, srcA, sgnA, tB)
     assert gk.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_mechanisms_match_plain(cuda_device, dtype):
+    """A, B and C against the plain gather, bit for bit: the script's
+    ncas = 10 inputs, and a ragged valid shape (row groups that do not
+    divide na, a slab narrower than W at the edge)."""
+    x, src, s, _ = exp.make_inputs(10, 1, dtype, cuda_device)
+    rng = np.random.default_rng(11)
+    ns, nb, n2, na = 24, 384, 7, 40
+    ragged = (torch.from_numpy(rng.standard_normal((ns, nb))),
+              torch.from_numpy(rng.integers(0, ns, (n2, na)).astype(
+                  np.int32)),
+              torch.from_numpy(rng.standard_normal((n2, na))))
+    ragged = tuple(a.to(cuda_device, torch.int32 if i == 1 else dtype)
+                   for i, a in enumerate(ragged))
+    for args in ((x, src, s), ragged):
+        ref = gm.gather_rows_plain(*args)
+        for name in ("gather_a", "gather_b", "gather_c"):
+            before = gm.LAUNCHES[name]
+            out = getattr(gm, name)(*args)
+            torch.cuda.synchronize()
+            assert gm.LAUNCHES[name] == before + 1
+            assert out.dtype == dtype and out.shape == ref.shape
+            assert torch.equal(out, ref), name
+
+
+@pytest.mark.cuda
+def test_cuda_mechanisms_raise(cuda_device):
+    """B refuses a slab that cannot fit shared memory; A refuses rows that
+    are not 16-byte multiples; neither launches."""
+    src = torch.zeros((4, 16), dtype=torch.int32, device=cuda_device)
+    s = torch.ones((4, 16), dtype=torch.float64, device=cuda_device)
+    before = dict(gm.LAUNCHES)
+    tall = torch.zeros((2048, 128), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        gm.gather_b(tall, src, s)
+    narrow = torch.zeros((16, 3), dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        gm.gather_a(narrow, src, s.float())
+    assert gm.LAUNCHES == before

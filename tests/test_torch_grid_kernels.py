@@ -20,7 +20,7 @@ import jax.numpy as jnp
 
 from auto_oo_tpu.ops import grid as jgrid
 from auto_oo_tpu.ops import pallas_grid as jpg
-from auto_oo_tpu_torch.ops import grid, grid_kernels as gk
+from auto_oo_tpu_torch.ops import cuda_build, grid, grid_kernels as gk
 from auto_oo_tpu_torch.utils.interop import from_jax
 
 SECTORS = [(2, 2), (4, 4), (4, (2, 1)), (3, 4)]
@@ -201,8 +201,9 @@ def test_wrappers_reject_other_devices_and_bad_operands():
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
-    monkeypatch.setattr(gk, "BUILD_DIR", str(tmp_path))
-    monkeypatch.setattr(gk.shutil, "which", lambda name: None)
-    monkeypatch.setattr(gk, "_NVCC_DEFAULT", str(tmp_path / "no-nvcc"))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_build, "_NVCC_DEFAULT",
+                        str(tmp_path / "no-nvcc"))
     with pytest.raises(RuntimeError, match="nvcc"):
-        gk.build()
+        gk.LIBRARY.build()

@@ -51,3 +51,21 @@ def test_open_shell_cation_builds():
     for a, b in zip(mj.get_active_space_idx(4, (2, 1)),
                     mp.get_active_space_idx(4, (2, 1))):
         np.testing.assert_array_equal(a, b)
+
+
+def test_631g_formaldimine_matches():
+    """6-31G, the basis of the (12e,12o) configuration (24 orbitals: 2 core
+    + 12 active + 10 virtual): integrals, RHF and the partition."""
+    geo = J.get_formal_geo(140, 80)
+    mj, mp = J.Moldata(geo, "6-31g"), P.Moldata(geo, "6-31g")
+    assert mp.nao == mj.nao == 24
+    for name in ("int1e_ao", "int2e_ao", "oao_coeff", "overlap"):
+        np.testing.assert_allclose(np.asarray(getattr(mp, name)),
+                                   np.asarray(getattr(mj, name)), rtol=0,
+                                   atol=1e-13, err_msg=name)
+    mj.run_rhf()
+    mp.run_rhf()
+    assert abs(mp.hf.e_tot - mj.hf.e_tot) < 1e-10
+    for a, b in zip(mj.get_active_space_idx(12, 12),
+                    mp.get_active_space_idx(12, 12)):
+        np.testing.assert_array_equal(a, b)

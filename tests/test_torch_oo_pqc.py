@@ -24,14 +24,17 @@ from auto_oo_tpu.ops import grid as jgrid
 from auto_oo_tpu.ops import hamiltonian as jham
 from auto_oo_tpu.ops import rdms as jrdms
 import auto_oo_tpu_torch as P
+from auto_oo_tpu_torch.models import oo_pqc as poo
 from auto_oo_tpu_torch.ops import grid, hamiltonian, rdms
 from auto_oo_tpu_torch.utils.interop import from_jax
 
 GEO = J.get_formal_geo(140, 80)
 
-# (ncas, nelecas, circuit kwargs, charge/spin of the molecule)
+# (ncas, nelecas, circuit kwargs, basis/charge/spin of the molecule)
 CASES = {
     "np_fabric_4e4o": (4, 4, dict(ansatz="np_fabric", n_layers=1), {}),
+    "np_fabric_4e4o_631g": (4, 4, dict(ansatz="np_fabric", n_layers=1),
+                            dict(basis="6-31g")),
     "np_fabric_3e4o_open": (4, (2, 1), dict(ansatz="np_fabric",
                                             n_layers=1),
                             dict(charge=1, spin=1)),
@@ -46,8 +49,10 @@ def molecules():
     def get(molkw):
         key = tuple(sorted(molkw.items()))
         if key not in cache:
-            cache[key] = (J.Moldata(GEO, "sto-3g", **molkw),
-                          P.Moldata(GEO, "sto-3g", **molkw))
+            kw = dict(molkw)
+            basis = kw.pop("basis", "sto-3g")
+            cache[key] = (J.Moldata(GEO, basis, **kw),
+                          P.Moldata(GEO, basis, **kw))
         return cache[key]
     return get
 
@@ -140,6 +145,50 @@ def test_grad_hess_matches(molecules, circuits, name):
                       ("full_hessian", h_p)):
         np.testing.assert_array_equal(getattr(po, name)(theta).numpy(),
                                       ref.numpy(), err_msg=name)
+
+
+def test_staged_regime_matches_jax_staged(molecules, circuits, monkeypatch):
+    """With the port's staged threshold below D, (4e,4o) 6-31G takes the
+    branch that (12e,12o) 6-31G takes: the JAX package's staged route, run
+    by the port's eager grad_hess.  It must equal the JAX staged pipeline:
+    e0 and grad to 1e-11, the Hessian to 1e-9."""
+    monkeypatch.setattr(poo, "_STAGED_MIN_D", 2)
+    jo, po, theta = _pair(molecules, circuits, "np_fabric_4e4o_631g",
+                          seed=3)
+    assert po._core["route"] == "staged"
+    e_j, g_j, h_j = jo._core["grad_hess_staged"](
+        jnp.asarray(theta), jo.oao_mo_coeff, *jo._mol_args)
+    e_p, g_p, h_p = po._grad_hess(from_jax(theta))
+    assert abs(float(e_p) - float(e_j)) < 1e-11
+    np.testing.assert_allclose(g_p.numpy(), np.asarray(g_j), rtol=0,
+                               atol=1e-11)
+    np.testing.assert_allclose(h_p.numpy(), np.asarray(h_j), rtol=0,
+                               atol=1e-9)
+
+
+def test_streamed_regime_raises(molecules, monkeypatch):
+    """Where one (n^2, D) f64 Phi does not fit its block (the JAX
+    package's streamed and hosted rows), OO_pqc refuses at construction;
+    below D = 2^19 with Phi fitting, the route is the fused one."""
+    _, mp = molecules({})
+    pqc = P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
+                                  sector=True)
+    assert P.OO_pqc(pqc, mp, 4, 4)._core["route"] == "fused"
+    monkeypatch.setattr(grid, "_PAIR_CHUNK_BYTES", 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        P.OO_pqc(pqc, mp, 4, 4)
+
+
+def test_active_space_beyond_basis_raises(molecules):
+    """(12e,12o) of formaldimine needs 2 core + 12 active orbitals, and
+    STO-3G has 13: the JAX package accepts it (its active indices run past
+    the basis and its gathers clamp them); the port refuses it."""
+    mj, mp = molecules({})
+    jo = J.OO_energy(mj, 12, 12, freeze_active=True)
+    assert max(jo._act) == jo.nao == 13
+    with pytest.raises(ValueError, match="exceed the 13 orbitals"):
+        P.OO_energy(mp, 12, 12, freeze_active=True)
+    assert P.OO_energy(mp, 10, 10, freeze_active=True)._act[-1] == 12
 
 
 def test_energy_from_parameters_matches(molecules, circuits):
