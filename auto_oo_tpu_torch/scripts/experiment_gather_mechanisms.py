@@ -7,8 +7,9 @@ out[k, i, :] = x[src[k, i], :] * s[k, i], through five mechanisms:
 
   plain: PyTorch indexing (the script's "xla take"): L2-cached loads;
   A: 1-D bulk row copies (TMA, no tensor map), double-buffered;
-  B: a column slab of x resident in shared memory;
-  C: 8-row aligned bulk copies, selecting one row (8x read traffic);
+  B: a column slab of x split across a thread-block cluster's shared
+     memory, read remotely (distributed shared memory);
+  C: 8-row aligned 2-D TMA boxes, selecting one row (8x read traffic);
   L: the production kernel's mechanism, one warp per row with L2-cached
      loads (ops/grid_kernels.gather_rows_scaled with t = 1, which is
      exact: (x * s) * 1 = x * s).
@@ -57,8 +58,8 @@ def gather_rows_l2(x, src, s):
 
 VARIANTS = (("plain", "xla take / torch indexing", gm.gather_rows_plain),
             ("A", "A: 1-D bulk row copies (db)", gm.gather_a),
-            ("B", "B: smem-resident x slab", gm.gather_b),
-            ("C", "C: aligned 8-row bulk copy", gm.gather_c),
+            ("B", "B: x slab across a cluster", gm.gather_b),
+            ("C", "C: 8-row 2-D TMA boxes", gm.gather_c),
             ("L", "L: warp-per-row L2 loads", gather_rows_l2))
 
 

@@ -15,8 +15,11 @@ prints its seconds:
    of both;
 3. the row-gather mechanism probes A, B and C against the plain gather on
    the card, bit for bit, at the ncas = 10 and ncas = 12 shapes of their
-   entry point, float32 and float64, and one ragged shape, with times and
-   GB/s of each;
+   entry point, float32 and float64, and one ragged shape (src reaching
+   row ns - 1), with times and GB/s of each; B's plan (cluster size,
+   slab width W) and C's (box width Wc, stages, blocks per SM), C's L2
+   read rate (8 x out bytes over its time), and B at cluster sizes 2, 4,
+   8 and 16 where the card holds them (bit for bit, timed);
 4. their entry point (auto_oo_tpu_torch.scripts.experiment_gather_mechanisms)
    once at ncas = 10, K = 4: every variant must run and A, B and C match
    plain exactly, and each probe's launch counter must grow;
@@ -195,6 +198,42 @@ def kernel_phase(torch, gk, grid, dev):
     return stats
 
 
+def _plans(gm, x, dtype):
+    """B's and C's launch plans for x on this card, with what the card
+    holds of each; returns the line that prints them."""
+    ns, nb = x.shape
+    item, limit = x.element_size(), gm.smem_limit()
+    pb = gm.plan_b(ns, nb, item, limit)
+    pc = gm.plan_c(ns, nb, item, limit)
+    return (f"B cluster={pb.cluster} W={pb.W} rows/block={pb.rows_per_block}"
+            f" smem={pb.smem} clusters held={gm.held('b', dtype, ns, pb)}; "
+            f"C Wc={pc.Wc} stages={pc.stages} smem={pc.smem} "
+            f"blocks/SM={gm.held('c', dtype, ns, pc)}")
+
+
+def _cluster_sweep(torch, gm, x, src, s, ref, gb):
+    """B at each cluster size the card holds, bit for bit against ref and
+    timed; returns the printed line."""
+    ns, nb = x.shape
+    parts = []
+    for c in (2, 4, 8, 16):
+        plan = gm.plan_b(ns, nb, x.element_size(), gm.smem_limit(),
+                         cluster=c)
+        held = gm.held("b", x.dtype, ns, plan)
+        if held == 0:
+            parts.append(f"C={c}: not held")
+            continue
+        out = gm.gather_b(x, src, s, cluster=c)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"gather_b cluster={c}: not "
+              f"bit-identical to plain")
+        del out
+        ms = time_ms(lambda: gm.gather_b(x, src, s, cluster=c), torch)
+        parts.append(f"C={c} W={plan.W} x{held}: {ms:.4f} ms "
+                     f"({gb / ms * 1e3:.1f} GB/s)")
+    return "  ".join(parts)
+
+
 def mechanism_phase(torch, gm, exp, dev):
     """The probes A, B, C against the plain gather, bit for bit; returns
     per-kernel stats."""
@@ -203,8 +242,9 @@ def mechanism_phase(torch, gm, exp, dev):
              for k in names}
     rng = np.random.default_rng(11)
     ns, nb, n2, na = 24, 384, 7, 40
-    ragged = (rng.standard_normal((ns, nb)),
-              rng.integers(0, ns, (n2, na)).astype(np.int32),
+    ragged_src = rng.integers(0, ns, (n2, na)).astype(np.int32)
+    ragged_src[0, 0] = ragged_src[-1, -1] = ns - 1
+    ragged = (rng.standard_normal((ns, nb)), ragged_src,
               rng.standard_normal((n2, na)))
     cases = [(f"ncas={ncas}", ncas) for ncas in (10, 12)] + [
         (f"ragged ({ns},{nb})x({n2},{na})", None)]
@@ -244,6 +284,13 @@ def mechanism_phase(torch, gm, exp, dev):
                   f"({gb / pms * 1e3:7.1f} GB/s)  " + "  ".join(
                       f"{n[-1].upper()} {ms:.4f} ms ({gb / ms * 1e3:7.1f} "
                       f"GB/s)" for n, ms in row.items()))
+            # C reads its whole 8-row box for every output row
+            print(f"    {_plans(gm, x, dtype)}; C reads "
+                  f"{8 * gb:.3f} GB from L2: "
+                  f"{8 * gb / row['gather_c']:.1f} TB/s")
+            if ncas is not None:
+                print(f"    B cluster sweep: "
+                      f"{_cluster_sweep(torch, gm, x, src, s, ref, gb)}")
             if ncas == 12 and dtype == torch.float64:
                 for name, ms in row.items():
                     stats[name]["ms"] = ms

@@ -15,7 +15,8 @@ Tolerances: ``gather_rows_scaled`` takes the products in the plain
 version's order, so f64 agrees to the last bit (1e-15 relative, 1e-6 in
 f32); ``gather_reduce`` sums the pairs in another order (1e-13 relative
 in f64, 1e-5 in f32).  The mechanism probes A, B and C take one product
-per element, so they equal their plain version bit for bit.
+per element, so they equal their plain version bit for bit; B's and C's
+plans and refusals on the card are checked here too.
 """
 
 import numpy as np
@@ -154,22 +155,28 @@ def test_cuda_failed_build_raises(cuda_device, monkeypatch, tmp_path):
     assert gk.LAUNCHES == before
 
 
+def _ragged(ns, nb, n2, na, seed, dtype, device):
+    """Random inputs of a valid ragged shape; src reaches row ns - 1."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, ns, (n2, na)).astype(np.int32)
+    src[0, 0] = src[-1, -1] = ns - 1
+    return (torch.from_numpy(rng.standard_normal((ns, nb))).to(device, dtype),
+            torch.from_numpy(src).to(device),
+            torch.from_numpy(rng.standard_normal((n2, na))).to(device, dtype))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_cuda_mechanisms_match_plain(cuda_device, dtype):
     """A, B and C against the plain gather, bit for bit: the script's
-    ncas = 10 inputs, and a ragged valid shape (row groups that do not
-    divide na, a slab narrower than W at the edge)."""
-    x, src, s, _ = exp.make_inputs(10, 1, dtype, cuda_device)
-    rng = np.random.default_rng(11)
-    ns, nb, n2, na = 24, 384, 7, 40
-    ragged = (torch.from_numpy(rng.standard_normal((ns, nb))),
-              torch.from_numpy(rng.integers(0, ns, (n2, na)).astype(
-                  np.int32)),
-              torch.from_numpy(rng.standard_normal((n2, na))))
-    ragged = tuple(a.to(cuda_device, torch.int32 if i == 1 else dtype)
-                   for i, a in enumerate(ragged))
-    for args in ((x, src, s), ragged):
+    ncas = 10 and ncas = 12 inputs, and a ragged valid shape (row groups
+    that do not divide na, src at row ns - 1).  B also at cluster sizes
+    that leave the last blocks of a cluster fewer rows or none (ns = 40
+    over 6 and 16 blocks)."""
+    cases = [exp.make_inputs(ncas, 1, dtype, cuda_device)[:3]
+             for ncas in (10, 12)]
+    cases.append(_ragged(24, 384, 7, 40, 11, dtype, cuda_device))
+    for args in cases:
         ref = gm.gather_rows_plain(*args)
         for name in ("gather_a", "gather_b", "gather_c"):
             before = gm.LAUNCHES[name]
@@ -178,19 +185,45 @@ def test_cuda_mechanisms_match_plain(cuda_device, dtype):
             assert gm.LAUNCHES[name] == before + 1
             assert out.dtype == dtype and out.shape == ref.shape
             assert torch.equal(out, ref), name
+            del out
+        del ref
+    args = _ragged(40, 384, 5, 24, 12, dtype, cuda_device)
+    ref = gm.gather_rows_plain(*args)
+    for cluster in (6, 16):
+        out = gm.gather_b(*args, cluster=cluster)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), cluster
 
 
 @pytest.mark.cuda
 def test_cuda_mechanisms_raise(cuda_device):
-    """B refuses a slab that cannot fit shared memory; A refuses rows that
-    are not 16-byte multiples; neither launches."""
+    """B refuses an x whose 16-column slab does not fit even a cluster of
+    16 blocks; A refuses rows that are not 16-byte multiples; neither
+    launches."""
     src = torch.zeros((4, 16), dtype=torch.int32, device=cuda_device)
     s = torch.ones((4, 16), dtype=torch.float64, device=cuda_device)
     before = dict(gm.LAUNCHES)
-    tall = torch.zeros((2048, 128), dtype=torch.float64, device=cuda_device)
+    tall = torch.zeros((32768, 128), dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         gm.gather_b(tall, src, s)
     narrow = torch.zeros((16, 3), dtype=torch.float32, device=cuda_device)
     with pytest.raises(ValueError, match="16-byte"):
         gm.gather_a(narrow, src, s.float())
     assert gm.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_cuda_refused_cluster_size_raises(cuda_device):
+    """A cluster size the card refuses (32 blocks; Hopper allows 16)
+    raises from the card's own check and launches nothing."""
+    x = torch.ones((256, 256), dtype=torch.float64, device=cuda_device)
+    src = torch.zeros((4, 16), dtype=torch.int32, device=cuda_device)
+    s = torch.ones((4, 16), dtype=torch.float64, device=cuda_device)
+    before = dict(gm.LAUNCHES)
+    with pytest.raises(RuntimeError, match="gm_gather_b_f64"):
+        gm.gather_b(x, src, s, cluster=32)
+    assert gm.LAUNCHES == before
+    # the refusal leaves no error behind: the next launch runs
+    out = gm.gather_b(x, src, s)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gm.gather_rows_plain(x, src, s))

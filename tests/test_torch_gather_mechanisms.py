@@ -9,8 +9,10 @@ file; its Pallas kernels run in interpret mode on the CPU.  Pins:
   ``gather_a/b/c`` exactly (f32: the Pallas kernels are f32 only);
 * the K-step harness equals the script's ``repeat_scan`` to 1e-6
   relative in f32 (it sums K gathers);
-* the wrappers raise on the padding and dtype violations, and the launch
-  plans raise where shared memory cannot hold them.
+* the wrappers raise on the padding and dtype violations; the launch
+  plans (A's ring, B's cluster and slab, C's box and ring) are pinned at
+  the probes' shapes against an H100's 227 KB, and raise where shared
+  memory or the tensor map's rules cannot hold them.
 """
 
 import functools
@@ -109,11 +111,11 @@ def test_shapes_are_the_scripts(ncas, expect):
 
 def test_wrappers_raise_on_bad_operands():
     """Checks made before any launch: dtype, int32 src, contiguity, the
-    16-byte rows of the bulk copies, and the script's padding."""
+    16-byte rows of the kernels' copies, and the script's padding."""
     x = torch.zeros((16, 128), dtype=torch.float32)
     src = torch.zeros((4, 16), dtype=torch.int32)
     s = torch.zeros((4, 16), dtype=torch.float32)
-    assert gm._check("k", x, src, s, bulk=True) == (16, 128, 4, 16)
+    assert gm._check("k", x, src, s) == (16, 128, 4, 16)
     cases = [
         (TypeError, (x.half(), src, s.half())),
         (TypeError, (x, src, s.double())),
@@ -128,35 +130,111 @@ def test_wrappers_raise_on_bad_operands():
     ]
     for exc, args in cases:
         with pytest.raises(exc):
-            gm._check("k", *args, bulk=True)
+            gm._check("k", *args)
     with pytest.raises(ValueError, match="16-byte"):
-        gm._check("gather_a", torch.zeros((16, 3)), src, s, bulk=True)
+        gm._check("gather_a", torch.zeros((16, 3)), src, s)
     # a tensor on another device type never reaches a kernel
     with pytest.raises(NotImplementedError):
         gm.gather_a(torch.zeros((16, 128), device="meta"), src, s)
 
 
 def test_launch_plans():
-    """Rows per ring stage (A, C) and B's slab width at the script's
-    shapes on an H100's 227 KB, and the plans' refusals."""
-    # A: 32 KB stages of 1-row units, at most 8 rows
-    assert gm.stage_rows(1, 256, 4, _H100_SMEM) == 8
-    assert gm.stage_rows(1, 1024, 8, _H100_SMEM) == 4
-    # C: one 8-row block is 32 KB (f32) / 64 KB (f64) at ncas = 12
-    assert gm.stage_rows(8, 1024, 4, _H100_SMEM) == 1
-    assert gm.stage_rows(8, 1024, 8, _H100_SMEM) == 1
+    """Rows per stage of A's ring at the script's shapes on an H100's
+    227 KB, and its refusal."""
+    # A: 32 KB stages of rows, at most 8 rows
+    assert gm.stage_rows(256, 4, _H100_SMEM) == 8
+    assert gm.stage_rows(1024, 8, _H100_SMEM) == 4
     with pytest.raises(ValueError, match="shared memory"):
-        gm.stage_rows(8, 2048, 8, _H100_SMEM)
-    # B: at ncas = 12 f64 only W = 16 fits (928 x 16 x 8 = 119 KB)
-    assert gm.slab_width(928, 1024, 8, _H100_SMEM) == 16
-    assert gm.slab_width(928, 1024, 4, _H100_SMEM) == 16
-    assert gm.slab_width(256, 256, 4, _H100_SMEM) == 64
-    assert gm.slab_width(8, 128, 4, _H100_SMEM) == 128
-    for ns, nb, item in ((928, 1024, 8), (256, 256, 4), (24, 384, 8)):
-        W = gm.slab_width(ns, nb, item, _H100_SMEM)
-        assert 256 % W == 0 and ns * W * item <= _H100_SMEM
+        gm.stage_rows(16384, 8, _H100_SMEM)
+
+
+# (ns, nb, itemsize) -> (cluster, W, rows per block, shared memory per
+# block): the probes' shapes at ncas = 10 and 12 and the ragged shape
+_PLANS_B = {
+    (256, 256, 4): (8, 256, 32, 32 * 256 * 4 + 2 * 256 * 12),
+    (256, 256, 8): (8, 256, 32, 32 * 256 * 8 + 2 * 256 * 16),
+    (928, 1024, 4): (8, 256, 116, 116 * 256 * 4 + 2 * 256 * 12),
+    (928, 1024, 8): (8, 128, 116, 116 * 128 * 8 + 2 * 256 * 16),
+    (24, 384, 4): (8, 128, 3, 3 * 128 * 4 + 2 * 256 * 12),
+    (24, 384, 8): (8, 128, 3, 3 * 128 * 8 + 2 * 256 * 16),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(_PLANS_B))
+def test_plan_b(shape):
+    """B at the probes' shapes: a cluster of 8 holds x whole at ncas = 10
+    and a 950 KB column slab at ncas = 12 (W = 256 in f32, 128 in f64),
+    each block's share under the H100's 227 KB."""
+    ns, nb, item = shape
+    plan = gm.plan_b(ns, nb, item, _H100_SMEM)
+    assert tuple(plan) == _PLANS_B[shape]
+    assert plan.rows_per_block * plan.cluster >= ns
+    assert nb % plan.W == 0 and plan.smem <= _H100_SMEM
+
+
+@pytest.mark.parametrize("cluster,W", [(2, 32), (4, 64), (8, 128), (16, 256)])
+def test_plan_b_cluster_sweep(cluster, W):
+    """The sweep's plans at ncas = 12 f64: each doubling of the cluster
+    halves the rows per block and doubles the slab."""
+    plan = gm.plan_b(928, 1024, 8, _H100_SMEM, cluster=cluster)
+    assert (plan.cluster, plan.W) == (cluster, W)
+    assert plan.rows_per_block == -(-928 // cluster)
+    assert plan.smem <= _H100_SMEM
+
+
+def test_plan_b_grows_the_cluster_then_refuses():
+    """Where a 16-column slab does not fit a cluster of 8, B takes 16
+    (non-portable); beyond that it raises, as it does for a cluster size
+    below 1.  A cluster size the caller names is kept even where the last
+    block holds fewer rows (ns = 40 over 6 blocks of 7)."""
+    assert tuple(gm.plan_b(16384, 128, 8, _H100_SMEM)) == (
+        16, 16, 1024, 1024 * 16 * 8 + 2 * 256 * 16)
+    with pytest.raises(ValueError, match="cluster of 16"):
+        gm.plan_b(32768, 128, 8, _H100_SMEM)
+    with pytest.raises(ValueError, match="cluster of 8"):
+        gm.plan_b(16384, 128, 8, _H100_SMEM, cluster=8)
+    with pytest.raises(ValueError, match="cluster size"):
+        gm.plan_b(256, 256, 8, _H100_SMEM, cluster=0)
+    assert gm.plan_b(40, 384, 8, _H100_SMEM, cluster=6).rows_per_block == 7
+
+
+# (ns, nb, itemsize) -> (Wc, stages, shared memory per block)
+_PLANS_C = {
+    (256, 256, 4): (256, 8, 1024 + 8 * 8192),
+    (256, 256, 8): (128, 8, 1024 + 8 * 8192),
+    (928, 1024, 4): (256, 8, 1024 + 8 * 8192),
+    (928, 1024, 8): (128, 8, 1024 + 8 * 8192),
+    (24, 384, 4): (128, 16, 1024 + 16 * 4096),
+    (24, 384, 8): (128, 8, 1024 + 8 * 8192),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(_PLANS_C))
+def test_plan_c(shape):
+    """C at the probes' shapes: 8-row boxes of at most 1 KB a row, a ring
+    of at least 4 stages (a multiple of the 4 consumer warps), three
+    blocks to an SM within the H100's 227 KB."""
+    ns, nb, item = shape
+    plan = gm.plan_c(ns, nb, item, _H100_SMEM)
+    assert tuple(plan) == _PLANS_C[shape]
+    assert nb % plan.Wc == 0 and plan.Wc <= 256
+    assert (plan.Wc * item) % 16 == 0 and plan.Wc * item <= 1024
+    assert plan.stages >= 4 and plan.stages % 4 == 0
+    assert 3 * plan.smem <= _H100_SMEM
+
+
+def test_plan_c_refuses_tensor_map_rules():
+    """C raises where a tensor map over x cannot be built: rows that are
+    not 16-byte multiples, or ns not whole 8-row blocks; or where four
+    stages do not fit.  Rows of 16-byte multiples give an inner box of
+    16-byte multiples (48-byte rows: 4-column, 16-byte boxes)."""
+    with pytest.raises(ValueError, match="16-byte"):
+        gm.plan_c(16, 6, 4, _H100_SMEM)       # 24-byte rows
+    assert gm.plan_c(16, 12, 4, _H100_SMEM).Wc == 4
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gm.plan_c(12, 128, 8, _H100_SMEM)
     with pytest.raises(ValueError, match="shared memory"):
-        gm.slab_width(2048, 128, 8, _H100_SMEM)
+        gm.plan_c(928, 1024, 8, 16 * 1024)
 
 
 def test_load_all_raises_without_nvcc(monkeypatch, tmp_path):
