@@ -4,10 +4,13 @@ The port works in float64 throughout (``DTYPE``); every tensor it creates
 names its dtype, and the global default dtype is left alone (the port's
 tests share a process with the JAX package's).
 
-The device is explicit: pass ``device=`` to the constructors, or set a
-process default with :func:`set_device`.  The default is ``"cpu"``; the
-port never moves to another device because CUDA is missing, and a
-``"cuda"`` request without a card fails where the first tensor is made.
+The port runs on the card: every entry point (``Parameterized_circuit``,
+``OO_energy`` / ``OO_pqc``, ``GridMaps`` / ``build_grid_maps``, the grid
+gates, ``GridProgram``, ``from_jax``) puts its tensors on
+``DEFAULT_DEVICE``, ``"cuda"``, unless the caller passes ``device="cpu"``
+or calls ``set_device("cpu")``.  The port never moves to the CPU because
+CUDA is missing: without a card, a call that names no device fails where
+its first tensor is made.
 
 TF32 is switched off for matmuls and convolutions, and float32 matmuls
 run at "highest" precision: the JAX package measured that low-precision
@@ -36,7 +39,10 @@ BOHR = 0.52917721092
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build")
 
-_DEVICE = torch.device("cpu")
+#: the device of every entry point that is given none
+DEFAULT_DEVICE = torch.device("cuda")
+
+_DEVICE = DEFAULT_DEVICE
 
 
 def set_device(device):

@@ -29,29 +29,73 @@
 //   taken as (x * s) * t, the order of the plain PyTorch version, so the
 //   f64 results agree bit for bit.
 //
-// gather_reduce: out[b, i, j] = sum_k (Y[b, k, src[k, i], j] * s[k, i]) * t[k, j]
+// gather_reduce (the row form):
+//   out[b, i, j] = sum_k (Y[b, k, src[k, i], j] * s[k, i]) * t[k, j]
 //   Replaces auto_oo_tpu/ops/pallas_grid.py::gather_reduce (Pallas body
 //   _gather_reduce_kernel), whose VMEM-resident accumulator carried the
-//   sum across the sequential pair grid.  Here each thread owns one
-//   output element (b, i, j) and loops over k in a register: no atomics,
-//   so the result is deterministic.  The bound is one read of Y plus one
-//   write of out.  Each Y[k] row is read at most once over the whole
-//   grid, because each pair's row map is a partial injection (an
-//   excitation bijects occupation subsets); entries with s == 0 skip the
-//   read entirely (about 70% of the off-diagonal pairs at half filling),
-//   and the test is uniform across a warp (it depends on k and i only).
-//   Neighbouring threads take neighbouring j, so every Y row read and the
-//   out write are coalesced.  The sum runs k = 0 .. n2-1 in order, an
-//   order that differs from the plain version's reduction: f64 results
-//   agree to rounding (1e-13 relative), not bit for bit.
+//   sum across the sequential pair grid.  Bound: the bytes it must move,
+//   the Y rows of the valid (s != 0) entries once, the tables once and out
+//   once.  On the real maps 30.0% ((10e,10o)) and 29.2% ((12e,12o)) of
+//   the (pair, row) entries are valid, so at (12e,12o) f64, B = 1, that is
+//   287 MB of Y rows + 2.7 MB of tables + 6.8 MB of out: 0.0885 ms at
+//   3.35 TB/s.
+//   Design.  A block owns a tile of output rows i, all B tangents of them
+//   and the whole width j.  It first compacts each row's valid pairs into
+//   a list of (Y row offset, t row offset, s) in shared memory, in
+//   increasing k (one warp ballot per 32 pairs, two passes), so no Y load
+//   waits on an index load and no invalid pair costs a branch.  Its
+//   threads then walk flattened (row, tangent, j-vector) tasks; each task
+//   issues kUnroll independent Y loads (streaming, 16-byte vectors along
+//   j where the row stride and the pointers allow, else scalars) and the
+//   matching t loads (read-only path, reused across rows and tangents)
+//   before it adds them in list order.  The launch plan (vector width,
+//   rows per block, threads) comes from the wrapper, which sizes a block
+//   to a whole number of warps with no more than one partial warp per
+//   round, so Nb = 924 leaves no block mostly idle.  The sum runs over the
+//   valid k in increasing order with the product (Y * s) * t, as the
+//   first version of this kernel did: f64 results agree with the plain
+//   version to rounding (1e-13 relative), not bit for bit.
+//
+// gather_reduce_cols (the column form, the beta half read in place):
+//   out[b, a, c] = sum_k (Y[b, k, a, src[k, c]] * s[k, c]) * t[k, a]
+//   with Y (B, n2, Na, Ns), src/s (n2, Nc), t (n2, Na), out (B, Na, Nc).
+//   It equals gather_reduce(Y^T, src, s, t)^T over the last two axes, the
+//   beta half of the TPU wrapper's epq_sum, which pays for one transposed
+//   copy of Y first (auto_oo_tpu/ops/pallas_grid.py:270): Mosaic gathers
+//   only whole rows.  Here the gather runs inside the rows of Y in its
+//   natural grid layout, so that copy (983.5 MB read + 983.5 MB written
+//   at (12e,12o) f64) is gone.  Bound: the same valid elements as the row
+//   form (0.0885 ms at (12e,12o) f64 B = 1); but a valid element is an
+//   8-byte piece of a row, and in sorted string order the valid sources
+//   of one pair come in runs, so the 32-byte sectors they touch are 52%
+//   of Y (506.7 MB, a 0.1513 ms floor) and the 64-byte pieces 60%
+//   (592.4 MB, 0.1768 ms).  Staging whole rows of Y in shared memory
+//   instead would read all of it (983.5 MB, 0.2936 ms).
+//   Design.  Lanes take neighbouring output columns c, so one warp's loads
+//   for a fixed (k, a) fall on the runs of src[k, .] inside one row of Y
+//   and share sectors; each warp owns kColRows rows a, so one (src, s)
+//   load per pair serves kColRows Y loads; the (src, s) of the next
+//   kColK pairs are loaded while the current pairs' Y loads are in
+//   flight, kColK * kColRows Y loads per thread at once.  The eight warps
+//   of a block share the same columns, so the table loads after the first
+//   warp's hit L1.  The sum runs over the valid k in increasing order with
+//   the product (Y * s) * t, the order of the row form on the transposed
+//   copy.  (Landing the gathered elements in shared memory with cp.async,
+//   which frees the registers of the loads in flight, was slower on an
+//   H100 at every pipeline depth tried.)
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 8;     // warps (output rows) per block
-constexpr int kReduceThreads = 256;  // j-threads per block of gather_reduce
+constexpr int kRowsPerBlock = 8;   // warps (output rows) per block
+constexpr int kMaxThreads = 512;   // gather_reduce: largest block the plan asks
+constexpr int kUnroll = 4;         // gather_reduce: Y loads in flight per task
+constexpr int kColWarps = 8;       // gather_reduce_cols: warps per block
+constexpr int kColRows = 4;        // gather_reduce_cols: rows a per warp
+constexpr int kColK = 2;           // gather_reduce_cols: pairs per step
+constexpr int kColBlocksPerSM = 3; // gather_reduce_cols: register budget
 
 template <typename T>
 __global__ void gather_rows_scaled_kernel(const T* __restrict__ x,
@@ -78,29 +122,207 @@ __global__ void gather_rows_scaled_kernel(const T* __restrict__ x,
   }
 }
 
+// ---- gather_reduce: vectors of VEC elements along j ----------------------
+
+template <typename T, int VEC> struct Vec;
+template <> struct Vec<double, 2> { using type = double2; };
+template <> struct Vec<float, 4> { using type = float4; };
+template <> struct Vec<double, 1> { using type = double; };
+template <> struct Vec<float, 1> { using type = float; };
+
+__device__ __forceinline__ void zero(double& a) { a = 0.0; }
+__device__ __forceinline__ void zero(float& a) { a = 0.0f; }
+__device__ __forceinline__ void zero(double2& a) { a.x = a.y = 0.0; }
+__device__ __forceinline__ void zero(float4& a) {
+  a.x = a.y = a.z = a.w = 0.0f;
+}
+
+// acc += (y * s) * t, elementwise, in the order of the plain version
+__device__ __forceinline__ void add_term(double& acc, double y, double s,
+                                         double t) {
+  acc += (y * s) * t;
+}
+__device__ __forceinline__ void add_term(float& acc, float y, float s,
+                                         float t) {
+  acc += (y * s) * t;
+}
+__device__ __forceinline__ void add_term(double2& acc, double2 y, double s,
+                                         double2 t) {
+  acc.x += (y.x * s) * t.x;
+  acc.y += (y.y * s) * t.y;
+}
+__device__ __forceinline__ void add_term(float4& acc, float4 y, float s,
+                                         float4 t) {
+  acc.x += (y.x * s) * t.x;
+  acc.y += (y.y * s) * t.y;
+  acc.z += (y.z * s) * t.z;
+  acc.w += (y.w * s) * t.w;
+}
+
+// One block: rows [blockIdx.x * rows, +rows) of out, all B tangents, all j.
+// Dynamic shared memory: off[rows][n2] (long long), sv[rows][n2] (T),
+// toff[rows][n2] (int), cnt[rows][n_chunks] (int), len[rows] (int).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+gather_reduce_kernel(const T* __restrict__ Y, const int* __restrict__ src,
+                     const T* __restrict__ s, const T* __restrict__ t,
+                     T* __restrict__ out, int B, int n2, int Ns, int Na,
+                     int Nb, int rows) {
+  using V = typename Vec<T, VEC>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_chunks = (n2 + kWarp - 1) / kWarp;
+  long long* off = reinterpret_cast<long long*>(smem);
+  T* sv = reinterpret_cast<T*>(off + rows * n2);
+  int* toff = reinterpret_cast<int*>(sv + rows * n2);
+  int* cnt = toff + rows * n2;
+  int* len = cnt + rows * n_chunks;
+
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  const int n_warps = blockDim.x / kWarp;
+  const int i0 = blockIdx.x * rows;
+  const int n_rows = min(rows, Na - i0);
+
+  // stage: compact each row's valid pairs, in increasing k
+  for (int r = tid; r < n_rows; r += blockDim.x) len[r] = 0;
+  for (int w = warp; w < n_rows * n_chunks; w += n_warps) {
+    const int r = w / n_chunks;
+    const int k = (w % n_chunks) * kWarp + lane;
+    const bool valid =
+        k < n2 && __ldg(s + static_cast<long long>(k) * Na + i0 + r) != T(0);
+    const unsigned mask = __ballot_sync(0xffffffffu, valid);
+    if (lane == 0) cnt[w] = __popc(mask);
+  }
+  __syncthreads();
+  for (int w = warp; w < n_rows * n_chunks; w += n_warps) {
+    const int r = w / n_chunks;
+    const int c = w % n_chunks;
+    const int k = c * kWarp + lane;
+    const long long e_k = static_cast<long long>(k) * Na + i0 + r;
+    const T sk = k < n2 ? __ldg(s + e_k) : T(0);
+    const unsigned mask = __ballot_sync(0xffffffffu, sk != T(0));
+    int base = 0;
+    for (int cc = 0; cc < c; ++cc) base += cnt[r * n_chunks + cc];
+    if (sk != T(0)) {
+      const int e = r * n2 + base + __popc(mask & ((1u << lane) - 1u));
+      off[e] = (static_cast<long long>(k) * Ns + __ldg(src + e_k)) * Nb;
+      sv[e] = sk;
+      toff[e] = k * Nb;
+    }
+    if (c == n_chunks - 1 && lane == 0) len[r] = base + __popc(mask);
+  }
+  __syncthreads();
+
+  // reduce: flattened (row, tangent, j-vector) tasks
+  const int Nv = Nb / VEC;
+  const int per_row = B * Nv;
+  const long long tangent = static_cast<long long>(n2) * Ns * Nb;
+  for (int task = tid; task < n_rows * per_row; task += blockDim.x) {
+    const int r = task / per_row;
+    const int b = (task - r * per_row) / Nv;
+    const int j = (task - r * per_row - b * Nv) * VEC;
+    const T* Yb = Y + b * tangent + j;
+    const T* tj = t + j;
+    const long long* eo = off + r * n2;
+    const T* es = sv + r * n2;
+    const int* et = toff + r * n2;
+    const int n = len[r];
+    V acc;
+    zero(acc);
+    // groups of kUnroll entries; the last group is predicated, so its
+    // loads are in flight together too
+    for (int e = 0; e < n; e += kUnroll) {
+      V y[kUnroll], tt[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (e + u < n) y[u] = __ldcs(reinterpret_cast<const V*>(Yb + eo[e + u]));
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (e + u < n) tt[u] = __ldg(reinterpret_cast<const V*>(tj + et[e + u]));
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (e + u < n) add_term(acc, y[u], es[e + u], tt[u]);
+    }
+    *reinterpret_cast<V*>(
+        out + (static_cast<long long>(b) * Na + i0 + r) * Nb + j) = acc;
+  }
+}
+
+// ---- gather_reduce_cols ---------------------------------------------------
+
+// Block (32, kColWarps): lane -> output column c, warp -> kColRows rows a.
+// Grid (ceil(Nc / 32), ceil(Na / (kColWarps * kColRows)), B).
 template <typename T>
-__global__ void gather_reduce_kernel(const T* __restrict__ Y,
-                                     const int* __restrict__ src,
-                                     const T* __restrict__ s,
-                                     const T* __restrict__ t,
-                                     T* __restrict__ out, int n2, int Ns,
-                                     int Na, int Nb) {
-  const int j = blockIdx.x * kReduceThreads + threadIdx.x;
-  const int i = blockIdx.y;
-  const long long b = blockIdx.z;
-  if (j >= Nb) return;
-  const long long pair_stride = static_cast<long long>(Ns) * Nb;
-  const T* Yb = Y + b * n2 * pair_stride;
-  T acc = T(0);
-  for (int k = 0; k < n2; ++k) {
-    const T sv = __ldg(s + static_cast<long long>(k) * Na + i);
-    if (sv != T(0)) {
-      const int r = __ldg(src + static_cast<long long>(k) * Na + i);
-      acc += (__ldg(Yb + k * pair_stride + static_cast<long long>(r) * Nb + j)
-              * sv) * __ldg(t + static_cast<long long>(k) * Nb + j);
+__global__ void __launch_bounds__(kWarp * kColWarps, kColBlocksPerSM)
+gather_reduce_cols_kernel(const T* __restrict__ Y,
+                          const int* __restrict__ src,
+                          const T* __restrict__ s, const T* __restrict__ t,
+                          T* __restrict__ out, int n2, int Na, int Ns,
+                          int Nc) {
+  const int c = blockIdx.x * kWarp + threadIdx.x;
+  const int a0 = (blockIdx.y * kColWarps + threadIdx.y) * kColRows;
+  if (a0 >= Na) return;
+  const bool col = c < Nc;
+  const int n_a = min(kColRows, Na - a0);
+  const T* Yb = Y + static_cast<long long>(blockIdx.z) * n2 * Na * Ns;
+
+  T acc[kColRows];
+#pragma unroll
+  for (int r = 0; r < kColRows; ++r) acc[r] = T(0);
+
+  // (src, s) of pairs k0 .. k0 + kColK - 1, loaded one step ahead
+  int nsrc[kColK];
+  T ns[kColK];
+#pragma unroll
+  for (int q = 0; q < kColK; ++q) {
+    const bool in = col && q < n2;
+    ns[q] = in ? __ldg(s + static_cast<long long>(q) * Nc + c) : T(0);
+    nsrc[q] = in ? __ldg(src + static_cast<long long>(q) * Nc + c) : 0;
+  }
+  for (int k0 = 0; k0 < n2; k0 += kColK) {
+    int csrc[kColK];
+    T cs[kColK];
+#pragma unroll
+    for (int q = 0; q < kColK; ++q) {
+      csrc[q] = nsrc[q];
+      cs[q] = ns[q];
+    }
+    T y[kColK][kColRows];
+#pragma unroll
+    for (int q = 0; q < kColK; ++q) {
+      const T* Yk = Yb + (static_cast<long long>(k0 + q) * Na + a0) * Ns +
+                    csrc[q];
+#pragma unroll
+      for (int r = 0; r < kColRows; ++r)
+        y[q][r] = (cs[q] != T(0) && r < n_a)
+                      ? __ldcs(Yk + static_cast<long long>(r) * Ns)
+                      : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < kColK; ++q) {
+      const int k = k0 + kColK + q;
+      const bool in = col && k < n2;
+      ns[q] = in ? __ldg(s + static_cast<long long>(k) * Nc + c) : T(0);
+      nsrc[q] = in ? __ldg(src + static_cast<long long>(k) * Nc + c) : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < kColK; ++q) {
+      if (cs[q] != T(0)) {
+        const T* tk = t + static_cast<long long>(k0 + q) * Na + a0;
+#pragma unroll
+        for (int r = 0; r < kColRows; ++r)
+          if (r < n_a) acc[r] += (y[q][r] * cs[q]) * __ldg(tk + r);
+      }
     }
   }
-  out[(b * Na + i) * static_cast<long long>(Nb) + j] = acc;
+  if (col) {
+#pragma unroll
+    for (int r = 0; r < kColRows; ++r)
+      if (r < n_a)
+        out[(static_cast<long long>(blockIdx.z) * Na + a0 + r) * Nc + c] =
+            acc[r];
+  }
 }
 
 template <typename T>
@@ -118,18 +340,52 @@ int launch_gather_rows_scaled(const T* x, const int* src, const T* s,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int VEC>
+int launch_reduce_vec(const T* Y, const int* src, const T* s, const T* t,
+                      T* out, int B, int n2, int Ns, int Na, int Nb,
+                      int rows, int threads, cudaStream_t stream) {
+  const int n_chunks = (n2 + kWarp - 1) / kWarp;
+  const size_t smem =
+      static_cast<size_t>(rows) * n2 * (sizeof(long long) + sizeof(T) + 4) +
+      static_cast<size_t>(rows) * (n_chunks + 1) * 4;
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((Na + rows - 1) / rows);
+  gather_reduce_kernel<T, VEC><<<grid, threads, smem, stream>>>(
+      Y, src, s, t, out, B, n2, Ns, Na, Nb, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_gather_reduce(const T* Y, const int* src, const T* s, const T* t,
                          T* out, long long B, int n2, int Ns, int Na, int Nb,
+                         int vec, int rows, int threads,
                          cudaStream_t stream) {
   if (B == 0 || Na == 0 || Nb == 0) return static_cast<int>(cudaSuccess);
-  if (B > 65535 || Na > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kReduceThreads);
-  const dim3 grid((Nb + kReduceThreads - 1) / kReduceThreads,
-                  static_cast<unsigned int>(Na),
+  constexpr int kVec = 16 / sizeof(T);
+  if (B * Nb > 2147483647LL || rows < 1 || threads < kWarp ||
+      threads > kMaxThreads || threads % kWarp != 0 ||
+      (vec != 1 && vec != kVec) || Nb % vec != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int b = static_cast<int>(B);
+  if (vec == 1)
+    return launch_reduce_vec<T, 1>(Y, src, s, t, out, b, n2, Ns, Na, Nb,
+                                   rows, threads, stream);
+  return launch_reduce_vec<T, kVec>(Y, src, s, t, out, b, n2, Ns, Na, Nb,
+                                    rows, threads, stream);
+}
+
+template <typename T>
+int launch_gather_reduce_cols(const T* Y, const int* src, const T* s,
+                              const T* t, T* out, long long B, int n2,
+                              int Na, int Ns, int Nc, cudaStream_t stream) {
+  if (B == 0 || Na == 0 || Nc == 0) return static_cast<int>(cudaSuccess);
+  const long long gy = (Na + kColWarps * kColRows - 1) / (kColWarps * kColRows);
+  if (B > 65535 || gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(kWarp, kColWarps);
+  const dim3 grid((Nc + kWarp - 1) / kWarp, static_cast<unsigned int>(gy),
                   static_cast<unsigned int>(B));
-  gather_reduce_kernel<T><<<grid, block, 0, stream>>>(Y, src, s, t, out, n2,
-                                                      Ns, Na, Nb);
+  gather_reduce_cols_kernel<T><<<grid, block, 0, stream>>>(Y, src, s, t, out,
+                                                           n2, Na, Ns, Nc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -157,16 +413,38 @@ int grid_gather_rows_scaled_f32(const float* x, const int* src,
 
 int grid_gather_reduce_f64(const double* Y, const int* src, const double* s,
                            const double* t, double* out, long long B, int n2,
-                           int Ns, int Na, int Nb, void* stream) {
+                           int Ns, int Na, int Nb, int vec, int rows,
+                           int threads, void* stream) {
   return launch_gather_reduce<double>(Y, src, s, t, out, B, n2, Ns, Na, Nb,
+                                      vec, rows, threads,
                                       static_cast<cudaStream_t>(stream));
 }
 
 int grid_gather_reduce_f32(const float* Y, const int* src, const float* s,
                            const float* t, float* out, long long B, int n2,
-                           int Ns, int Na, int Nb, void* stream) {
+                           int Ns, int Na, int Nb, int vec, int rows,
+                           int threads, void* stream) {
   return launch_gather_reduce<float>(Y, src, s, t, out, B, n2, Ns, Na, Nb,
+                                     vec, rows, threads,
                                      static_cast<cudaStream_t>(stream));
+}
+
+int grid_gather_reduce_cols_f64(const double* Y, const int* src,
+                                const double* s, const double* t,
+                                double* out, long long B, int n2, int Na,
+                                int Ns, int Nc, void* stream) {
+  return launch_gather_reduce_cols<double>(
+      Y, src, s, t, out, B, n2, Na, Ns, Nc,
+      static_cast<cudaStream_t>(stream));
+}
+
+int grid_gather_reduce_cols_f32(const float* Y, const int* src,
+                                const float* s, const float* t, float* out,
+                                long long B, int n2, int Na, int Ns, int Nc,
+                                void* stream) {
+  return launch_gather_reduce_cols<float>(
+      Y, src, s, t, out, B, n2, Na, Ns, Nc,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

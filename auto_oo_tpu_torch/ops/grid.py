@@ -12,8 +12,10 @@ a row gather (alpha) and a row gather of the transpose (beta), with
 rank-1 sign corrections: the Jordan-Wigner parity of a same-spin
 excitation factorizes exactly into a same-spin part (sgn) and an
 other-spin part (t = (-1)^{# other-spin electrons between the two
-modes}).  ``phi_all`` and ``epq_sum`` run the two gather kernels of
-ops/grid_kernels.py on both spin halves.
+modes}).  ``phi_all`` runs ``gather_rows_scaled`` of ops/grid_kernels.py
+on both spin halves (the beta half on a transposed copy of the grid);
+``epq_sum`` runs ``gather_reduce`` on the alpha half and
+``gather_reduce_cols`` on the beta half, both in the grid's layout.
 
 Layout contract: statevectors here are GRID-ordered flat vectors — index
 g = i * Nb + j for determinant A_i | B_j — NOT the canonical ascending
@@ -29,7 +31,8 @@ import torch
 
 from ..config import get_device
 from . import fermion
-from .grid_kernels import gather_reduce, gather_rows_scaled
+from .grid_kernels import (gather_reduce, gather_reduce_cols,
+                           gather_rows_scaled)
 
 
 class GridMaps:
@@ -278,11 +281,10 @@ def _phi_impl(x, gm):
 def _epq_impl(Y, gm):
     srcA, sgnA, tB, srcB, sgnB, tA = gm.tables(Y)
     Yg = Y.reshape(Y.shape[:-1] + (gm.Na, gm.Nb))
-    outA = gather_reduce(Yg, srcA, sgnA, tB)
-    Yt = Yg.transpose(-1, -2).contiguous()
-    outBt = gather_reduce(Yt, srcB, sgnB, tA)
-    return (outA + outBt.transpose(-1, -2)).reshape(Y.shape[:-2]
-                                                    + (gm.dim,))
+    out = gather_reduce(Yg, srcA, sgnA, tB)
+    # the beta half gathers inside the rows of Yg: no transposed copy
+    out += gather_reduce_cols(Yg, srcB, sgnB, tA)
+    return out.reshape(Y.shape[:-2] + (gm.dim,))
 
 
 def _need_full_pairs(gm):
@@ -333,7 +335,8 @@ def phi_all(x, gm):
 def epq_sum(Y, gm):
     """out = sum_pq E_pq Y[..., pq, :] — the reduction half of the
     Hamiltonian apply.  Y (..., n2, Ds) and the result (..., Ds) are
-    grid-ordered.  Both spin halves run ``gather_reduce``."""
+    grid-ordered.  The alpha half runs ``gather_reduce``, the beta half
+    ``gather_reduce_cols`` on the same Y."""
     return _EpqSum.apply(Y, gm)
 
 

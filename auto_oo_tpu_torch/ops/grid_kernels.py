@@ -1,8 +1,11 @@
-"""The two string-grid gather kernels: CUDA for the card, plain PyTorch
-for the CPU.
+"""The string-grid gather kernels: CUDA for the card, plain PyTorch for
+the CPU.
 
 Port of auto_oo_tpu/ops/pallas_grid.py (``gather_rows_scaled`` and
-``gather_reduce``).  The CUDA source is ``csrc/grid_gather.cu``; its
+``gather_reduce``), plus ``gather_reduce_cols``: the column form of
+``gather_reduce``, which reads the beta half of ``epq_sum`` in the grid's
+natural layout where the TPU wrapper first made a transposed copy of Y
+(pallas_grid.py:270).  The CUDA source is ``csrc/grid_gather.cu``; its
 header comment says what bounds each kernel on an H100 and what the
 design does about it.  The library is compiled with ``nvcc`` at first
 use (ops/cuda_build.py).
@@ -19,23 +22,27 @@ path went through.
 """
 
 import os
+from typing import NamedTuple
 
 import torch
 
 from .cuda_build import CSRC_DIR, I32, I64, PTR, CudaLibrary
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+_ARGS = [PTR, PTR, PTR, PTR, PTR, I64, I32, I32, I32, I32]
 
 #: the kernel library, built from csrc/grid_gather.cu at first use
 LIBRARY = CudaLibrary(
     os.path.join(CSRC_DIR, "grid_gather.cu"),
-    {f"grid_{kern}_{sfx}": [PTR, PTR, PTR, PTR, PTR, I64, I32, I32, I32, I32,
-                            PTR]
-     for kern in ("gather_rows_scaled", "gather_reduce")
+    {f"grid_{kern}_{sfx}": _ARGS + extra + [PTR]
+     for kern, extra in (("gather_rows_scaled", []),
+                         ("gather_reduce", [I32, I32, I32]),
+                         ("gather_reduce_cols", []))
      for sfx in _SUFFIX.values()})
 
 #: launches of each CUDA kernel through its wrapper (plain runs excluded)
-LAUNCHES = {"gather_rows_scaled": 0, "gather_reduce": 0}
+LAUNCHES = {"gather_rows_scaled": 0, "gather_reduce": 0,
+            "gather_reduce_cols": 0}
 
 
 def reset_launches():
@@ -58,11 +65,60 @@ def gather_reduce_plain(Y, src, s, t):
     return (G * s[:, :, None] * t[:, None, :]).sum(dim=-3)
 
 
+def gather_reduce_cols_plain(Y, src, s, t):
+    """out[..., a, c] = sum_k (Y[..., k, a, src[k, c]] * s[k, c]) * t[k, a]:
+    ``gather_reduce`` on the transposed copy of Y, transposed back."""
+    return gather_reduce_plain(Y.transpose(-1, -2).contiguous(), src, s,
+                               t).transpose(-1, -2)
+
+
+# ---- launch plan of gather_reduce -----------------------------------------
+
+#: the most threads per block gather_reduce's plan asks for (the kernel's
+#: limit)
+REDUCE_BLOCK = 512
+# gather_reduce's staged pair lists stay within the default 48 KB
+_REDUCE_SMEM = 48 * 1024
+
+
+class ReducePlan(NamedTuple):
+    vec: int      # elements per load along j (16 bytes, or 1)
+    rows: int     # output rows per block
+    threads: int  # threads per block, a whole number of warps
+
+
+def _warps(n):
+    return -(-n // 32) * 32
+
+
+def plan_reduce(B, Na, Nb, n2, itemsize, aligned=True):
+    """gather_reduce's launch plan.  A block owns ``rows`` output rows with
+    all B tangents and all Nb columns; its tasks are (row, tangent,
+    vector) triples.  Wide rows take one row per block and split its
+    tasks into equal rounds of at most REDUCE_BLOCK threads ((12e,12o) f64,
+    B = 1: 462 vectors, 480 threads; (10e,10o) f64, B = 5: 630 tasks in 2
+    rounds of 315, 320 threads); narrow rows pack several rows into one
+    block.  Loads are 16-byte vectors when every
+    row starts on a 16-byte boundary (``aligned`` pointers, Nb a multiple
+    of the vector), else scalars."""
+    vec = 16 // itemsize
+    if not aligned or Nb % vec:
+        vec = 1
+    per_row = B * (Nb // vec)
+    if per_row >= REDUCE_BLOCK:
+        rounds = -(-per_row // REDUCE_BLOCK)
+        return ReducePlan(vec, 1, _warps(-(-per_row // rounds)))
+    per_list = n2 * (12 + itemsize) + (-(-n2 // 32) + 1) * 4
+    rows = max(1, min(Na, REDUCE_BLOCK // per_row, _REDUCE_SMEM // per_list))
+    return ReducePlan(vec, rows, _warps(rows * per_row))
+
+
 # ---- wrappers --------------------------------------------------------------
 
 
-def _check(name, a, src, s, t, lead_ndim):
-    """Validate the kernel operands; returns (B, Ns, Nb)."""
+def _check(name, a, src, s, t, lead_ndim, t_axis=-1):
+    """Validate the kernel operands (t is (n2, a.shape[t_axis])); returns
+    (B, a.shape[-2], a.shape[-1])."""
     if a.dtype not in _SUFFIX:
         raise TypeError(f"{name}: dtype {a.dtype} is not float64/float32")
     for nm, v in (("s", s), ("t", t)):
@@ -80,22 +136,43 @@ def _check(name, a, src, s, t, lead_ndim):
             raise ValueError(f"{name}: {nm} is not contiguous")
     if a.dim() < lead_ndim:
         raise ValueError(f"{name}: operand needs at least {lead_ndim} dims")
-    n2, Na = src.shape
-    if s.shape != (n2, Na):
+    n2 = src.shape[0]
+    if s.shape != src.shape:
         raise ValueError(f"{name}: s shape {tuple(s.shape)} != src shape "
-                         f"{(n2, Na)}")
-    Ns, Nb = a.shape[-2], a.shape[-1]
-    if t.shape != (n2, Nb):
-        raise ValueError(f"{name}: t shape {tuple(t.shape)} != {(n2, Nb)}")
+                         f"{tuple(src.shape)}")
+    if t.shape != (n2, a.shape[t_axis]):
+        raise ValueError(f"{name}: t shape {tuple(t.shape)} != "
+                         f"{(n2, a.shape[t_axis])}")
+    if lead_ndim == 3 and a.shape[-3] != n2:
+        raise ValueError(f"{name}: operand has {a.shape[-3]} pairs, maps "
+                         f"{n2}")
     B = 1
     for d in a.shape[:a.dim() - lead_ndim]:
         B *= d
-    return B, Ns, Nb
+    return B, a.shape[-2], a.shape[-1]
 
 
 def _launch(kern, dtype, *args):
     LIBRARY.launch(f"grid_{kern}_{_SUFFIX[dtype]}", *args)
     LAUNCHES[kern] += 1
+
+
+def _on_card(name, a):
+    """True for a CPU operand's plain path, False for the card; raises on
+    any other device."""
+    if a.device.type == "cpu":
+        return False
+    if a.device.type != "cuda":
+        raise NotImplementedError(f"{name} on {a.device}")
+    return True
+
+
+def _ptrs(*tensors):
+    return [v.data_ptr() for v in tensors]
+
+
+def _stream(a):
+    return torch.cuda.current_stream(a.device).cuda_stream
 
 
 def gather_rows_scaled(x, src, s, t):
@@ -104,17 +181,14 @@ def gather_rows_scaled(x, src, s, t):
     x (..., Ns, Nb); src (n2, Na) (int32 on the card); s (n2, Na);
     t (n2, Nb) -> (..., n2, Na, Nb).  Invalid entries carry src = 0,
     s = 0.  CPU tensors take the plain version; CUDA tensors the kernel."""
-    if x.device.type == "cpu":
+    if not _on_card("gather_rows_scaled", x):
         return gather_rows_scaled_plain(x, src, s, t)
-    if x.device.type != "cuda":
-        raise NotImplementedError(f"gather_rows_scaled on {x.device}")
     B, Ns, Nb = _check("gather_rows_scaled", x, src, s, t, 2)
     n2, Na = src.shape
     out = torch.empty(x.shape[:-2] + (n2, Na, Nb), dtype=x.dtype,
                       device=x.device)
-    _launch("gather_rows_scaled", x.dtype, x.data_ptr(), src.data_ptr(),
-            s.data_ptr(), t.data_ptr(), out.data_ptr(), B, n2, Ns, Na, Nb,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    _launch("gather_rows_scaled", x.dtype, *_ptrs(x, src, s, t, out), B, n2,
+            Ns, Na, Nb, _stream(x))
     return out
 
 
@@ -123,18 +197,31 @@ def gather_reduce(Y, src, s, t):
 
     Y (..., n2, Ns, Nb); src/s (n2, Na); t (n2, Nb) -> (..., Na, Nb).
     CPU tensors take the plain version; CUDA tensors the kernel."""
-    if Y.device.type == "cpu":
+    if not _on_card("gather_reduce", Y):
         return gather_reduce_plain(Y, src, s, t)
-    if Y.device.type != "cuda":
-        raise NotImplementedError(f"gather_reduce on {Y.device}")
     B, Ns, Nb = _check("gather_reduce", Y, src, s, t, 3)
     n2, Na = src.shape
-    if Y.shape[-3] != n2:
-        raise ValueError(f"gather_reduce: Y has {Y.shape[-3]} pairs, maps "
-                         f"{n2}")
     out = torch.empty(Y.shape[:-3] + (Na, Nb), dtype=Y.dtype,
                       device=Y.device)
-    _launch("gather_reduce", Y.dtype, Y.data_ptr(), src.data_ptr(),
-            s.data_ptr(), t.data_ptr(), out.data_ptr(), B, n2, Ns, Na, Nb,
-            torch.cuda.current_stream(Y.device).cuda_stream)
+    plan = plan_reduce(B, Na, Nb, n2, Y.element_size(),
+                       Y.data_ptr() % 16 == 0 and t.data_ptr() % 16 == 0)
+    _launch("gather_reduce", Y.dtype, *_ptrs(Y, src, s, t, out), B, n2, Ns,
+            Na, Nb, *plan, _stream(Y))
+    return out
+
+
+def gather_reduce_cols(Y, src, s, t):
+    """out[..., a, c] = sum_k (Y[..., k, a, src[k, c]] * s[k, c]) * t[k, a].
+
+    Y (..., n2, Na, Ns); src/s (n2, Nc); t (n2, Na) -> (..., Na, Nc):
+    ``gather_reduce`` of the transposed Y, transposed back, read in
+    place.  CPU tensors take the plain version; CUDA tensors the kernel."""
+    if not _on_card("gather_reduce_cols", Y):
+        return gather_reduce_cols_plain(Y, src, s, t)
+    B, Na, Ns = _check("gather_reduce_cols", Y, src, s, t, 3, t_axis=-2)
+    n2, Nc = src.shape
+    out = torch.empty(Y.shape[:-3] + (Na, Nc), dtype=Y.dtype,
+                      device=Y.device)
+    _launch("gather_reduce_cols", Y.dtype, *_ptrs(Y, src, s, t, out), B, n2,
+            Na, Ns, Nc, _stream(Y))
     return out

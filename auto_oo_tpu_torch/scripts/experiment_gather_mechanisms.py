@@ -37,6 +37,7 @@ from math import comb
 import numpy as np
 import torch
 
+from ..config import get_device
 from ..ops import gather_mechanisms as gm
 from ..ops import grid_kernels as gk
 
@@ -72,8 +73,10 @@ def shapes(ncas):
     return ns, nb, ncas * ncas, na
 
 
-def make_inputs(ncas, K, dtype=torch.float32, device="cpu"):
-    """(x, src, s, cs) drawn as the script draws them."""
+def make_inputs(ncas, K, dtype=torch.float32, device=None):
+    """(x, src, s, cs) drawn as the script draws them, on ``device``
+    (default: config's device)."""
+    device = get_device(device)
     ns, nb, n2, na = shapes(ncas)
     rng = np.random.default_rng(0)
     x = rng.standard_normal((ns, nb))

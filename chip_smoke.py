@@ -10,9 +10,21 @@ prints its seconds:
    CUDA kernel libraries from auto_oo_tpu_torch/csrc/ (one nvcc per
    source, started together);
 2. each grid-gather kernel against its plain PyTorch version on the card,
-   on the (10e,10o) and (12e,12o) sectors' real grid maps (both spin
-   halves, float64 and float32) and one ragged random shape, with times
-   of both;
+   on the (10e,10o) and (12e,12o) sectors' real grid maps (B = 1, 3, 5 and
+   1; float64 and float32) and two ragged random shapes (Nb = 17 and 20,
+   n2 = 5 and 70, a row with no valid pair), each time beside its bound
+   (the bytes it must move at 3.35 TB/s) and its share of it:
+   gather_rows_scaled and the row form of gather_reduce on both spin
+   halves (the beta half on a transposed copy), the column form
+   gather_reduce_cols on the beta half in place (with the 32- and 64-byte
+   pieces of Y its valid elements touch); epq_sum in place against the
+   composite it replaced (transposed copy, two row-form launches,
+   transposed add), equal to rounding and timed in the same call in
+   turns, with the transposed copy alone.  A time is the device time of
+   one call: 10 calls back to back behind a spin kernel that hides the
+   host's launch time, median of 5 rounds; each grid kernel also prints
+   one launch on an idle card, host launch included (the method of the
+   earliest kernel times in PERF.md);
 3. the row-gather mechanism probes A, B and C against the plain gather on
    the card, bit for bit, at the ncas = 10 and ncas = 12 shapes of their
    entry point, float32 and float64, and one ragged shape (src reaching
@@ -26,21 +38,24 @@ prints its seconds:
 5. the (10e,10o) slice: 4 damped-Newton iterations of formaldimine sto-3g
    (10e,10o) sector np_fabric L=2 in float64 from init_zeros, through
    Parameterized_circuit / OO_pqc.full_optimization; every energy must
-   match the JAX package's CPU trajectory within 1e-8 Ha, and both grid
-   kernel launch counters must grow during the run;
+   match the JAX package's CPU trajectory within 1e-8 Ha, and every grid
+   kernel launch counter must grow during the run; its objects are built
+   with no device=, so the port's default device (the card) runs it;
 6. the (12e,12o) sector np_fabric L=1 f64 path of formaldimine 6-31G
    (D = 853,776, the JAX package's staged regime; STO-3G has 13 orbitals,
    too few for 2 core + 12 active): 3 iterations the same way, within
-   1e-8 Ha of the JAX package's CPU energies, both grid kernels launched;
+   1e-8 Ha of the JAX package's CPU energies, every grid kernel launched;
    its setup time, iteration times and peak device memory are printed;
-7. convergence: (2e,2o) sector ucc full_optimization must end within
-   1e-8 Ha of CASSCF.
+7. convergence: (2e,2o) sector ucc full_optimization, built on the
+   default device, must end within 1e-8 Ha of CASSCF.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
 its main path's run, which is phase 6 for the grid kernels and phase 4
 for the probes, max abs error against the plain version, kernel and
-plain times at the grid kernels' (10e,10o) alpha B = 5 f64 call and at
-the probes' ncas = 12 f64 shape); the last line is {"ok": true,
+plain times and the bound at the grid kernels' (10e,10o) B = 5 f64 call
+(alpha half; the column form's beta half) and at the probes' ncas = 12
+f64 shape; no single PyTorch call computes any of them, so library_ms is
+null); the last line is {"ok": true,
 "device": {...}}.  Without a CUDA device the script exits non-zero
 before printing any result.
 """
@@ -65,15 +80,23 @@ ANCHORS_12E12O = [-93.87081413001067, -93.87231829137146,
                   -93.87365505167503]
 E_CASSCF_2E2O = -92.74923230445957
 TOL_ENERGY = 1e-8
+# published HBM rate of one H100 SXM at its 700 W limit
+HBM_BYTES_PER_S = 3.35e12
+# cycles of the spin kernel that holds the card while the host queues a
+# timed run (~5 ms at the H100's clocks)
+SPIN_CYCLES = 10_000_000
 
 _MECH_SCRIPT = "scripts/experiment_gather_mechanisms.py"
 SOURCE = {"gather_rows_scaled": "auto_oo_tpu_torch/csrc/grid_gather.cu",
           "gather_reduce": "auto_oo_tpu_torch/csrc/grid_gather.cu",
+          "gather_reduce_cols": "auto_oo_tpu_torch/csrc/grid_gather.cu",
           "gather_a": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu",
           "gather_b": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu",
           "gather_c": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu"}
 REPLACES = {"gather_rows_scaled": "auto_oo_tpu/ops/pallas_grid.py:110",
             "gather_reduce": "auto_oo_tpu/ops/pallas_grid.py:194",
+            "gather_reduce_cols": "auto_oo_tpu/ops/pallas_grid.py:194 with "
+                                  "the caller's transpose at :270",
             "gather_a": f"{_MECH_SCRIPT}:119",
             "gather_b": f"{_MECH_SCRIPT}:152",
             "gather_c": f"{_MECH_SCRIPT}:190"}
@@ -96,9 +119,31 @@ def card_line():
     return out[0]
 
 
-def time_ms(fn, torch, reps=20):
-    """Median device time of fn() in ms (CUDA events around each call,
-    after warm-up)."""
+def time_ms(fn, torch, reps=10, rounds=5):
+    """Device time of one fn() in ms: CUDA events around ``reps`` calls
+    back to back, queued behind a spin kernel so that the host's launch
+    time does not show; median over ``rounds`` after warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    return statistics.median(times)
+
+
+def launch_ms(fn, torch, reps=20):
+    """Time of one fn() on an idle card in ms, host launch included (CUDA
+    events around each call, median after warm-up): the method of the
+    earliest kernel times in PERF.md."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -114,17 +159,92 @@ def time_ms(fn, torch, reps=20):
     return statistics.median(times)
 
 
+def bound_ms(nbytes):
+    """Least time to move nbytes at the H100's published HBM rate, ms."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _nbytes(*tensors):
+    return sum(v.numel() * v.element_size() for v in tensors)
+
+
+def reduce_bytes(Y, src, s, t, cols):
+    """Bytes gather_reduce (cols=False) or gather_reduce_cols (cols=True)
+    must move: the Y elements of the valid (s != 0) entries once (whole
+    rows of Nb for the row form, Na rows of one column each for the column
+    form), the tables once and the output once."""
+    n_valid = int((s != 0).sum())
+    width = Y.shape[-2] if cols else Y.shape[-1]
+    B = Y.numel() // (Y.shape[-3] * Y.shape[-2] * Y.shape[-1])
+    out = B * src.shape[1] * width * Y.element_size()
+    return (B * n_valid * width * Y.element_size() + _nbytes(src, s, t)
+            + out)
+
+
+def sector_floor_bytes(Y, src, s, sector=32):
+    """The column form's sector floor: the ``sector``-byte pieces of Y
+    that its valid elements touch (each valid (k, c) reads
+    Y[k, a, src[k, c]] for every row a)."""
+    import torch
+
+    per_sector = sector // Y.element_size()
+    B = Y.numel() // (Y.shape[-3] * Y.shape[-2] * Y.shape[-1])
+    n2 = src.shape[0]
+    piece = src.long() // per_sector
+    key = (torch.arange(n2, device=src.device)[:, None]
+           * (Y.shape[-1] // per_sector + 1) + piece)[s != 0]
+    return B * int(torch.unique(key).numel()) * Y.shape[-2] * sector
+
+
+def epq_bytes(Y, gm):
+    """Bytes epq_sum must move: every Y element that either half needs
+    (per pair, the union of the alpha half's source rows and the beta
+    half's source columns), the tables of both halves and the output."""
+    import torch
+
+    srcA, sgnA, tB, srcB, sgnB, tA = gm.tables(Y)
+    n_el = 0
+    for k in range(gm.n2):
+        rows = int(torch.unique(srcA[k][sgnA[k] != 0]).numel())
+        cols = int(torch.unique(srcB[k][sgnB[k] != 0]).numel())
+        n_el += rows * gm.Nb + gm.Na * cols - rows * cols
+    B = Y.numel() // (gm.n2 * gm.dim)
+    return (B * n_el + B * gm.dim) * Y.element_size() + _nbytes(
+        srcA, sgnA, tB, srcB, sgnB, tA)
+
+
+def epq_composite(gk, Y, gm):
+    """epq_sum as it ran before the column form: the beta half through a
+    transposed copy of Y, two row-form launches and a transposed add."""
+    srcA, sgnA, tB, srcB, sgnB, tA = gm.tables(Y)
+    Yg = Y.reshape(Y.shape[:-1] + (gm.Na, gm.Nb))
+    outA = gk.gather_reduce(Yg, srcA, sgnA, tB)
+    outBt = gk.gather_reduce(Yg.transpose(-1, -2).contiguous(), srcB, sgnB,
+                             tA)
+    return (outA + outBt.transpose(-1, -2)).reshape(Y.shape[:-2]
+                                                    + (gm.dim,))
+
+
+def _share(ms, nbytes):
+    b = bound_ms(nbytes)
+    return f"bound={b:.4f} ms share={100 * b / ms:5.1f}%"
+
+
 def kernel_phase(torch, gk, grid, dev):
     """Kernels against their plain versions; returns per-kernel stats."""
     tol = {("gather_rows_scaled", torch.float64): 1e-15,
            ("gather_rows_scaled", torch.float32): 1e-6,
            ("gather_reduce", torch.float64): 1e-13,
-           ("gather_reduce", torch.float32): 1e-5}
+           ("gather_reduce", torch.float32): 1e-5,
+           ("gather_reduce_cols", torch.float64): 1e-13,
+           ("gather_reduce_cols", torch.float32): 1e-5}
     kern = {"gather_rows_scaled": (gk.gather_rows_scaled,
                                    gk.gather_rows_scaled_plain),
-            "gather_reduce": (gk.gather_reduce, gk.gather_reduce_plain)}
-    stats = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
-             for k in kern}
+            "gather_reduce": (gk.gather_reduce, gk.gather_reduce_plain),
+            "gather_reduce_cols": (gk.gather_reduce_cols,
+                                   gk.gather_reduce_cols_plain)}
+    stats = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
+                 "bound_ms": None} for k in kern}
     gen = torch.Generator(device="cpu").manual_seed(1234)
 
     def rand(shape, dtype):
@@ -151,51 +271,115 @@ def kernel_phase(torch, gk, grid, dev):
     for ncas, batches in ((10, (1, 3, 5)), (12, (1,))):
         gm = grid.build_grid_maps(ncas, ncas, device=dev)
         Na, Nb, n2 = gm.Na, gm.Nb, gm.n2
-        print(f"({ncas}e,{ncas}o) grid: Na={Na} Nb={Nb} n2={n2} D={gm.dim}")
+        valid = float((gm.sgnA != 0).float().mean())
+        print(f"({ncas}e,{ncas}o) grid: Na={Na} Nb={Nb} n2={n2} D={gm.dim} "
+              f"valid (pair, row) entries {100 * valid:.1f}%")
         for dtype in (torch.float64, torch.float32):
             sgnA, tB, sgnB, tA = gm.scales(dtype)
             halves = {"alpha": (gm.srcA, sgnA, tB, Na, Nb),
                       "beta": (gm.srcB, sgnB, tA, Nb, Na)}
-            for half, (src, s, t, rows, cols) in halves.items():
-                for B in batches:
+            for B in batches:
+                # Y in the grid's layout; the beta half's row form reads
+                # its transposed copy, its column form Y itself
+                Y = rand((B, n2, Na, Nb), dtype)
+                calls = []
+                for half, (src, s, t, rows, cols) in halves.items():
                     x = rand((B, rows, cols), dtype)
-                    Y = rand((B, n2, rows, cols), dtype)
-                    for name, args in (("gather_rows_scaled", (x, src, s, t)),
-                                       ("gather_reduce", (Y, src, s, t))):
-                        label = f"{ncas}e {half} B={B} {str(dtype)[6:]}"
-                        err, rel = compare(name, dtype, args, label)
-                        fn, plain = kern[name]
-                        ms = time_ms(lambda: fn(*args), torch)
-                        pms = time_ms(lambda: plain(*args), torch)
-                        print(f"  {name:18s} {label:26s} "
-                              f"max_abs_err={err:.3e} rel={rel:.3e} "
-                              f"kernel={ms:.4f} ms plain={pms:.4f} ms")
-                        if (ncas == 10 and dtype == torch.float64 and B == 5
-                                and half == "alpha"):
-                            stats[name]["ms"] = ms
-                            stats[name]["plain_ms"] = pms
-                    del x, Y
-    # ragged random shape with leading batch dims and invalid entries
+                    Yh = Y if half == "alpha" else \
+                        Y.transpose(-1, -2).contiguous()
+                    calls += [
+                        ("gather_rows_scaled", half, (x, src, s, t),
+                         _nbytes(x, src, s, t) + B * n2 * rows * cols
+                         * x.element_size()),
+                        ("gather_reduce", half, (Yh, src, s, t),
+                         reduce_bytes(Yh, src, s, t, False))]
+                calls.append(("gather_reduce_cols", "beta",
+                              (Y, gm.srcB, sgnB, tA),
+                              reduce_bytes(Y, gm.srcB, sgnB, tA, True)))
+                for name, half, args, nbytes in calls:
+                    label = f"{ncas}e {half} B={B} {str(dtype)[6:]}"
+                    err, rel = compare(name, dtype, args, label)
+                    fn, plain = kern[name]
+                    ms = time_ms(lambda: fn(*args), torch)
+                    one = launch_ms(lambda: fn(*args), torch)
+                    pms = time_ms(lambda: plain(*args), torch)
+                    extra = ""
+                    if name == "gather_reduce_cols":
+                        for size in (32, 64):
+                            sec = sector_floor_bytes(*args[:3], size)
+                            extra += (f" {size}-byte floor {sec / 1e6:.1f} "
+                                      f"MB {bound_ms(sec):.4f} ms")
+                    print(f"  {name:18s} {label:26s} "
+                          f"max_abs_err={err:.3e} rel={rel:.3e} "
+                          f"kernel={ms:.4f} ms (one launch {one:.4f}) "
+                          f"plain={pms:.4f} ms {_share(ms, nbytes)}{extra}")
+                    if ((ncas == 10 and dtype == torch.float64 and B == 5)
+                            and (half == "alpha"
+                                 or name == "gather_reduce_cols")):
+                        stats[name].update(ms=ms, plain_ms=pms,
+                                           bound_ms=bound_ms(nbytes))
+                    del args
+                del calls
+                if B == batches[-1]:
+                    epq_compare(torch, gk, grid, gm, Y, f"{ncas}e B={B} "
+                                f"{str(dtype)[6:]}", tol[("gather_reduce",
+                                                          dtype)])
+                del Y
+    # ragged random shapes with leading batch dims and invalid entries:
+    # Nb = 17 (scalar loads of the row form), Nb = 20 (16-byte vectors)
     g2 = torch.Generator(device="cpu").manual_seed(7)
-    ns, na, nb, k2 = 11, 13, 17, 5
-    src = torch.randint(0, ns, (k2, na), generator=g2, dtype=torch.int32)
-    invalid = torch.rand((k2, na), generator=g2) < 0.3
-    src[invalid] = 0
-    for dtype in (torch.float64, torch.float32):
-        s = torch.randn((k2, na), generator=g2, dtype=torch.float64)
-        s[invalid] = 0.0
-        t = torch.randn((k2, nb), generator=g2, dtype=torch.float64)
-        s, t = s.to(dev, dtype), t.to(dev, dtype)
-        srcd = src.to(dev)
-        x = rand((2, 3, ns, nb), dtype)
-        Y = rand((2, 3, k2, ns, nb), dtype)
-        for name, args in (("gather_rows_scaled", (x, srcd, s, t)),
-                           ("gather_reduce", (Y, srcd, s, t))):
-            err, rel = compare(name, dtype, args,
-                               f"ragged {str(dtype)[6:]}")
-            print(f"  {name:18s} ragged (2,3)x({ns},{na},{nb}) "
-                  f"{str(dtype)[6:]} max_abs_err={err:.3e} rel={rel:.3e}")
+    for ns, na, nb, k2 in ((11, 13, 17, 5), (9, 10, 20, 70)):
+        src = torch.randint(0, ns, (k2, na), generator=g2, dtype=torch.int32)
+        invalid = torch.rand((k2, na), generator=g2) < 0.3
+        invalid[:, 3] = True
+        src[invalid] = 0
+        for dtype in (torch.float64, torch.float32):
+            s = torch.randn((k2, na), generator=g2, dtype=torch.float64)
+            s[invalid] = 0.0
+            t = torch.randn((k2, nb), generator=g2, dtype=torch.float64)
+            s, t = s.to(dev, dtype), t.to(dev, dtype)
+            srcd = src.to(dev)
+            x = rand((2, 3, ns, nb), dtype)
+            Y = rand((2, 3, k2, ns, nb), dtype)
+            Yc = Y.transpose(-1, -2).contiguous()
+            for name, args in (("gather_rows_scaled", (x, srcd, s, t)),
+                               ("gather_reduce", (Y, srcd, s, t)),
+                               ("gather_reduce_cols", (Yc, srcd, s, t))):
+                err, rel = compare(name, dtype, args,
+                                   f"ragged {str(dtype)[6:]}")
+                print(f"  {name:18s} ragged (2,3)x({ns},{na},{nb}) n2={k2} "
+                      f"{str(dtype)[6:]} max_abs_err={err:.3e} "
+                      f"rel={rel:.3e}")
     return stats
+
+
+def epq_compare(torch, gk, grid, gm, Yg, label, tol):
+    """epq_sum in place (row form + column form) against the composite
+    it replaced, on the same Y: equal to rounding, and both timed in the
+    same call, in turns (composite, in place, in place, composite)."""
+    Y = Yg.reshape(Yg.shape[:-2] + (gm.dim,))
+    new = grid.epq_sum(Y, gm)
+    old = epq_composite(gk, Y, gm)
+    torch.cuda.synchronize()
+    err = float((new - old).abs().max())
+    rel = err / max(float(old.abs().max()), 1e-300)
+    check(rel <= tol, f"epq_sum {label}: in place vs composite relative "
+          f"error {rel:.3e} > {tol:.0e}")
+    del new, old
+    o1 = time_ms(lambda: epq_composite(gk, Y, gm), torch)
+    n1 = time_ms(lambda: grid.epq_sum(Y, gm), torch)
+    n2 = time_ms(lambda: grid.epq_sum(Y, gm), torch)
+    o2 = time_ms(lambda: epq_composite(gk, Y, gm), torch)
+    Yt = Yg.transpose(-1, -2)
+    copy = time_ms(Yt.contiguous, torch)
+    nbytes = epq_bytes(Y, gm)
+    print(f"  epq_sum {label:16s} in place {n1:.4f}, {n2:.4f} ms  "
+          f"composite {o1:.4f}, {o2:.4f} ms (its transposed copy of Y "
+          f"alone {copy:.4f} ms, bound {bound_ms(2 * _nbytes(Y)):.4f})  "
+          f"{_share(0.5 * (n1 + n2), nbytes)} "
+          f"(Y needed {nbytes / 1e6:.1f} MB)  in place/composite "
+          f"{(n1 + n2) / (o1 + o2):.3f}  max|diff|={err:.3e} "
+          f"bitwise={'yes' if err == 0 else 'no'}")
 
 
 def _plans(gm, x, dtype):
@@ -238,8 +422,8 @@ def mechanism_phase(torch, gm, exp, dev):
     """The probes A, B, C against the plain gather, bit for bit; returns
     per-kernel stats."""
     names = ("gather_a", "gather_b", "gather_c")
-    stats = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
-             for k in names}
+    stats = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
+                 "bound_ms": None} for k in names}
     rng = np.random.default_rng(11)
     ns, nb, n2, na = 24, 384, 7, 40
     ragged_src = rng.integers(0, ns, (n2, na)).astype(np.int32)
@@ -258,6 +442,7 @@ def mechanism_phase(torch, gm, exp, dev):
                 x, src, s, _ = exp.make_inputs(ncas, 1, dtype, dev)
             ref = gm.gather_rows_plain(x, src, s)
             gb = ref.numel() * ref.element_size() / 1e9
+            nbytes = _nbytes(x, src, s, ref)
 
             def plain():
                 return gm.gather_rows_plain(x, src, s)
@@ -280,7 +465,8 @@ def mechanism_phase(torch, gm, exp, dev):
                 row[name] = time_ms(lambda: fn(x, src, s), torch)
             pms = 0.5 * (p0 + time_ms(plain, torch))
             tag = f"{label} {str(dtype)[6:]}"
-            print(f"  {tag:30s} out {gb:.3f} GB  plain {pms:.4f} ms "
+            print(f"  {tag:30s} out {gb:.3f} GB  bound "
+                  f"{bound_ms(nbytes):.4f} ms  plain {pms:.4f} ms "
                   f"({gb / pms * 1e3:7.1f} GB/s)  " + "  ".join(
                       f"{n[-1].upper()} {ms:.4f} ms ({gb / ms * 1e3:7.1f} "
                       f"GB/s)" for n, ms in row.items()))
@@ -293,8 +479,8 @@ def mechanism_phase(torch, gm, exp, dev):
                       f"{_cluster_sweep(torch, gm, x, src, s, ref, gb)}")
             if ncas == 12 and dtype == torch.float64:
                 for name, ms in row.items():
-                    stats[name]["ms"] = ms
-                    stats[name]["plain_ms"] = pms
+                    stats[name].update(ms=ms, plain_ms=pms,
+                                       bound_ms=bound_ms(nbytes))
             del ref
     return stats
 
@@ -316,15 +502,18 @@ def entry_point_phase(gm, exp):
     return launches
 
 
-def slice_phase(torch, P, gk, dev):
-    """4 NR iterations of the (10e,10o) slice; returns the kernel
-    launches counted during them."""
+def slice_phase(torch, P, gk):
+    """4 NR iterations of the (10e,10o) slice, built on the port's
+    default device (no device=); returns the kernel launches counted
+    during them."""
     from auto_oo_tpu_torch.utils.misc import get_formal_geo
 
     t0 = time.perf_counter()
     mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
     pqc = P.Parameterized_circuit(10, 10, ansatz="np_fabric", n_layers=2,
-                                  sector=True, device=dev)
+                                  sector=True)
+    check(pqc.init_zeros().device.type == "cuda",
+          f"default device is {pqc.init_zeros().device}, not the card")
     oo = P.OO_pqc(pqc, mol, 10, 10, freeze_active=True)
     print(f"(10e,10o) setup: {time.perf_counter() - t0:.2f} s "
           f"(n_theta={pqc.theta_shape}, n_kappa={oo.n_kappa}, "
@@ -443,13 +632,15 @@ def sector12_phase(torch, P, gk, dev):
     return launches
 
 
-def convergence_phase(torch, P, dev):
+def convergence_phase(torch, P):
+    """(2e,2o) to convergence, built on the port's default device."""
     from auto_oo_tpu_torch.utils.misc import get_formal_geo
 
     mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
-    pqc = P.Parameterized_circuit(2, 2, ansatz="ucc", sector=True,
-                                  device=dev)
+    pqc = P.Parameterized_circuit(2, 2, ansatz="ucc", sector=True)
     oo = P.OO_pqc(pqc, mol, 2, 2)
+    check(oo.mo_coeff.device.type == "cuda",
+          f"default device is {oo.mo_coeff.device}, not the card")
     t0 = time.perf_counter()
     energies, *_ = oo.full_optimization(pqc.init_zeros())
     torch.cuda.synchronize()
@@ -496,10 +687,10 @@ def main():
                            torch, gm, exp, dev))
         launches = phase("gather mechanism entry point", entry_point_phase,
                          gm, exp)
-        phase("(10e,10o) slice", slice_phase, torch, P, gk, dev)
+        phase("(10e,10o) slice", slice_phase, torch, P, gk)
         launches.update(phase("(12e,12o) sector", sector12_phase, torch, P,
                               gk, dev))
-        phase("(2e,2o) convergence", convergence_phase, torch, P, dev)
+        phase("(2e,2o) convergence", convergence_phase, torch, P)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -508,7 +699,9 @@ def main():
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": st["max_abs_err"], "ms": st["ms"],
-         "plain_ms": st["plain_ms"]} for name, st in stats.items()]}))
+         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+         "bound_by": "bytes", "library_ms": None}
+        for name, st in stats.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,10 +13,11 @@ Without a GPU every test skips (from the fixture, never at import).
 
 Tolerances: ``gather_rows_scaled`` takes the products in the plain
 version's order, so f64 agrees to the last bit (1e-15 relative, 1e-6 in
-f32); ``gather_reduce`` sums the pairs in another order (1e-13 relative
-in f64, 1e-5 in f32).  The mechanism probes A, B and C take one product
-per element, so they equal their plain version bit for bit; B's and C's
-plans and refusals on the card are checked here too.
+f32); ``gather_reduce`` and ``gather_reduce_cols`` sum the pairs in
+another order (1e-13 relative in f64, 1e-5 in f32).  The mechanism
+probes A, B and C take one product per element, so they equal their
+plain version bit for bit; B's and C's plans and refusals on the card are
+checked here too.
 """
 
 import numpy as np
@@ -93,18 +94,103 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
         <= tol["reduce"]
 
 
+def _reduce_case(ns, na, nb, n2, lead, seed, dtype, device, empty=None):
+    """Random gather_reduce operands of a ragged shape, with invalid
+    (src 0, s 0) entries; ``empty`` names one output row (of the row
+    form; a column of the column form) with no valid pair."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, ns, size=(n2, na)).astype(np.int32)
+    s = rng.standard_normal((n2, na))
+    invalid = rng.random((n2, na)) < 0.3
+    if empty is not None:
+        invalid[:, empty] = True
+    src[invalid], s[invalid] = 0, 0.0
+    return (_rand(lead + (n2, ns, nb), seed + 1).to(device, dtype),
+            torch.from_numpy(src).to(device),
+            torch.from_numpy(s).to(device, dtype),
+            _rand((n2, nb), seed + 2).to(device, dtype))
+
+
+def _check_reduce(name, args, tol):
+    """One launch of the form ``name`` against its plain version."""
+    fn = getattr(gk, name)
+    plain = getattr(gk, name + "_plain")
+    before = gk.LAUNCHES[name]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES[name] == before + 1, name
+    Y, src, s, t = args
+    ref = plain(Y, src.long(), s, t)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert _rel_err(out, ref) <= tol, name
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_reduce_forms_match_plain(cuda_device, dtype):
+    """Both forms of gather_reduce against their plain versions, one
+    launch each: the real (4e,4o) maps (both halves, B = 3; the row form
+    on the alpha half and on the transposed beta half, the column form on
+    the beta half in place and on the transposed alpha half); ragged
+    shapes (Nb = 17: scalar loads; Nb = 20: 16-byte vectors with a list
+    tail; n2 = 70: three ballot chunks of pairs) with an output row (a
+    column) that has no valid pair; and a Y that starts off a 16-byte
+    boundary, which the row form reads in scalars."""
+    tol = TOL[dtype]["reduce"]
+    pm = grid.build_grid_maps(4, 4, device=cuda_device)
+    srcA, sgnA, tB, srcB, sgnB, tA = pm.tables(
+        torch.zeros((), dtype=dtype, device=cuda_device))
+    for seed, (src, s, t, rows, cols) in enumerate(
+            ((srcA, sgnA, tB, pm.Na, pm.Nb), (srcB, sgnB, tA, pm.Nb, pm.Na))):
+        Y = _rand((3, pm.n2, rows, cols), 20 + seed).to(cuda_device, dtype)
+        _check_reduce("gather_reduce", (Y, src, s, t), tol)
+        Yc = _rand((3, pm.n2, cols, rows), 30 + seed).to(cuda_device, dtype)
+        _check_reduce("gather_reduce_cols", (Yc, src, s, t), tol)
+    for ns, na, nb, n2, lead in ((11, 13, 17, 5, (2, 3)),
+                                 (9, 10, 20, 70, (2,))):
+        Y, src, s, t = _reduce_case(ns, na, nb, n2, lead, 40, dtype,
+                                    cuda_device, empty=3)
+        out = _check_reduce("gather_reduce", (Y, src, s, t), tol)
+        assert not out[..., 3, :].any()
+        # the column form: Y rows along t, sources along its last axis
+        Yc = Y.transpose(-1, -2).contiguous()
+        out = _check_reduce("gather_reduce_cols", (Yc, src, s, t), tol)
+        assert not out[..., :, 3].any()
+    # Y one element past a 16-byte boundary
+    Y, src, s, t = _reduce_case(9, 10, 20, 7, (2,), 50, dtype, cuda_device)
+    buf = torch.empty(Y.numel() + 1, dtype=dtype, device=cuda_device)
+    Ys = buf[1:].view(Y.shape)
+    Ys.copy_(Y)
+    assert Ys.data_ptr() % 16 != 0
+    _check_reduce("gather_reduce", (Ys, src, s, t), tol)
+
+
+@pytest.mark.cuda
+def test_cuda_default_device(cuda_device):
+    """Constructors given no device= put their tensors on the card."""
+    pqc = P.Parameterized_circuit(2, 2, ansatz="ucc", sector=True)
+    assert pqc.init_zeros().device.type == "cuda"
+    assert grid.build_grid_maps(2, 2).srcA.device.type == "cuda"
+
+
 @pytest.mark.cuda
 def test_cuda_grid_ops_match_cpu(cuda_device):
     """phi_all / epq_sum and their VJPs on the card (kernels) against the
     CPU (plain versions)."""
-    pm_c = grid.build_grid_maps(4, (2, 1))
+    pm_c = grid.build_grid_maps(4, (2, 1), device="cpu")
     pm_g = grid.build_grid_maps(4, (2, 1), device=cuda_device)
     x = _rand((2, pm_c.dim), 9)
     Y = _rand((2, pm_c.n2, pm_c.dim), 10)
     np.testing.assert_allclose(grid.phi_all(x.to(cuda_device), pm_g).cpu(),
                                grid.phi_all(x, pm_c), rtol=0, atol=1e-15)
+    before = dict(gk.LAUNCHES)
     np.testing.assert_allclose(grid.epq_sum(Y.to(cuda_device), pm_g).cpu(),
                                grid.epq_sum(Y, pm_c), rtol=0, atol=1e-13)
+    # both halves read Y in place: one launch of each form
+    assert gk.LAUNCHES["gather_reduce"] == before["gather_reduce"] + 1
+    assert gk.LAUNCHES["gather_reduce_cols"] == \
+        before["gather_reduce_cols"] + 1
     w = _rand((2, pm_c.n2, pm_c.dim), 11)
     grads = []
     for dev, pm in (("cpu", pm_c), (cuda_device, pm_g)):

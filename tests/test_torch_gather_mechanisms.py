@@ -25,10 +25,22 @@ import torch
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
+from auto_oo_tpu_torch import config
 from auto_oo_tpu_torch.ops import cuda_build
 from auto_oo_tpu_torch.ops import gather_mechanisms as gm
 from auto_oo_tpu_torch.ops import grid_kernels as gk
 from auto_oo_tpu_torch.scripts import experiment_gather_mechanisms as exp
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_device():
+    """The port's default device is the card; these CPU tests ask for the
+    CPU, and restore the default after the module."""
+    before = config.get_device()
+    config.set_device("cpu")
+    yield
+    config.set_device(before)
+
 
 _SCRIPT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scripts", "experiment_gather_mechanisms.py")

@@ -20,8 +20,20 @@ import jax.numpy as jnp
 
 from auto_oo_tpu.ops import grid as jgrid
 from auto_oo_tpu.ops import pallas_grid as jpg
+from auto_oo_tpu_torch import config
 from auto_oo_tpu_torch.ops import cuda_build, grid, grid_kernels as gk
 from auto_oo_tpu_torch.utils.interop import from_jax
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_device():
+    """The port's default device is the card; these CPU tests ask for the
+    CPU, and restore the default after the module."""
+    before = config.get_device()
+    config.set_device("cpu")
+    yield
+    config.set_device(before)
+
 
 SECTORS = [(2, 2), (4, 4), (4, (2, 1)), (3, 4)]
 FIELDS = ("srcA", "sgnA", "tB", "srcB", "sgnB", "tA", "g2s", "s2g")
@@ -91,6 +103,62 @@ def test_gather_reduce_plain_vs_pallas(dtype, lead):
                                atol=10 * TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_gather_reduce_cols_plain_vs_pallas(dtype, lead):
+    """The column form against the JAX package's Pallas gather_reduce on
+    the transposed Y (interpret mode), transposed back: ragged widths
+    (Na = 17 rows of Ns = 9 sources, Nc = 13 columns), invalid (src 0,
+    s 0) entries, one column with no valid pair, leading batch dims."""
+    rng = np.random.default_rng(9)
+    ns, na, nc, n2 = 9, 17, 13, 5
+    Y = rng.standard_normal(lead + (n2, na, ns)).astype(dtype)
+    src = rng.integers(0, ns, size=(n2, nc)).astype(np.int32)
+    s = rng.standard_normal((n2, nc)).astype(dtype)
+    invalid = rng.random((n2, nc)) < 0.3
+    invalid[:, 4] = True
+    src[invalid], s[invalid] = 0, 0
+    t = rng.standard_normal((n2, na)).astype(dtype)
+    ref = np.swapaxes(np.asarray(jpg.gather_reduce(
+        jnp.swapaxes(jnp.asarray(Y), -1, -2), jnp.asarray(src),
+        jnp.asarray(s), jnp.asarray(t), interpret=True)), -1, -2)
+    out = gk.gather_reduce_cols(torch.from_numpy(Y),
+                                torch.from_numpy(src).long(),
+                                torch.from_numpy(s), torch.from_numpy(t))
+    assert out.shape == ref.shape == lead + (na, nc)
+    assert out.dtype == torch.from_numpy(Y).dtype
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=10 * TOL[dtype])
+    np.testing.assert_array_equal(out.numpy()[..., 4], 0)
+
+
+@pytest.mark.parametrize("case,plan", [
+    # (B, Na, Nb, n2, itemsize, aligned): the main path's calls
+    ((1, 924, 924, 144, 8, True), (2, 1, 480)),   # (12e,12o) f64
+    ((1, 924, 924, 144, 4, True), (4, 2, 480)),   # (12e,12o) f32
+    ((5, 252, 252, 100, 8, True), (2, 1, 320)),   # (10e,10o) f64, B = 5
+    ((3, 252, 252, 100, 8, True), (2, 1, 384)),   # B = 3
+    ((1, 252, 252, 100, 8, True), (2, 4, 512)),   # B = 1: four rows
+    ((6, 13, 17, 5, 8, True), (1, 5, 512)),       # ragged: scalars
+    ((1, 924, 924, 144, 8, False), (1, 1, 480)),  # unaligned: scalars
+    ((1, 4000, 2, 400, 8, True), (2, 6, 32)),     # shared memory caps rows
+])
+def test_plan_reduce(case, plan):
+    """gather_reduce's plan: 16-byte vectors where every row is aligned,
+    whole warps, one row per block split into equal rounds for wide rows
+    (less than one idle warp per round: 18 of 480 threads at (12e,12o)),
+    rows packed for narrow ones, within 48 KB of staged pair lists."""
+    p = gk.plan_reduce(*case)
+    assert tuple(p) == plan
+    B, Na, Nb, n2, item, _ = case
+    tasks = p.rows * B * (Nb // p.vec)
+    rounds = -(-tasks // p.threads)
+    assert p.threads % 32 == 0 and 32 <= p.threads <= 512
+    assert rounds * p.threads - tasks < rounds * 32
+    per_list = n2 * (12 + item) + (-(-n2 // 32) + 1) * 4
+    assert p.rows * per_list <= 48 * 1024
+
+
 @pytest.mark.parametrize("ncas,nelecas", SECTORS)
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_phi_all_matches_xla(ncas, nelecas, dtype):
@@ -122,6 +190,19 @@ def test_phi_all_matches_pallas_wrapper():
     ref = np.asarray(jpg.phi_all_pallas(jnp.asarray(x), jm, interpret=True))
     out = grid.phi_all(torch.from_numpy(x), pm)
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
+
+
+def test_epq_sum_matches_pallas_wrapper():
+    """The port's epq_sum (row form on the alpha half, column form on the
+    beta half) against the JAX package's Pallas wrapper (interpret mode,
+    which transposes Y for the beta half), f32 as the Pallas path runs
+    it, with a batch of two."""
+    jm, pm = _maps(4, 4)
+    Y = _rand((2, jm.n2, jm.dim), 13, np.float32)
+    ref = np.asarray(jpg.epq_sum_pallas(jnp.asarray(Y), jm, interpret=True))
+    out = grid.epq_sum(torch.from_numpy(Y), pm)
+    assert out.shape == ref.shape == (2, jm.dim)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
 
 
 def test_to_from_grid_roundtrip():
@@ -184,6 +265,8 @@ def test_wrappers_reject_other_devices_and_bad_operands():
         gk.gather_rows_scaled(x, src, s, t)
     with pytest.raises(NotImplementedError):
         gk.gather_reduce(x[None], src, s, t)
+    with pytest.raises(NotImplementedError):
+        gk.gather_reduce_cols(x[None], src, s, t)
     xs = torch.zeros((3, 4), dtype=torch.float64)
     ok = (torch.zeros((2, 5), dtype=torch.int32),
           torch.zeros((2, 5), dtype=torch.float64),
@@ -198,6 +281,14 @@ def test_wrappers_reject_other_devices_and_bad_operands():
                                                      dtype=torch.float64), 2)
     with pytest.raises(ValueError):
         gk._check("k", xs.T, *ok, 2)
+    # the column form's t runs along the operand's rows; Y's pair count
+    # must match the maps'
+    t_rows = torch.zeros((2, 3), dtype=torch.float64)
+    assert gk._check("k", xs, *ok[:2], t_rows, 2, t_axis=-2) == (1, 3, 4)
+    with pytest.raises(ValueError):
+        gk._check("k", xs, *ok, 2, t_axis=-2)
+    with pytest.raises(ValueError, match="pairs"):
+        gk._check("k", xs.expand(3, 3, 4).contiguous(), *ok, 3)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -6,6 +6,17 @@ import pytest
 
 import auto_oo_tpu as J
 import auto_oo_tpu_torch as P
+from auto_oo_tpu_torch import config
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_device():
+    """The port's default device is the card; these CPU tests ask for the
+    CPU, and restore the default after the module."""
+    before = config.get_device()
+    config.set_device("cpu")
+    yield
+    config.set_device(before)
 
 
 @pytest.fixture(scope="module")

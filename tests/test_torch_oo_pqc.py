@@ -25,8 +25,20 @@ from auto_oo_tpu.ops import hamiltonian as jham
 from auto_oo_tpu.ops import rdms as jrdms
 import auto_oo_tpu_torch as P
 from auto_oo_tpu_torch.models import oo_pqc as poo
+from auto_oo_tpu_torch import config
 from auto_oo_tpu_torch.ops import grid, hamiltonian, rdms
 from auto_oo_tpu_torch.utils.interop import from_jax
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_device():
+    """The port's default device is the card; these CPU tests ask for the
+    CPU, and restore the default after the module."""
+    before = config.get_device()
+    config.set_device("cpu")
+    yield
+    config.set_device(before)
+
 
 GEO = J.get_formal_geo(140, 80)
 
@@ -284,9 +296,10 @@ def test_import_without_jax():
 
 
 def test_config_device_and_precision(monkeypatch):
-    """The default device is the CPU until set_device names another, an
-    explicit device= wins, and TF32 is off."""
-    from auto_oo_tpu_torch import config
+    """The default device is the card; this module asked for the CPU
+    (set_device), set_device names another, an explicit device= wins,
+    and TF32 is off."""
+    assert config.DEFAULT_DEVICE == torch.device("cuda")
     assert config.get_device() == torch.device("cpu")
     monkeypatch.setattr(config, "_DEVICE", config._DEVICE)
     config.set_device("meta")
@@ -295,6 +308,24 @@ def test_config_device_and_precision(monkeypatch):
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """With the default restored, get_device() is cuda, and a constructor
+    given no device= puts its tensors on the card; on a host without one
+    it raises where its first tensor is made, never returning CPU
+    tensors."""
+    monkeypatch.setattr(config, "_DEVICE", config.DEFAULT_DEVICE)
+    assert config.get_device() == torch.device("cuda")
+    if torch.cuda.is_available():
+        pqc = P.Parameterized_circuit(2, 2, ansatz="ucc", sector=True)
+        assert pqc.init_zeros().device.type == "cuda"
+        assert grid.build_grid_maps(2, 2).srcA.device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|NVIDIA"):
+        P.Parameterized_circuit(2, 2, ansatz="ucc", sector=True)
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|NVIDIA"):
+        grid.build_grid_maps(2, 2)
 
 
 def test_unported_routes_raise(molecules, monkeypatch):

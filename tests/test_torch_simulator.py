@@ -14,6 +14,18 @@ import jax.numpy as jnp
 
 from auto_oo_tpu.models import Parameterized_circuit as JPC
 import auto_oo_tpu_torch as P
+from auto_oo_tpu_torch import config
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_device():
+    """The port's default device is the card; these CPU tests ask for the
+    CPU, and restore the default after the module."""
+    before = config.get_device()
+    config.set_device("cpu")
+    yield
+    config.set_device(before)
+
 
 CASES = {
     "np_fabric_4e4o_L2": (4, 4, dict(ansatz="np_fabric", n_layers=2)),
