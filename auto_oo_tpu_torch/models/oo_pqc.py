@@ -24,11 +24,15 @@ coefficients.
 Above D = 2^19 the JAX package splits the same math into its staged
 pipeline, only so that one XLA program does not spill; ``grad_hess`` here
 is already an eager host loop over tangent chunks, so it runs both the
-JAX package's fused and staged regimes as it is (up to (12e,12o), where
-one (n^2, D) f64 Phi still fits its 1 GB block).  Later PRs of the port
-bring the streamed and hosted routes beyond that, ``precision="mixed"``,
-``device_loop=True``, ``energy_and_gradient`` and
-``gradient_optimization``; those raise NotImplementedError here.
+JAX package's fused and staged regimes as it is.  Where one (n^2, D) f64
+Phi exceeds its 1 GB block ((14e,14o) on), the route is "streamed": the
+same ``grad_hess`` takes every H-apply, RDM and transition-RDM row
+through the row-streamed grid functions (ops/grid.py), one tangent at a
+time, with sizes chosen once from the free device memory
+(``grid.stream_plan``).  Later PRs of the port bring the hosted route
+beyond that, ``precision="mixed"``, ``device_loop=True``,
+``energy_and_gradient`` and ``gradient_optimization``; those raise
+NotImplementedError here.
 """
 
 import numpy as np
@@ -54,26 +58,33 @@ _STAGED_MIN_D = 1 << 19
 _CHUNK_ELEMENTS = 1 << 25
 
 
-def _route(pqc):
-    """The JAX package's route for this sector: "fused" or "staged"
-    (both run here); the streamed and hosted regimes, where one (n^2, D)
-    f64 Phi does not fit its block (auto_oo_tpu/models/oo_pqc.py:610-613),
-    raise NotImplementedError."""
+# one full-Phi pass of this many f64 bytes or more makes the JAX package
+# host its grid kernels (auto_oo_tpu/ops/grid_hosted.py:63-75); (16e,16o)
+# is the first sector there
+_HOSTED_MIN_BYTES = 64e9
+
+
+def _route(pqc, streamed=False):
+    """The JAX package's route for this sector: "fused", "staged" or
+    "streamed" (all three run here; ``streamed`` forces the last); the
+    hosted regime raises NotImplementedError."""
     D, n2 = pqc.state_dim, pqc.ncas * pqc.ncas
-    if _grid._pair_chunk(1, D, n2, 8) < n2:
+    if n2 * D * 8 >= _HOSTED_MIN_BYTES:
         raise NotImplementedError(
-            f"sector dimension {D}: one ({n2}, D) f64 Phi does not fit its "
-            f"{_grid._PAIR_CHUNK_BYTES}-byte block, so the JAX package "
-            "streams (and hosts) the per-tangent rows; those routes come "
-            "in a later PR of the port (ROADMAP queue 1)")
+            f"sector dimension {D}: one full-Phi pass is {n2 * D * 8:.3g} "
+            "bytes, where the JAX package hosts its grid kernels; the "
+            "hosted routes come in a later PR of the port (ROADMAP queue "
+            "1 item 2)")
+    if streamed or _grid._pair_chunk(1, D, n2, 8) < n2:
+        return "streamed"
     return "staged" if D >= _STAGED_MIN_D else "fused"
 
 
-def _build_nr_core(pqc, nao, occ, act, params_idx):
+def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
     """Geometry-independent functional core for one problem spec: the
     molecule arrays (int1e_ao, int2e_ao, oao_coeff, nuc) are arguments of
     every function, so one core serves every geometry."""
-    route = _route(pqc)
+    route = _route(pqc, streamed=stream_plan is not None)
     params_idx = tuple(int(i) for i in params_idx)
     params_idx_dev = torch.as_tensor(np.asarray(params_idx, dtype=np.int64),
                                      device=pqc.device)
@@ -83,6 +94,18 @@ def _build_nr_core(pqc, nao, occ, act, params_idx):
     ncas = pqc.ncas
     n2 = ncas * ncas
     maps = pqc.sector_maps
+    streamed = route == "streamed"
+    plan = None
+    if streamed:
+        # the streamed grad_hess keeps psi, J, H psi, w and the H J rows
+        # resident beside the Phi chunks and Y blocks
+        plan = stream_plan or _grid.stream_plan(
+            maps, 1, 8, resident=(2 * nt + 4) * pqc.state_dim * 8)
+        budget = ("" if plan.budget is None
+                  else f", {plan.budget / 1e9:.1f} GB budget")
+        print(f"OO_pqc: streamed route, row chunk {plan.row_chunk} of "
+              f"{maps.Na} grid rows, pair block {plan.pair_block} of {n2} "
+              f"pairs{budget}", flush=True)
 
     def k2m(kappa):
         total = torch.zeros(tril_size, dtype=kappa.dtype,
@@ -103,7 +126,9 @@ def _build_nr_core(pqc, nao, occ, act, params_idx):
         g2 = _tr.int2e_transform(int2e_ao, mo_sub)
         c0, c1, c2 = _tr.molecular_hamiltonian_coefficients(
             nuc, h1, g2, occ_rel, act_rel)
-        one_rdm, two_rdm = pqc._rdms_impl(theta)
+        one_rdm, two_rdm = _rdms.rdms_from_state(
+            pqc._state_impl_grid(theta), ncas, maps, grid_order=True,
+            plan=plan)
         return _tr.energy_from_rdms(c0, c1, c2, one_rdm, two_rdm)
 
     def pack_grad(h1, g2, g1, G2):
@@ -115,12 +140,21 @@ def _build_nr_core(pqc, nao, occ, act, params_idx):
 
     def transition_rdms(phi, psi, Jc):
         """d(gamma, Gamma)/d theta_i for a chunk of tangents Jc, by the
-        product rule on the Phi gram."""
-        phiJ = phi_all(Jc, maps)                         # (c, n^2, D)
-        # d corr[a,b] = <dphi_a|phi_b> + <phi_a|dphi_b>
-        A = phiJ @ phi.T
-        dgram = A + A.transpose(1, 2)
-        dgamma = (phiJ @ psi + (phi @ Jc.T).T).reshape(-1, ncas, ncas)
+        product rule on the Phi gram of psi; on the streamed route (no
+        phi) one tangent at a time through grid.transition_rdms_rows (the
+        JAX package's _row_streamed)."""
+        if phi is None:
+            rows = [_grid.transition_rdms_rows(psi, Ji, maps, ncas,
+                                               plan.row_chunk) for Ji in Jc]
+            dgamma = torch.stack([r[0] for r in rows])
+            dgram = torch.stack([r[1] for r in rows])
+        else:
+            phiJ = phi_all(Jc, maps)                     # (c, n^2, D)
+            # d corr[a,b] = <dphi_a|phi_b> + <phi_a|dphi_b>
+            A = phiJ @ phi.T
+            dgram = A + A.transpose(1, 2)
+            dgamma = phiJ @ psi + (phi @ Jc.T).T
+        dgamma = dgamma.reshape(-1, ncas, ncas)
         dcorr = dgram.reshape(-1, ncas, ncas, ncas, ncas)
         delta = torch.eye(ncas, dtype=psi.dtype, device=psi.device)
         dGamma = (dcorr.permute(0, 2, 1, 3, 4)
@@ -143,21 +177,30 @@ def _build_nr_core(pqc, nao, occ, act, params_idx):
             nuc, h1, g2, occ, act)
         c1eff = _ham.c1_effective(c1, c2)
 
+        def ham(chi):
+            return _ham.ham_apply(c1eff, c2, chi, ncas, maps, plan)
+
         psi, J = pqc._state_and_jacobian_grid(theta)       # (D,), (nt, D)
-        Hpsi = _ham.ham_apply(c1eff, c2, psi, ncas, maps)
+        Hpsi = ham(psi)
         e0 = c0 + psi @ Hpsi
         w = 2.0 * Hpsi
         grad_c = J @ w
         D = psi.shape[0]
         chunk = max(1, min(nt, _CHUNK_ELEMENTS // max(1, n2 * D)))
         chunks = [J[lo:lo + chunk] for lo in range(0, nt, chunk)]
-        HJ = torch.cat([_ham.ham_apply(c1eff, c2, Jc, ncas, maps)
-                        for Jc in chunks])
+        HJ = torch.cat([ham(Jc) for Jc in chunks])
         term2 = pqc._state_hessian_dot_grid(theta, w, psi, J)
         hess_cc = 2.0 * (J @ HJ.T) + term2
+        del HJ
 
-        phi = _rdms.apply_epq_all(psi, ncas, maps)         # (n^2, D)
-        gamma, Gamma = _rdms.rdms_from_gram(phi, psi, ncas)
+        if streamed:
+            # no (n^2, D) Phi: every RDM streams its own over grid rows
+            phi = None
+            gamma, Gamma = _rdms.rdms_from_state(psi, ncas, maps,
+                                                 grid_order=True, plan=plan)
+        else:
+            phi = _rdms.apply_epq_all(psi, ncas, maps)     # (n^2, D)
+            gamma, Gamma = _rdms.rdms_from_gram(phi, psi, ncas)
         grad_o = pack_grad(h1, g2, gamma, Gamma)
         if n_kappa:
             # the analytic gradient is affine in the RDMs: subtract its
@@ -210,16 +253,22 @@ def _build_nr_core(pqc, nao, occ, act, params_idx):
 
     return {"energy": energy, "grad_hess": grad_hess,
             "newton_update": newton_update, "nr_iteration": nr_iteration,
-            "route": route}
+            "route": route, "plan": plan}
 
 
 class OO_pqc(OO_energy):
     """Orbital-optimized PQC energy (reference oo_pqc.py:30), on the
-    circuit's device."""
+    circuit's device.
+
+    ``stream_plan`` (a grid.StreamPlan) forces the streamed route with
+    that row chunk and pair block whatever the sector's size (it holds
+    the streamed route against the fused one at a small D); by default
+    the route follows the JAX package's rule and, when streamed, its
+    sizes come from the free device memory at construction."""
 
     def __init__(self, pqc, mol, ncas, nelecas, oao_mo_coeff=None,
                  freeze_active=False, interface=None, newton_method=None,
-                 precision="f64"):
+                 precision="f64", stream_plan=None):
         if precision != "f64":
             raise NotImplementedError(
                 f"precision={precision!r} comes in a later PR of the port")
@@ -232,7 +281,7 @@ class OO_pqc(OO_energy):
         self.newton_method = newton_method
         self.precision = precision
         self._core = _build_nr_core(pqc, self.nao, self._occ, self._act,
-                                    self.params_idx)
+                                    self.params_idx, stream_plan)
         self._mol_args = (self.int1e_ao, self.int2e_ao, self.oao_coeff,
                           self.nuc)
 

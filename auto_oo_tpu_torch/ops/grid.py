@@ -21,10 +21,17 @@ Layout contract: statevectors here are GRID-ordered flat vectors — index
 g = i * Nb + j for determinant A_i | B_j — NOT the canonical ascending
 determinant order of fermion.sector_basis.  ``to_grid`` / ``from_grid``
 convert (one permutation per vector).
+
+Where one (n2, D) Phi exceeds its 1 GB block ((14e,14o): 18.5 GB in
+f64) the callers stream it over grid A-rows (``phi_rows``,
+``ham_apply_rows``, ``rdms_rows``, ``transition_rdms_rows``; sizes from
+``stream_plan``): the alpha half gathers rows of the whole x with
+row-sliced tables, the beta half gathers inside the chunk's rows.
 """
 
 import copy
 from itertools import combinations
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,14 +57,18 @@ class GridMaps:
     The src tables are int32 (the kernels' index type), with int64 copies
     for the plain versions' indexing; the int8 sign tables are converted
     once to the working ``dtype`` at construction, and once more per
-    other dtype on first use (``tables``).  ``full_pairs`` is False for
-    ``pair_slice``'d maps, whose adjoint is not the pair transpose."""
+    other dtype on first use (``tables``).  ``pairs`` is None for maps
+    of all n^2 pairs, else the pair rows of the full maps these hold
+    (``pair_slice``, ``transposed``); derived tables are cached on the
+    object (``_cache``)."""
 
     def __init__(self, srcA, sgnA, tB, srcB, sgnB, tA, g2s, s2g,
                  device=None, dtype=torch.float64):
         device = get_device(device)
         self.device = device
-        self.full_pairs = True
+        self.pairs = None
+        self._full = self
+        self._cache = {}
 
         def idx(a, dt):
             return torch.as_tensor(np.array(a), device=device).to(dt)
@@ -125,10 +136,41 @@ class GridMaps:
         return self.g2s.shape[0]
 
     def pair_perm(self):
-        """The (p,q) -> (q,p) pair-index involution (E_pq^T = E_qp)."""
-        ncas = int(round(self.n2 ** 0.5))
-        k = torch.arange(self.n2, device=self.device)
+        """The (p,q) -> (q,p) pair-index involution (E_pq^T = E_qp) of the
+        full maps."""
+        n2 = self._full.n2
+        ncas = int(round(n2 ** 0.5))
+        k = torch.arange(n2, device=self.device)
         return (k % ncas) * ncas + k // ncas
+
+    def _cached(self, key, make):
+        hit = self._cache.get(key)
+        if hit is None:
+            hit = self._cache[key] = make()
+        return hit
+
+    def select(self, pairs):
+        """The maps of the pair rows ``pairs`` (int64, rows of these
+        maps), as contiguous tables."""
+        sel = copy.copy(self)
+        sel.pairs = pairs if self.pairs is None else self.pairs[pairs]
+        sel._cache = {}
+        for name in ("srcA", "srcA_long", "srcB", "srcB_long"):
+            setattr(sel, name, getattr(self, name).index_select(0, pairs))
+        sel._signs = tuple(a.index_select(0, pairs) for a in self._signs)
+        sel._scales = {dt: tuple(a.index_select(0, pairs) for a in v)
+                       for dt, v in self._scales.items()}
+        return sel
+
+    def transposed(self):
+        """The maps of E_qp for each pair pq of these maps: E_pq^T = E_qp,
+        so the adjoint of a grid op on these maps is the other grid op on
+        the transposed maps, for any subset of pairs."""
+        def make():
+            perm = self.pair_perm()
+            return self._full.select(perm if self.pairs is None
+                                     else perm[self.pairs])
+        return self._cached("transposed", make)
 
 
 def spin_strings(ncas, n_occ, spin, up_then_down=False):
@@ -254,16 +296,9 @@ def from_grid(x, gm):
 def pair_slice(gm, lo, hi):
     """GridMaps restricted to pair rows [lo, hi): the kernels read n2
     from the table shapes, so the sliced maps drive the same code on a
-    subset of pairs.  Their VJP is not the pair transpose
-    (``full_pairs=False``)."""
-    sliced = copy.copy(gm)
-    sliced.full_pairs = False
-    for name in ("srcA", "srcA_long", "srcB", "srcB_long"):
-        setattr(sliced, name, getattr(gm, name)[lo:hi])
-    sliced._signs = tuple(a[lo:hi] for a in gm._signs)
-    sliced._scales = {dt: tuple(a[lo:hi] for a in v)
-                      for dt, v in gm._scales.items()}
-    return sliced
+    subset of pairs.  Cached on ``gm``."""
+    return gm._cached(("pairs", lo, hi), lambda: gm.select(
+        torch.arange(lo, hi, device=gm.device)))
 
 
 def _phi_impl(x, gm):
@@ -287,16 +322,10 @@ def _epq_impl(Y, gm):
     return out.reshape(Y.shape[:-2] + (gm.dim,))
 
 
-def _need_full_pairs(gm):
-    if not gm.full_pairs:
-        raise NotImplementedError(
-            "the VJP of pair-sliced grid maps comes with the streamed "
-            "phi_rows/_phi_chunk callers (a later PR of the port)")
-
-
 class _Phi(torch.autograd.Function):
-    """phi_all with the full-pair VJP: sum_k E_k^T ct_k = epq_sum(ct[perm])
-    (E_pq^T = E_qp), so the backward runs the same kernels."""
+    """phi_all with its VJP: sum_k E_k^T ct_k = epq_sum(ct) on the
+    transposed maps (E_pq^T = E_qp), so the backward runs the same
+    kernels, for all pairs or a slice of them."""
 
     @staticmethod
     def forward(ctx, x, gm):
@@ -305,13 +334,12 @@ class _Phi(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        gm = ctx.gm
-        _need_full_pairs(gm)
-        return _EpqSum.apply(ct[..., gm.pair_perm(), :], gm), None
+        return _EpqSum.apply(ct, ctx.gm.transposed()), None
 
 
 class _EpqSum(torch.autograd.Function):
-    """epq_sum with the full-pair VJP: VJP(g) = phi_all(g)[perm]."""
+    """epq_sum with its VJP: E_k^T g = phi_all(g) on the transposed
+    maps."""
 
     @staticmethod
     def forward(ctx, Y, gm):
@@ -320,9 +348,7 @@ class _EpqSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        gm = ctx.gm
-        _need_full_pairs(gm)
-        return _Phi.apply(g, gm)[..., gm.pair_perm(), :], None
+        return _Phi.apply(g, ctx.gm.transposed()), None
 
 
 def phi_all(x, gm):
@@ -340,11 +366,20 @@ def epq_sum(Y, gm):
     return _EpqSum.apply(Y, gm)
 
 
-# a full Phi = E_pq x for all ncas^2 pairs is (n2, D).  Above this byte
-# budget per materialized pair block the JAX package streams the pair
-# axis (ops/hamiltonian.py, ops/rdms.py); the port raises there until the
-# streamed callers are ported.
+# a full Phi = E_pq x for all ncas^2 pairs is (n2, D): 18.5 GB in f64 at
+# (14e,14o).  Above this byte budget per materialized pair block the
+# callers (ops/hamiltonian.py, ops/rdms.py, models/oo_pqc.py) stream Phi
+# over grid A-rows: the JAX package's rule, so every sector takes the same
+# route in both packages.
 _PAIR_CHUNK_BYTES = 1 << 30
+
+# the JAX package's budget for the row-streamed H-apply's pair-blocked Y
+# buffers; on the CPU a pair block gets a fifth of it
+_Y_BUDGET_BYTES = 10 << 30
+
+# block-sized buffers the row-streamed route holds at once (the JAX
+# package's count): Y, the two halves of a Phi chunk and their C2 product
+_LIVE_BLOCKS = 5
 
 
 def _pair_chunk(B, D, n2, itemsize):
@@ -352,3 +387,229 @@ def _pair_chunk(B, D, n2, itemsize):
     if n2 * per_pair <= _PAIR_CHUNK_BYTES:
         return n2
     return max(1, int(_PAIR_CHUNK_BYTES // per_pair))
+
+
+class StreamPlan(NamedTuple):
+    """Sizes of the row-streamed route."""
+    row_chunk: int    # grid A-rows per Phi chunk
+    pair_block: int   # pairs per Y block of the H-apply
+    budget: object    # device bytes they were sized from (None: CPU)
+
+
+def _even(n, most):
+    """The size of ceil(n / most) equal pieces of n (most within [1, n])."""
+    most = max(1, min(n, int(most)))
+    return -(-n // -(-n // most))
+
+
+def stream_plan(gm, B=1, itemsize=8, resident=0):
+    """The row chunk and pair block for B states of ``itemsize`` bytes.
+
+    On the card: the free device memory (cudaMemGetInfo's free bytes plus
+    the caching allocator's unused reserve) less the ``resident`` bytes
+    the caller keeps, shared by _LIVE_BLOCKS buffers; a Phi chunk
+    (B, n2, rows, Nb) and a Y block (B, pairs, D) each get one share, and
+    Na and n2 are cut into equal pieces.  On the CPU: the JAX package's
+    1 GB Phi chunk and a fifth of its Y budget.  Sizes are chosen once, up
+    front; nothing retries smaller on an out-of-memory error."""
+    n2, Na, Nb, D = gm.n2, gm.Na, gm.Nb, gm.dim
+    if gm.device.type == "cuda":
+        free = (torch.cuda.mem_get_info(gm.device)[0]
+                + torch.cuda.memory_reserved(gm.device)
+                - torch.cuda.memory_allocated(gm.device))
+        budget = max(0, free - int(resident))
+        rows_bytes = pairs_bytes = budget // _LIVE_BLOCKS
+    else:
+        budget = None
+        rows_bytes, pairs_bytes = _PAIR_CHUNK_BYTES, _Y_BUDGET_BYTES // 5
+    return StreamPlan(_even(Na, rows_bytes // (B * n2 * Nb * itemsize)),
+                      _even(n2, pairs_bytes // (B * D * itemsize)), budget)
+
+
+def _row_chunks(Na, row_chunk):
+    return [(r0, min(Na, r0 + row_chunk)) for r0 in range(0, Na, row_chunk)]
+
+
+def _row_tables(gm, like, r0, r1):
+    """(srcA, sgnA, tA) of grid A-rows [r0, r1) for an operand ``like``,
+    as contiguous tensors (the card's kernels refuse views); cached on
+    ``gm``."""
+    def make():
+        srcA, sgnA, _, _, _, tA = gm.tables(like)
+        return tuple(a[:, r0:r1].contiguous() for a in (srcA, sgnA, tA))
+    return gm._cached(("rows", r0, r1, like.device.type, like.dtype), make)
+
+
+def _phi_chunk(xg, gm, r0, r1):
+    """The (..., n2, r1 - r0, Nb) block of E_pq x for grid A-rows
+    [r0, r1), from the whole contiguous grid xg (..., Na, Nb).  Both spin
+    parts are row-local in their output: alpha gathers rows of the whole
+    x with row-sliced tables, beta gathers inside the chunk's own rows
+    (a row gather of its transposed (Nb, rows) copy, as the TPU wrapper
+    does).  Each element of Phi is made once."""
+    srcA_k, sgnA_k, tA_k = _row_tables(gm, xg, r0, r1)
+    _, _, tB, srcB, sgnB, _ = gm.tables(xg)
+    pa = gather_rows_scaled(xg, srcA_k, sgnA_k, tB)
+    zt = xg[..., r0:r1, :].transpose(-1, -2).contiguous()
+    pb = gather_rows_scaled(zt, srcB, sgnB, tA_k)
+    return pa.add_(pb.transpose(-1, -2))
+
+
+class _PhiRows(torch.autograd.Function):
+    """phi_rows with its VJP: the cotangent block, zero outside its rows,
+    through epq_sum on the transposed maps (E_pq^T = E_qp)."""
+
+    @staticmethod
+    def forward(ctx, x, gm, r0, r1):
+        ctx.gm, ctx.rows = gm, (r0, r1)
+        x = x.contiguous()
+        return _phi_chunk(x.reshape(x.shape[:-1] + (gm.Na, gm.Nb)), gm, r0,
+                          r1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        gm = ctx.gm
+        r0, r1 = ctx.rows
+        full = ct.new_zeros(ct.shape[:-2] + (gm.Na, gm.Nb))
+        full[..., r0:r1, :] = ct
+        return (_EpqSum.apply(full.reshape(ct.shape[:-2] + (gm.dim,)),
+                              gm.transposed()), None, None, None)
+
+
+def phi_rows(x, gm, r0, r1):
+    """Phi restricted to grid A-rows [r0, r1): the (..., n2, rows, Nb)
+    block of E_pq x for every pair of the maps, from the whole
+    GRID-ordered x (..., D).  Streaming over rows makes one pass over
+    Phi, where streaming over pairs (``ham_apply_chunked``) rebuilds Phi
+    blocks O(n2 / chunk) times."""
+    return _PhiRows.apply(x, gm, r0, r1)
+
+
+def assemble_rdms(gamma_flat, corr, ncas):
+    """(gamma, Gamma), chemist order, from gamma_flat[pq] = <E_pq> and
+    the gram corr[(q,p),(r,s)] = <E_qp psi|E_rs psi> = <E_pq E_rs>
+    (e_pqrs = E_pq E_rs - delta_qr E_ps)."""
+    gamma = gamma_flat.reshape(ncas, ncas)
+    corr = corr.reshape(ncas, ncas, ncas, ncas)
+    delta = torch.eye(ncas, dtype=gamma.dtype, device=gamma.device)
+    Gamma = (corr.permute(1, 0, 2, 3)
+             - torch.einsum("qr,ps->pqrs", delta, gamma))
+    return gamma, Gamma
+
+
+def ham_apply_rows(c1eff_flat, C2, x, gm, row_chunk, pair_block=None):
+    """sum_pq E_pq [sum_rs C2 E_rs + c1eff] x with Phi streamed over grid
+    A-rows: each Phi chunk is built once per pair block and contracted at
+    once (one GEMM), so the gathers make ceil(n2 / pair_block) passes over
+    Phi.  Y exists only as a (..., pair_block, D) buffer; ``pair_block``
+    None means all n2 pairs.  ``stream_plan`` sizes both.  x (..., D) and
+    the result are GRID-ordered.  (The JAX package runs the chunks under
+    lax.scan to pin XLA's peak memory; here an eager loop frees each chunk
+    before the next.)"""
+    n2, Na, Nb = gm.n2, gm.Na, gm.Nb
+    pair_block = n2 if pair_block is None else pair_block
+    x = x.contiguous()
+    lead = x.shape[:-1]
+    xg = x.reshape(lead + (Na, Nb))
+    C2 = C2.to(x.dtype)
+    c1 = c1eff_flat.to(x.dtype)
+    out = torch.zeros_like(x)
+    chunks = _row_chunks(Na, row_chunk)
+    for lo in range(0, n2, pair_block):
+        hi = min(n2, lo + pair_block)
+        Y = torch.empty(lead + (hi - lo, Na, Nb), dtype=x.dtype,
+                        device=x.device)
+        for r0, r1 in chunks:
+            phi_c = _phi_chunk(xg, gm, r0, r1)
+            yc = torch.matmul(C2[lo:hi],
+                              phi_c.reshape(lead + (n2, (r1 - r0) * Nb)))
+            # free the chunk before the next one is made
+            del phi_c
+            yc = yc.reshape(lead + (hi - lo, r1 - r0, Nb))
+            Y[..., r0:r1, :] = yc.addcmul_(c1[lo:hi, None, None],
+                                           xg[..., None, r0:r1, :])
+            del yc
+        out += epq_sum(Y.reshape(lead + (hi - lo, gm.dim)),
+                       pair_slice(gm, lo, hi))
+        del Y
+    return out
+
+
+def rdms_rows(psi, gm, ncas, row_chunk):
+    """(gamma, Gamma) of a real GRID-ordered state with Phi streamed over
+    grid A-rows: each chunk of Phi is made once and consumed by the
+    (n2, L) x (L, n2) gram; one pass over Phi, one chunk live."""
+    n2 = gm.n2
+    psig = psi.contiguous().reshape(gm.Na, gm.Nb)
+    gamma = psi.new_zeros(n2)
+    corr = psi.new_zeros((n2, n2))
+    for r0, r1 in _row_chunks(gm.Na, row_chunk):
+        phi_c = _phi_chunk(psig, gm, r0, r1).reshape(n2, -1)
+        gamma += phi_c @ psig[r0:r1].reshape(-1)
+        corr += phi_c @ phi_c.T
+        del phi_c
+    return assemble_rdms(gamma, corr, ncas)
+
+
+def transition_rdms_rows(psi, tpsi, gm, ncas, row_chunk):
+    """Transition-RDM rows of a real GRID-ordered state and tangent with
+    Phi streamed over grid A-rows (the per-tangent Hessian row where a
+    full (n2, D) Phi does not fit):
+
+        dgamma[pq]   = (E_pq tpsi).psi + (E_pq psi).tpsi
+        dcorr[pq,rs] = <E_qp tpsi|E_rs psi> + <E_qp psi|E_rs tpsi>
+
+    the pair order of the fused route's dense formulas.  Both Phi chunks
+    are made once per row chunk.  Returns (dgamma (n2,), dcorr (n2, n2))."""
+    n2 = gm.n2
+    psig = psi.contiguous().reshape(gm.Na, gm.Nb)
+    tpsig = tpsi.contiguous().reshape(gm.Na, gm.Nb)
+    dgamma = psi.new_zeros(n2)
+    dcorr = psi.new_zeros((n2, n2))
+    for r0, r1 in _row_chunks(gm.Na, row_chunk):
+        phi_p = _phi_chunk(psig, gm, r0, r1).reshape(n2, -1)
+        phi_t = _phi_chunk(tpsig, gm, r0, r1).reshape(n2, -1)
+        dgamma += (phi_t @ psig[r0:r1].reshape(-1)
+                   + phi_p @ tpsig[r0:r1].reshape(-1))
+        A = phi_t @ phi_p.T
+        dcorr += A + A.T
+        del phi_p, phi_t
+    return dgamma, dcorr
+
+
+def ham_apply_chunked(c1eff_flat, C2, x, gm, chunk):
+    """sum_pq E_pq [sum_rs C2 E_rs + c1eff] x with the pair axis streamed:
+    Phi and Y exist only as (..., chunk, D) blocks, and the inner Phi
+    blocks are rebuilt once per outer block (n2 / chunk extra passes)."""
+    n2 = gm.n2
+    C2 = C2.to(x.dtype)
+    c1 = c1eff_flat.to(x.dtype)
+    out = torch.zeros_like(x)
+    for lo in range(0, n2, chunk):
+        hi = min(n2, lo + chunk)
+        Y = c1[lo:hi, None] * x[..., None, :]
+        for lo2 in range(0, n2, chunk):
+            hi2 = min(n2, lo2 + chunk)
+            Y = Y + torch.matmul(C2[lo:hi, lo2:hi2],
+                                 phi_all(x, pair_slice(gm, lo2, hi2)))
+        out = out + epq_sum(Y, pair_slice(gm, lo, hi))
+    return out
+
+
+def rdms_chunked(psi, gm, ncas, chunk):
+    """(gamma, Gamma) of a real GRID-ordered state with the pair axis of
+    the Phi gram streamed: two (chunk, D) blocks live, Phi blocks rebuilt
+    O((n2 / chunk)^2) times."""
+    n2 = gm.n2
+    gamma = psi.new_empty(n2)
+    corr = psi.new_empty((n2, n2))
+    for lo in range(0, n2, chunk):
+        hi = min(n2, lo + chunk)
+        phi_a = phi_all(psi, pair_slice(gm, lo, hi))
+        gamma[lo:hi] = phi_a @ psi
+        for lo2 in range(0, n2, chunk):
+            hi2 = min(n2, lo2 + chunk)
+            phi_b = (phi_a if lo2 == lo
+                     else phi_all(psi, pair_slice(gm, lo2, hi2)))
+            corr[lo:hi, lo2:hi2] = phi_a @ phi_b.T
+    return assemble_rdms(gamma, corr, ncas)

@@ -6,7 +6,7 @@ H = sum_pq c1_pq E_pq + sum_pqrs c2_pqrs e_pqrs (chemist order):
     Phi[rs]   = E_rs chi                       (gather_rows_scaled kernel)
     Y[pq]     = sum_rs C2[(pq),(rs)] Phi[rs]   (one (n^2, n^2) matmul)
     Y[pq]    += c1eff[pq] * chi                (rank-1 broadcast)
-    H chi     = sum_pq E_pq Y[pq]              (gather_reduce kernel)
+    H chi     = sum_pq E_pq Y[pq]              (gather_reduce kernels)
 
 where c1eff = c1 - sum_t c2[p,t,t,s] absorbs the -delta_qr E_ps term of
 e_pqrs = E_pq E_rs - delta_qr E_ps.
@@ -14,7 +14,7 @@ e_pqrs = E_pq E_rs - delta_qr E_ps.
 
 import torch
 
-from .grid import _pair_chunk, epq_sum, phi_all
+from .grid import _pair_chunk, epq_sum, ham_apply_rows, phi_all, stream_plan
 from .rdms import _require_grid
 
 
@@ -24,22 +24,25 @@ def c1_effective(c1, c2):
     return c1 - torch.einsum("ptts->ps", c2)
 
 
-def ham_apply(c1eff, c2, chi, ncas, maps):
+def ham_apply(c1eff, c2, chi, ncas, maps, plan=None):
     """H|chi> (without the c0 constant); chi (D,) or (B, D), GRID-ordered
-    like the result."""
+    like the result.  Given a ``plan`` (a grid.StreamPlan), or where one
+    (B, n^2, D) Phi does not fit its block, Phi streams over grid A-rows
+    into pair-blocked Y buffers (grid.ham_apply_rows) sized by ``plan``
+    (default grid.stream_plan at this call)."""
     _require_grid(maps)
     n2 = ncas * ncas
     batched = chi.dim() == 2
     x = chi if batched else chi[None, :]
     B, D = x.shape
-    if _pair_chunk(B, D, n2, x.element_size()) < n2:
-        raise NotImplementedError(
-            "Phi does not fit one materialized block here; the row-"
-            "streamed H-apply (grid.ham_apply_rows) comes with the "
-            "streamed phi_rows/_phi_chunk callers in a later PR of the "
-            "port")
     C2 = c2.reshape(n2, n2).to(x.dtype)
     c1f = c1eff.reshape(n2).to(x.dtype)
-    Y = torch.matmul(C2, phi_all(x, maps)) + c1f[None, :, None] * x[:, None]
-    out = epq_sum(Y, maps)
+    if plan is not None or _pair_chunk(B, D, n2, x.element_size()) < n2:
+        plan = plan or stream_plan(maps, B, x.element_size())
+        out = ham_apply_rows(c1f, C2, x, maps, plan.row_chunk,
+                             plan.pair_block)
+    else:
+        Y = (torch.matmul(C2, phi_all(x, maps))
+             + c1f[None, :, None] * x[:, None])
+        out = epq_sum(Y, maps)
     return out if batched else out[0]

@@ -13,13 +13,12 @@ Port of the grid branches of auto_oo_tpu/ops/rdms.py
 The JAX package's ``gram_last`` / ``small_matmul_free_last`` sliced the
 large state axis only to bound the TPU's f64-emulation temporaries; here
 they are plain ``torch.matmul``.  States are real (the built-in ansatze
-are orthogonal circuits on a real start); the full-space flat maps and
-the (14e,14o)-scale streamed route come in later PRs of the port.
+are orthogonal circuits on a real start); the full-space flat maps come
+in a later PR of the port.
 """
 
-import torch
-
-from .grid import GridMaps, _pair_chunk, phi_all, to_grid
+from .grid import (GridMaps, _pair_chunk, assemble_rdms, phi_all,
+                   rdms_rows, stream_plan, to_grid)
 
 
 def _require_grid(maps):
@@ -38,27 +37,23 @@ def apply_epq_all(psi, ncas, maps):
 
 def rdms_from_gram(phi, psi, ncas):
     """(gamma, Gamma) from Phi = E_pq psi and psi (one order for both)."""
-    gamma = (phi @ psi).reshape(ncas, ncas)
     # corr[(q,p),(r,s)] = <E_qp psi|E_rs psi> = <psi|E_pq E_rs|psi>
-    corr = (phi @ phi.T).reshape(ncas, ncas, ncas, ncas)
-    delta = torch.eye(ncas, dtype=gamma.dtype, device=gamma.device)
-    Gamma = (corr.permute(1, 0, 2, 3)
-             - torch.einsum("qr,ps->pqrs", delta, gamma))
-    return gamma, Gamma
+    return assemble_rdms(phi @ psi, phi @ phi.T, ncas)
 
 
-def rdms_from_state(psi, ncas, maps, grid_order=False):
+def rdms_from_state(psi, ncas, maps, grid_order=False, plan=None):
     """Spin-summed restricted (gamma, Gamma), chemist ordering, of a real
     sector state.  psi arrives in canonical order and is converted once,
     unless ``grid_order`` (the gram and dot are invariant under any
-    common permutation of both operands)."""
+    common permutation of both operands).  Given a ``plan`` (a
+    grid.StreamPlan), or where one (n^2, D) Phi does not fit its block,
+    Phi streams over grid A-rows (grid.rdms_rows) in chunks of
+    ``plan.row_chunk`` rows (default grid.stream_plan)."""
     _require_grid(maps)
     if not grid_order:
         psi = to_grid(psi, maps)
-    if _pair_chunk(1, psi.shape[-1], maps.n2,
-                   psi.element_size()) < maps.n2:
-        raise NotImplementedError(
-            "Phi does not fit one materialized block here; the row-"
-            "streamed RDMs (grid.rdms_rows) come with the streamed "
-            "phi_rows/_phi_chunk callers in a later PR of the port")
+    if plan is not None or _pair_chunk(1, psi.shape[-1], maps.n2,
+                                       psi.element_size()) < maps.n2:
+        plan = plan or stream_plan(maps, 1, psi.element_size())
+        return rdms_rows(psi, maps, ncas, plan.row_chunk)
     return rdms_from_gram(apply_epq_all(psi, ncas, maps), psi, ncas)

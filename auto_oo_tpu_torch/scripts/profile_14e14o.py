@@ -1,0 +1,155 @@
+"""Where the time goes in one (14e,14o) damped-Newton iteration on the card.
+
+    python -m auto_oo_tpu_torch.scripts.profile_14e14o [n_warm]
+
+Builds the H14 chain of scripts/bench_14e14o.py (sto-3g, np_fabric L=1,
+freeze_active, f64, D = 11,778,624; the streamed route), runs ``n_warm``
+NR iterations from init_zeros (default 1), then takes the next iteration
+apart on the host clock (each part ends in a synchronize): the state + J
+sweep, H psi, the H J rows, the circuit-Hessian sweep, the RDMs, and
+the whole grad_hess and Newton update (eigh, line search, MO fold).
+Then it runs that iteration again under torch.profiler and prints the
+device time by kernel and the device busy share against the unprofiled
+wall.  Needs a card; prints the card's name and power limit first.
+"""
+
+import subprocess
+import sys
+import time
+
+import torch
+
+import auto_oo_tpu_torch as P
+from auto_oo_tpu_torch.ops import hamiltonian as _ham
+from auto_oo_tpu_torch.ops import rdms as _rdms
+from auto_oo_tpu_torch.ops import transforms as _tr
+
+GEOMETRY = "; ".join(f"H 0 0 {0.9 * i:.2f}" for i in range(14))
+STEP = dict(alpha=1e-4, beta=0.5, mu=1e-6, rho=1.1, lambda_min=1e-6)
+
+
+def _timed(label, fn, parts):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    parts.append((label, time.perf_counter() - t0))
+    return out
+
+
+def _device_us(event):
+    """Self device time of a profiler row in microseconds (the attribute
+    was renamed between PyTorch versions)."""
+    return (getattr(event, "self_device_time_total", None)
+            or getattr(event, "self_cuda_time_total", 0))
+
+
+def parts_of_grad_hess(oo, theta, parts):
+    """The streamed grad_hess's heavy parts, each on its own (n_kappa = 0
+    here, so there is no transition-RDM row)."""
+    pqc, plan, maps = oo.pqc, oo._core["plan"], oo.pqc.sector_maps
+    ncas = oo.ncas
+    mo = oo.oao_coeff @ oo.oao_mo_coeff
+    h1 = _tr.int1e_transform(oo.int1e_ao, mo)
+    g2 = _tr.int2e_transform(oo.int2e_ao, mo)
+    _, c1, c2 = _tr.molecular_hamiltonian_coefficients(
+        oo.nuc, h1, g2, oo._occ, oo._act)
+    c1eff = _ham.c1_effective(c1, c2)
+
+    def ham(x):
+        return _ham.ham_apply(c1eff, c2, x, ncas, maps, plan)
+
+    psi, J = _timed("state + J sweep",
+                    lambda: pqc._state_and_jacobian_grid(theta), parts)
+    w = 2.0 * _timed("H psi", lambda: ham(psi), parts)
+    _timed(f"H J ({J.shape[0]} rows)",
+           lambda: [ham(J[i:i + 1]) for i in range(J.shape[0])], parts)
+    _timed("circuit-Hessian sweep",
+           lambda: pqc._state_hessian_dot_grid(theta, w, psi, J), parts)
+    _timed("RDMs of psi (rdms_rows)",
+           lambda: _rdms.rdms_from_state(psi, ncas, maps, grid_order=True,
+                                         plan=plan), parts)
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    n_warm = int(argv[0]) if argv else 1
+    if not torch.cuda.is_available():
+        print("profile_14e14o: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    t0 = time.perf_counter()
+    mol = P.Moldata(GEOMETRY, "sto-3g")
+    pqc = P.Parameterized_circuit(14, 14, ansatz="np_fabric", n_layers=1,
+                                  sector=True)
+    oo = P.OO_pqc(pqc, mol, 14, 14, freeze_active=True)
+    torch.cuda.synchronize()
+    print(f"setup {time.perf_counter() - t0:.2f} s, route "
+          f"{oo._core['route']}, plan {oo._core['plan']}")
+    theta = pqc.init_zeros()
+    if n_warm:
+        theta = oo.full_optimization(theta, max_iterations=n_warm,
+                                     **STEP)[1][-1]
+    core, args = oo._core, oo._mol_args
+
+    def iteration():
+        e0, grad, hess = core["grad_hess"](theta, oo.oao_mo_coeff, *args)
+        return core["newton_update"](theta, oo.oao_mo_coeff, *args, e0,
+                                     grad, hess, *STEP.values())
+
+    parts = []
+    torch.cuda.reset_peak_memory_stats()
+    energy = _timed("NR iteration", iteration, parts)[3]
+    peak = torch.cuda.max_memory_allocated()
+    gh = _timed("grad_hess", lambda: core["grad_hess"](
+        theta, oo.oao_mo_coeff, *args), parts)
+    _timed("newton_update", lambda: core["newton_update"](
+        theta, oo.oao_mo_coeff, *args, *gh, *STEP.values()), parts)
+    parts_of_grad_hess(oo, theta, parts)
+    for label, sec in parts:
+        print(f"  {label:28s} {sec * 1e3:10.1f} ms")
+    print(f"  peak device memory of the iteration {peak / 1e9:.3f} GB "
+          f"(max_memory_allocated); energy after it {float(energy):.12f}")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        iteration()
+        torch.cuda.synchronize()
+
+    def on_device(e):
+        return "cuda" in str(getattr(e, "device_type", "")).lower()
+
+    rows = [e for e in prof.key_averages()
+            if on_device(e) and _device_us(e) > 0]
+    if not rows:
+        print("  profiled: no device time in the trace (not measured)")
+        return 0
+    device_us = sum(_device_us(e) for e in rows)
+    it_s = parts[0][1]
+    print(f"  profiled: device kernel time {device_us / 1e3:.1f} ms against "
+          f"the unprofiled iteration's {it_s * 1e3:.1f} ms: busy "
+          f"{100 * device_us / 1e6 / it_s:.1f}%, idle "
+          f"{100 - 100 * device_us / 1e6 / it_s:.1f}%")
+    print("  by kernel:")
+    for e in sorted(rows, key=lambda e: -_device_us(e))[:15]:
+        print(f"    {e.key[:60]:60s} {_device_us(e) / 1e3:9.1f} ms"
+              f" {e.count:6d} calls")
+    # the device time of the kernels each PyTorch op launched itself, by
+    # op and input shapes (the grid kernels launch outside any op; the
+    # runtime's "Command Buffer Full" waits are host time, not an op)
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if not on_device(e) and _device_us(e) > 0
+           and e.key != "Command Buffer Full"]
+    print("  by PyTorch op and input shapes (self device time):")
+    for e in sorted(ops, key=lambda e: -_device_us(e))[:15]:
+        shapes = str(e.input_shapes)[:70]
+        print(f"    {e.key[:24]:24s} {shapes:70s} "
+              f"{_device_us(e) / 1e3:9.1f} ms {e.count:6d} calls")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -46,18 +46,40 @@ prints its seconds:
    too few for 2 core + 12 active): 3 iterations the same way, within
    1e-8 Ha of the JAX package's CPU energies, every grid kernel launched;
    its setup time, iteration times and peak device memory are printed;
-7. convergence: (2e,2o) sector ucc full_optimization, built on the
+7. streamed equals fused: the (10e,10o) slice's grad_hess at a seeded
+   theta on the streamed route (a small row chunk and pair block forced,
+   so every H-apply, RDM and transition-RDM row streams Phi over grid
+   rows) against the fused route: e0 and gradient within 1e-11, the
+   Hessian within 1e-9, and all three grid kernels launched;
+8. the (14e,14o) H14 chain (scripts/bench_14e14o.py's configuration:
+   sto-3g, np_fabric L=1, freeze_active, f64, D = 11,778,624), built on
+   the default device: the route must be "streamed"; its row chunk and
+   pair block (sized from the free device memory) are printed; then each
+   grid kernel at the streamed shapes against its plain version, f64 and
+   f32, timed beside its bound: the alpha half of a Phi chunk (x
+   (3432, 3432), row-sliced tables), the beta half (the chunk's
+   transposed rows), and both forms of gather_reduce on a (pair block,
+   3432, 3432) Y; each kernel once more on all 196 pairs in one f32
+   launch (2.31e9 elements, beyond 2^31) against its plain version a slab
+   of pairs at a time; then 2 NR iterations through full_optimization,
+   each energy within 1e-8 Ha of its JAX anchor (ANCHORS_14E14O), the final
+   state's norm within 1e-12 of 1 and tr(gamma) = 14 within 1e-10, with
+   the setup time, iteration times, peak device memory and kernel
+   launches printed;
+9. convergence: (2e,2o) sector ucc full_optimization, built on the
    default device, must end within 1e-8 Ha of CASSCF.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
-its main path's run, which is phase 6 for the grid kernels and phase 4
-for the probes, max abs error against the plain version, kernel and
-plain times and the bound at the grid kernels' (10e,10o) B = 5 f64 call
-(alpha half; the column form's beta half) and at the probes' ncas = 12
-f64 shape; no single PyTorch call computes any of them, so library_ms is
-null); the last line is {"ok": true,
-"device": {...}}.  Without a CUDA device the script exits non-zero
-before printing any result.
+its main path's run, which is phase 8 for the grid kernels and phase 4
+for the probes, with each path's launches under "launches_by_path"; max
+abs error against the plain version over every comparison; kernel and
+plain times and the bound at the grid kernels' (14e,14o) f64 streamed
+shapes (the alpha half of a Phi chunk; the Y block's alpha half for the
+row form, its beta half for the column form) and at the probes'
+ncas = 12 f64 shape; no single PyTorch call computes any of them, so
+library_ms is null); the last line is {"ok": true, "device": {...}}.
+Without a CUDA device the script exits non-zero before printing any
+result.
 """
 
 import json
@@ -78,6 +100,15 @@ ANCHORS_10E10O = [-92.71490202342721, -92.74063367923337,
 # parameters)
 ANCHORS_12E12O = [-93.87081413001067, -93.87231829137146,
                   -93.87365505167503]
+# JAX energies of the (14e,14o) H14 chain (scripts/bench_14e14o.py's
+# configuration) from init_zeros (same step parameters), by NR iteration:
+# the JAX package's own f64 value in BASELINE.md:364 ("iter-1 energy"
+# there is bench_14e14o.py's 0-based "iter 1" line, the second
+# iteration).  No JAX value of iteration 1 is on record; iteration 2
+# starts from its result.
+ANCHORS_14E14O = {2: -7.3342933449}
+ITERATIONS_14E14O = 2
+H14_GEOMETRY = "; ".join(f"H 0 0 {0.9 * i:.2f}" for i in range(14))
 E_CASSCF_2E2O = -92.74923230445957
 TOL_ENERGY = 1e-8
 # published HBM rate of one H100 SXM at its 700 W limit
@@ -632,6 +663,248 @@ def sector12_phase(torch, P, gk, dev):
     return launches
 
 
+def streamed_equals_fused_phase(torch, P, gk, grid):
+    """grad_hess of the (10e,10o) slice at a seeded theta on the streamed
+    route (row chunk 37 of 252, pair block 23 of 100: ragged last
+    pieces) against the fused route, both on the card."""
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
+    out, launches = {}, {}
+    for route, kw in (("fused", {}),
+                      ("streamed",
+                       {"stream_plan": grid.StreamPlan(37, 23, None)})):
+        pqc = P.Parameterized_circuit(10, 10, ansatz="np_fabric",
+                                      n_layers=2, sector=True)
+        oo = P.OO_pqc(pqc, mol, 10, 10, freeze_active=True, **kw)
+        check(oo._core["route"] == route,
+              f"(10e,10o) route {oo._core['route']}, expected {route}")
+        theta = 0.1 * np.random.default_rng(21).standard_normal(
+            pqc.theta_shape)
+        torch.cuda.synchronize()
+        gk.reset_launches()
+        t0 = time.perf_counter()
+        out[route] = oo._grad_hess(theta)
+        torch.cuda.synchronize()
+        launches[route] = dict(gk.LAUNCHES)
+        print(f"  {route:8s} grad_hess {time.perf_counter() - t0:.3f} s "
+              f"(n_kappa={oo.n_kappa}), launches {launches[route]}")
+    (e_f, g_f, h_f), (e_s, g_s, h_s) = out["fused"], out["streamed"]
+    de = abs(float(e_s - e_f))
+    dg = float((g_s - g_f).abs().max())
+    dh = float((h_s - h_f).abs().max())
+    print(f"  |de0| {de:.3e}  max|dgrad| {dg:.3e}  max|dhess| {dh:.3e}")
+    check(de <= 1e-11, f"streamed e0 differs by {de}")
+    check(dg <= 1e-11, f"streamed gradient differs by {dg}")
+    check(dh <= 1e-9, f"streamed Hessian differs by {dh}")
+    for name, n in launches["streamed"].items():
+        check(n > 0, f"kernel {name} was not launched by the streamed route")
+
+
+def sector14_setup(torch, P):
+    """The (14e,14o) problem on the default device; returns (pqc, oo)."""
+    t0 = time.perf_counter()
+    mol = P.Moldata(H14_GEOMETRY, "sto-3g")
+    pqc = P.Parameterized_circuit(14, 14, ansatz="np_fabric", n_layers=1,
+                                  sector=True)
+    oo = P.OO_pqc(pqc, mol, 14, 14, freeze_active=True)
+    torch.cuda.synchronize()
+    plan = oo._core["plan"]
+    print(f"(14e,14o) setup: {time.perf_counter() - t0:.2f} s "
+          f"(n_theta={pqc.theta_shape}, n_kappa={oo.n_kappa}, "
+          f"D={pqc.state_dim}, route={oo._core['route']}, row chunk "
+          f"{plan and plan.row_chunk}, pair block {plan and plan.pair_block})")
+    check(oo._core["route"] == "streamed",
+          f"(14e,14o) route {oo._core['route']}, expected streamed")
+    return pqc, oo
+
+
+def _slab_err(out, plain, args, step=28):
+    """Max abs error of gather_rows_scaled's out against its plain version,
+    made a slab of pairs at a time (the plain temporaries of a whole
+    (n2, rows, Nb) chunk would crowd the card); returns (err, rel)."""
+    x, src, s, t = args
+    err = scale = 0.0
+    for k0 in range(0, src.shape[0], step):
+        ref = plain(x, src[k0:k0 + step], s[k0:k0 + step], t[k0:k0 + step])
+        err = max(err, float((out[..., k0:k0 + step, :, :] - ref)
+                             .abs().max()))
+        scale = max(scale, float(ref.abs().max()))
+        del ref
+    return err, err / max(scale, 1e-300)
+
+
+def streamed_kernel_phase(torch, gk, grid, oo, stats):
+    """Each grid kernel at the (14e,14o) streamed shapes of ``oo``'s plan
+    against its plain version, f64 and f32, timed beside its bound; the
+    f64 figures go into ``stats``."""
+    gm = oo.pqc.sector_maps
+    plan = oo._core["plan"]
+    Na, Nb, n2, rows, pb = gm.Na, gm.Nb, gm.n2, plan.row_chunk, \
+        plan.pair_block
+    dev = gm.device
+    tol = {("rows", torch.float64): 1e-15, ("rows", torch.float32): 1e-6,
+           ("reduce", torch.float64): 1e-13, ("reduce", torch.float32): 1e-5}
+    gen = torch.Generator(device=dev).manual_seed(14)
+    blk = grid.pair_slice(gm, 0, pb)
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype)[6:]
+        like = torch.zeros((), dtype=dtype, device=dev)
+        _, _, tB, srcB, sgnB, _ = gm.tables(like)
+        srcA_k, sgnA_k, tA_k = grid._row_tables(gm, like, 0, rows)
+        x = torch.randn((Na, Nb), generator=gen, dtype=dtype, device=dev)
+        for half, args in (
+                ("alpha", (x, srcA_k, sgnA_k, tB)),
+                ("beta", (x[:rows].T.contiguous(), srcB, sgnB, tA_k))):
+            out = gk.gather_rows_scaled(*args)
+            torch.cuda.synchronize()
+            err, rel = _slab_err(out, gk.gather_rows_scaled_plain, args)
+            nbytes = _nbytes(*args, out)
+            del out
+            check(rel <= tol[("rows", dtype)],
+                  f"gather_rows_scaled 14e {half} {tag}: relative error "
+                  f"{rel:.3e}")
+            ms = time_ms(lambda: gk.gather_rows_scaled(*args), torch)
+            pms = time_ms(lambda: gk.gather_rows_scaled_plain(*args), torch,
+                          reps=2, rounds=3)
+            print(f"  gather_rows_scaled 14e {half:5s} {tag} x "
+                  f"{tuple(args[0].shape)} src {tuple(args[1].shape)} "
+                  f"max_abs_err={err:.3e} rel={rel:.3e} kernel={ms:.4f} ms "
+                  f"plain={pms:.4f} ms {_share(ms, nbytes)}")
+            st = stats["gather_rows_scaled"]
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            if dtype == torch.float64 and half == "alpha":
+                st.update(ms=ms, plain_ms=pms, bound_ms=bound_ms(nbytes))
+        del x
+        Y = torch.randn((pb, Na, Nb), generator=gen, dtype=dtype,
+                        device=dev)
+        srcA, sgnA, tB, srcB, sgnB, tA = blk.tables(Y)
+        for name, half, args in (
+                ("gather_reduce", "alpha", (Y, srcA, sgnA, tB)),
+                ("gather_reduce_cols", "beta", (Y, srcB, sgnB, tA))):
+            fn = getattr(gk, name)
+            plain = getattr(gk, name + "_plain")
+            out = fn(*args)
+            ref = plain(*args)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            rel = err / max(float(ref.abs().max()), 1e-300)
+            del out, ref
+            check(rel <= tol[("reduce", dtype)],
+                  f"{name} 14e {tag}: relative error {rel:.3e}")
+            cols = name == "gather_reduce_cols"
+            nbytes = reduce_bytes(*args, cols)
+            ms = time_ms(lambda: fn(*args), torch)
+            pms = time_ms(lambda: plain(*args), torch, reps=2, rounds=3)
+            extra = ""
+            if cols:
+                sec = sector_floor_bytes(*args[:3], 32)
+                extra = (f" 32-byte floor {sec / 1e6:.1f} MB "
+                         f"{bound_ms(sec):.4f} ms")
+            print(f"  {name:18s} 14e {half:5s} {tag} Y {tuple(Y.shape)} "
+                  f"max_abs_err={err:.3e} rel={rel:.3e} kernel={ms:.4f} ms "
+                  f"plain={pms:.4f} ms {_share(ms, nbytes)}{extra}")
+            st = stats[name]
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            if dtype == torch.float64:
+                st.update(ms=ms, plain_ms=pms, bound_ms=bound_ms(nbytes))
+        del Y
+    torch.cuda.empty_cache()
+    beyond_int32(torch, gk, gm, gen, stats)
+
+
+def beyond_int32(torch, gk, gm, gen, stats, step=28):
+    """Each grid kernel on all n2 = 196 pairs of the (14e,14o) maps in one
+    f32 launch, whose Phi or Y holds n2 * D = 2.31e9 elements (beyond
+    2^31, 9.2 GB): against the plain version a slab of pairs at a time."""
+    Na, Nb, n2 = gm.Na, gm.Nb, gm.n2
+    srcA, sgnA, tB, srcB, sgnB, tA = gm.tables(
+        torch.zeros((), dtype=torch.float32, device=gm.device))
+    x = torch.randn((Na, Nb), generator=gen, dtype=torch.float32,
+                    device=gm.device)
+    out = gk.gather_rows_scaled(x, srcA, sgnA, tB)
+    torch.cuda.synchronize()
+    check(out.numel() > 2 ** 31, f"{out.numel()} elements")
+    err, rel = _slab_err(out, gk.gather_rows_scaled_plain,
+                         (x, srcA, sgnA, tB), step)
+    del out, x
+    results = [("gather_rows_scaled", err, rel)]
+    Y = torch.empty((n2, Na, Nb), dtype=torch.float32, device=gm.device)
+    for k0 in range(0, n2, step):
+        Y[k0:k0 + step].normal_(generator=gen)
+    for name, tabs in (("gather_reduce", (srcA, sgnA, tB)),
+                       ("gather_reduce_cols", (srcB, sgnB, tA))):
+        out = getattr(gk, name)(Y, *tabs)
+        plain = getattr(gk, name + "_plain")
+        ref = sum(plain(Y[k0:k0 + step], *(a[k0:k0 + step] for a in tabs))
+                  for k0 in range(0, n2, step))
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        results.append((name, err, err / max(float(ref.abs().max()),
+                                             1e-300)))
+        del out, ref
+    del Y
+    torch.cuda.empty_cache()
+    for name, err, rel in results:
+        print(f"  {name:18s} 14e all {n2} pairs float32 ({n2 * Na * Nb:,} "
+              f"elements) max_abs_err={err:.3e} rel={rel:.3e}")
+        check(rel <= (1e-6 if name == "gather_rows_scaled" else 1e-5),
+              f"{name} beyond 2^31 elements: relative error {rel:.3e}")
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+
+
+def sector14_phase(torch, gk, pqc, oo):
+    """2 NR iterations of the (14e,14o) path; returns the grid kernel
+    launches counted during them."""
+    stamps = []
+
+    class Stamp:
+        def log(self, n, energy, **kw):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    theta0 = pqc.init_zeros()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    t_start = time.perf_counter()
+    energies, thetas, _, oaos, eigs = oo.full_optimization(
+        theta0, max_iterations=ITERATIONS_14E14O, alpha=1e-4, beta=0.5,
+        mu=1e-6, rho=1.1, lambda_min=1e-6, monitor=Stamp())
+    launches = dict(gk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    iter_s = [b - a for a, b in zip([t_start] + stamps[:-1], stamps)]
+    for n, e in enumerate(energies, 1):
+        ref = ANCHORS_14E14O.get(n)
+        ref = ("no anchor" if ref is None
+               else f"JAX {ref:.14f}  diff {e - ref:+.3e}")
+        print(f"  iter {n}: E = {e:.14f}  {ref}  wall {iter_s[n - 1]:.3f} s"
+              f"  lowest eig {eigs[n - 1]:+.6e}")
+    check(len(energies) == ITERATIONS_14E14O,
+          f"ran {len(energies)} iterations, not {ITERATIONS_14E14O}")
+    for n, ref in ANCHORS_14E14O.items():
+        e = energies[n - 1]
+        check(abs(e - ref) <= TOL_ENERGY,
+              f"(14e,14o) iteration {n}: |{e} - {ref}| > {TOL_ENERGY}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched by the (14e,14o) run")
+    psi = pqc.state(thetas[-1])
+    torch.cuda.synchronize()
+    check(psi.shape == (pqc.state_dim,), f"state shape {tuple(psi.shape)}")
+    check(bool(torch.isfinite(psi).all()), "non-finite final state")
+    norm = float(psi @ psi)
+    check(abs(norm - 1.0) < 1e-12, f"final state norm {norm}")
+    del psi
+    gamma, _ = pqc.get_rdms(thetas[-1])
+    trace = float(torch.trace(gamma))
+    check(abs(trace - 14.0) < 1e-10, f"tr(gamma) = {trace}, not 14")
+    check(bool(torch.isfinite(oaos[-1]).all()), "non-finite OAO-MO")
+    print(f"  launches: {launches}; peak device memory of the iterations "
+          f"{peak / 1e9:.3f} GB (max_memory_allocated); |norm - 1| "
+          f"{abs(norm - 1.0):.2e}, tr(gamma) - 14 {trace - 14.0:+.2e}")
+    return launches
+
+
 def convergence_phase(torch, P):
     """(2e,2o) to convergence, built on the port's default device."""
     from auto_oo_tpu_torch.utils.misc import get_formal_geo
@@ -685,19 +958,35 @@ def main():
                       dev)
         stats.update(phase("gather mechanisms vs plain", mechanism_phase,
                            torch, gm, exp, dev))
-        launches = phase("gather mechanism entry point", entry_point_phase,
-                         gm, exp)
-        phase("(10e,10o) slice", slice_phase, torch, P, gk)
-        launches.update(phase("(12e,12o) sector", sector12_phase, torch, P,
-                              gk, dev))
+        paths = {"probes": phase("gather mechanism entry point",
+                                 entry_point_phase, gm, exp)}
+        paths["10e10o"] = phase("(10e,10o) slice", slice_phase, torch, P, gk)
+        paths["12e12o"] = phase("(12e,12o) sector", sector12_phase, torch, P,
+                                gk, dev)
+        torch.cuda.empty_cache()
+        phase("streamed equals fused at (10e,10o)",
+              streamed_equals_fused_phase, torch, P, gk, grid)
+        torch.cuda.empty_cache()
+        pqc14, oo14 = phase("(14e,14o) setup", sector14_setup, torch, P)
+        phase("(14e,14o) grid kernels vs plain", streamed_kernel_phase,
+              torch, gk, grid, oo14, stats)
+        paths["14e14o"] = phase("(14e,14o) sector", sector14_phase, torch,
+                                gk, pqc14, oo14)
+        del pqc14, oo14
+        torch.cuda.empty_cache()
         phase("(2e,2o) convergence", convergence_phase, torch, P)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     print(f"all phases: {time.perf_counter() - t_all:.2f} s")
+    main_path = {name: ("probes" if name in paths["probes"] else "14e14o")
+                 for name in stats}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
-         "replaces": REPLACES[name], "launches": launches[name],
+         "replaces": REPLACES[name],
+         "launches": paths[main_path[name]][name],
+         "launches_by_path": {path: n[name] for path, n in paths.items()
+                              if name in n},
          "max_abs_err": st["max_abs_err"], "ms": st["ms"],
          "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
          "bound_by": "bytes", "library_ms": None}

@@ -1,9 +1,11 @@
 """The port's CUDA kernels on the card (marker ``cuda``).
 
 The grid-gather kernels and the row-gather mechanism probes against their
-plain PyTorch versions, the grid ops and one Newton core on the card
-against the same code on the CPU, and failed builds and launches that
-raise.  This file imports neither jax nor the JAX package, so
+plain PyTorch versions (the grid kernels also at the row-streamed route's
+row-sliced and pair-sliced shapes), the grid ops (fused and row-streamed)
+and one Newton core on the card against the same code on the CPU, the
+streamed Newton core against the fused one on the card, and failed
+builds and launches that raise.  This file imports neither jax nor the JAX package, so
 it also runs where jax is not installed; tests/conftest.py imports jax,
 so run it on the card with
 
@@ -221,6 +223,96 @@ def test_cuda_grad_hess_matches_cpu(cuda_device):
     assert abs(float(e_g) - float(e_c)) < 1e-11
     np.testing.assert_allclose(g_g, g_c, rtol=0, atol=1e-11)
     np.testing.assert_allclose(h_g, h_c, rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_kernels_at_streamed_shapes(cuda_device, dtype):
+    """The kernels at the row-streamed route's shapes against their plain
+    versions, one launch each, on the (6e,6o) maps: gather_rows_scaled
+    with row-sliced tables (src (n2, rows) against the whole x) for the
+    alpha half of a Phi chunk, and on the chunk's transposed rows for the
+    beta half; both forms of gather_reduce on a pair-sliced Y with the
+    sliced tables.  A ragged row chunk, a batch of two."""
+    tol = TOL[dtype]
+    pm = grid.build_grid_maps(6, 6, device=cuda_device)
+    like = torch.zeros((), dtype=dtype, device=cuda_device)
+    r0, r1 = 3, 14
+    srcA_k, sgnA_k, tA_k = grid._row_tables(pm, like, r0, r1)
+    _, _, tB, srcB, sgnB, _ = pm.tables(like)
+    x = _rand((2, pm.Na, pm.Nb), 60).to(cuda_device, dtype)
+    xt = x[:, r0:r1].transpose(-1, -2).contiguous()
+    for args in ((x, srcA_k, sgnA_k, tB), (xt, srcB, sgnB, tA_k)):
+        before = gk.LAUNCHES["gather_rows_scaled"]
+        out = gk.gather_rows_scaled(*args)
+        torch.cuda.synchronize()
+        assert gk.LAUNCHES["gather_rows_scaled"] == before + 1
+        ref = gk.gather_rows_scaled_plain(args[0], args[1].long(), *args[2:])
+        assert out.shape == ref.shape
+        assert _rel_err(out, ref) <= tol["rows"]
+    blk = grid.pair_slice(pm, 5, 29)
+    srcA, sgnA, tB, srcB, sgnB, tA = blk.tables(like)
+    Y = _rand((2, 24, pm.Na, pm.Nb), 61).to(cuda_device, dtype)
+    _check_reduce("gather_reduce", (Y, srcA, sgnA, tB), tol["reduce"])
+    _check_reduce("gather_reduce_cols", (Y, srcB, sgnB, tA), tol["reduce"])
+
+
+@pytest.mark.cuda
+def test_cuda_streamed_grid_ops_match_cpu(cuda_device):
+    """phi_rows and its VJP, the VJP of phi_all on pair-sliced maps, and
+    ham_apply_rows / rdms_rows / transition_rdms_rows on the card against
+    the CPU."""
+    pm_c = grid.build_grid_maps(4, (2, 1), device="cpu")
+    pm_g = grid.build_grid_maps(4, (2, 1), device=cuda_device)
+    x = _rand((2, pm_c.dim), 62)
+    ct = _rand((2, pm_c.n2, 3, pm_c.Nb), 63)
+    outs = []
+    for dev, pm in (("cpu", pm_c), (cuda_device, pm_g)):
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        phi = grid.phi_rows(xd, pm, 1, 4)
+        (phi * ct.to(dev)).sum().backward()
+        g_rows = xd.grad.cpu()
+        xd.grad = None
+        grid.phi_all(xd, grid.pair_slice(pm, 3, 11)).sum().backward()
+        c1 = torch.linspace(-1, 1, pm.n2, dtype=torch.float64, device=dev)
+        C2 = torch.outer(c1, c1.flip(0))
+        h = grid.ham_apply_rows(c1, C2 + C2.T, xd.detach(), pm, 2, 5)
+        rd = grid.rdms_rows(xd.detach()[0], pm, 4, 4)
+        tr = grid.transition_rdms_rows(xd.detach()[0], xd.detach()[1], pm,
+                                       4, 3)
+        outs.append([phi.detach().cpu(), g_rows, xd.grad.cpu(), h.cpu()]
+                    + [a.cpu() for a in rd + tr])
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-13)
+
+
+@pytest.mark.cuda
+def test_cuda_streamed_grad_hess_matches_fused(cuda_device):
+    """(4e,4o) 6-31G sector np_fabric on the card: grad_hess on the
+    streamed route (row chunk 2, pair block 5) equals the fused route's
+    on the card, e0 and gradient to 1e-11 and the Hessian to 1e-9, and
+    launched all three kernels."""
+    mol = P.Moldata(P.get_formal_geo(140, 80), "6-31g")
+    theta = 0.3 * np.random.default_rng(64).standard_normal(
+        P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
+                                sector=True, device="cpu").theta_shape)
+    out = {}
+    for route, kw in (("fused", {}),
+                      ("streamed",
+                       {"stream_plan": grid.StreamPlan(2, 5, None)})):
+        pqc = P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
+                                      sector=True, device=cuda_device)
+        oo = P.OO_pqc(pqc, mol, 4, 4, freeze_active=True, **kw)
+        assert oo._core["route"] == route and oo.n_kappa > 0
+        before = dict(gk.LAUNCHES)
+        out[route] = [a.cpu() for a in oo._grad_hess(theta)]
+        torch.cuda.synchronize()
+    for name, n in gk.LAUNCHES.items():
+        assert n > before[name], name
+    (e_f, g_f, h_f), (e_s, g_s, h_s) = out["fused"], out["streamed"]
+    assert abs(float(e_s) - float(e_f)) < 1e-11
+    np.testing.assert_allclose(g_s, g_f, rtol=0, atol=1e-11)
+    np.testing.assert_allclose(h_s, h_f, rtol=0, atol=1e-9)
 
 
 @pytest.mark.cuda

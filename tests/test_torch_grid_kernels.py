@@ -236,6 +236,8 @@ def test_linearity_vjps():
 
 
 def test_pair_slice_forward_and_vjp_raises():
+    """pair_slice'd maps: both grid ops and the VJP of phi_all against
+    the XLA grid ops on the JAX package's sliced maps."""
     jm, pm = _maps(3, 2)
     sl_j, sl_p = jgrid.pair_slice(jm, 2, 7), grid.pair_slice(pm, 2, 7)
     x = _rand((jm.dim,), 11)
@@ -248,9 +250,14 @@ def test_pair_slice_forward_and_vjp_raises():
         grid.epq_sum(torch.from_numpy(Y), sl_p).numpy(),
         np.asarray(jgrid._epq_sum_xla(jnp.asarray(Y), sl_j)),
         rtol=0, atol=1e-13)
+    # the VJP of the sliced maps is the other grid op on their transposed
+    # maps (E_pq^T = E_qp): it equals the XLA grid op's
+    ref = jax.grad(lambda v: jnp.sum(jgrid._phi_all_xla(v, sl_j)))(
+        jnp.asarray(x))
     xt = torch.from_numpy(x).requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        grid.phi_all(xt, sl_p).sum().backward()
+    grid.phi_all(xt, sl_p).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-13)
 
 
 def test_wrappers_reject_other_devices_and_bad_operands():

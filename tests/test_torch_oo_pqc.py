@@ -179,14 +179,20 @@ def test_staged_regime_matches_jax_staged(molecules, circuits, monkeypatch):
 
 
 def test_streamed_regime_raises(molecules, monkeypatch):
-    """Where one (n^2, D) f64 Phi does not fit its block (the JAX
-    package's streamed and hosted rows), OO_pqc refuses at construction;
-    below D = 2^19 with Phi fitting, the route is the fused one."""
+    """Where one (n^2, D) f64 Phi does not fit its block, OO_pqc takes the
+    streamed route (the JAX package's streamed rows); only where one
+    full-Phi pass reaches the JAX package's hosting threshold does it
+    refuse at construction.  Below D = 2^19 with Phi fitting, the route
+    is the fused one."""
     _, mp = molecules({})
     pqc = P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
                                   sector=True)
     assert P.OO_pqc(pqc, mp, 4, 4)._core["route"] == "fused"
     monkeypatch.setattr(grid, "_PAIR_CHUNK_BYTES", 8)
+    oo = P.OO_pqc(pqc, mp, 4, 4)
+    assert oo._core["route"] == "streamed"
+    assert oo._core["plan"] == grid.stream_plan(pqc.sector_maps)
+    monkeypatch.setattr(poo, "_HOSTED_MIN_BYTES", 1)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         P.OO_pqc(pqc, mp, 4, 4)
 
@@ -341,13 +347,22 @@ def test_unported_routes_raise(molecules, monkeypatch):
                  lambda: oo.orbital_optimization(None, None)):
         with pytest.raises(NotImplementedError):
             call()
-    # the streamed (Phi does not fit one block) branches raise instead of
-    # silently taking another route
+    # the streamed (Phi does not fit one block) branches run the
+    # row-streamed functions and agree with the fused ones; the hosted
+    # regime still raises
+    psi = pqc._state_impl_grid(0.3 * torch.ones_like(theta))
+    c1 = torch.tensor([[0.5, 0.1], [0.1, -0.2]], dtype=torch.float64)
+    c2 = torch.arange(16, dtype=torch.float64).reshape(2, 2, 2, 2) / 16
+    c2 = c2 + c2.permute(1, 0, 3, 2)
+    fused = (rdms.rdms_from_state(psi, 2, pqc.sector_maps, grid_order=True),
+             hamiltonian.ham_apply(c1, c2, psi, 2, pqc.sector_maps))
     monkeypatch.setattr(grid, "_PAIR_CHUNK_BYTES", 8)
-    psi = pqc._state_impl_grid(theta)
+    assert P.OO_pqc(pqc, mp, 2, 2)._core["route"] == "streamed"
+    streamed = (rdms.rdms_from_state(psi, 2, pqc.sector_maps,
+                                     grid_order=True),
+                hamiltonian.ham_apply(c1, c2, psi, 2, pqc.sector_maps))
+    for a, b in zip(fused[0] + fused[1:], streamed[0] + streamed[1:]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0, atol=1e-13)
+    monkeypatch.setattr(poo, "_HOSTED_MIN_BYTES", 1)
     with pytest.raises(NotImplementedError):
-        rdms.rdms_from_state(psi, 2, pqc.sector_maps, grid_order=True)
-    c1 = torch.zeros((2, 2), dtype=torch.float64)
-    c2 = torch.zeros((2, 2, 2, 2), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        hamiltonian.ham_apply(c1, c2, psi, 2, pqc.sector_maps)
+        P.OO_pqc(pqc, mp, 2, 2)
