@@ -83,6 +83,27 @@
 //   copy.  (Landing the gathered elements in shared memory with cp.async,
 //   which frees the registers of the loads in flight, was slower on an
 //   H100 at every pipeline depth tried.)
+//
+// scatter_rows (the alpha half of the hosted H-apply, accumulated):
+//   acc[b, i, j] += sum_k (Y[b, k, src[k, i] - r0, j] * s[k, i]) * t[k, j]
+//   over the k whose src[k, i] lies in the window [r0, r0 + Ns), with
+//   Y (B, n2, Ns, Nb) the H-apply's Y of the grid rows [r0, r0 + Ns) in
+//   SOURCE rows, src/s (n2, Na) the full alpha maps, acc (B, Na, Nb).
+//   Replaces the XLA scatter acc.at[dst].add(Y * dsg * t) of
+//   auto_oo_tpu/ops/grid_hosted.py::_ham_segment (no Pallas kernel there;
+//   it is the windowed, accumulating form of kernel 2 above).  Each pair's
+//   row map is a partial injection, so the scatter through the inverse
+//   maps (dst, dsg) equals this gather through the forward maps: every
+//   output row reads the Y rows of its valid pairs inside the window.
+//   It is the row form's kernel with two changes: a pair is staged only if
+//   its source row lies in the window, and the block adds its sum to acc
+//   (a row with no pair in the window is neither read nor written).  No
+//   atomics: the terms are summed in increasing k and then added to acc
+//   once, so two launches give the same bits.  Bound: the Y rows of the
+//   staged pairs once, each acc row with a staged pair read and written
+//   once, the tables once; per (16e,16o) chunk of ~477 rows that is ~3.8
+//   GB of Y and ~2.5 GB of acc, where index_add_ through the inverse maps
+//   would write every Y element to acc with an atomic add.
 
 #include <cuda_runtime.h>
 
@@ -159,15 +180,30 @@ __device__ __forceinline__ void add_term(float4& acc, float4 y, float s,
   acc.w += (y.w * s) * t.w;
 }
 
+__device__ __forceinline__ void add_to(double& o, double a) { o += a; }
+__device__ __forceinline__ void add_to(float& o, float a) { o += a; }
+__device__ __forceinline__ void add_to(double2& o, double2 a) {
+  o.x += a.x;
+  o.y += a.y;
+}
+__device__ __forceinline__ void add_to(float4& o, float4 a) {
+  o.x += a.x;
+  o.y += a.y;
+  o.z += a.z;
+  o.w += a.w;
+}
+
 // One block: rows [blockIdx.x * rows, +rows) of out, all B tangents, all j.
 // Dynamic shared memory: off[rows][n2] (long long), sv[rows][n2] (T),
 // toff[rows][n2] (int), cnt[rows][n_chunks] (int), len[rows] (int).
-template <typename T, int VEC>
+// kAdd: scatter_rows, the window [r0, r0 + Ns) and out += (see the header);
+// otherwise gather_reduce (r0 is 0 and every src lies in [0, Ns)).
+template <typename T, int VEC, bool kAdd>
 __global__ void __launch_bounds__(kMaxThreads)
 gather_reduce_kernel(const T* __restrict__ Y, const int* __restrict__ src,
                      const T* __restrict__ s, const T* __restrict__ t,
                      T* __restrict__ out, int B, int n2, int Ns, int Na,
-                     int Nb, int rows) {
+                     int Nb, int rows, int r0) {
   using V = typename Vec<T, VEC>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_chunks = (n2 + kWarp - 1) / kWarp;
@@ -189,8 +225,12 @@ gather_reduce_kernel(const T* __restrict__ Y, const int* __restrict__ src,
   for (int w = warp; w < n_rows * n_chunks; w += n_warps) {
     const int r = w / n_chunks;
     const int k = (w % n_chunks) * kWarp + lane;
-    const bool valid =
-        k < n2 && __ldg(s + static_cast<long long>(k) * Na + i0 + r) != T(0);
+    const long long e_k = static_cast<long long>(k) * Na + i0 + r;
+    bool valid = k < n2 && __ldg(s + e_k) != T(0);
+    if (kAdd && valid) {
+      const int m = __ldg(src + e_k) - r0;
+      valid = m >= 0 && m < Ns;
+    }
     const unsigned mask = __ballot_sync(0xffffffffu, valid);
     if (lane == 0) cnt[w] = __popc(mask);
   }
@@ -200,13 +240,19 @@ gather_reduce_kernel(const T* __restrict__ Y, const int* __restrict__ src,
     const int c = w % n_chunks;
     const int k = c * kWarp + lane;
     const long long e_k = static_cast<long long>(k) * Na + i0 + r;
-    const T sk = k < n2 ? __ldg(s + e_k) : T(0);
+    T sk = k < n2 ? __ldg(s + e_k) : T(0);
+    int m = 0;
+    if (kAdd && sk != T(0)) {
+      m = __ldg(src + e_k) - r0;
+      if (m < 0 || m >= Ns) sk = T(0);
+    }
     const unsigned mask = __ballot_sync(0xffffffffu, sk != T(0));
     int base = 0;
     for (int cc = 0; cc < c; ++cc) base += cnt[r * n_chunks + cc];
     if (sk != T(0)) {
+      if (!kAdd) m = __ldg(src + e_k);
       const int e = r * n2 + base + __popc(mask & ((1u << lane) - 1u));
-      off[e] = (static_cast<long long>(k) * Ns + __ldg(src + e_k)) * Nb;
+      off[e] = (static_cast<long long>(k) * Ns + m) * Nb;
       sv[e] = sk;
       toff[e] = k * Nb;
     }
@@ -228,6 +274,7 @@ gather_reduce_kernel(const T* __restrict__ Y, const int* __restrict__ src,
     const T* es = sv + r * n2;
     const int* et = toff + r * n2;
     const int n = len[r];
+    if (kAdd && n == 0) continue;
     V acc;
     zero(acc);
     // groups of kUnroll entries; the last group is predicated, so its
@@ -244,8 +291,15 @@ gather_reduce_kernel(const T* __restrict__ Y, const int* __restrict__ src,
       for (int u = 0; u < kUnroll; ++u)
         if (e + u < n) add_term(acc, y[u], es[e + u], tt[u]);
     }
-    *reinterpret_cast<V*>(
-        out + (static_cast<long long>(b) * Na + i0 + r) * Nb + j) = acc;
+    V* o = reinterpret_cast<V*>(
+        out + (static_cast<long long>(b) * Na + i0 + r) * Nb + j);
+    if (kAdd) {
+      V prev = *o;
+      add_to(prev, acc);
+      *o = prev;
+    } else {
+      *o = acc;
+    }
   }
 }
 
@@ -340,38 +394,39 @@ int launch_gather_rows_scaled(const T* x, const int* src, const T* s,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool kAdd>
 int launch_reduce_vec(const T* Y, const int* src, const T* s, const T* t,
                       T* out, int B, int n2, int Ns, int Na, int Nb,
-                      int rows, int threads, cudaStream_t stream) {
+                      int rows, int threads, int r0, cudaStream_t stream) {
   const int n_chunks = (n2 + kWarp - 1) / kWarp;
   const size_t smem =
       static_cast<size_t>(rows) * n2 * (sizeof(long long) + sizeof(T) + 4) +
       static_cast<size_t>(rows) * (n_chunks + 1) * 4;
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((Na + rows - 1) / rows);
-  gather_reduce_kernel<T, VEC><<<grid, threads, smem, stream>>>(
-      Y, src, s, t, out, B, n2, Ns, Na, Nb, rows);
+  gather_reduce_kernel<T, VEC, kAdd><<<grid, threads, smem, stream>>>(
+      Y, src, s, t, out, B, n2, Ns, Na, Nb, rows, r0);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// gather_reduce (kAdd false, r0 0) and scatter_rows (kAdd true)
+template <typename T, bool kAdd>
 int launch_gather_reduce(const T* Y, const int* src, const T* s, const T* t,
                          T* out, long long B, int n2, int Ns, int Na, int Nb,
-                         int vec, int rows, int threads,
+                         int vec, int rows, int threads, int r0,
                          cudaStream_t stream) {
   if (B == 0 || Na == 0 || Nb == 0) return static_cast<int>(cudaSuccess);
   constexpr int kVec = 16 / sizeof(T);
   if (B * Nb > 2147483647LL || rows < 1 || threads < kWarp ||
       threads > kMaxThreads || threads % kWarp != 0 ||
-      (vec != 1 && vec != kVec) || Nb % vec != 0)
+      (vec != 1 && vec != kVec) || Nb % vec != 0 || r0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int b = static_cast<int>(B);
   if (vec == 1)
-    return launch_reduce_vec<T, 1>(Y, src, s, t, out, b, n2, Ns, Na, Nb,
-                                   rows, threads, stream);
-  return launch_reduce_vec<T, kVec>(Y, src, s, t, out, b, n2, Ns, Na, Nb,
-                                    rows, threads, stream);
+    return launch_reduce_vec<T, 1, kAdd>(Y, src, s, t, out, b, n2, Ns, Na,
+                                         Nb, rows, threads, r0, stream);
+  return launch_reduce_vec<T, kVec, kAdd>(Y, src, s, t, out, b, n2, Ns, Na,
+                                          Nb, rows, threads, r0, stream);
 }
 
 template <typename T>
@@ -415,18 +470,36 @@ int grid_gather_reduce_f64(const double* Y, const int* src, const double* s,
                            const double* t, double* out, long long B, int n2,
                            int Ns, int Na, int Nb, int vec, int rows,
                            int threads, void* stream) {
-  return launch_gather_reduce<double>(Y, src, s, t, out, B, n2, Ns, Na, Nb,
-                                      vec, rows, threads,
-                                      static_cast<cudaStream_t>(stream));
+  return launch_gather_reduce<double, false>(
+      Y, src, s, t, out, B, n2, Ns, Na, Nb, vec, rows, threads, 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 int grid_gather_reduce_f32(const float* Y, const int* src, const float* s,
                            const float* t, float* out, long long B, int n2,
                            int Ns, int Na, int Nb, int vec, int rows,
                            int threads, void* stream) {
-  return launch_gather_reduce<float>(Y, src, s, t, out, B, n2, Ns, Na, Nb,
-                                     vec, rows, threads,
-                                     static_cast<cudaStream_t>(stream));
+  return launch_gather_reduce<float, false>(
+      Y, src, s, t, out, B, n2, Ns, Na, Nb, vec, rows, threads, 0,
+      static_cast<cudaStream_t>(stream));
+}
+
+int grid_scatter_rows_f64(const double* Y, const int* src, const double* s,
+                          const double* t, double* acc, long long B, int n2,
+                          int Ns, int Na, int Nb, int vec, int rows,
+                          int threads, int r0, void* stream) {
+  return launch_gather_reduce<double, true>(
+      Y, src, s, t, acc, B, n2, Ns, Na, Nb, vec, rows, threads, r0,
+      static_cast<cudaStream_t>(stream));
+}
+
+int grid_scatter_rows_f32(const float* Y, const int* src, const float* s,
+                          const float* t, float* acc, long long B, int n2,
+                          int Ns, int Na, int Nb, int vec, int rows,
+                          int threads, int r0, void* stream) {
+  return launch_gather_reduce<float, true>(
+      Y, src, s, t, acc, B, n2, Ns, Na, Nb, vec, rows, threads, r0,
+      static_cast<cudaStream_t>(stream));
 }
 
 int grid_gather_reduce_cols_f64(const double* Y, const int* src,

@@ -29,10 +29,18 @@ Phi exceeds its 1 GB block ((14e,14o) on), the route is "streamed": the
 same ``grad_hess`` takes every H-apply, RDM and transition-RDM row
 through the row-streamed grid functions (ops/grid.py), one tangent at a
 time, with sizes chosen once from the free device memory
-(``grid.stream_plan``).  Later PRs of the port bring the hosted route
-beyond that, ``precision="mixed"``, ``device_loop=True``,
-``energy_and_gradient`` and ``gradient_optimization``; those raise
-NotImplementedError here.
+(``grid.stream_plan``).  Where one full-Phi pass reaches the JAX
+package's hosting threshold ((16e,16o) on), the route is "hosted": the
+(n_theta, D) stacks of J and H J no longer fit beside the Phi chunks, so
+``grad_hess`` follows the JAX package's per-tangent hosted branch
+(``grad_hess_hosted``): one pass over Phi for (H psi, RDMs), then per
+tangent one pair sweep for J_i, one scatter-form H-apply (with the
+transition RDMs when n_kappa > 0) and one reverse pair sweep for the
+Hessian row (ops/grid_hosted.py, simulator/grid_program.py); the energy
+takes its RDMs from one hosted pass.  Later PRs of the port bring the
+Gram route of the hosted regime, ``precision="mixed"``,
+``device_loop=True``, ``energy_and_gradient`` and
+``gradient_optimization``; those raise NotImplementedError here.
 """
 
 import numpy as np
@@ -40,6 +48,7 @@ import torch
 
 from ..ops import fock as _fock
 from ..ops import grid as _grid
+from ..ops import grid_hosted as _gh
 from ..ops import hamiltonian as _ham
 from ..ops import kappa as _kappa
 from ..ops import rdms as _rdms
@@ -57,24 +66,19 @@ _STAGED_MIN_D = 1 << 19
 # tangent chunks keep the (chunk, n^2, D) Phi/Y intermediates ~256 MB
 _CHUNK_ELEMENTS = 1 << 25
 
-
-# one full-Phi pass of this many f64 bytes or more makes the JAX package
-# host its grid kernels (auto_oo_tpu/ops/grid_hosted.py:63-75); (16e,16o)
-# is the first sector there
-_HOSTED_MIN_BYTES = 64e9
+# D-vectors the hosted grad_hess keeps beside its Phi chunks: psi, H psi,
+# one J_i, one H J_i, and the reverse pair sweep's four grids with their
+# out-of-place temporaries
+_HOSTED_RESIDENT_VECTORS = 10
 
 
 def _route(pqc, streamed=False):
-    """The JAX package's route for this sector: "fused", "staged" or
-    "streamed" (all three run here; ``streamed`` forces the last); the
-    hosted regime raises NotImplementedError."""
+    """The JAX package's route for this sector: "fused", "staged",
+    "streamed" or "hosted" (``streamed`` forces the streamed route below
+    the hosting threshold, ops/grid_hosted.needs_hosting)."""
     D, n2 = pqc.state_dim, pqc.ncas * pqc.ncas
-    if n2 * D * 8 >= _HOSTED_MIN_BYTES:
-        raise NotImplementedError(
-            f"sector dimension {D}: one full-Phi pass is {n2 * D * 8:.3g} "
-            "bytes, where the JAX package hosts its grid kernels; the "
-            "hosted routes come in a later PR of the port (ROADMAP queue "
-            "1 item 2)")
+    if _gh.needs_hosting(pqc.sector_maps):
+        return "hosted"
     if streamed or _grid._pair_chunk(1, D, n2, 8) < n2:
         return "streamed"
     return "staged" if D >= _STAGED_MIN_D else "fused"
@@ -95,17 +99,26 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
     n2 = ncas * ncas
     maps = pqc.sector_maps
     streamed = route == "streamed"
+    hosted = route == "hosted"
     plan = None
-    if streamed:
+    if streamed or hosted:
         # the streamed grad_hess keeps psi, J, H psi, w and the H J rows
-        # resident beside the Phi chunks and Y blocks
+        # resident beside the Phi chunks and Y blocks; the hosted one O(D)
+        vectors = _HOSTED_RESIDENT_VECTORS if hosted else 2 * nt + 4
         plan = stream_plan or _grid.stream_plan(
-            maps, 1, 8, resident=(2 * nt + 4) * pqc.state_dim * 8)
+            maps, 1, 8, resident=vectors * pqc.state_dim * 8)
         budget = ("" if plan.budget is None
                   else f", {plan.budget / 1e9:.1f} GB budget")
-        print(f"OO_pqc: streamed route, row chunk {plan.row_chunk} of "
-              f"{maps.Na} grid rows, pair block {plan.pair_block} of {n2} "
-              f"pairs{budget}", flush=True)
+        if hosted:
+            # the per-tangent pass with n_kappa > 0 builds two Phi chunks
+            pair_rows = _grid._even(maps.Na, plan.row_chunk // 2)
+            print(f"OO_pqc: hosted route, row chunk {plan.row_chunk} of "
+                  f"{maps.Na} grid rows ({pair_rows} where a pass builds "
+                  f"two Phi chunks){budget}", flush=True)
+        else:
+            print(f"OO_pqc: streamed route, row chunk {plan.row_chunk} of "
+                  f"{maps.Na} grid rows, pair block {plan.pair_block} of "
+                  f"{n2} pairs{budget}", flush=True)
 
     def k2m(kappa):
         total = torch.zeros(tril_size, dtype=kappa.dtype,
@@ -126,9 +139,13 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
         g2 = _tr.int2e_transform(int2e_ao, mo_sub)
         c0, c1, c2 = _tr.molecular_hamiltonian_coefficients(
             nuc, h1, g2, occ_rel, act_rel)
-        one_rdm, two_rdm = _rdms.rdms_from_state(
-            pqc._state_impl_grid(theta), ncas, maps, grid_order=True,
-            plan=plan)
+        psi = pqc._state_impl_grid(theta)
+        if hosted:
+            one_rdm, two_rdm = _gh.rdms_hosted(psi, maps, ncas,
+                                               plan.row_chunk)
+        else:
+            one_rdm, two_rdm = _rdms.rdms_from_state(
+                psi, ncas, maps, grid_order=True, plan=plan)
         return _tr.energy_from_rdms(c0, c1, c2, one_rdm, two_rdm)
 
     def pack_grad(h1, g2, g1, G2):
@@ -137,6 +154,16 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
         grad4 = _fock.analytic_gradient_from_integrals(h1, g2, g1, G2, occ,
                                                        act)
         return _kappa.skew_symmetric_to_vector(grad4)[..., params_idx_dev]
+
+    def trdm_blocks(dgamma, dgram):
+        """(dgamma, dGamma) of a batch of tangents from the flat transition
+        grams (the pair order of grid.transition_rdms_rows)."""
+        dgamma = dgamma.reshape(-1, ncas, ncas)
+        dcorr = dgram.reshape(-1, ncas, ncas, ncas, ncas)
+        delta = torch.eye(ncas, dtype=dgamma.dtype, device=dgamma.device)
+        dGamma = (dcorr.permute(0, 2, 1, 3, 4)
+                  - torch.einsum("qr,ips->ipqrs", delta, dgamma))
+        return dgamma, dGamma
 
     def transition_rdms(phi, psi, Jc):
         """d(gamma, Gamma)/d theta_i for a chunk of tangents Jc, by the
@@ -154,12 +181,75 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
             A = phiJ @ phi.T
             dgram = A + A.transpose(1, 2)
             dgamma = phiJ @ psi + (phi @ Jc.T).T
-        dgamma = dgamma.reshape(-1, ncas, ncas)
-        dcorr = dgram.reshape(-1, ncas, ncas, ncas, ncas)
-        delta = torch.eye(ncas, dtype=psi.dtype, device=psi.device)
-        dGamma = (dcorr.permute(0, 2, 1, 3, 4)
-                  - torch.einsum("qr,ips->ipqrs", delta, dgamma))
-        return dgamma, dGamma
+        return trdm_blocks(dgamma, dgram)
+
+    def coefficients(oao, int1e_ao, int2e_ao, oao_coeff, nuc):
+        """(h1, g2, c0, c1eff, c2) of the active-space Hamiltonian at the
+        MOs oao_coeff @ oao."""
+        mo = oao_coeff @ oao
+        h1 = _tr.int1e_transform(int1e_ao, mo)
+        g2 = _tr.int2e_transform(int2e_ao, mo)
+        c0, c1, c2 = _tr.molecular_hamiltonian_coefficients(
+            nuc, h1, g2, occ, act)
+        return h1, g2, c0, _ham.c1_effective(c1, c2), c2
+
+    def assemble(h1, g2, gamma, Gamma, grad_c, hess_cc, trdms):
+        """(grad, hess) from the circuit blocks, psi's RDMs and the
+        tangents' transition RDMs ``trdms``, an iterable of (dgamma,
+        dGamma) batches in tangent order, read only when n_kappa > 0."""
+        grad_o = pack_grad(h1, g2, gamma, Gamma)
+        if n_kappa:
+            # the analytic gradient is affine in the RDMs: subtract its
+            # value at zero RDMs to apply the linear part to each tangent
+            G0 = pack_grad(h1, g2, torch.zeros_like(gamma),
+                           torch.zeros_like(Gamma))
+            hess_oc = torch.cat([pack_grad(h1, g2, *tr) - G0
+                                 for tr in trdms]).T
+        else:
+            hess_oc = torch.zeros((0, nt), dtype=grad_c.dtype,
+                                  device=grad_c.device)
+        hess4 = _fock.analytic_hessian_from_integrals(
+            h1, g2, gamma, Gamma, occ, act)
+        hess_oo = _fock.full_hessian_to_matrix(hess4, params_idx, nao)
+        grad = torch.cat([grad_c, grad_o])
+        hess = torch.cat([torch.cat([hess_cc, hess_oc.T], dim=1),
+                          torch.cat([hess_oc, hess_oo], dim=1)])
+        return grad, hess
+
+    def grad_hess_hosted(theta, h1, g2, c0, c1eff, c2):
+        """The hosted route's (e0, grad, hess): the JAX package's
+        per-tangent hosted branch (auto_oo_tpu/models/oo_pqc.py:770-819).
+        One pass over Phi gives H psi and psi's RDMs; then per tangent i
+        one pair sweep gives J_i, one pass gives H J_i (with the
+        transition RDMs of (psi, J_i) when n_kappa > 0), grad_c[i] =
+        2 <J_i, H psi>, and one reverse pair sweep gives the Hessian row
+        2 d/d theta [<psi(theta), H J_i> + <J(theta) e_i, H psi>].  J and
+        H J are never stacked."""
+        pair_rows = _grid._even(maps.Na, plan.row_chunk // 2)
+        psi = pqc._state_impl_grid(theta)
+        Hpsi, gamma, Gamma = _gh.ham_and_rdms_hosted(c1eff, c2, psi, maps,
+                                                     ncas, plan.row_chunk)
+        e0 = c0 + psi @ Hpsi
+        grad_c = theta.new_empty(nt)
+        hess_cc = theta.new_empty((nt, nt))
+        trdms = []
+        for i in range(nt):
+            v = torch.zeros_like(theta)
+            v[i] = 1.0
+            Ji = pqc._pair_state_grid(theta, v)[1]
+            if n_kappa:
+                HJi, dgamma, dgram = _gh.ham_and_trdms_hosted(
+                    c1eff, c2, psi, Ji, maps, ncas, pair_rows)
+                trdms.append(trdm_blocks(dgamma, dgram))
+            else:
+                HJi = _gh.ham_apply_hosted(c1eff, c2, Ji, maps,
+                                           plan.row_chunk)
+            grad_c[i] = 2.0 * (Ji @ Hpsi)
+            hess_cc[i] = 2.0 * pqc._pair_row_grid(theta, v, HJi, Hpsi, psi,
+                                                  Ji)
+            del Ji, HJi
+        grad, hess = assemble(h1, g2, gamma, Gamma, grad_c, hess_cc, trdms)
+        return e0, grad, hess
 
     def grad_hess(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc):
         """Energy, full gradient, full (theta+kappa) Hessian.
@@ -170,12 +260,10 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
           hess_oc  = analytic-gradient linear map applied to the
                      transition RDMs d(gamma, Gamma)/d theta_i
         Every state here is GRID-ordered (ops/grid.py)."""
-        mo = oao_coeff @ oao
-        h1 = _tr.int1e_transform(int1e_ao, mo)
-        g2 = _tr.int2e_transform(int2e_ao, mo)
-        c0, c1, c2 = _tr.molecular_hamiltonian_coefficients(
-            nuc, h1, g2, occ, act)
-        c1eff = _ham.c1_effective(c1, c2)
+        h1, g2, c0, c1eff, c2 = coefficients(oao, int1e_ao, int2e_ao,
+                                             oao_coeff, nuc)
+        if hosted:
+            return grad_hess_hosted(theta, h1, g2, c0, c1eff, c2)
 
         def ham(chi):
             return _ham.ham_apply(c1eff, c2, chi, ncas, maps, plan)
@@ -201,24 +289,9 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
         else:
             phi = _rdms.apply_epq_all(psi, ncas, maps)     # (n^2, D)
             gamma, Gamma = _rdms.rdms_from_gram(phi, psi, ncas)
-        grad_o = pack_grad(h1, g2, gamma, Gamma)
-        if n_kappa:
-            # the analytic gradient is affine in the RDMs: subtract its
-            # value at zero RDMs to apply the linear part to each tangent
-            G0 = pack_grad(h1, g2, torch.zeros_like(gamma),
-                           torch.zeros_like(Gamma))
-            hess_oc = torch.cat([
-                pack_grad(h1, g2, *transition_rdms(phi, psi, Jc)) - G0
-                for Jc in chunks]).T
-        else:
-            hess_oc = torch.zeros((0, nt), dtype=theta.dtype,
-                                  device=theta.device)
-        hess4 = _fock.analytic_hessian_from_integrals(
-            h1, g2, gamma, Gamma, occ, act)
-        hess_oo = _fock.full_hessian_to_matrix(hess4, params_idx, nao)
-        grad = torch.cat([grad_c, grad_o])
-        hess = torch.cat([torch.cat([hess_cc, hess_oc.T], dim=1),
-                          torch.cat([hess_oc, hess_oo], dim=1)])
+        grad, hess = assemble(h1, g2, gamma, Gamma, grad_c, hess_cc,
+                              (transition_rdms(phi, psi, Jc)
+                               for Jc in chunks))
         return e0, grad, hess
 
     def newton_update(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc, e0,
@@ -261,10 +334,11 @@ class OO_pqc(OO_energy):
     circuit's device.
 
     ``stream_plan`` (a grid.StreamPlan) forces the streamed route with
-    that row chunk and pair block whatever the sector's size (it holds
-    the streamed route against the fused one at a small D); by default
-    the route follows the JAX package's rule and, when streamed, its
-    sizes come from the free device memory at construction."""
+    that row chunk and pair block below the hosting threshold (it holds
+    the streamed route against the fused one at a small D), and sets the
+    hosted route's row chunk at or above it; by default the route follows
+    the JAX package's rule and, when streamed or hosted, its sizes come
+    from the free device memory at construction."""
 
     def __init__(self, pqc, mol, ncas, nelecas, oao_mo_coeff=None,
                  freeze_active=False, interface=None, newton_method=None,

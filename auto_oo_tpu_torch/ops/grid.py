@@ -247,16 +247,23 @@ def _nelec_split(nelecas):
     return int(nelecas) - nb, nb
 
 
+def grid_strings(ncas, nelecas, up_then_down=False):
+    """The (A, B) alpha and beta string lists of the sector grid."""
+    na, nb = _nelec_split(nelecas)
+    return (spin_strings(ncas, na, 0, up_then_down),
+            spin_strings(ncas, nb, 1, up_then_down))
+
+
 def grid_perms(ncas, nelecas, up_then_down=False):
     """Host-side (numpy) string lists and grid<->canonical permutations:
     (A, B, g2s, s2g) with x_grid = x_sorted[g2s], x_sorted = x_grid[s2g]."""
-    na, nb = _nelec_split(nelecas)
-    A = spin_strings(ncas, na, 0, up_then_down)
-    B = spin_strings(ncas, nb, 1, up_then_down)
+    A, B = grid_strings(ncas, nelecas, up_then_down)
     grid_dets = (A[:, None] | B[None, :]).ravel()
     # order[r] = grid rank of the r-th smallest determinant, so
-    # x_sorted[r] = x_grid[order[r]] (s2g = order) and g2s is its inverse
-    order = np.argsort(grid_dets, kind="stable")
+    # x_sorted[r] = x_grid[order[r]] (s2g = order) and g2s is its inverse;
+    # the determinants are distinct, so any sort gives the same order
+    order = np.argsort(grid_dets)
+    del grid_dets
     g2s = np.empty(order.size, dtype=np.int32)
     g2s[order] = np.arange(order.size, dtype=np.int32)
     s2g = order.astype(np.int32)
@@ -291,6 +298,25 @@ def to_grid(x, gm):
 def from_grid(x, gm):
     """Grid order -> canonical order, last axis."""
     return x[..., gm.s2g]
+
+
+def inverse_alpha_maps(gm):
+    """Host (numpy) inverse of the alpha E_pq row maps: dst[k, m] = the
+    output row that reads source row m for pair k, dsg[k, m] its sign,
+    0/0 where no output row does.  Each pair's row map is a partial
+    injection (an excitation bijects occupation subsets), so the inverse
+    exists; the hosted H-apply's alpha scatter reads it
+    (ops/grid_hosted.py).  Cached on ``gm``."""
+    def make():
+        srcA = gm.srcA.cpu().numpy()
+        sgnA = gm.sgnA.cpu().numpy()
+        dst = np.zeros_like(srcA)
+        dsg = np.zeros_like(sgnA)
+        ks, iis = np.nonzero(sgnA != 0)
+        dst[ks, srcA[ks, iis]] = iis
+        dsg[ks, srcA[ks, iis]] = sgnA[ks, iis]
+        return dst, dsg
+    return gm._cached("inverse_alpha", make)
 
 
 def pair_slice(gm, lo, hi):
@@ -538,11 +564,13 @@ def ham_apply_rows(c1eff_flat, C2, x, gm, row_chunk, pair_block=None):
 def rdms_rows(psi, gm, ncas, row_chunk):
     """(gamma, Gamma) of a real GRID-ordered state with Phi streamed over
     grid A-rows: each chunk of Phi is made once and consumed by the
-    (n2, L) x (L, n2) gram; one pass over Phi, one chunk live."""
+    (n2, L) x (L, n2) gram; one pass over Phi, one chunk live.  The
+    accumulators are f64 whatever the state's dtype (the JAX package's
+    hosted RDMs)."""
     n2 = gm.n2
     psig = psi.contiguous().reshape(gm.Na, gm.Nb)
-    gamma = psi.new_zeros(n2)
-    corr = psi.new_zeros((n2, n2))
+    gamma = psi.new_zeros(n2, dtype=torch.float64)
+    corr = psi.new_zeros((n2, n2), dtype=torch.float64)
     for r0, r1 in _row_chunks(gm.Na, row_chunk):
         phi_c = _phi_chunk(psig, gm, r0, r1).reshape(n2, -1)
         gamma += phi_c @ psig[r0:r1].reshape(-1)

@@ -5,7 +5,10 @@ Port of auto_oo_tpu/ops/pallas_grid.py (``gather_rows_scaled`` and
 ``gather_reduce``), plus ``gather_reduce_cols``: the column form of
 ``gather_reduce``, which reads the beta half of ``epq_sum`` in the grid's
 natural layout where the TPU wrapper first made a transposed copy of Y
-(pallas_grid.py:270).  The CUDA source is ``csrc/grid_gather.cu``; its
+(pallas_grid.py:270); and ``scatter_rows``: the alpha half of the hosted
+H-apply (auto_oo_tpu/ops/grid_hosted.py:260-262, an XLA scatter there),
+the windowed, accumulating form of ``gather_reduce``.  The CUDA source is
+``csrc/grid_gather.cu``; its
 header comment says what bounds each kernel on an H100 and what the
 design does about it.  The library is compiled with ``nvcc`` at first
 use (ops/cuda_build.py).
@@ -37,12 +40,13 @@ LIBRARY = CudaLibrary(
     {f"grid_{kern}_{sfx}": _ARGS + extra + [PTR]
      for kern, extra in (("gather_rows_scaled", []),
                          ("gather_reduce", [I32, I32, I32]),
-                         ("gather_reduce_cols", []))
+                         ("gather_reduce_cols", []),
+                         ("scatter_rows", [I32, I32, I32, I32]))
      for sfx in _SUFFIX.values()})
 
 #: launches of each CUDA kernel through its wrapper (plain runs excluded)
 LAUNCHES = {"gather_rows_scaled": 0, "gather_reduce": 0,
-            "gather_reduce_cols": 0}
+            "gather_reduce_cols": 0, "scatter_rows": 0}
 
 
 def reset_launches():
@@ -70,6 +74,18 @@ def gather_reduce_cols_plain(Y, src, s, t):
     ``gather_reduce`` on the transposed copy of Y, transposed back."""
     return gather_reduce_plain(Y.transpose(-1, -2).contiguous(), src, s,
                                t).transpose(-1, -2)
+
+
+def scatter_rows_plain(acc, Y, src, s, t, dst, dsg, r0):
+    """acc[..., dst[k, r0 + m], j] += (Y[..., k, m, j] * dsg[k, r0 + m])
+    * t[k, j]: ``index_add_`` through the inverse maps over the window's
+    source rows m (the JAX package's ``.at[].add``); returns acc.  Invalid
+    entries (dst 0, dsg 0) add zeros to row 0.  ``src`` and ``s`` are the
+    kernel's tables, unused here."""
+    R = Y.shape[-2]
+    contrib = Y * dsg[:, r0:r0 + R, None] * t[:, None, :]
+    return acc.index_add_(-2, dst[:, r0:r0 + R].reshape(-1),
+                          contrib.reshape(Y.shape[:-3] + (-1, Y.shape[-1])))
 
 
 # ---- launch plan of gather_reduce -----------------------------------------
@@ -225,3 +241,40 @@ def gather_reduce_cols(Y, src, s, t):
     _launch("gather_reduce_cols", Y.dtype, *_ptrs(Y, src, s, t, out), B, n2,
             Na, Ns, Nc, _stream(Y))
     return out
+
+
+def scatter_rows(acc, Y, src, s, t, dst, dsg, r0):
+    """acc[..., i, j] += sum_k (Y[..., k, src[k, i] - r0, j] * s[k, i])
+    * t[k, j] over the k whose src[k, i] lies in [r0, r0 + R), in place;
+    returns acc.
+
+    The alpha half of the hosted H-apply: Y (..., n2, R, Nb) holds the
+    grid rows [r0, r0 + R) in SOURCE rows; src/s (n2, Na) are the alpha
+    maps, dst/dsg (n2, Ns) their inverse (``grid.inverse_alpha_maps``),
+    t (n2, Nb), acc (..., Na, Nb).  A pair's row map is a partial
+    injection, so this equals the scatter acc[..., dst[k, r0 + m], j] +=
+    (Y[..., k, m, j] * dsg[k, r0 + m]) * t[k, j].  CPU tensors take the
+    plain version (``index_add_`` through dst/dsg); CUDA tensors the
+    kernel, which gathers through src/s, sums in increasing k without
+    atomics and adds once to acc (the same bits on every launch)."""
+    if not _on_card("scatter_rows", Y):
+        return scatter_rows_plain(acc, Y, src, s, t, dst, dsg, r0)
+    B, R, Nb = _check("scatter_rows", Y, src, s, t, 3)
+    n2, Na = src.shape
+    if (acc.dtype != Y.dtype or acc.device != Y.device
+            or not acc.is_contiguous()
+            or acc.shape != Y.shape[:-3] + (Na, Nb)):
+        raise ValueError(f"scatter_rows: acc {tuple(acc.shape)} "
+                         f"{acc.dtype} must be a contiguous "
+                         f"{tuple(Y.shape[:-3] + (Na, Nb))} {Y.dtype} tensor "
+                         f"on {Y.device}")
+    if (dst.shape != dsg.shape or dst.shape[0] != n2 or r0 < 0
+            or r0 + R > dst.shape[1]):
+        raise ValueError(f"scatter_rows: window [{r0}, {r0 + R}) and inverse "
+                         f"maps {tuple(dst.shape)}, {tuple(dsg.shape)} do not "
+                         f"match {n2} pairs")
+    plan = plan_reduce(B, Na, Nb, n2, Y.element_size(),
+                       all(v.data_ptr() % 16 == 0 for v in (Y, t, acc)))
+    _launch("scatter_rows", Y.dtype, *_ptrs(Y, src, s, t, acc), B, n2, R, Na,
+            Nb, *plan, r0, _stream(Y))
+    return acc

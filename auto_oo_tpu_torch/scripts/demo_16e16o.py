@@ -1,0 +1,125 @@
+"""(16e,16o) on one H100: the full-valence H16 chain, D = C(16,8)^2 = 165.6M.
+
+    python -m auto_oo_tpu_torch.scripts.demo_16e16o [n_layers] [stages]
+
+Port of scripts/demo_16e16o.py, with its argv: the H16 chain
+``"; ".join(f"H 0 0 {0.9 * i:.2f}" for i in range(16))`` in sto-3g,
+sector ``np_fabric`` (n_layers 1 by default), ``freeze_active=True``, f64,
+from the demo's theta0 = 0.02 * arange(n_theta).  One f64 state is 1.325
+GB and one (n2, D) Phi would be 339 GB, so ``OO_pqc`` takes the hosted
+route (models/oo_pqc.py, ops/grid_hosted.py).  Runs on the card only.
+
+Stages (argv 2, comma-separated, default "state,rdms,energy"), each
+printing its seconds:
+  state   circuit state build and its norm
+  rdms    restricted RDMs (Phi streamed over grid rows), tr gamma and the
+          sum rule
+  energy  E(theta0), and E(0) against the RHF energy, through
+          ``OO_pqc.energy_from_parameters`` (one hosted RDM pass each)
+  nr      3 second-order damped-Newton iterations from theta0 through the
+          hosted route (``OO_pqc._nr_iteration``)
+
+The JAX demo's other stages raise NotImplementedError, each naming the
+ROADMAP queue 1 item that brings it: s2 (item 6), grad and adam (item
+2), gradmixed, adammixed and nrmixed (item 4).
+"""
+
+import sys
+import time
+
+import torch
+
+GEOMETRY = "; ".join(f"H 0 0 {0.9 * i:.2f}" for i in range(16))
+STEP = (1e-4, 0.5, 1e-6, 1.1, 1e-6)   # alpha, beta, mu, rho, lambda_min
+_REFUSED = {"s2": 6, "grad": 2, "adam": 2, "gradmixed": 4, "adammixed": 4,
+            "nrmixed": 4}
+
+
+def _synced(fn):
+    """fn() and its seconds on the host clock, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    n_layers = int(argv[0]) if argv else 1
+    stages = (argv[1] if len(argv) > 1 else "state,rdms,energy").split(",")
+    for st in stages:
+        if st in _REFUSED:
+            raise NotImplementedError(
+                f"stage {st!r} comes in a later PR of the port (ROADMAP "
+                f"queue 1 item {_REFUSED[st]})")
+        if st not in ("state", "rdms", "energy", "nr"):
+            raise ValueError(f"unknown stage {st!r}")
+    if not torch.cuda.is_available():
+        print("demo_16e16o: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    import auto_oo_tpu_torch as P
+
+    ncas = nelecas = 16
+    mol, sec = _synced(lambda: P.Moldata(GEOMETRY, "sto-3g"))
+    mol.run_rhf()
+    print(f"H16 chain RHF: {mol.hf.e_tot:.8f} Ha ({sec:.1f} s, "
+          f"nao={mol.nao})", flush=True)
+    pqc, sec = _synced(lambda: P.Parameterized_circuit(
+        ncas, nelecas, ansatz="np_fabric", n_layers=n_layers, sector=True))
+    print(f"circuit setup: {sec:.1f} s (D={pqc.state_dim:,}, "
+          f"n_theta={pqc.theta_shape}, gates={len(pqc.grid_program.gates)})",
+          flush=True)
+    # no flat program and no D-sized host table: the grid maps and the
+    # permutations live on the card
+    assert getattr(pqc, "_program", None) is None
+    assert pqc._sector_basis is None
+
+    theta = 0.02 * torch.arange(pqc.theta_shape, dtype=torch.float64,
+                                device=pqc.device)
+    if "state" in stages:
+        psi, sec = _synced(lambda: pqc.state(theta))
+        nrm = float(psi @ psi)
+        print(f"state build: {sec:.2f} s  |psi|^2 = {nrm:.12f}", flush=True)
+        assert abs(nrm - 1.0) < 1e-10
+        del psi
+    if "rdms" in stages:
+        (g1, G2), sec = _synced(lambda: pqc.get_rdms(theta))
+        tr = float(torch.trace(g1))
+        part = torch.einsum("pqrr->pq", G2)
+        sum_err = float((part - (nelecas - 1) * g1).abs().max())
+        print(f"RDMs: {sec:.2f} s  tr gamma = {tr:.10f}  sum-rule err = "
+              f"{sum_err:.1e}", flush=True)
+        assert abs(tr - nelecas) < 1e-8 and sum_err < 1e-8
+    if not {"energy", "nr"} & set(stages):
+        print("DEMO OK", flush=True)
+        return 0
+    oo, sec = _synced(lambda: P.OO_pqc(pqc, mol, ncas, nelecas,
+                                       freeze_active=True))
+    print(f"OO_pqc setup: {sec:.1f} s (route {oo._core['route']})",
+          flush=True)
+    if "energy" in stages:
+        e, sec = _synced(lambda: float(oo.energy_from_parameters(theta)))
+        print(f"E(theta0) = {e:.10f} Ha ({sec:.2f} s)", flush=True)
+        e0, sec = _synced(lambda: float(oo.energy_from_parameters(
+            pqc.init_zeros())))
+        print(f"E(0) = {e0:.10f} Ha ({sec:.2f} s), RHF {mol.hf.e_tot:.10f},"
+              f" diff {e0 - mol.hf.e_tot:+.2e}: the HF determinant in the "
+              f"active space", flush=True)
+        assert abs(e0 - mol.hf.e_tot) < 1e-6, (e0, mol.hf.e_tot)
+    if "nr" in stages:
+        th, oao = theta, oo.oao_mo_coeff
+        es = []
+        for i in range(3):
+            (th, _, oao, e, low), sec = _synced(
+                lambda: oo._nr_iteration(th, oao, *STEP))
+            es.append(float(e))
+            print(f"NR iter {i + 1} (f64): {sec:.1f} s  E = {es[-1]:.10f}  "
+                  f"lam0 = {float(low):.3e}", flush=True)
+        assert es[-1] <= es[0] + 1e-10, es
+    print("DEMO OK", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

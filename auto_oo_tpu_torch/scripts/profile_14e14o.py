@@ -113,6 +113,14 @@ def main(argv=None):
     print(f"  peak device memory of the iteration {peak / 1e9:.3f} GB "
           f"(max_memory_allocated); energy after it {float(energy):.12f}")
 
+    device_profile(iteration, parts[0][1])
+    return 0
+
+
+def device_profile(iteration, it_s):
+    """Run ``iteration()`` once under torch.profiler and print its device
+    kernel time against the unprofiled wall ``it_s`` (busy and idle
+    share), the top kernels and the top PyTorch ops by self device time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
@@ -126,9 +134,8 @@ def main(argv=None):
             if on_device(e) and _device_us(e) > 0]
     if not rows:
         print("  profiled: no device time in the trace (not measured)")
-        return 0
+        return
     device_us = sum(_device_us(e) for e in rows)
-    it_s = parts[0][1]
     print(f"  profiled: device kernel time {device_us / 1e3:.1f} ms against "
           f"the unprofiled iteration's {it_s * 1e3:.1f} ms: busy "
           f"{100 * device_us / 1e6 / it_s:.1f}%, idle "
@@ -148,7 +155,6 @@ def main(argv=None):
         shapes = str(e.input_shapes)[:70]
         print(f"    {e.key[:24]:24s} {shapes:70s} "
               f"{_device_us(e) / 1e3:9.1f} ms {e.count:6d} calls")
-    return 0
 
 
 if __name__ == "__main__":

@@ -79,7 +79,7 @@ class Parameterized_circuit:
             self.theta_shape = self.k * len(self.d_wires)
         self.hfstate = A.hf_state(nelecas, self.n_qubits)
 
-        self.sector_basis = fermion.sector_basis(ncas, nelecas)
+        self._sector_basis = None
         self.sector_maps = _grid.build_grid_maps(ncas, nelecas,
                                                  device=self.device)
         self.grid_program = _gg.build_direct(
@@ -93,6 +93,16 @@ class Parameterized_circuit:
         self._tangent_params_dev = torch.as_tensor(
             np.asarray(self._tangent_params, dtype=np.int64),
             device=self.device)
+
+    @property
+    def sector_basis(self):
+        """The sector's determinant indices, ascending (a host array of D
+        int64, built on first use: at (16e,16o) it is 1.3 GB that no
+        route of the port reads)."""
+        if self._sector_basis is None:
+            self._sector_basis = fermion.sector_basis(self.ncas,
+                                                      self.nelecas)
+        return self._sector_basis
 
     @property
     def state_dim(self):
@@ -129,6 +139,24 @@ class Parameterized_circuit:
         (psi, J) at the same theta."""
         return self.grid_program.hessian_dot(
             self._expand_theta(theta), w, psi, J, self._tangent_params)
+
+    def _pair_state_grid(self, theta, v):
+        """(|psi(theta)>, J(theta) v) in GRID order from one forward sweep
+        carrying the state and one tangent column (the forward of the JAX
+        package's ``_pair_state_impl_grid``); ``_expand_theta`` is
+        linear, so v expands through it."""
+        return self.grid_program.apply_pair(self._expand_theta(theta),
+                                            self._expand_theta(v))
+
+    def _pair_row_grid(self, theta, v, a, b, psi=None, delta=None):
+        """grad_theta [<psi(theta), a> + <J(theta) v, b>] for GRID-ordered
+        a and b from one reverse sweep (the backward of the JAX package's
+        ``_pair_state_impl_grid``), given ``(psi, delta) =
+        _pair_state_grid(theta, v)`` or computing it."""
+        full = self.grid_program.pair_row(
+            self._expand_theta(theta), self._expand_theta(v), a, b, psi,
+            delta)
+        return full[self._tangent_params_dev]
 
     def _state_impl(self, theta):
         """|psi(theta)> in canonical (sorted determinant) order."""

@@ -186,10 +186,10 @@ def build_direct(ncas, nelecas, ansatz, n_layers=3, add_singles=False,
     """GridGateProgram for a built-in ansatz family, constructed directly
     on the string lists (O(n_gates * (Na + Nb)) host work); its tables
     live on ``device``."""
-    from ..ops.grid import grid_perms
+    from ..ops.grid import grid_strings
     from . import ansatze as Ans
 
-    A, B, g2s, s2g = grid_perms(ncas, nelecas, up_then_down)
+    A, B = grid_strings(ncas, nelecas, up_then_down)
     fac = _Factory(ncas, up_then_down)
     fac.set_strings(A, B)
     nm = 2 * ncas

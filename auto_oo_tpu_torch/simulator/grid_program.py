@@ -27,6 +27,16 @@ sweeps carry every circuit tangent at once, batched on a leading axis:
   ``apply_pair_adjoint`` seeded with ct_psi = 0, ct_delta = w for every
   tangent at once.  It equals jax.jacfwd(jax.grad(<psi, w>)).
 
+Where the (n_tangents, D) stacks do not fit ((16e,16o): 14 x 1.3 GB,
+with the circuit-Hessian sweep's out-of-place temporaries beside them),
+the same two sweeps run for ONE tangent direction v, with O(D) memory:
+
+* ``apply_pair``: (psi, J v), the forward of the JAX package's
+  ``apply_pair_adjoint`` (``_pair_core``);
+* ``pair_row``: grad_theta [<psi(theta), a> + <J(theta) v, b>], its
+  backward seeded with ct_psi = a, ct_delta = b.  With a = 2 H J v and
+  b = 2 H psi that is one row of the circuit Hessian of <psi|H|psi>.
+
 Layout contract: statevectors are GRID-ordered flat (Na * Nb,) vectors,
 matching ops/grid.py; simulator/circuit.py converts to the canonical
 sorted-determinant order only at public API boundaries.
@@ -53,11 +63,18 @@ def _spin_mask(ncas, spin, up_then_down=False):
     return m
 
 
+# a gate's (ka, kb) sign matrix of more elements than this is kept as its
+# rank-1 factors: dense, the 45 of the (16e,16o) H16 chain would hold
+# 12 GB of the card (3432 x 12870 and larger per gate)
+_DENSE_SIGNS_MAX = 1 << 21
+
+
 class GridGateProgram:
     """Unrolled grid-space circuit over ``n_params`` full parameters.
 
     Each gate's tables are O(Na + Nb) integers, held on ``device``; the
-    rank-1 sign matrices are built once per dtype on first use."""
+    rank-1 sign matrices are built once per dtype on first use (dense up
+    to _DENSE_SIGNS_MAX elements, else as their two factors)."""
 
     def __init__(self, gates, n_params, init_idx, Na, Nb, device=None):
         self.gates = [g for g in gates if not g.empty]
@@ -86,17 +103,26 @@ class GridGateProgram:
         return self._tabs
 
     def _signs(self, dtype):
-        """Per gate: the (ka, kb) sign matrix sA x sB in ``dtype``."""
+        """Per gate: the (ka, kb) sign matrix sA x sB in ``dtype``, or for
+        a large gate its factors (sA (ka, 1), sB (1, kb))."""
         hit = self._sgn.get(dtype)
         if hit is None:
-            sA = [torch.as_tensor(g.sA.astype(np.float64)) for g in
-                  self.gates]
-            sB = [torch.as_tensor(g.sB.astype(np.float64)) for g in
-                  self.gates]
-            hit = self._sgn[dtype] = [
-                (a[:, None] * b[None, :]).to(device=self.device, dtype=dtype)
-                for a, b in zip(sA, sB)]
+            hit = self._sgn[dtype] = []
+            for g in self.gates:
+                a, b = (torch.as_tensor(v.astype(np.float64)).to(
+                    device=self.device, dtype=dtype) for v in (g.sA, g.sB))
+                hit.append(a[:, None] * b[None, :]
+                           if a.numel() * b.numel() <= _DENSE_SIGNS_MAX
+                           else (a[:, None], b[None, :]))
         return hit
+
+    @staticmethod
+    def _sgn_mul(sgn, x):
+        """sgn * x for a sign matrix or its factors (the signs are +-1, so
+        both give the same bits)."""
+        if isinstance(sgn, tuple):
+            return (x * sgn[0]) * sgn[1]
+        return sgn * x
 
     def initial_state(self, dtype=torch.float64):
         psi = torch.zeros(self.dim, dtype=dtype, device=self.device)
@@ -151,7 +177,7 @@ class GridGateProgram:
         """Apply gate ``gi`` with rotation (c, s) to (..., Na, Nb) grids;
         (c, -s) applies the INVERSE (the rotations are orthogonal)."""
         va, vb = self._blocks(Psi, gi)
-        ss = sgn * s
+        ss = self._sgn_mul(sgn, s)
         g = self.gates[gi]
         if g.beta_identity or g.alpha_identity:
             return self._put(Psi, gi, c * va - ss * vb, ss * va + c * vb,
@@ -164,15 +190,15 @@ class GridGateProgram:
         """Dst + coef * G Src, where G is the gate's rotation GENERATOR
         (per pair: (va, vb) -> (-sgn*vb, sgn*va), zero elsewhere)."""
         va, vb = self._blocks(Src, gi)
-        cs = coef * sgn
+        cs = self._sgn_mul(sgn, coef)
         return self._put(Dst, gi, -cs * vb, cs * va, add=True)
 
     def _g_dot(self, Ct, Y, gi, sgn):
         """<Ct, G Y> over the trailing (Na, Nb) axes (batch-broadcast)."""
         cta, ctb = self._blocks(Ct, gi)
         ya, yb = self._blocks(Y, gi)
-        return ((cta * (-sgn * yb)).sum(dim=(-2, -1))
-                + (ctb * (sgn * ya)).sum(dim=(-2, -1)))
+        return ((ctb * self._sgn_mul(sgn, ya)).sum(dim=(-2, -1))
+                - (cta * self._sgn_mul(sgn, yb)).sum(dim=(-2, -1)))
 
     def apply(self, theta, psi=None):
         """|psi(theta)> over the GRID-ordered sector basis; theta holds
@@ -209,6 +235,85 @@ class GridGateProgram:
             Delta = self._gate_step(Delta, gi, c, s, sgn[gi])
             Psi = self._gate_step(Psi, gi, c, s, sgn[gi])
         return Psi.reshape(-1), Delta.reshape(nt, -1)
+
+    def _pair_coefs(self, v):
+        """Per gate: da = half * v[param] on the device, and on the host
+        the gates whose da is not zero (one sync) — a sweep skips the
+        generator terms of the others, and carries no Delta before the
+        first of them (Delta is zero there)."""
+        da = self._half_dev.to(v.dtype) * v[self._param_dev]
+        return da, (da != 0).tolist()
+
+    def apply_pair(self, theta, v, psi=None):
+        """(|psi(theta)>, J(theta) v) over the GRID-ordered sector basis
+        for one direction v of the ``n_params`` full parameters, in one
+        forward sweep: per gate, Delta' = R (Delta + da G Psi) and
+        Psi' = R Psi (equals torch.func.jvp of ``apply``)."""
+        if psi is None:
+            psi = self.initial_state(theta.dtype)
+        if not self.gates:
+            return psi, torch.zeros_like(psi)
+        cos_t, sin_t = self._trig(theta)
+        sgn = self._signs(psi.dtype)
+        da, live = self._pair_coefs(v)
+        Psi = psi.reshape(self.Na, self.Nb)
+        Delta = None
+        for gi in range(len(self.gates)):
+            c, s, sg = cos_t[gi], sin_t[gi], sgn[gi]
+            if live[gi]:
+                Delta = self._g_add(torch.zeros_like(Psi) if Delta is None
+                                    else Delta, Psi, gi, da[gi], sg)
+            if Delta is not None:
+                Delta = self._gate_step(Delta, gi, c, s, sg)
+            Psi = self._gate_step(Psi, gi, c, s, sg)
+        if Delta is None:
+            Delta = torch.zeros_like(Psi)
+        return Psi.reshape(-1), Delta.reshape(-1)
+
+    def pair_row(self, theta, v, a, b, psi=None, delta=None):
+        """grad_theta [<psi(theta), a> + <J(theta) v, b>] over the
+        ``n_params`` full parameters, for GRID-ordered a, b (real states),
+        in one reverse sweep that rebuilds each (Psi, Delta) by the inverse
+        rotations (the backward of the JAX package's
+        ``apply_pair_adjoint``).  ``psi``, ``delta`` are ``apply_pair(theta,
+        v)``, computed here when not given."""
+        if psi is None:
+            psi, delta = self.apply_pair(theta, v)
+        out = torch.zeros(self.n_params, dtype=psi.dtype, device=psi.device)
+        if not self.gates:
+            return out
+        cos_t, sin_t = self._trig(theta)
+        sgn = self._signs(psi.dtype)
+        da, live = self._pair_coefs(v)
+        first = live.index(True) if True in live else len(live)
+        shape = (self.Na, self.Nb)
+        Psi, Delta = psi.reshape(shape), delta.reshape(shape)
+        CtP, CtD = a.reshape(shape), b.reshape(shape)
+        rows = []
+        for gi in reversed(range(len(self.gates))):
+            c, s, h, sg = cos_t[gi], sin_t[gi], self._half[gi], sgn[gi]
+            if gi < first:
+                # below the first generator term Delta is zero and CtD
+                # feeds nothing: only (Psi, CtP) go on
+                rows.append(h * self._g_dot(CtP, Psi, gi, sg))
+                Psi = self._gate_step(Psi, gi, c, -s, sg)
+                CtP = self._gate_step(CtP, gi, c, -s, sg)
+                continue
+            # d/d theta_p at POST-gate states: both outputs respond with
+            # their own G-image (G commutes with R)
+            rows.append(h * (self._g_dot(CtP, Psi, gi, sg)
+                             + self._g_dot(CtD, Delta, gi, sg)))
+            # rebuild the pre-gate pair by the inverse rotation
+            Psi = self._gate_step(Psi, gi, c, -s, sg)
+            Delta = self._gate_step(Delta, gi, c, -s, sg)
+            if live[gi]:
+                Delta = self._g_add(Delta, Psi, gi, -da[gi], sg)
+            # transport the cotangents: J^T = [[R^T, -da G R^T], [0, R^T]]
+            CtP = self._gate_step(CtP, gi, c, -s, sg)
+            CtD = self._gate_step(CtD, gi, c, -s, sg)
+            if live[gi]:
+                CtP = self._g_add(CtP, CtD, gi, -da[gi], sg)
+        return out.index_add_(0, self._param_dev, torch.stack(rows[::-1]))
 
     def hessian_dot(self, theta, w, psi, J, params_idx):
         """H[i, j] = d^2 <w, psi(theta)> / d theta_i d theta_j over the

@@ -20,11 +20,14 @@ prints its seconds:
    pieces of Y its valid elements touch); epq_sum in place against the
    composite it replaced (transposed copy, two row-form launches,
    transposed add), equal to rounding and timed in the same call in
-   turns, with the transposed copy alone.  A time is the device time of
-   one call: 10 calls back to back behind a spin kernel that hides the
-   host's launch time, median of 5 rounds; each grid kernel also prints
-   one launch on an idle card, host launch included (the method of the
-   earliest kernel times in PERF.md);
+   turns, with the transposed copy alone; the hosted route's alpha
+   scatter scatter_rows on two windows of the maps' rows (the second
+   ragged), the same bits on two launches and within 1e-14 of max |out|
+   of its plain version (index_add_) in f64, 1e-6 in f32.  A time is the
+   device time of one call: 10 calls back to back behind a spin kernel
+   that hides the host's launch time, median of 5 rounds; each grid
+   kernel also prints one launch on an idle card, host launch included
+   (the method of the earliest kernel times in PERF.md);
 3. the row-gather mechanism probes A, B and C against the plain gather on
    the card, bit for bit, at the ncas = 10 and ncas = 12 shapes of their
    entry point, float32 and float64, and one ragged shape (src reaching
@@ -38,19 +41,24 @@ prints its seconds:
 5. the (10e,10o) slice: 4 damped-Newton iterations of formaldimine sto-3g
    (10e,10o) sector np_fabric L=2 in float64 from init_zeros, through
    Parameterized_circuit / OO_pqc.full_optimization; every energy must
-   match the JAX package's CPU trajectory within 1e-8 Ha, and every grid
-   kernel launch counter must grow during the run; its objects are built
-   with no device=, so the port's default device (the card) runs it;
+   match the JAX package's CPU trajectory within 1e-8 Ha, and the fused
+   route's three grid kernels must be launched during the run; its
+   objects are built with no device=, so the port's default device (the
+   card) runs it;
 6. the (12e,12o) sector np_fabric L=1 f64 path of formaldimine 6-31G
    (D = 853,776, the JAX package's staged regime; STO-3G has 13 orbitals,
    too few for 2 core + 12 active): 3 iterations the same way, within
-   1e-8 Ha of the JAX package's CPU energies, every grid kernel launched;
-   its setup time, iteration times and peak device memory are printed;
-7. streamed equals fused: the (10e,10o) slice's grad_hess at a seeded
-   theta on the streamed route (a small row chunk and pair block forced,
-   so every H-apply, RDM and transition-RDM row streams Phi over grid
-   rows) against the fused route: e0 and gradient within 1e-11, the
-   Hessian within 1e-9, and all three grid kernels launched;
+   1e-8 Ha of the JAX package's CPU energies, every fused-route kernel
+   launched; its setup time, iteration times and peak device memory are
+   printed;
+7. streamed and hosted equal fused: the (10e,10o) slice's grad_hess at a
+   seeded theta on the streamed route (a small row chunk and pair block
+   forced, so every H-apply, RDM and transition-RDM row streams Phi over
+   grid rows) and on the hosted route (the hosting threshold forced to 1
+   byte, the same row chunk: scatter-form H-applies, per-tangent pair
+   sweeps, transition RDMs from two Phi chunks) against the fused route:
+   e0 and gradient within 1e-11, the Hessian within 1e-9, and each
+   route's grid kernels launched;
 8. the (14e,14o) H14 chain (scripts/bench_14e14o.py's configuration:
    sto-3g, np_fabric L=1, freeze_active, f64, D = 11,778,624), built on
    the default device: the route must be "streamed"; its row chunk and
@@ -65,23 +73,45 @@ prints its seconds:
    each energy within 1e-8 Ha of its JAX anchor (ANCHORS_14E14O), the final
    state's norm within 1e-12 of 1 and tr(gamma) = 14 within 1e-10, with
    the setup time, iteration times, peak device memory and kernel
-   launches printed;
+   launches printed; then one grad_hess at the final theta on the hosted
+   route (forced, its row chunk from the free memory) against the
+   streamed one, timed in turns (streamed, hosted, hosted, streamed): e0
+   and gradient within 1e-10, the Hessian within 1e-8;
 9. convergence: (2e,2o) sector ucc full_optimization, built on the
-   default device, must end within 1e-8 Ha of CASSCF.
+   default device, must end within 1e-8 Ha of CASSCF;
+10. the (16e,16o) H16 chain (scripts/demo_16e16o.py's configuration:
+   sto-3g, np_fabric L=1, freeze_active, f64, D = 165,636,900): the route
+   must be "hosted", its setup seconds and row chunk are printed; the
+   hosted route's kernels at its chunk shapes against their plain
+   versions (a slab of pairs at a time), timed beside their bounds: both
+   halves of a Phi chunk, the column form on the chunk's Y, and the
+   scatter on it (f64 and f32, the middle and the ragged last window, the
+   same bits on two launches) beside index_add_ of its contributions;
+   then E(0) within 1e-8 Ha of the RHF energy, one grad_hess at the
+   demo's theta0 = 0.02 * arange(14) (|grad| within 1e-5 of the JAX
+   package's 5.379e-02) and one damped-Newton update from it: the energy
+   below E(theta0) and within 5e-5 Ha of the JAX package's
+   mixed-precision iteration 1, -8.3671002296, with the step length, the
+   iteration's time, peak device memory and kernel launches, then the new
+   state's norm within 1e-12 of 1 and tr(gamma) = 16 within 1e-10.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
-its main path's run, which is phase 8 for the grid kernels and phase 4
-for the probes, with each path's launches under "launches_by_path"; max
-abs error against the plain version over every comparison; kernel and
-plain times and the bound at the grid kernels' (14e,14o) f64 streamed
-shapes (the alpha half of a Phi chunk; the Y block's alpha half for the
-row form, its beta half for the column form) and at the probes'
-ncas = 12 f64 shape; no single PyTorch call computes any of them, so
-library_ms is null); the last line is {"ok": true, "device": {...}}.
+its main path's run, which is the (16e,16o) iteration of phase 10 for
+the hosted route's kernels, phase 8's (14e,14o) iterations for the row
+form of gather_reduce, and phase 4 for the probes, with each path's
+launches under "launches_by_path"; max abs error against the plain
+version over every comparison; kernel and plain times and the bound at
+the (16e,16o) f64 chunk shapes for the hosted route's kernels (the
+alpha half of a Phi chunk; the column form and the scatter on the
+chunk's Y), at the (14e,14o) streamed shape for the row form and at the
+probes' ncas = 12 f64 shape; library_ms is the time of index_add_ of the
+scatter's contributions, and null for the others, which no single
+PyTorch call computes); the last line is {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero before printing any
 result.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -109,6 +139,19 @@ ANCHORS_12E12O = [-93.87081413001067, -93.87231829137146,
 ANCHORS_14E14O = {2: -7.3342933449}
 ITERATIONS_14E14O = 2
 H14_GEOMETRY = "; ".join(f"H 0 0 {0.9 * i:.2f}" for i in range(14))
+# the JAX package's (16e,16o) H16 chain (scripts/demo_16e16o.py) from its
+# theta0 = 0.02 * arange(14): |grad| of its f64 hosted energy+gradient
+# (BASELINE.md:552, given to 4 digits), and the energy after its first
+# mixed-precision NR iteration (BASELINE.md:532; that pass carries ~1e-6
+# relative noise, so the port's f64 iteration is held to 5e-5 Ha)
+H16_GEOMETRY = "; ".join(f"H 0 0 {0.9 * i:.2f}" for i in range(16))
+GRAD_NORM_16E16O = 5.379e-02
+E_NR1_16E16O = -8.3671002296
+STEP = dict(alpha=1e-4, beta=0.5, mu=1e-6, rho=1.1, lambda_min=1e-6)
+# the grid kernels each route launches (the hosted route adds its alpha
+# half with scatter_rows where the others run the row form)
+FUSED_KERNELS = ("gather_rows_scaled", "gather_reduce", "gather_reduce_cols")
+HOSTED_KERNELS = ("gather_rows_scaled", "gather_reduce_cols", "scatter_rows")
 E_CASSCF_2E2O = -92.74923230445957
 TOL_ENERGY = 1e-8
 # published HBM rate of one H100 SXM at its 700 W limit
@@ -121,6 +164,7 @@ _MECH_SCRIPT = "scripts/experiment_gather_mechanisms.py"
 SOURCE = {"gather_rows_scaled": "auto_oo_tpu_torch/csrc/grid_gather.cu",
           "gather_reduce": "auto_oo_tpu_torch/csrc/grid_gather.cu",
           "gather_reduce_cols": "auto_oo_tpu_torch/csrc/grid_gather.cu",
+          "scatter_rows": "auto_oo_tpu_torch/csrc/grid_gather.cu",
           "gather_a": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu",
           "gather_b": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu",
           "gather_c": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu"}
@@ -128,6 +172,9 @@ REPLACES = {"gather_rows_scaled": "auto_oo_tpu/ops/pallas_grid.py:110",
             "gather_reduce": "auto_oo_tpu/ops/pallas_grid.py:194",
             "gather_reduce_cols": "auto_oo_tpu/ops/pallas_grid.py:194 with "
                                   "the caller's transpose at :270",
+            "scatter_rows": "auto_oo_tpu/ops/pallas_grid.py:194 windowed, "
+                            "for the XLA scatter at "
+                            "auto_oo_tpu/ops/grid_hosted.py:260-262",
             "gather_a": f"{_MECH_SCRIPT}:119",
             "gather_b": f"{_MECH_SCRIPT}:152",
             "gather_c": f"{_MECH_SCRIPT}:190"}
@@ -261,7 +308,7 @@ def _share(ms, nbytes):
     return f"bound={b:.4f} ms share={100 * b / ms:5.1f}%"
 
 
-def kernel_phase(torch, gk, grid, dev):
+def kernel_phase(torch, gk, gh, grid, dev):
     """Kernels against their plain versions; returns per-kernel stats."""
     tol = {("gather_rows_scaled", torch.float64): 1e-15,
            ("gather_rows_scaled", torch.float32): 1e-6,
@@ -275,7 +322,8 @@ def kernel_phase(torch, gk, grid, dev):
             "gather_reduce_cols": (gk.gather_reduce_cols,
                                    gk.gather_reduce_cols_plain)}
     stats = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
-                 "bound_ms": None} for k in kern}
+                 "bound_ms": None, "library_ms": None}
+             for k in list(kern) + ["scatter_rows"]}
     gen = torch.Generator(device="cpu").manual_seed(1234)
 
     def rand(shape, dtype):
@@ -356,6 +404,19 @@ def kernel_phase(torch, gk, grid, dev):
                                 f"{str(dtype)[6:]}", tol[("gather_reduce",
                                                           dtype)])
                 del Y
+            # the hosted scatter on two windows of the maps' rows (the
+            # second ragged), on B states
+            B = batches[-1]
+            for r0, r1 in ((0, Na // 3), (Na // 3, Na)):
+                label = f"{ncas}e [{r0}, {r1}) B={B} {str(dtype)[6:]}"
+                err, rel = scatter_check(
+                    torch, gk, gh, gm, rand((B, n2, r1 - r0, Nb), dtype),
+                    rand((B, Na, Nb), dtype), r0, label)
+                st = stats["scatter_rows"]
+                st["max_abs_err"] = max(st["max_abs_err"], err)
+                print(f"  {'scatter_rows':18s} {label:26s} "
+                      f"max_abs_err={err:.3e} rel={rel:.3e} bit-identical "
+                      f"over two launches")
     # ragged random shapes with leading batch dims and invalid entries:
     # Nb = 17 (scalar loads of the row form), Nb = 20 (16-byte vectors)
     g2 = torch.Generator(device="cpu").manual_seed(7)
@@ -574,8 +635,9 @@ def slice_phase(torch, P, gk):
     for i, (e, ref) in enumerate(zip(energies, ANCHORS_10E10O)):
         check(abs(e - ref) <= TOL_ENERGY,
               f"(10e,10o) iteration {i + 1}: |{e} - {ref}| > {TOL_ENERGY}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the slice")
+    for name in FUSED_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the slice")
     psi = pqc.state(thetas[-1])
     torch.cuda.synchronize()
     check(psi.shape == (pqc.state_dim,), f"state shape {tuple(psi.shape)}")
@@ -632,8 +694,9 @@ def sector12_phase(torch, P, gk, dev):
     for i, (e, ref) in enumerate(zip(energies, ANCHORS_12E12O)):
         check(abs(e - ref) <= TOL_ENERGY,
               f"(12e,12o) iteration {i + 1}: |{e} - {ref}| > {TOL_ENERGY}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the (12e,12o) run")
+    for name in FUSED_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the (12e,12o) run")
     psi = pqc.state(thetas[-1])
     torch.cuda.synchronize()
     check(psi.shape == (pqc.state_dim,), f"state shape {tuple(psi.shape)}")
@@ -663,20 +726,36 @@ def sector12_phase(torch, P, gk, dev):
     return launches
 
 
-def streamed_equals_fused_phase(torch, P, gk, grid):
+@contextlib.contextmanager
+def forced_hosting(gh):
+    """The hosting threshold at 1 byte while OO_pqc objects are built (the
+    route is chosen at construction), restored after."""
+    saved = gh._HOSTED_MIN_BYTES
+    gh._HOSTED_MIN_BYTES = 1
+    try:
+        yield
+    finally:
+        gh._HOSTED_MIN_BYTES = saved
+
+
+def routes_equal_fused_phase(torch, P, gk, gh, grid):
     """grad_hess of the (10e,10o) slice at a seeded theta on the streamed
-    route (row chunk 37 of 252, pair block 23 of 100: ragged last
-    pieces) against the fused route, both on the card."""
+    route (row chunk 37 of 252, pair block 23 of 100: ragged last pieces)
+    and on the hosted route forced (row chunk 37; 18 where its per-tangent
+    pass builds two Phi chunks) against the fused route, all on the
+    card."""
     from auto_oo_tpu_torch.utils.misc import get_formal_geo
 
     mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
     out, launches = {}, {}
-    for route, kw in (("fused", {}),
-                      ("streamed",
-                       {"stream_plan": grid.StreamPlan(37, 23, None)})):
+    plan = grid.StreamPlan(37, 23, None)
+    for route, kw, force in (("fused", {}, False),
+                             ("streamed", {"stream_plan": plan}, False),
+                             ("hosted", {"stream_plan": plan}, True)):
         pqc = P.Parameterized_circuit(10, 10, ansatz="np_fabric",
                                       n_layers=2, sector=True)
-        oo = P.OO_pqc(pqc, mol, 10, 10, freeze_active=True, **kw)
+        with (forced_hosting(gh) if force else contextlib.nullcontext()):
+            oo = P.OO_pqc(pqc, mol, 10, 10, freeze_active=True, **kw)
         check(oo._core["route"] == route,
               f"(10e,10o) route {oo._core['route']}, expected {route}")
         theta = 0.1 * np.random.default_rng(21).standard_normal(
@@ -689,16 +768,21 @@ def streamed_equals_fused_phase(torch, P, gk, grid):
         launches[route] = dict(gk.LAUNCHES)
         print(f"  {route:8s} grad_hess {time.perf_counter() - t0:.3f} s "
               f"(n_kappa={oo.n_kappa}), launches {launches[route]}")
-    (e_f, g_f, h_f), (e_s, g_s, h_s) = out["fused"], out["streamed"]
-    de = abs(float(e_s - e_f))
-    dg = float((g_s - g_f).abs().max())
-    dh = float((h_s - h_f).abs().max())
-    print(f"  |de0| {de:.3e}  max|dgrad| {dg:.3e}  max|dhess| {dh:.3e}")
-    check(de <= 1e-11, f"streamed e0 differs by {de}")
-    check(dg <= 1e-11, f"streamed gradient differs by {dg}")
-    check(dh <= 1e-9, f"streamed Hessian differs by {dh}")
-    for name, n in launches["streamed"].items():
-        check(n > 0, f"kernel {name} was not launched by the streamed route")
+    e_f, g_f, h_f = out["fused"]
+    for route, kernels in (("streamed", FUSED_KERNELS),
+                           ("hosted", HOSTED_KERNELS)):
+        e_r, g_r, h_r = out[route]
+        de = abs(float(e_r - e_f))
+        dg = float((g_r - g_f).abs().max())
+        dh = float((h_r - h_f).abs().max())
+        print(f"  {route}: |de0| {de:.3e}  max|dgrad| {dg:.3e}  max|dhess| "
+              f"{dh:.3e}")
+        check(de <= 1e-11, f"{route} e0 differs by {de}")
+        check(dg <= 1e-11, f"{route} gradient differs by {dg}")
+        check(dh <= 1e-9, f"{route} Hessian differs by {dh}")
+        for name in kernels:
+            check(launches[route][name] > 0,
+                  f"kernel {name} was not launched by the {route} route")
 
 
 def sector14_setup(torch, P):
@@ -716,7 +800,7 @@ def sector14_setup(torch, P):
           f"{plan and plan.row_chunk}, pair block {plan and plan.pair_block})")
     check(oo._core["route"] == "streamed",
           f"(14e,14o) route {oo._core['route']}, expected streamed")
-    return pqc, oo
+    return mol, pqc, oo
 
 
 def _slab_err(out, plain, args, step=28):
@@ -886,8 +970,9 @@ def sector14_phase(torch, gk, pqc, oo):
         e = energies[n - 1]
         check(abs(e - ref) <= TOL_ENERGY,
               f"(14e,14o) iteration {n}: |{e} - {ref}| > {TOL_ENERGY}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the (14e,14o) run")
+    for name in FUSED_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the (14e,14o) run")
     psi = pqc.state(thetas[-1])
     torch.cuda.synchronize()
     check(psi.shape == (pqc.state_dim,), f"state shape {tuple(psi.shape)}")
@@ -902,6 +987,295 @@ def sector14_phase(torch, gk, pqc, oo):
     print(f"  launches: {launches}; peak device memory of the iterations "
           f"{peak / 1e9:.3f} GB (max_memory_allocated); |norm - 1| "
           f"{abs(norm - 1.0):.2e}, tr(gamma) - 14 {trace - 14.0:+.2e}")
+    return launches, thetas[-1]
+
+
+def hosted14_phase(torch, P, gk, gh, mol, pqc, oo, theta):
+    """One grad_hess of (14e,14o) at ``theta`` on the hosted route (forced;
+    its row chunk from the free device memory) against the streamed route
+    of ``oo``, timed in turns (streamed, hosted, hosted, streamed): e0 and
+    gradient within 1e-10, the Hessian within 1e-8."""
+    torch.cuda.empty_cache()
+    with forced_hosting(gh):
+        oo_h = P.OO_pqc(pqc, mol, pqc.ncas, pqc.nelecas, freeze_active=True,
+                        oao_mo_coeff=oo.oao_mo_coeff)
+    check(oo_h._core["route"] == "hosted",
+          f"(14e,14o) forced route {oo_h._core['route']}, expected hosted")
+    runs = []
+    for name, o in (("streamed", oo), ("hosted", oo_h), ("hosted", oo_h),
+                    ("streamed", oo)):
+        torch.cuda.synchronize()
+        gk.reset_launches()
+        t0 = time.perf_counter()
+        out = o._grad_hess(theta)
+        torch.cuda.synchronize()
+        runs.append((name, time.perf_counter() - t0, out, dict(gk.LAUNCHES)))
+    (_, _, (e_s, g_s, h_s), _), (_, _, (e_h, g_h, h_h), l_h) = runs[:2]
+    de = abs(float(e_h - e_s))
+    dg = float((g_h - g_s).abs().max())
+    dh = float((h_h - h_s).abs().max())
+    print("  grad_hess in turns: " + ", ".join(
+        f"{name} {sec:.3f} s" for name, sec, _, _ in runs))
+    print(f"  hosted row chunk {oo_h._core['plan'].row_chunk} "
+          f"(streamed {oo._core['plan'].row_chunk}, pair block "
+          f"{oo._core['plan'].pair_block}); hosted launches {l_h}; "
+          f"|de0| {de:.3e}  max|dgrad| {dg:.3e}  max|dhess| {dh:.3e}")
+    check(de <= 1e-10, f"(14e,14o) hosted e0 differs by {de}")
+    check(dg <= 1e-10, f"(14e,14o) hosted gradient differs by {dg}")
+    check(dh <= 1e-8, f"(14e,14o) hosted Hessian differs by {dh}")
+    for name in HOSTED_KERNELS:
+        check(l_h[name] > 0,
+              f"kernel {name} was not launched by the (14e,14o) hosted run")
+    del oo_h, runs
+    torch.cuda.empty_cache()
+
+
+def sector16_setup(torch, P):
+    """The (16e,16o) problem on the default device; returns (mol, pqc,
+    oo)."""
+    t0 = time.perf_counter()
+    mol = P.Moldata(H16_GEOMETRY, "sto-3g")
+    t1 = time.perf_counter()
+    pqc = P.Parameterized_circuit(16, 16, ansatz="np_fabric", n_layers=1,
+                                  sector=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    oo = P.OO_pqc(pqc, mol, 16, 16, freeze_active=True)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    plan = oo._core["plan"]
+    print(f"(16e,16o) setup: {t3 - t0:.2f} s (Moldata {t1 - t0:.2f}, "
+          f"circuit and grid maps {t2 - t1:.2f}, OO_pqc {t3 - t2:.2f}); "
+          f"n_theta={pqc.theta_shape}, n_kappa={oo.n_kappa}, "
+          f"D={pqc.state_dim}, gates={len(pqc.grid_program.gates)}, "
+          f"route={oo._core['route']}, row chunk {plan and plan.row_chunk} "
+          f"of {pqc.sector_maps.Na}, budget "
+          f"{plan and plan.budget / 1e9:.1f} GB; device memory after setup "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    check(oo._core["route"] == "hosted",
+          f"(16e,16o) route {oo._core['route']}, expected hosted")
+    check(pqc._sector_basis is None, "a D-sized host table was built")
+    return mol, pqc, oo
+
+
+def scatter_bytes(Y, src, s, t, r0):
+    """Bytes scatter_rows must move: the Y rows of the pairs whose source
+    lies in the window once, each acc row that such a pair reaches read
+    and written once, the tables once."""
+    hit = (s != 0) & (src >= r0) & (src < r0 + Y.shape[-2])
+    B = Y.numel() // (Y.shape[-3] * Y.shape[-2] * Y.shape[-1])
+    rows = int(hit.any(0).sum())
+    return (B * (int(hit.sum()) + 2 * rows) * Y.shape[-1] * Y.element_size()
+            + _nbytes(src, s, t))
+
+
+def scatter_check(torch, gk, gh, gm, Y, acc0, r0, label, step=None):
+    """scatter_rows on a copy of acc0 twice (the same bits) against its
+    plain version (index_add_, ``step`` pairs at a time), within 1e-14 of
+    max |out| in f64 and 1e-6 in f32; returns (err, rel)."""
+    srcA, sgnA, tB = gm.tables(Y)[:3]
+    dst, dsg = gh._inverse_tables(gm, Y)
+    outs = [gk.scatter_rows(acc0.clone(), Y, srcA, sgnA, tB, dst, dsg, r0)
+            for _ in range(2)]
+    ref = acc0.clone()
+    n2 = srcA.shape[0]
+    step = step or n2
+    for k0 in range(0, n2, step):
+        sl = slice(k0, k0 + step)
+        gk.scatter_rows_plain(ref, Y[..., sl, :, :], srcA[sl], sgnA[sl],
+                              tB[sl], dst[sl], dsg[sl], r0)
+    torch.cuda.synchronize()
+    check(torch.equal(outs[0], outs[1]),
+          f"scatter_rows {label}: two launches differ")
+    check(bool(torch.isfinite(outs[0]).all()), f"scatter_rows {label}: "
+          "non-finite")
+    err = float((outs[0] - ref).abs().max())
+    rel = err / max(float(ref.abs().max()), 1e-300)
+    tol = 1e-14 if Y.dtype == torch.float64 else 1e-6
+    check(rel <= tol, f"scatter_rows {label}: relative error {rel:.3e} > "
+          f"{tol:.0e}")
+    return err, rel
+
+
+def hosted_kernel_phase(torch, gk, gh, grid, oo, stats, step=28):
+    """The kernels of the hosted route at the (16e,16o) chunk shapes of
+    ``oo``'s plan against their plain versions (a slab of ``step`` pairs
+    at a time: whole-chunk temporaries would crowd the card), timed beside
+    their bounds (f64, into ``stats``): the alpha and beta halves of a Phi
+    chunk, the column form on its Y, and the scatter on the same Y in the
+    middle chunk's window (f64 and f32, and the ragged last window)
+    beside index_add_ of its contributions."""
+    gm = oo.pqc.sector_maps
+    Na, Nb, n2 = gm.Na, gm.Nb, gm.n2
+    chunks = grid._row_chunks(Na, oo._core["plan"].row_chunk)
+    r0, r1 = chunks[len(chunks) // 2]
+    R = r1 - r0
+    dev = gm.device
+    gen = torch.Generator(device=dev).manual_seed(16)
+    f64 = torch.float64
+    like = torch.zeros((), dtype=f64, device=dev)
+    _, _, tB, srcB, sgnB, _ = gm.tables(like)
+    srcA_k, sgnA_k, tA_k = grid._row_tables(gm, like, r0, r1)
+    x = torch.randn((Na, Nb), generator=gen, dtype=f64, device=dev)
+    for half, args in (("alpha", (x, srcA_k, sgnA_k, tB)),
+                       ("beta", (x[r0:r1].T.contiguous(), srcB, sgnB,
+                                 tA_k))):
+        out = gk.gather_rows_scaled(*args)
+        torch.cuda.synchronize()
+        err, rel = _slab_err(out, gk.gather_rows_scaled_plain, args, step)
+        nbytes = _nbytes(*args, out)
+        del out
+        check(rel <= 1e-15, f"gather_rows_scaled 16e {half}: relative "
+              f"error {rel:.3e}")
+        ms = time_ms(lambda: gk.gather_rows_scaled(*args), torch)
+        pms = time_ms(lambda: [gk.gather_rows_scaled_plain(
+            args[0], *(a[k0:k0 + step] for a in args[1:]))
+            for k0 in range(0, n2, step)], torch, reps=2, rounds=3)
+        print(f"  gather_rows_scaled 16e {half:5s} x {tuple(args[0].shape)} "
+              f"src {tuple(args[1].shape)} max_abs_err={err:.3e} "
+              f"rel={rel:.3e} kernel={ms:.4f} ms plain={pms:.4f} ms "
+              f"({step} pairs at a time) {_share(ms, nbytes)}")
+        st = stats["gather_rows_scaled"]
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        if half == "alpha":
+            st.update(ms=ms, plain_ms=pms, bound_ms=bound_ms(nbytes))
+    del x, args
+    torch.cuda.empty_cache()
+    Y = torch.randn((n2, R, Nb), generator=gen, dtype=f64, device=dev)
+    args = (Y, srcB, sgnB, tA_k)
+    out = gk.gather_reduce_cols(*args)
+    ref = sum(gk.gather_reduce_cols_plain(*(a[k0:k0 + step] for a in args))
+              for k0 in range(0, n2, step))
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    rel = err / max(float(ref.abs().max()), 1e-300)
+    del out, ref
+    check(rel <= 1e-13, f"gather_reduce_cols 16e: relative error {rel:.3e}")
+    nbytes = reduce_bytes(*args, True)
+    ms = time_ms(lambda: gk.gather_reduce_cols(*args), torch)
+    pms = time_ms(lambda: sum(gk.gather_reduce_cols_plain(
+        *(a[k0:k0 + step] for a in args)) for k0 in range(0, n2, step)),
+        torch, reps=2, rounds=3)
+    sec = sector_floor_bytes(*args[:3], 32)
+    print(f"  gather_reduce_cols 16e beta  Y {tuple(Y.shape)} "
+          f"max_abs_err={err:.3e} rel={rel:.3e} kernel={ms:.4f} ms "
+          f"plain={pms:.4f} ms {_share(ms, nbytes)} 32-byte floor "
+          f"{sec / 1e6:.1f} MB {bound_ms(sec):.4f} ms")
+    st = stats["gather_reduce_cols"]
+    st.update(max_abs_err=max(st["max_abs_err"], err), ms=ms, plain_ms=pms,
+              bound_ms=bound_ms(nbytes))
+    # the scatter: the middle window in f64 and f32, the last (ragged)
+    acc = torch.randn((Na, Nb), generator=gen, dtype=f64, device=dev)
+    st = stats["scatter_rows"]
+    for Yc, accc, w0, tag in ((Y, acc, r0, "f64"),
+                              (Y.float(), acc.float(), r0, "f32"),
+                              (Y[:, :chunks[-1][1] - chunks[-1][0]]
+                               .contiguous(), acc, chunks[-1][0],
+                               "f64 last window")):
+        err, rel = scatter_check(torch, gk, gh, gm, Yc, accc, w0,
+                                 f"16e {tag}", step)
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        print(f"  scatter_rows 16e {tag} window [{w0}, "
+              f"{w0 + Yc.shape[-2]}) max_abs_err={err:.3e} rel={rel:.3e} "
+              f"bit-identical over two launches")
+    srcA, sgnA, tB = gm.tables(Y)[:3]
+    dst, dsg = gh._inverse_tables(gm, Y)
+    sargs = (acc, Y, srcA, sgnA, tB, dst, dsg, r0)
+    nbytes = scatter_bytes(Y, srcA, sgnA, tB, r0)
+    ms = time_ms(lambda: gk.scatter_rows(*sargs), torch)
+    pms = time_ms(lambda: [gk.scatter_rows_plain(
+        acc, Y[k0:k0 + step], *(a[k0:k0 + step] for a in sargs[2:7]), r0)
+        for k0 in range(0, n2, step)], torch, reps=2, rounds=3)
+    contrib = (Y * dsg[:, r0:r1, None] * tB[:, None, :]).reshape(-1, Nb)
+    idx = dst[:, r0:r1].reshape(-1)
+    lms = time_ms(lambda: acc.index_add_(0, idx, contrib), torch, reps=2,
+                  rounds=3)
+    del contrib
+    print(f"  scatter_rows 16e f64 Y {tuple(Y.shape)} window [{r0}, {r1}) "
+          f"kernel={ms:.4f} ms plain={pms:.4f} ms ({step} pairs at a time) "
+          f"index_add_ of the contributions={lms:.4f} ms "
+          f"{_share(ms, nbytes)} ({nbytes / 1e9:.3f} GB)")
+    st.update(ms=ms, plain_ms=pms, bound_ms=bound_ms(nbytes),
+              library_ms=lms)
+    del Y, acc, sargs
+    torch.cuda.empty_cache()
+
+
+def sector16_phase(torch, gk, mol, pqc, oo):
+    """The (16e,16o) H16 chain on the hosted route: E(0) against the RHF
+    energy, then one grad_hess at the demo's theta0 = 0.02 * arange(14)
+    and one damped-Newton update from it (the NR iteration), with its
+    time, peak memory and kernel launches; the new state's norm and
+    tr(gamma).  Returns the launches of the iteration."""
+    from auto_oo_tpu_torch.utils.newton_raphson import newton_step_pure
+
+    t0 = time.perf_counter()
+    e_zero = float(oo.energy_from_parameters(pqc.init_zeros()))
+    t_e = time.perf_counter() - t0
+    mol.run_rhf()
+    diff = e_zero - mol.hf.e_tot
+    print(f"  E(0) = {e_zero:.12f}  RHF {mol.hf.e_tot:.12f}  diff "
+          f"{diff:+.3e}  ({t_e:.2f} s: one state sweep and one hosted RDM "
+          f"pass)")
+    check(abs(diff) <= TOL_ENERGY, f"(16e,16o) E(0) misses RHF by {diff}")
+    theta0 = 0.02 * torch.arange(pqc.theta_shape, dtype=torch.float64,
+                                 device=pqc.device)
+    core, args = oo._core, oo._mol_args
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    e0, grad, hess = core["grad_hess"](theta0, oo.oao_mo_coeff, *args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    new_theta, _, _, e1, _ = core["newton_update"](
+        theta0, oo.oao_mo_coeff, *args, e0, grad, hess, *STEP.values())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(gk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    check(bool(torch.isfinite(grad).all() and torch.isfinite(hess).all()),
+          "(16e,16o) non-finite gradient or Hessian")
+    check(hess.shape == (pqc.theta_shape,) * 2, f"Hessian {hess.shape}")
+    gnorm = float(grad.norm())
+    e0, e1 = float(e0), float(e1)
+    step = new_theta - theta0
+    dp = newton_step_pure(grad, hess, mu=STEP["mu"], rho=STEP["rho"],
+                          lambda_min=STEP["lambda_min"])[0]
+    t_step = float(step @ dp) / float(dp @ dp)
+    asym = float((hess - hess.T).abs().max())
+    print(f"  grad_hess at theta0 {t1 - t0:.3f} s: E(theta0) = {e0:.12f}, "
+          f"|grad| = {gnorm:.6e} (JAX f64 {GRAD_NORM_16E16O:.3e}, diff "
+          f"{gnorm - GRAD_NORM_16E16O:+.2e}), max|H - H^T| {asym:.2e}")
+    print(f"  newton_update {t2 - t1:.3f} s; NR iteration {t2 - t0:.3f} s: "
+          f"E = {e1:.12f} (below E(theta0) by {e0 - e1:.3e}; JAX mixed "
+          f"{E_NR1_16E16O:.10f}, diff {e1 - E_NR1_16E16O:+.3e}), step "
+          f"length |dtheta| = {float(step.norm()):.6e}, t = {t_step:.6f}")
+    print(f"  launches of the iteration: {launches}; peak device memory "
+          f"{peak / 1e9:.3f} GB allocated, {reserved / 1e9:.3f} GB reserved")
+    check(abs(gnorm - GRAD_NORM_16E16O) <= 1e-5,
+          f"(16e,16o) |grad| {gnorm} misses {GRAD_NORM_16E16O}")
+    check(e1 < e0, f"(16e,16o) NR energy {e1} not below E(theta0) {e0}")
+    check(abs(e1 - E_NR1_16E16O) <= 5e-5,
+          f"(16e,16o) NR energy {e1} misses {E_NR1_16E16O} by more than "
+          "5e-5")
+    for name in HOSTED_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the (16e,16o) iteration")
+    psi = pqc.state(new_theta)
+    torch.cuda.synchronize()
+    check(psi.shape == (pqc.state_dim,), f"state shape {tuple(psi.shape)}")
+    check(bool(torch.isfinite(psi).all()), "non-finite (16e,16o) state")
+    norm = float(psi @ psi)
+    del psi
+    gamma, _ = pqc.get_rdms(new_theta)
+    trace = float(torch.trace(gamma))
+    print(f"  after the iteration: |norm - 1| {abs(norm - 1.0):.2e}, "
+          f"tr(gamma) - 16 {trace - 16.0:+.2e}")
+    check(abs(norm - 1.0) < 1e-12, f"(16e,16o) state norm {norm}")
+    check(abs(trace - 16.0) < 1e-10, f"(16e,16o) tr(gamma) = {trace}")
     return launches
 
 
@@ -934,6 +1308,7 @@ def main():
 
     import auto_oo_tpu_torch as P
     from auto_oo_tpu_torch.ops import cuda_build, grid
+    from auto_oo_tpu_torch.ops import grid_hosted as gh
     from auto_oo_tpu_torch.ops import gather_mechanisms as gm
     from auto_oo_tpu_torch.ops import grid_kernels as gk
     from auto_oo_tpu_torch.scripts import experiment_gather_mechanisms as exp
@@ -954,8 +1329,8 @@ def main():
         return out
 
     try:
-        stats = phase("grid kernels vs plain", kernel_phase, torch, gk, grid,
-                      dev)
+        stats = phase("grid kernels vs plain", kernel_phase, torch, gk, gh,
+                      grid, dev)
         stats.update(phase("gather mechanisms vs plain", mechanism_phase,
                            torch, gm, exp, dev))
         paths = {"probes": phase("gather mechanism entry point",
@@ -964,23 +1339,36 @@ def main():
         paths["12e12o"] = phase("(12e,12o) sector", sector12_phase, torch, P,
                                 gk, dev)
         torch.cuda.empty_cache()
-        phase("streamed equals fused at (10e,10o)",
-              streamed_equals_fused_phase, torch, P, gk, grid)
+        phase("streamed and hosted equal fused at (10e,10o)",
+              routes_equal_fused_phase, torch, P, gk, gh, grid)
         torch.cuda.empty_cache()
-        pqc14, oo14 = phase("(14e,14o) setup", sector14_setup, torch, P)
+        mol14, pqc14, oo14 = phase("(14e,14o) setup", sector14_setup, torch,
+                                   P)
         phase("(14e,14o) grid kernels vs plain", streamed_kernel_phase,
               torch, gk, grid, oo14, stats)
-        paths["14e14o"] = phase("(14e,14o) sector", sector14_phase, torch,
-                                gk, pqc14, oo14)
-        del pqc14, oo14
+        paths["14e14o"], theta14 = phase("(14e,14o) sector", sector14_phase,
+                                         torch, gk, pqc14, oo14)
+        phase("(14e,14o) hosted against streamed", hosted14_phase, torch, P,
+              gk, gh, mol14, pqc14, oo14, theta14)
+        del mol14, pqc14, oo14, theta14
         torch.cuda.empty_cache()
         phase("(2e,2o) convergence", convergence_phase, torch, P)
+        mol16, pqc16, oo16 = phase("(16e,16o) setup", sector16_setup, torch,
+                                   P)
+        phase("(16e,16o) grid kernels vs plain", hosted_kernel_phase, torch,
+              gk, gh, grid, oo16, stats)
+        paths["16e16o"] = phase("(16e,16o) sector", sector16_phase, torch,
+                                gk, mol16, pqc16, oo16)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     print(f"all phases: {time.perf_counter() - t_all:.2f} s")
-    main_path = {name: ("probes" if name in paths["probes"] else "14e14o")
-                 for name in stats}
+    # each kernel's main path: the probes' entry point, the hosted
+    # (16e,16o) iteration, and (14e,14o) for the row form of
+    # gather_reduce, which the hosted route does not run
+    main_path = {name: ("probes" if name in paths["probes"]
+                        else "14e14o" if name == "gather_reduce"
+                        else "16e16o") for name in stats}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name],
@@ -989,7 +1377,7 @@ def main():
                               if name in n},
          "max_abs_err": st["max_abs_err"], "ms": st["ms"],
          "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
-         "bound_by": "bytes", "library_ms": None}
+         "bound_by": "bytes", "library_ms": st.get("library_ms")}
         for name, st in stats.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ The grid-gather kernels and the row-gather mechanism probes against their
 plain PyTorch versions (the grid kernels also at the row-streamed route's
 row-sliced and pair-sliced shapes), the grid ops (fused and row-streamed)
 and one Newton core on the card against the same code on the CPU, the
-streamed Newton core against the fused one on the card, and failed
+streamed and the hosted Newton cores against the fused one on the card,
+the hosted H-apply's alpha scatter against its plain version, and failed
 builds and launches that raise.  This file imports neither jax nor the JAX package, so
 it also runs where jax is not installed; tests/conftest.py imports jax,
 so run it on the card with
@@ -16,7 +17,9 @@ Without a GPU every test skips (from the fixture, never at import).
 Tolerances: ``gather_rows_scaled`` takes the products in the plain
 version's order, so f64 agrees to the last bit (1e-15 relative, 1e-6 in
 f32); ``gather_reduce`` and ``gather_reduce_cols`` sum the pairs in
-another order (1e-13 relative in f64, 1e-5 in f32).  The mechanism
+another order (1e-13 relative in f64, 1e-5 in f32); ``scatter_rows``
+adds its window's sum to acc once where ``index_add_`` adds term by term
+(1e-14 of max |out| in f64, 1e-6 in f32).  The mechanism
 probes A, B and C take one product per element, so they equal their
 plain version bit for bit; B's and C's plans and refusals on the card are
 checked here too.
@@ -27,9 +30,14 @@ import pytest
 import torch
 
 import auto_oo_tpu_torch as P
-from auto_oo_tpu_torch.ops import cuda_build, grid, grid_kernels as gk
+from auto_oo_tpu_torch.ops import cuda_build, grid, grid_hosted
+from auto_oo_tpu_torch.ops import grid_kernels as gk
 from auto_oo_tpu_torch.ops import gather_mechanisms as gm
 from auto_oo_tpu_torch.scripts import experiment_gather_mechanisms as exp
+
+# the kernels of the fused and streamed routes (the hosted route runs
+# scatter_rows in place of the row form of gather_reduce)
+FUSED_KERNELS = ("gather_rows_scaled", "gather_reduce", "gather_reduce_cols")
 
 TOL = {torch.float64: {"rows": 1e-15, "reduce": 1e-13},
        torch.float32: {"rows": 1e-6, "reduce": 1e-5}}
@@ -217,8 +225,8 @@ def test_cuda_grad_hess_matches_cpu(cuda_device):
         oo = P.OO_pqc(pqc, mol, 4, 4, freeze_active=True)
         before = dict(gk.LAUNCHES)
         out.append([a.cpu() for a in oo._grad_hess(theta)])
-    for name, n in gk.LAUNCHES.items():
-        assert n > before[name], name
+    for name in FUSED_KERNELS:
+        assert gk.LAUNCHES[name] > before[name], name
     (e_c, g_c, h_c), (e_g, g_g, h_g) = out
     assert abs(float(e_g) - float(e_c)) < 1e-11
     np.testing.assert_allclose(g_g, g_c, rtol=0, atol=1e-11)
@@ -307,12 +315,105 @@ def test_cuda_streamed_grad_hess_matches_fused(cuda_device):
         before = dict(gk.LAUNCHES)
         out[route] = [a.cpu() for a in oo._grad_hess(theta)]
         torch.cuda.synchronize()
-    for name, n in gk.LAUNCHES.items():
-        assert n > before[name], name
+    for name in FUSED_KERNELS:
+        assert gk.LAUNCHES[name] > before[name], name
     (e_f, g_f, h_f), (e_s, g_s, h_s) = out["fused"], out["streamed"]
     assert abs(float(e_s) - float(e_f)) < 1e-11
     np.testing.assert_allclose(g_s, g_f, rtol=0, atol=1e-11)
     np.testing.assert_allclose(h_s, h_f, rtol=0, atol=1e-9)
+
+
+def _injective_case(na, nb, n2, seed, dtype, device):
+    """Random alpha-style maps over na rows where each pair's row map is a
+    partial injection (as E_pq's is), with their inverse: (src, s, t, dst,
+    dsg), invalid entries src 0 / s 0 and dst 0 / dsg 0."""
+    rng = np.random.default_rng(seed)
+    src = np.zeros((n2, na), dtype=np.int32)
+    s = np.zeros((n2, na))
+    dst = np.zeros((n2, na), dtype=np.int64)
+    dsg = np.zeros((n2, na))
+    for k in range(n2):
+        rows = np.flatnonzero(rng.random(na) < 0.7)
+        srcs = rng.permutation(na)[:rows.size]
+        sign = rng.choice([-1.0, 1.0], rows.size)
+        src[k, rows], s[k, rows] = srcs, sign
+        dst[k, srcs], dsg[k, srcs] = rows, sign
+    t = rng.choice([-1.0, 1.0], (n2, nb))
+    return (torch.from_numpy(src).to(device),
+            torch.from_numpy(s).to(device, dtype),
+            torch.from_numpy(t).to(device, dtype),
+            torch.from_numpy(dst).to(device),
+            torch.from_numpy(dsg).to(device, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_scatter_rows_matches_plain(cuda_device, dtype):
+    """The hosted H-apply's alpha scatter against its plain version
+    (index_add_ through the inverse maps), within 1e-14 of max |out| in
+    f64 (1e-6 in f32: the sums run in another order): the real (6e,6o)
+    alpha maps in three windows (the last ragged) on a batch of two, and
+    ragged random maps (Nb = 17: scalar loads); the same bits on a second
+    launch, and rows with no pair in the window left as they were."""
+    tol = 1e-14 if dtype == torch.float64 else 1e-6
+    pm = grid.build_grid_maps(6, 6, device=cuda_device)
+    like = torch.zeros((), dtype=dtype, device=cuda_device)
+    srcA, sgnA, tB = pm.tables(like)[:3]
+    dst, dsg = (torch.as_tensor(a, device=cuda_device)
+                for a in grid.inverse_alpha_maps(pm))
+    cases = [((2,), (srcA, sgnA, tB, dst.long(), dsg.to(dtype)), w)
+             for w in ((0, 7), (7, 14), (14, pm.Na))]
+    cases += [((), _injective_case(13, 17, 9, 70, dtype, cuda_device), w)
+              for w in ((0, 5), (5, 13))]
+    for seed, (lead, (src, s, t, d, dg), (r0, r1)) in enumerate(cases):
+        n2, na = src.shape
+        nb = t.shape[1]
+        Y = _rand(lead + (n2, r1 - r0, nb), 80 + seed).to(cuda_device, dtype)
+        acc0 = _rand(lead + (na, nb), 90 + seed).to(cuda_device, dtype)
+        outs = []
+        for _ in range(2):
+            before = gk.LAUNCHES["scatter_rows"]
+            out = acc0.clone()
+            assert gk.scatter_rows(out, Y, src, s, t, d, dg, r0) is out
+            torch.cuda.synchronize()
+            assert gk.LAUNCHES["scatter_rows"] == before + 1
+            outs.append(out)
+        assert torch.equal(outs[0], outs[1])
+        ref = gk.scatter_rows_plain(acc0.clone(), Y, src, s, t, d, dg, r0)
+        assert _rel_err(outs[0], ref) <= tol
+        hit = ((s != 0) & (src >= r0) & (src < r1)).any(0)
+        assert torch.equal(outs[0][..., ~hit, :], acc0[..., ~hit, :])
+
+
+@pytest.mark.cuda
+def test_cuda_hosted_grad_hess_matches_fused(cuda_device, monkeypatch):
+    """(4e,4o) sector np_fabric with the hosting threshold forced to 1
+    byte, on the card: the hosted grad_hess (row chunk 3) equals the fused
+    one, e0 and gradient to 1e-11 and the Hessian to 1e-9, n_kappa > 0
+    (the per-tangent pass with the transition RDMs), and launched the
+    three kernels of the hosted passes; the hosted line-search energy
+    equals the fused one."""
+    mol = P.Moldata(P.get_formal_geo(140, 80), "sto-3g")
+    pqc = P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
+                                  sector=True, device=cuda_device)
+    theta = 0.3 * np.random.default_rng(65).standard_normal(pqc.theta_shape)
+    fused = P.OO_pqc(pqc, mol, 4, 4, freeze_active=True)
+    out_f = [a.cpu() for a in fused._grad_hess(theta)]
+    monkeypatch.setattr(grid_hosted, "_HOSTED_MIN_BYTES", 1)
+    oo = P.OO_pqc(pqc, mol, 4, 4, freeze_active=True,
+                  stream_plan=grid.StreamPlan(3, 1, None))
+    assert oo._core["route"] == "hosted" and oo.n_kappa > 0
+    before = dict(gk.LAUNCHES)
+    e_h, g_h, h_h = (a.cpu() for a in oo._grad_hess(theta))
+    torch.cuda.synchronize()
+    for name in ("gather_rows_scaled", "gather_reduce_cols", "scatter_rows"):
+        assert gk.LAUNCHES[name] > before[name], name
+    e_f, g_f, h_f = out_f
+    assert abs(float(e_h) - float(e_f)) < 1e-11
+    np.testing.assert_allclose(g_h, g_f, rtol=0, atol=1e-11)
+    np.testing.assert_allclose(h_h, h_f, rtol=0, atol=1e-9)
+    assert abs(float(oo.energy_from_parameters(theta))
+               - float(fused.energy_from_parameters(theta))) < 1e-12
 
 
 @pytest.mark.cuda

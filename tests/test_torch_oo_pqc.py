@@ -26,7 +26,7 @@ from auto_oo_tpu.ops import rdms as jrdms
 import auto_oo_tpu_torch as P
 from auto_oo_tpu_torch.models import oo_pqc as poo
 from auto_oo_tpu_torch import config
-from auto_oo_tpu_torch.ops import grid, hamiltonian, rdms
+from auto_oo_tpu_torch.ops import grid, grid_hosted, hamiltonian, rdms
 from auto_oo_tpu_torch.utils.interop import from_jax
 
 
@@ -180,21 +180,29 @@ def test_staged_regime_matches_jax_staged(molecules, circuits, monkeypatch):
 
 def test_streamed_regime_raises(molecules, monkeypatch):
     """Where one (n^2, D) f64 Phi does not fit its block, OO_pqc takes the
-    streamed route (the JAX package's streamed rows); only where one
-    full-Phi pass reaches the JAX package's hosting threshold does it
-    refuse at construction.  Below D = 2^19 with Phi fitting, the route
-    is the fused one."""
+    streamed route (the JAX package's streamed rows); where one full-Phi
+    pass reaches the JAX package's hosting threshold it takes the hosted
+    route, whose (e0, grad, hess) equal the fused ones.  Below D = 2^19
+    with Phi fitting, the route is the fused one."""
     _, mp = molecules({})
     pqc = P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
                                   sector=True)
-    assert P.OO_pqc(pqc, mp, 4, 4)._core["route"] == "fused"
+    fused = P.OO_pqc(pqc, mp, 4, 4)
+    assert fused._core["route"] == "fused"
     monkeypatch.setattr(grid, "_PAIR_CHUNK_BYTES", 8)
     oo = P.OO_pqc(pqc, mp, 4, 4)
     assert oo._core["route"] == "streamed"
     assert oo._core["plan"] == grid.stream_plan(pqc.sector_maps)
-    monkeypatch.setattr(poo, "_HOSTED_MIN_BYTES", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        P.OO_pqc(pqc, mp, 4, 4)
+    monkeypatch.setattr(grid_hosted, "_HOSTED_MIN_BYTES", 1)
+    oo = P.OO_pqc(pqc, mp, 4, 4)
+    assert oo._core["route"] == "hosted"
+    assert oo._core["plan"] == grid.stream_plan(pqc.sector_maps)
+    theta = 0.3 * np.random.default_rng(8).standard_normal(pqc.theta_shape)
+    (e_f, g_f, h_f), (e_h, g_h, h_h) = (o._grad_hess(theta)
+                                        for o in (fused, oo))
+    assert oo.n_kappa > 0 and abs(float(e_h) - float(e_f)) < 1e-11
+    np.testing.assert_allclose(g_h.numpy(), g_f.numpy(), rtol=0, atol=1e-11)
+    np.testing.assert_allclose(h_h.numpy(), h_f.numpy(), rtol=0, atol=1e-9)
 
 
 def test_active_space_beyond_basis_raises(molecules):
@@ -348,8 +356,8 @@ def test_unported_routes_raise(molecules, monkeypatch):
         with pytest.raises(NotImplementedError):
             call()
     # the streamed (Phi does not fit one block) branches run the
-    # row-streamed functions and agree with the fused ones; the hosted
-    # regime still raises
+    # row-streamed functions and agree with the fused ones; so does the
+    # hosted route
     psi = pqc._state_impl_grid(0.3 * torch.ones_like(theta))
     c1 = torch.tensor([[0.5, 0.1], [0.1, -0.2]], dtype=torch.float64)
     c2 = torch.arange(16, dtype=torch.float64).reshape(2, 2, 2, 2) / 16
@@ -363,6 +371,11 @@ def test_unported_routes_raise(molecules, monkeypatch):
                 hamiltonian.ham_apply(c1, c2, psi, 2, pqc.sector_maps))
     for a, b in zip(fused[0] + fused[1:], streamed[0] + streamed[1:]):
         np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0, atol=1e-13)
-    monkeypatch.setattr(poo, "_HOSTED_MIN_BYTES", 1)
-    with pytest.raises(NotImplementedError):
-        P.OO_pqc(pqc, mp, 2, 2)
+    monkeypatch.setattr(grid_hosted, "_HOSTED_MIN_BYTES", 1)
+    hosted = P.OO_pqc(pqc, mp, 2, 2)
+    assert hosted._core["route"] == "hosted"
+    theta = 0.3 * torch.ones_like(theta)
+    for a, b in zip(oo._grad_hess(theta), hosted._grad_hess(theta)):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0, atol=1e-11)
+    assert abs(float(hosted.energy_from_parameters(theta))
+               - float(oo.energy_from_parameters(theta))) < 1e-12

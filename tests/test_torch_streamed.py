@@ -35,8 +35,7 @@ from auto_oo_tpu.ops import hamiltonian as jham
 from auto_oo_tpu.ops import rdms as jrdms
 import auto_oo_tpu_torch as P
 from auto_oo_tpu_torch import config
-from auto_oo_tpu_torch.models import oo_pqc as poo
-from auto_oo_tpu_torch.ops import grid, hamiltonian, rdms
+from auto_oo_tpu_torch.ops import grid, grid_hosted, hamiltonian, rdms
 from auto_oo_tpu_torch.utils.interop import from_jax
 
 
@@ -341,11 +340,19 @@ def test_streamed_trajectory_matches_jax(problem_631g):
 
 def test_hosted_regime_still_raises(monkeypatch):
     """Where one full-Phi pass reaches the JAX package's hosting threshold
-    the port refuses at construction, even with a plan given."""
+    the route is the hosted one, with a plan given or not (a given plan
+    sets its row chunk), and its (e0, grad, hess) equal the fused ones."""
     mp = P.Moldata(GEO, "sto-3g")
     pqc = P.Parameterized_circuit(2, 2, ansatz="ucc", sector=True)
+    theta = torch.tensor([0.3], dtype=torch.float64)
+    fused = P.OO_pqc(pqc, mp, 2, 2)._grad_hess(theta)
     # (2e,2o): one full-Phi pass is n2 * D * 8 = 4 * 4 * 8 bytes
-    monkeypatch.setattr(poo, "_HOSTED_MIN_BYTES", 4 * 4 * 8)
-    for kw in ({}, {"stream_plan": grid.StreamPlan(1, 1, None)}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            P.OO_pqc(pqc, mp, 2, 2, **kw)
+    monkeypatch.setattr(grid_hosted, "_HOSTED_MIN_BYTES", 4 * 4 * 8)
+    for kw, rows in (({}, 2), ({"stream_plan": grid.StreamPlan(1, 1, None)},
+                               1)):
+        oo = P.OO_pqc(pqc, mp, 2, 2, **kw)
+        assert oo._core["route"] == "hosted"
+        assert oo._core["plan"].row_chunk == rows
+        for a, b in zip(fused, oo._grad_hess(theta)):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0,
+                                       atol=1e-11)
