@@ -29,6 +29,43 @@
 //   taken as (x * s) * t, the order of the plain PyTorch version, so the
 //   f64 results agree bit for bit.
 //
+// gather_two_spin (both spin halves of Phi = E_pq x, grid rows [r0, r0+R)):
+//   out[b, k, m, j] = (x[b, srcA[k, r0+m], j] * sgnA[k, r0+m]) * tB[k, j]
+//                   + (x[b, r0+m, srcB[k, j]] * sgnB[k, j]) * tA[k, r0+m]
+//   with x (B, Na, Nb), srcA/sgnA/tA (n2, Na), srcB/sgnB/tB (n2, Nb), the
+//   four sign tables int8 (the maps' own +-1/0), out (B, n2, R, Nb).
+//   Replaces gather_rows_scaled (auto_oo_tpu/ops/pallas_grid.py:110) on
+//   both halves together with its callers' transposed copy of the grid
+//   rows and transposed add (pallas_grid.py:259-262, :354-357;
+//   auto_oo_tpu/ops/grid.py:560-575): Mosaic gathers only whole rows, so
+//   the TPU builds the beta half as a row gather of a transposed copy.
+//   Bound: bytes.  Phi written once dominates (13.05 GB per (16e,16o)
+//   chunk of 495 rows in f64, against 1.33 GB for all of x and 19.8 MB of
+//   tables): 4.3 ms at 3.35 TB/s.  Design.  A block owns up to
+//   kTwoSpinRows consecutive grid rows m of one tangent and a range of
+//   pairs k.  It stages its rows of x in shared memory once (103 KB per
+//   f64 row at (16e,16o): dynamic shared memory above 48 KB; the wrapper
+//   sizes the rows so two blocks share an SM), so every beta read
+//   x[b, r0+m, srcB[k, j]] is a shared-memory read inside the row and
+//   nothing is transposed.  Its threads stride the row's columns j in
+//   16-byte vectors where Nb and the pointers allow (else scalars): each
+//   (k, j-vector) loads srcB, sgnB and tB once (int32 + two int8: 6 bytes
+//   per (pair, column), 19.8 MB at (16e,16o), which stays in the 50 MB
+//   L2) and applies them to all the block's rows; the alpha half reads
+//   the source row of a valid (k, m) only (s = 0 writes the beta term
+//   alone), with vector loads; the next pair's per-row scalars are loaded
+//   while the current pair is written.  At 64 registers a thread (two
+//   blocks of 512 threads per SM) the kernel is bound by the loads it
+//   keeps in flight, so each thread takes several column vectors per step
+//   (8 elements of each staged row) and starts all their table and alpha
+//   loads before the first product.  Phi leaves through streaming
+//   (evict-first) 16-byte stores, so the output does not evict the tables
+//   or x from L2; the pairs are split over blocks so the grid fills the
+//   card's 132 SMs with a small last wave.  The two products and their
+//   sum are rounded separately (__dmul_rn / __dadd_rn: nvcc would
+//   otherwise contract a * b + c into an FMA), the order of the plain
+//   version, so the results equal it as values in f64 and f32.
+//
 // gather_reduce (the row form):
 //   out[b, i, j] = sum_k (Y[b, k, src[k, i], j] * s[k, i]) * t[k, j]
 //   Replaces auto_oo_tpu/ops/pallas_grid.py::gather_reduce (Pallas body
@@ -117,6 +154,11 @@ constexpr int kColWarps = 8;       // gather_reduce_cols: warps per block
 constexpr int kColRows = 4;        // gather_reduce_cols: rows a per warp
 constexpr int kColK = 2;           // gather_reduce_cols: pairs per step
 constexpr int kColBlocksPerSM = 3; // gather_reduce_cols: register budget
+constexpr int kTwoSpinThreads = 512;  // gather_two_spin: largest block
+constexpr int kTwoSpinRows = 2;       // gather_two_spin: most rows per block
+constexpr int kTwoSpinBlocksPerSM = 2;
+// the most dynamic shared memory one block can use on Hopper (227 KB)
+constexpr size_t kMaxBlockSmem = 232448;
 
 template <typename T>
 __global__ void gather_rows_scaled_kernel(const T* __restrict__ x,
@@ -379,6 +421,230 @@ gather_reduce_cols_kernel(const T* __restrict__ Y,
   }
 }
 
+// ---- gather_two_spin ------------------------------------------------------
+
+// VEC consecutive int32 table entries (aligned to VEC entries)
+__device__ __forceinline__ void load_tab(const int* p, int (&o)[1]) {
+  o[0] = __ldg(p);
+}
+__device__ __forceinline__ void load_tab(const int* p, int (&o)[2]) {
+  const int2 v = __ldg(reinterpret_cast<const int2*>(p));
+  o[0] = v.x;
+  o[1] = v.y;
+}
+__device__ __forceinline__ void load_tab(const int* p, int (&o)[4]) {
+  const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+
+// VEC consecutive int8 signs, kept packed in one register
+template <int VEC> struct Signs;
+template <> struct Signs<1> {
+  signed char v;
+  __device__ __forceinline__ void load(const signed char* p) { v = __ldg(p); }
+  __device__ __forceinline__ int operator[](int) const { return v; }
+};
+template <> struct Signs<2> {
+  char2 v;
+  __device__ __forceinline__ void load(const signed char* p) {
+    v = __ldg(reinterpret_cast<const char2*>(p));
+  }
+  __device__ __forceinline__ int operator[](int u) const {
+    return u == 0 ? v.x : v.y;
+  }
+};
+template <> struct Signs<4> {
+  char4 v;
+  __device__ __forceinline__ void load(const signed char* p) {
+    v = __ldg(reinterpret_cast<const char4*>(p));
+  }
+  __device__ __forceinline__ int operator[](int u) const {
+    return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+  }
+};
+
+// VEC consecutive elements of x (read-only path), and streaming stores
+__device__ __forceinline__ void load_x(const double* p, double (&o)[1]) {
+  o[0] = __ldg(p);
+}
+__device__ __forceinline__ void load_x(const double* p, double (&o)[2]) {
+  const double2 v = __ldg(reinterpret_cast<const double2*>(p));
+  o[0] = v.x;
+  o[1] = v.y;
+}
+__device__ __forceinline__ void load_x(const float* p, float (&o)[1]) {
+  o[0] = __ldg(p);
+}
+__device__ __forceinline__ void load_x(const float* p, float (&o)[4]) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+__device__ __forceinline__ void store_cs(double* p, const double (&o)[1]) {
+  __stcs(p, o[0]);
+}
+__device__ __forceinline__ void store_cs(double* p, const double (&o)[2]) {
+  __stcs(reinterpret_cast<double2*>(p), make_double2(o[0], o[1]));
+}
+__device__ __forceinline__ void store_cs(float* p, const float (&o)[1]) {
+  __stcs(p, o[0]);
+}
+__device__ __forceinline__ void store_cs(float* p, const float (&o)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(o[0], o[1], o[2], o[3]));
+}
+
+// products and sums rounded one by one (no FMA contraction)
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+
+// column vectors one thread takes per step: 8 elements of each staged row
+// in flight (a block of ROWS rows already has ROWS alpha loads per vector)
+__host__ __device__ constexpr int two_spin_unroll(int vec, int rows) {
+  return 8 / (vec * rows) > 1 ? 8 / (vec * rows) : 1;
+}
+
+// (source row, sign) of the alpha half and the beta half's row parity for
+// the first n of ROWS rows from table entry e (zeros beyond n; no source
+// row read where the sign is 0)
+template <int ROWS>
+__device__ __forceinline__ void two_spin_scalars(
+    const int* __restrict__ srcA, const signed char* __restrict__ sgnA,
+    const signed char* __restrict__ tA, long long e, int n,
+    int (&src)[ROWS], int (&sgn)[ROWS], int (&tt)[ROWS]) {
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    sgn[r] = r < n ? __ldg(sgnA + e + r) : 0;
+    src[r] = sgn[r] != 0 ? __ldg(srcA + e + r) : 0;
+    tt[r] = r < n ? __ldg(tA + e + r) : 0;
+  }
+}
+
+// Block (threads): grid rows [m0, m0 + n_m), n_m <= ROWS, of tangent b
+// (blockIdx.x), pairs [k0, k1) (blockIdx.y).  Dynamic shared memory: the
+// rows of x, ROWS * Nb elements.  Each step of a thread takes U column
+// vectors v0 + q * blockDim.x: all their table and alpha loads start
+// before the first product.
+template <typename T, int VEC, int ROWS>
+__global__ void __launch_bounds__(kTwoSpinThreads, kTwoSpinBlocksPerSM)
+gather_two_spin_kernel(const T* __restrict__ x, const int* __restrict__ srcA,
+                       const signed char* __restrict__ sgnA,
+                       const signed char* __restrict__ tB,
+                       const int* __restrict__ srcB,
+                       const signed char* __restrict__ sgnB,
+                       const signed char* __restrict__ tA,
+                       T* __restrict__ out, int n2, int Na, int Nb, int r0,
+                       int R, int pairs) {
+  using V = typename Vec<T, VEC>::type;
+  constexpr int U = two_spin_unroll(VEC, ROWS);
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);
+  const int groups = (R + ROWS - 1) / ROWS;
+  const long long b = blockIdx.x / groups;
+  const int m0 = static_cast<int>(blockIdx.x % groups) * ROWS;
+  const int n_m = min(ROWS, R - m0);
+  const int k0 = blockIdx.y * pairs;
+  const int k1 = min(n2, k0 + pairs);
+  const T* xb = x + b * Na * static_cast<long long>(Nb);
+
+  // stage the block's rows of x (consecutive in memory)
+  {
+    const V* from = reinterpret_cast<const V*>(
+        xb + static_cast<long long>(r0 + m0) * Nb);
+    V* to = reinterpret_cast<V*>(xs);
+    const int n = n_m * (Nb / VEC);
+    for (int e = threadIdx.x; e < n; e += blockDim.x) to[e] = __ldg(from + e);
+  }
+  __syncthreads();
+
+  // per-row scalars of the alpha half (source row, sign) and the beta
+  // half's row parity, for pair k; the next pair's are loaded ahead
+  int sa[ROWS], ga[ROWS], ta[ROWS], nsa[ROWS], nga[ROWS], nta[ROWS];
+  const long long rowA = r0 + m0;
+  two_spin_scalars<ROWS>(srcA, sgnA, tA,
+                         k0 * static_cast<long long>(Na) + rowA, n_m, nsa,
+                         nga, nta);
+
+  const int Nv = Nb / VEC;
+  for (int k = k0; k < k1; ++k) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      sa[r] = nsa[r];
+      ga[r] = nga[r];
+      ta[r] = nta[r];
+    }
+    two_spin_scalars<ROWS>(srcA, sgnA, tA,
+                           (k + 1) * static_cast<long long>(Na) + rowA,
+                           k + 1 < k1 ? n_m : 0, nsa, nga, nta);
+    const long long kb = static_cast<long long>(k) * Nb;
+    T* ok = out + ((b * n2 + k) * R + m0) * static_cast<long long>(Nb);
+    for (int v0 = threadIdx.x; v0 < Nv; v0 += U * blockDim.x) {
+      int sb[U][VEC];
+      Signs<VEC> gb[U], tb[U];
+      T xa[U][ROWS][VEC];
+#pragma unroll
+      for (int q = 0; q < U; ++q) {
+        const int v = v0 + q * blockDim.x;
+        if (v < Nv) {
+          load_tab(srcB + kb + v * VEC, sb[q]);
+          gb[q].load(sgnB + kb + v * VEC);
+          tb[q].load(tB + kb + v * VEC);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < U; ++q) {
+        const int v = v0 + q * blockDim.x;
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          if (v < Nv && r < n_m && ga[r] != 0) {
+            load_x(xb + static_cast<long long>(sa[r]) * Nb + v * VEC,
+                   xa[q][r]);
+          } else {
+#pragma unroll
+            for (int u = 0; u < VEC; ++u) xa[q][r][u] = T(0);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < U; ++q) {
+        const int v = v0 + q * blockDim.x;
+        if (v >= Nv) continue;
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          if (r >= n_m) continue;
+          const T* xr = xs + r * Nb;
+          const T gar = T(ga[r]), tar = T(ta[r]);
+          T o[VEC];
+#pragma unroll
+          for (int u = 0; u < VEC; ++u) {
+            const T alpha = ga[r] != 0
+                                ? mul_rn(mul_rn(xa[q][r][u], gar),
+                                         T(tb[q][u]))
+                                : T(0);
+            const T beta = mul_rn(mul_rn(xr[sb[q][u]], T(gb[q][u])), tar);
+            o[u] = add_rn(alpha, beta);
+          }
+          store_cs(ok + static_cast<long long>(r) * Nb + v * VEC, o);
+        }
+      }
+    }
+  }
+}
+
 template <typename T>
 int launch_gather_rows_scaled(const T* x, const int* src, const T* s,
                               const T* t, T* out, long long B, int n2,
@@ -444,9 +710,94 @@ int launch_gather_reduce_cols(const T* Y, const int* src, const T* s,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int VEC, int ROWS>
+int launch_two_spin_rows(const T* x, const int* srcA, const signed char* sgnA,
+                         const signed char* tB, const int* srcB,
+                         const signed char* sgnB, const signed char* tA,
+                         T* out, long long B, int n2, int Na, int Nb, int r0,
+                         int R, int threads, int pairs, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(ROWS) * Nb * sizeof(T);
+  const long long gx = B * ((R + ROWS - 1) / ROWS);
+  if (smem > kMaxBlockSmem || gx > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = gather_two_spin_kernel<T, VEC, ROWS>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(static_cast<unsigned int>(gx), (n2 + pairs - 1) / pairs);
+  kern<<<grid, threads, smem, stream>>>(x, srcA, sgnA, tB, srcB, sgnB, tA,
+                                        out, n2, Na, Nb, r0, R, pairs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC>
+int launch_two_spin_vec(const T* x, const int* srcA, const signed char* sgnA,
+                        const signed char* tB, const int* srcB,
+                        const signed char* sgnB, const signed char* tA,
+                        T* out, long long B, int n2, int Na, int Nb, int r0,
+                        int R, int rows, int threads, int pairs,
+                        cudaStream_t stream) {
+  if (rows == 1)
+    return launch_two_spin_rows<T, VEC, 1>(x, srcA, sgnA, tB, srcB, sgnB, tA,
+                                           out, B, n2, Na, Nb, r0, R,
+                                           threads, pairs, stream);
+  return launch_two_spin_rows<T, VEC, kTwoSpinRows>(
+      x, srcA, sgnA, tB, srcB, sgnB, tA, out, B, n2, Na, Nb, r0, R, threads,
+      pairs, stream);
+}
+
+template <typename T>
+int launch_gather_two_spin(const T* x, const int* srcA,
+                           const signed char* sgnA, const signed char* tB,
+                           const int* srcB, const signed char* sgnB,
+                           const signed char* tA, T* out, long long B, int n2,
+                           int Na, int Nb, int r0, int R, int vec, int rows,
+                           int threads, int pairs, cudaStream_t stream) {
+  if (B == 0 || n2 == 0 || Nb == 0) return static_cast<int>(cudaSuccess);
+  constexpr int kVec = 16 / sizeof(T);
+  if (B < 0 || R < 1 || r0 < 0 || r0 + static_cast<long long>(R) > Na ||
+      (vec != 1 && vec != kVec) || Nb % vec != 0 ||
+      (rows != 1 && rows != kTwoSpinRows) || threads < kWarp ||
+      threads > kTwoSpinThreads || threads % kWarp != 0 || pairs < 1 ||
+      (n2 + pairs - 1) / pairs > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec == 1)
+    return launch_two_spin_vec<T, 1>(x, srcA, sgnA, tB, srcB, sgnB, tA, out,
+                                     B, n2, Na, Nb, r0, R, rows, threads,
+                                     pairs, stream);
+  return launch_two_spin_vec<T, kVec>(x, srcA, sgnA, tB, srcB, sgnB, tA, out,
+                                      B, n2, Na, Nb, r0, R, rows, threads,
+                                      pairs, stream);
+}
+
 }  // namespace
 
 extern "C" {
+
+int grid_gather_two_spin_f64(const double* x, const int* srcA,
+                             const signed char* sgnA, const signed char* tB,
+                             const int* srcB, const signed char* sgnB,
+                             const signed char* tA, double* out, long long B,
+                             int n2, int Na, int Nb, int r0, int R, int vec,
+                             int rows, int threads, int pairs, void* stream) {
+  return launch_gather_two_spin<double>(
+      x, srcA, sgnA, tB, srcB, sgnB, tA, out, B, n2, Na, Nb, r0, R, vec, rows,
+      threads, pairs, static_cast<cudaStream_t>(stream));
+}
+
+int grid_gather_two_spin_f32(const float* x, const int* srcA,
+                             const signed char* sgnA, const signed char* tB,
+                             const int* srcB, const signed char* sgnB,
+                             const signed char* tA, float* out, long long B,
+                             int n2, int Na, int Nb, int r0, int R, int vec,
+                             int rows, int threads, int pairs, void* stream) {
+  return launch_gather_two_spin<float>(
+      x, srcA, sgnA, tB, srcB, sgnB, tA, out, B, n2, Na, Nb, r0, R, vec, rows,
+      threads, pairs, static_cast<cudaStream_t>(stream));
+}
 
 int grid_gather_rows_scaled_f64(const double* x, const int* src,
                                 const double* s, const double* t,

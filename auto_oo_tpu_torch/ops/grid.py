@@ -12,10 +12,11 @@ a row gather (alpha) and a row gather of the transpose (beta), with
 rank-1 sign corrections: the Jordan-Wigner parity of a same-spin
 excitation factorizes exactly into a same-spin part (sgn) and an
 other-spin part (t = (-1)^{# other-spin electrons between the two
-modes}).  ``phi_all`` runs ``gather_rows_scaled`` of ops/grid_kernels.py
-on both spin halves (the beta half on a transposed copy of the grid);
-``epq_sum`` runs ``gather_reduce`` on the alpha half and
-``gather_reduce_cols`` on the beta half, both in the grid's layout.
+modes}).  Every Phi (``phi_all``, ``phi_rows`` and the streamed and
+hosted passes) is built by ``gather_two_spin`` of ops/grid_kernels.py,
+both spin halves in one pass over the grid's rows; ``epq_sum`` runs
+``gather_reduce`` on the alpha half and ``gather_reduce_cols`` on the
+beta half, both in the grid's layout.
 
 Layout contract: statevectors here are GRID-ordered flat vectors — index
 g = i * Nb + j for determinant A_i | B_j — NOT the canonical ascending
@@ -26,7 +27,8 @@ Where one (n2, D) Phi exceeds its 1 GB block ((14e,14o): 18.5 GB in
 f64) the callers stream it over grid A-rows (``phi_rows``,
 ``ham_apply_rows``, ``rdms_rows``, ``transition_rdms_rows``; sizes from
 ``stream_plan``): the alpha half gathers rows of the whole x with
-row-sliced tables, the beta half gathers inside the chunk's rows.
+row-sliced tables, the beta half gathers inside the chunk's rows (one
+``gather_two_spin`` launch per chunk).
 """
 
 import copy
@@ -38,8 +40,7 @@ import torch
 
 from ..config import get_device
 from . import fermion
-from .grid_kernels import (gather_reduce, gather_reduce_cols,
-                           gather_rows_scaled)
+from .grid_kernels import gather_reduce, gather_reduce_cols, gather_two_spin
 
 
 class GridMaps:
@@ -92,15 +93,26 @@ class GridMaps:
                                               for a in self._signs)
         return hit
 
-    def tables(self, like):
-        """(srcA, sgnA, tB, srcB, sgnB, tA) for an operand ``like``: int32
-        src for the card's kernels, int64 src for the CPU's plain
-        versions, scales in the operand's dtype."""
+    def _src(self, like):
+        """(srcA, srcB): int32 for the card's kernels, int64 for the CPU's
+        plain versions."""
         if like.device.type == "cpu":
-            sa, sb = self.srcA_long, self.srcB_long
-        else:
-            sa, sb = self.srcA, self.srcB
+            return self.srcA_long, self.srcB_long
+        return self.srcA, self.srcB
+
+    def tables(self, like):
+        """(srcA, sgnA, tB, srcB, sgnB, tA) for an operand ``like``: src as
+        ``_src`` gives it, scales in the operand's dtype."""
+        sa, sb = self._src(like)
         sgnA, tB, sgnB, tA = self.scales(like.dtype)
+        return sa, sgnA, tB, sb, sgnB, tA
+
+    def phi_tables(self, like):
+        """(srcA, sgnA, tB, srcB, sgnB, tA) for ``gather_two_spin`` on an
+        operand ``like``: src as ``_src`` gives it, the int8 sign tables as
+        held (the plain version promotes them exactly)."""
+        sa, sb = self._src(like)
+        sgnA, tB, sgnB, tA = self._signs
         return sa, sgnA, tB, sb, sgnB, tA
 
     @property
@@ -328,14 +340,8 @@ def pair_slice(gm, lo, hi):
 
 
 def _phi_impl(x, gm):
-    srcA, sgnA, tB, srcB, sgnB, tA = gm.tables(x)
     xg = x.reshape(x.shape[:-1] + (gm.Na, gm.Nb))
-    pa = gather_rows_scaled(xg, srcA, sgnA, tB)
-    # beta half on one transposed contiguous copy of the grid (the layout
-    # of the TPU wrapper; a fused two-spin kernel can gather in-row)
-    xt = xg.transpose(-1, -2).contiguous()
-    pb = gather_rows_scaled(xt, srcB, sgnB, tA)
-    phi = pa + pb.transpose(-1, -2)
+    phi = gather_two_spin(xg, *gm.phi_tables(x), 0, gm.Na)
     return phi.reshape(x.shape[:-1] + (gm.n2, gm.dim))
 
 
@@ -380,7 +386,7 @@ class _EpqSum(torch.autograd.Function):
 def phi_all(x, gm):
     """Phi[..., pq, :] = E_pq x for all pairs of the maps; x and the
     result are GRID-ordered flat vectors ((..., Ds) -> (..., n2, Ds)).
-    Both spin halves run ``gather_rows_scaled``."""
+    One ``gather_two_spin`` builds both spin halves."""
     return _Phi.apply(x, gm)
 
 
@@ -403,8 +409,12 @@ _PAIR_CHUNK_BYTES = 1 << 30
 # buffers; on the CPU a pair block gets a fifth of it
 _Y_BUDGET_BYTES = 10 << 30
 
-# block-sized buffers the row-streamed route holds at once (the JAX
-# package's count): Y, the two halves of a Phi chunk and their C2 product
+# block-sized buffers the row-streamed route is sized for (the JAX
+# package's count, kept so both packages cut the same sectors into the
+# same chunks).  Live at once: Y, a Phi chunk and its C2 product; the
+# Phi chunk is one buffer since gather_two_spin writes both halves in
+# place (the TPU layout held a second, transposed half), so two shares
+# are left to the caching allocator's fragmentation
 _LIVE_BLOCKS = 5
 
 
@@ -470,15 +480,9 @@ def _phi_chunk(xg, gm, r0, r1):
     """The (..., n2, r1 - r0, Nb) block of E_pq x for grid A-rows
     [r0, r1), from the whole contiguous grid xg (..., Na, Nb).  Both spin
     parts are row-local in their output: alpha gathers rows of the whole
-    x with row-sliced tables, beta gathers inside the chunk's own rows
-    (a row gather of its transposed (Nb, rows) copy, as the TPU wrapper
-    does).  Each element of Phi is made once."""
-    srcA_k, sgnA_k, tA_k = _row_tables(gm, xg, r0, r1)
-    _, _, tB, srcB, sgnB, _ = gm.tables(xg)
-    pa = gather_rows_scaled(xg, srcA_k, sgnA_k, tB)
-    zt = xg[..., r0:r1, :].transpose(-1, -2).contiguous()
-    pb = gather_rows_scaled(zt, srcB, sgnB, tA_k)
-    return pa.add_(pb.transpose(-1, -2))
+    x, beta gathers inside the chunk's own rows; one ``gather_two_spin``
+    makes each element of Phi once, with no transposed copy."""
+    return gather_two_spin(xg, *gm.phi_tables(xg), r0, r1)
 
 
 class _PhiRows(torch.autograd.Function):

@@ -23,8 +23,8 @@ the math stays:
   (psi, t) from one pass that builds both Phi chunks, so its default row
   chunk is half the single-Phi one.
 
-Each Phi chunk is ``grid._phi_chunk`` (``gather_rows_scaled`` on both spin
-halves).  H|x> stays in the state's dtype; the RDM accumulators are f64.
+Each Phi chunk is ``grid._phi_chunk`` (one ``gather_two_spin`` launch for
+both spin halves).  H|x> stays in the state's dtype; the RDM accumulators are f64.
 Row chunks default to ``grid.stream_plan`` (the free device memory on the
 card); the callers in models/oo_pqc.py pass the plan sized once at
 construction.

@@ -2,13 +2,18 @@
 the CPU.
 
 Port of auto_oo_tpu/ops/pallas_grid.py (``gather_rows_scaled`` and
-``gather_reduce``), plus ``gather_reduce_cols``: the column form of
-``gather_reduce``, which reads the beta half of ``epq_sum`` in the grid's
-natural layout where the TPU wrapper first made a transposed copy of Y
-(pallas_grid.py:270); and ``scatter_rows``: the alpha half of the hosted
-H-apply (auto_oo_tpu/ops/grid_hosted.py:260-262, an XLA scatter there),
-the windowed, accumulating form of ``gather_reduce``.  The CUDA source is
-``csrc/grid_gather.cu``; its
+``gather_reduce``), plus ``gather_two_spin``: both spin halves of Phi in
+one kernel, the beta half gathered inside the grid's rows where the TPU
+wrappers run ``gather_rows_scaled`` on a transposed copy and add the
+result back transposed (pallas_grid.py:259-262, :354-357); it builds Phi
+on every route of the port, and ``gather_rows_scaled`` stays as the 1:1
+port that the row-gather probes time; ``gather_reduce_cols``: the column
+form of ``gather_reduce``, which reads the beta half of ``epq_sum`` in the
+grid's natural layout where the TPU wrapper first made a transposed copy
+of Y (pallas_grid.py:270); and ``scatter_rows``: the alpha half of the
+hosted H-apply (auto_oo_tpu/ops/grid_hosted.py:260-262, an XLA scatter
+there), the windowed, accumulating form of ``gather_reduce``.  The CUDA
+source is ``csrc/grid_gather.cu``; its
 header comment says what bounds each kernel on an H100 and what the
 design does about it.  The library is compiled with ``nvcc`` at first
 use (ops/cuda_build.py).
@@ -34,19 +39,25 @@ from .cuda_build import CSRC_DIR, I32, I64, PTR, CudaLibrary
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _ARGS = [PTR, PTR, PTR, PTR, PTR, I64, I32, I32, I32, I32]
 
+# gather_two_spin: x, the six tables, out; B; n2, Na, Nb, r0, R and the
+# plan (vec, rows, threads, pairs); the stream
+_TWO_SPIN_ARGS = [PTR] * 8 + [I64] + [I32] * 9 + [PTR]
+
 #: the kernel library, built from csrc/grid_gather.cu at first use
 LIBRARY = CudaLibrary(
     os.path.join(CSRC_DIR, "grid_gather.cu"),
-    {f"grid_{kern}_{sfx}": _ARGS + extra + [PTR]
-     for kern, extra in (("gather_rows_scaled", []),
-                         ("gather_reduce", [I32, I32, I32]),
-                         ("gather_reduce_cols", []),
-                         ("scatter_rows", [I32, I32, I32, I32]))
-     for sfx in _SUFFIX.values()})
+    {**{f"grid_{kern}_{sfx}": _ARGS + extra + [PTR]
+        for kern, extra in (("gather_rows_scaled", []),
+                            ("gather_reduce", [I32, I32, I32]),
+                            ("gather_reduce_cols", []),
+                            ("scatter_rows", [I32, I32, I32, I32]))
+        for sfx in _SUFFIX.values()},
+     **{f"grid_gather_two_spin_{sfx}": _TWO_SPIN_ARGS
+        for sfx in _SUFFIX.values()}})
 
 #: launches of each CUDA kernel through its wrapper (plain runs excluded)
-LAUNCHES = {"gather_rows_scaled": 0, "gather_reduce": 0,
-            "gather_reduce_cols": 0, "scatter_rows": 0}
+LAUNCHES = {"gather_two_spin": 0, "gather_rows_scaled": 0,
+            "gather_reduce": 0, "gather_reduce_cols": 0, "scatter_rows": 0}
 
 
 def reset_launches():
@@ -60,6 +71,18 @@ def reset_launches():
 def gather_rows_scaled_plain(x, src, s, t):
     """out[..., k, i, j] = (x[..., src[k, i], j] * s[k, i]) * t[k, j]."""
     return x[..., src, :] * s[:, :, None] * t[:, None, :]
+
+
+def gather_two_spin_plain(x, srcA, sgnA, tB, srcB, sgnB, tA, r0, r1):
+    """out[..., k, m, j] = (x[..., srcA[k, r0+m], j] * sgnA[k, r0+m])
+    * tB[k, j] + (x[..., r0+m, srcB[k, j]] * sgnB[k, j]) * tA[k, r0+m]:
+    the composite the kernel replaces, ``gather_rows_scaled`` on the alpha
+    half with row-sliced tables and on a transposed copy of the rows for
+    the beta half, added back transposed."""
+    pa = gather_rows_scaled_plain(x, srcA[:, r0:r1], sgnA[:, r0:r1], tB)
+    zt = x[..., r0:r1, :].transpose(-1, -2).contiguous()
+    pb = gather_rows_scaled_plain(zt, srcB, sgnB, tA[:, r0:r1])
+    return pa.add_(pb.transpose(-1, -2))
 
 
 def gather_reduce_plain(Y, src, s, t):
@@ -127,6 +150,64 @@ def plan_reduce(B, Na, Nb, n2, itemsize, aligned=True):
     per_list = n2 * (12 + itemsize) + (-(-n2 // 32) + 1) * 4
     rows = max(1, min(Na, REDUCE_BLOCK // per_row, _REDUCE_SMEM // per_list))
     return ReducePlan(vec, rows, _warps(rows * per_row))
+
+
+# ---- launch plan of gather_two_spin ----------------------------------------
+
+#: the most threads and grid rows per block gather_two_spin's plan asks for
+#: (the kernel's limits)
+TWO_SPIN_BLOCK = 512
+TWO_SPIN_ROWS = 2
+# the most dynamic shared memory one block can use on Hopper (227 KB), and
+# the share that lets two blocks sit on one SM (half the SM's 228 KB, less
+# the 1 KB the card reserves per block)
+_BLOCK_SMEM = 232448
+_PAIR_SMEM = 233472 // 2 - 1024
+# blocks that fill the H100's 132 SMs with a small last wave
+_TWO_SPIN_BLOCKS = 32 * 132
+
+
+class TwoSpinPlan(NamedTuple):
+    vec: int      # elements per load and store along j (16 bytes, or 1)
+    rows: int     # grid rows per block (1 or 2; staged in shared memory)
+    threads: int  # threads per block, a whole number of warps
+    pairs: int    # pairs per block
+
+
+def two_spin_unroll(vec, rows):
+    """Column vectors one thread of gather_two_spin takes per step (the
+    kernel's two_spin_unroll): 8 elements of each staged row in flight."""
+    return max(1, 8 // (vec * rows))
+
+
+def plan_two_spin(B, R, Nb, n2, itemsize, aligned=True):
+    """gather_two_spin's launch plan.  A block stages ``rows`` (2, or 1
+    where two blocks of two rows would not share an SM's shared memory:
+    one f64 row is 103 KB at (16e,16o)) grid rows of x in shared memory;
+    its threads, at most TWO_SPIN_BLOCK, take ``two_spin_unroll`` column
+    vectors per step; the pairs are split over blocks until the grid has
+    ~32 blocks per SM.  (Swept on an H100 with
+    scripts/sweep_two_spin.py: whole blocks of 512 threads beat even
+    rounds of fewer, and splitting the pairs finer shortens the last
+    wave.)  16-byte vectors where every row starts on a 16-byte boundary
+    (``aligned`` pointers, Nb a multiple of the vector), else scalars.
+    Raises ValueError when one row of x does not fit a block's shared
+    memory (Nb above 29,056 in f64)."""
+    row = Nb * itemsize
+    if row > _BLOCK_SMEM:
+        raise ValueError(f"gather_two_spin: a row of {Nb} elements "
+                         f"({row} bytes) does not fit a block's "
+                         f"{_BLOCK_SMEM} bytes of shared memory")
+    vec = 16 // itemsize
+    if not aligned or Nb % vec:
+        vec = 1
+    rows = TWO_SPIN_ROWS if (R >= TWO_SPIN_ROWS and TWO_SPIN_ROWS * row
+                             <= _PAIR_SMEM) else 1
+    step = two_spin_unroll(vec, rows)
+    threads = min(TWO_SPIN_BLOCK, _warps(-(-max(1, Nb // vec) // step)))
+    blocks = B * -(-R // rows)
+    splits = max(1, min(n2, -(-_TWO_SPIN_BLOCKS // max(blocks, 1))))
+    return TwoSpinPlan(vec, rows, threads, max(1, -(-n2 // splits)))
 
 
 # ---- wrappers --------------------------------------------------------------
@@ -205,6 +286,74 @@ def gather_rows_scaled(x, src, s, t):
                       device=x.device)
     _launch("gather_rows_scaled", x.dtype, *_ptrs(x, src, s, t, out), B, n2,
             Ns, Na, Nb, _stream(x))
+    return out
+
+
+def _check_two_spin(x, srcA, sgnA, tB, srcB, sgnB, tA):
+    """Validate gather_two_spin's operands on the card (x (..., Na, Nb) in
+    f64 or f32, int32 src, int8 sign tables of matching shapes, one
+    device, contiguous); returns (B, Na, Nb)."""
+    name = "gather_two_spin"
+    if x.dtype not in _SUFFIX:
+        raise TypeError(f"{name}: dtype {x.dtype} is not float64/float32")
+    if x.dim() < 2:
+        raise ValueError(f"{name}: x needs at least 2 dims")
+    Na, Nb = x.shape[-2:]
+    n2 = srcA.shape[0]
+    tabs = (("srcA", srcA, torch.int32, Na), ("sgnA", sgnA, torch.int8, Na),
+            ("tB", tB, torch.int8, Nb), ("srcB", srcB, torch.int32, Nb),
+            ("sgnB", sgnB, torch.int8, Nb), ("tA", tA, torch.int8, Na))
+    for nm, v, dt, width in tabs:
+        if v.dtype != dt:
+            raise TypeError(f"{name}: {nm} must be {dt} on the card, got "
+                            f"{v.dtype}")
+        if v.shape != (n2, width):
+            raise ValueError(f"{name}: {nm} shape {tuple(v.shape)} != "
+                             f"{(n2, width)}")
+    for nm, v in (("x", x),) + tuple((nm, v) for nm, v, _, _ in tabs):
+        if v.device != x.device:
+            raise ValueError(f"{name}: {nm} is on {v.device}, x on "
+                             f"{x.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name}: {nm} is not contiguous")
+    return x.numel() // max(1, Na * Nb), Na, Nb
+
+
+def _check_window(x, r0, r1):
+    if not 0 <= r0 < r1 <= x.shape[-2]:
+        raise ValueError(f"gather_two_spin: window [{r0}, {r1}) is not "
+                         f"inside the {x.shape[-2]} grid rows")
+
+
+def gather_two_spin(x, srcA, sgnA, tB, srcB, sgnB, tA, r0, r1, plan=None):
+    """Both spin halves of Phi = E_pq x over grid rows [r0, r1):
+
+        out[..., k, m, j] = (x[..., srcA[k, r0+m], j] * sgnA[k, r0+m])
+                            * tB[k, j]
+                          + (x[..., r0+m, srcB[k, j]] * sgnB[k, j])
+                            * tA[k, r0+m]
+
+    x (..., Na, Nb); srcA, sgnA, tA (n2, Na); srcB, sgnB, tB (n2, Nb)
+    -> (..., n2, r1 - r0, Nb).  Invalid entries carry src = 0, sign 0.
+    CPU tensors take the plain version (any sign dtype); CUDA tensors the
+    kernel, which takes int32 src and the int8 sign tables of
+    ``GridMaps`` and equals the plain version as values.  ``plan`` (a
+    ``TwoSpinPlan``) replaces ``plan_two_spin``'s, for sweeps."""
+    _check_window(x, r0, r1)
+    if not _on_card("gather_two_spin", x):
+        return gather_two_spin_plain(x, srcA, sgnA, tB, srcB, sgnB, tA, r0,
+                                     r1)
+    B, Na, Nb = _check_two_spin(x, srcA, sgnA, tB, srcB, sgnB, tA)
+    n2, R = srcA.shape[0], r1 - r0
+    out = torch.empty(x.shape[:-2] + (n2, R, Nb), dtype=x.dtype,
+                      device=x.device)
+    if plan is None:
+        plan = plan_two_spin(B, R, Nb, n2, x.element_size(),
+                             all(v.data_ptr() % 16 == 0
+                                 for v in (x, srcB, sgnB, tB)))
+    _launch("gather_two_spin", x.dtype,
+            *_ptrs(x, srcA, sgnA, tB, srcB, sgnB, tA, out), B, n2, Na, Nb,
+            r0, R, *plan, _stream(x))
     return out
 
 

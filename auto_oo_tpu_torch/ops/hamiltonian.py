@@ -3,7 +3,7 @@
 Port of the grid branch of auto_oo_tpu/ops/hamiltonian.py.  With
 H = sum_pq c1_pq E_pq + sum_pqrs c2_pqrs e_pqrs (chemist order):
 
-    Phi[rs]   = E_rs chi                       (gather_rows_scaled kernel)
+    Phi[rs]   = E_rs chi                       (gather_two_spin kernel)
     Y[pq]     = sum_rs C2[(pq),(rs)] Phi[rs]   (one (n^2, n^2) matmul)
     Y[pq]    += c1eff[pq] * chi                (rank-1 broadcast)
     H chi     = sum_pq E_pq Y[pq]              (gather_reduce kernels)

@@ -4,7 +4,7 @@ Port of the grid branches of auto_oo_tpu/ops/rdms.py
 (``apply_epq_all`` and ``rdms_from_state``):
 
 1. Phi[p,q] = E_pq |psi> for ALL (p,q) at once (ops/grid.phi_all — the
-   gather_rows_scaled kernel on both spin halves);
+   gather_two_spin kernel, both spin halves in one launch);
 2. gamma = Phi @ psi                                    (one matvec)
 3. <E_pq E_rs> = <E_qp psi | E_rs psi> = Phi @ Phi^T    (one matmul)
 4. Gamma = that matrix minus the delta_qr gamma_ps contraction term

@@ -14,6 +14,12 @@ prints its seconds:
    1; float64 and float32) and two ragged random shapes (Nb = 17 and 20,
    n2 = 5 and 70, a row with no valid pair), each time beside its bound
    (the bytes it must move at 3.35 TB/s) and its share of it:
+   gather_two_spin, both spin halves of Phi in one launch (full grid,
+   and a middle and a ragged last window for the last B; the ragged
+   shapes on random maps), equal to its plain version and to the
+   composite it replaced (two gather_rows_scaled launches, the transposed
+   copy and the transposed add) as values, and timed against that
+   composite in turns (composite, kernel, kernel, composite);
    gather_rows_scaled and the row form of gather_reduce on both spin
    halves (the beta half on a transposed copy), the column form
    gather_reduce_cols on the beta half in place (with the 32- and 64-byte
@@ -66,10 +72,12 @@ prints its seconds:
    grid kernel at the streamed shapes against its plain version, f64 and
    f32, timed beside its bound: the alpha half of a Phi chunk (x
    (3432, 3432), row-sliced tables), the beta half (the chunk's
-   transposed rows), and both forms of gather_reduce on a (pair block,
-   3432, 3432) Y; each kernel once more on all 196 pairs in one f32
-   launch (2.31e9 elements, beyond 2^31) against its plain version a slab
-   of pairs at a time; then 2 NR iterations through full_optimization,
+   transposed rows), gather_two_spin on the whole chunk (against plain
+   a slab of pairs at a time and against the composite, timed in turns),
+   and both forms of gather_reduce on a (pair block, 3432, 3432) Y; each
+   kernel once more on all 196 pairs in one f32 launch (2.31e9 elements,
+   beyond 2^31) against its plain version a slab of pairs at a time;
+   then 2 NR iterations through full_optimization,
    each energy within 1e-8 Ha of its JAX anchor (ANCHORS_14E14O), the final
    state's norm within 1e-12 of 1 and tr(gamma) = 14 within 1e-10, with
    the setup time, iteration times, peak device memory and kernel
@@ -84,7 +92,9 @@ prints its seconds:
    must be "hosted", its setup seconds and row chunk are printed; the
    hosted route's kernels at its chunk shapes against their plain
    versions (a slab of pairs at a time), timed beside their bounds: both
-   halves of a Phi chunk, the column form on the chunk's Y, and the
+   halves of a Phi chunk through gather_rows_scaled, then gather_two_spin
+   on the chunk (f64, against the composite in turns; f32 on the ragged
+   last window), the column form on the chunk's Y, and the
    scatter on it (f64 and f32, the middle and the ragged last window, the
    same bits on two launches) beside index_add_ of its contributions;
    then E(0) within 1e-8 Ha of the RHF energy, one grad_hess at the
@@ -97,16 +107,19 @@ prints its seconds:
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
 its main path's run, which is the (16e,16o) iteration of phase 10 for
-the hosted route's kernels, phase 8's (14e,14o) iterations for the row
-form of gather_reduce, and phase 4 for the probes, with each path's
-launches under "launches_by_path"; max abs error against the plain
-version over every comparison; kernel and plain times and the bound at
-the (16e,16o) f64 chunk shapes for the hosted route's kernels (the
-alpha half of a Phi chunk; the column form and the scatter on the
-chunk's Y), at the (14e,14o) streamed shape for the row form and at the
-probes' ncas = 12 f64 shape; library_ms is the time of index_add_ of the
-scatter's contributions, and null for the others, which no single
-PyTorch call computes); the last line is {"ok": true, "device": {...}}.
+the hosted route's kernels (gather_two_spin among them), phase 8's
+(14e,14o) iterations for the row form of gather_reduce, and phase 4 for
+the probes and gather_rows_scaled (its variant L; no route launches it
+since gather_two_spin, and every route phase checks that), with each
+path's launches under "launches_by_path"; max abs error against the
+plain version over every comparison; kernel and plain times and the
+bound at the (16e,16o) f64 chunk shapes for the hosted route's kernels
+(gather_two_spin on the chunk and gather_rows_scaled on its alpha half;
+the column form and the scatter on the chunk's Y), at the (14e,14o)
+streamed shape for the row form and at the probes' ncas = 12 f64 shape;
+library_ms is the time of index_add_ of the scatter's contributions,
+and null for the others, which no single PyTorch call computes); the
+last line is {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero before printing any
 result.
 """
@@ -149,9 +162,11 @@ GRAD_NORM_16E16O = 5.379e-02
 E_NR1_16E16O = -8.3671002296
 STEP = dict(alpha=1e-4, beta=0.5, mu=1e-6, rho=1.1, lambda_min=1e-6)
 # the grid kernels each route launches (the hosted route adds its alpha
-# half with scatter_rows where the others run the row form)
-FUSED_KERNELS = ("gather_rows_scaled", "gather_reduce", "gather_reduce_cols")
-HOSTED_KERNELS = ("gather_rows_scaled", "gather_reduce_cols", "scatter_rows")
+# half with scatter_rows where the others run the row form); every route
+# builds Phi with gather_two_spin, and only the probes' entry point
+# launches gather_rows_scaled
+FUSED_KERNELS = ("gather_two_spin", "gather_reduce", "gather_reduce_cols")
+HOSTED_KERNELS = ("gather_two_spin", "gather_reduce_cols", "scatter_rows")
 E_CASSCF_2E2O = -92.74923230445957
 TOL_ENERGY = 1e-8
 # published HBM rate of one H100 SXM at its 700 W limit
@@ -161,14 +176,20 @@ HBM_BYTES_PER_S = 3.35e12
 SPIN_CYCLES = 10_000_000
 
 _MECH_SCRIPT = "scripts/experiment_gather_mechanisms.py"
-SOURCE = {"gather_rows_scaled": "auto_oo_tpu_torch/csrc/grid_gather.cu",
+SOURCE = {"gather_two_spin": "auto_oo_tpu_torch/csrc/grid_gather.cu",
+          "gather_rows_scaled": "auto_oo_tpu_torch/csrc/grid_gather.cu",
           "gather_reduce": "auto_oo_tpu_torch/csrc/grid_gather.cu",
           "gather_reduce_cols": "auto_oo_tpu_torch/csrc/grid_gather.cu",
           "scatter_rows": "auto_oo_tpu_torch/csrc/grid_gather.cu",
           "gather_a": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu",
           "gather_b": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu",
           "gather_c": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu"}
-REPLACES = {"gather_rows_scaled": "auto_oo_tpu/ops/pallas_grid.py:110",
+REPLACES = {"gather_two_spin": "auto_oo_tpu/ops/pallas_grid.py:110 on both "
+                               "spin halves, with the callers' transposed "
+                               "copies and adds at "
+                               "auto_oo_tpu/ops/pallas_grid.py:259-262, "
+                               ":354-357 and auto_oo_tpu/ops/grid.py:560-575",
+            "gather_rows_scaled": "auto_oo_tpu/ops/pallas_grid.py:110",
             "gather_reduce": "auto_oo_tpu/ops/pallas_grid.py:194",
             "gather_reduce_cols": "auto_oo_tpu/ops/pallas_grid.py:194 with "
                                   "the caller's transpose at :270",
@@ -187,6 +208,15 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def check_route_kernels(launches, kernels, what):
+    """Each of a route's grid kernels was launched in ``what``, and
+    gather_rows_scaled (which built Phi before gather_two_spin) was not."""
+    for name in kernels:
+        check(launches[name] > 0, f"kernel {name} was not launched by {what}")
+    check(launches["gather_rows_scaled"] == 0,
+          f"gather_rows_scaled was launched by {what}")
 
 
 def card_line():
@@ -323,7 +353,7 @@ def kernel_phase(torch, gk, gh, grid, dev):
                                    gk.gather_reduce_cols_plain)}
     stats = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
                  "bound_ms": None, "library_ms": None}
-             for k in list(kern) + ["scatter_rows"]}
+             for k in ["gather_two_spin"] + list(kern) + ["scatter_rows"]}
     gen = torch.Generator(device="cpu").manual_seed(1234)
 
     def rand(shape, dtype):
@@ -399,6 +429,17 @@ def kernel_phase(torch, gk, gh, grid, dev):
                                            bound_ms=bound_ms(nbytes))
                     del args
                 del calls
+                # both spin halves of Phi in one launch, the full grid
+                # (and, for the last B, a middle and a ragged last window)
+                x = rand((B, Na, Nb), dtype)
+                tag = f"{ncas}e B={B} {str(dtype)[6:]}"
+                two_spin_check(torch, gk, grid, x, gm, 0, Na, tag, stats)
+                if B == batches[-1]:
+                    for r0, r1 in ((Na // 3, 2 * Na // 3), (Na - 30, Na)):
+                        two_spin_check(torch, gk, grid, x, gm, r0, r1,
+                                       f"{tag} [{r0}, {r1})", stats,
+                                       timed=False)
+                del x
                 if B == batches[-1]:
                     epq_compare(torch, gk, grid, gm, Y, f"{ncas}e B={B} "
                                 f"{str(dtype)[6:]}", tol[("gather_reduce",
@@ -442,7 +483,35 @@ def kernel_phase(torch, gk, gh, grid, dev):
                 print(f"  {name:18s} ragged (2,3)x({ns},{na},{nb}) n2={k2} "
                       f"{str(dtype)[6:]} max_abs_err={err:.3e} "
                       f"rel={rel:.3e}")
+            # gather_two_spin on random maps over an (na, nb) grid
+            rm = random_maps(torch, grid, na, nb, k2, g2, dev)
+            x = rand((2, 3, na, nb), dtype)
+            for r0, r1 in ((0, na), (na // 3, na), (3, 4)):
+                two_spin_check(torch, gk, grid, x, rm, r0, r1,
+                               f"ragged (2,3)x({na},{nb}) n2={k2} "
+                               f"[{r0}, {r1}) {str(dtype)[6:]}", stats,
+                               timed=False, composite=False)
     return stats
+
+
+def random_maps(torch, grid, na, nb, n2, gen, dev):
+    """Port GridMaps of random tables over an (na, nb) grid: +-1 signs
+    with ~30% invalid (src 0, sign 0) entries, grid row 3 with no valid
+    alpha pair."""
+    def half(n, empty):
+        src = torch.randint(0, n, (n2, n), generator=gen, dtype=torch.int32)
+        sgn = 2 * torch.randint(0, 2, (n2, n), generator=gen) - 1
+        invalid = torch.rand((n2, n), generator=gen) < 0.3
+        invalid[:, empty] = True
+        src[invalid], sgn[invalid] = 0, 0
+        t = 2 * torch.randint(0, 2, (n2, n), generator=gen) - 1
+        return src.numpy(), sgn.numpy(), t.numpy()
+
+    srcA, sgnA, tA = half(na, 3)
+    srcB, sgnB, tB = half(nb, 2)
+    perm = np.arange(na * nb)
+    return grid.GridMaps(srcA, sgnA, tB, srcB, sgnB, tA, perm, perm,
+                         device=dev)
 
 
 def epq_compare(torch, gk, grid, gm, Yg, label, tol):
@@ -472,6 +541,92 @@ def epq_compare(torch, gk, grid, gm, Yg, label, tol):
           f"(Y needed {nbytes / 1e6:.1f} MB)  in place/composite "
           f"{(n1 + n2) / (o1 + o2):.3f}  max|diff|={err:.3e} "
           f"bitwise={'yes' if err == 0 else 'no'}")
+
+
+def two_spin_bytes(x, gm, r0, r1):
+    """Bytes gather_two_spin must move for grid rows [r0, r1): Phi written
+    once, x read once, the alpha tables' window and the beta tables once
+    (int32 src and two int8 sign tables per entry)."""
+    B = x.numel() // (gm.Na * gm.Nb)
+    out = B * gm.n2 * (r1 - r0) * gm.Nb * x.element_size()
+    return out + _nbytes(x) + gm.n2 * ((r1 - r0) + gm.Nb) * 6
+
+
+def two_spin_composite(gk, grid, x, gm, r0, r1):
+    """Phi over grid rows [r0, r1) as it ran before gather_two_spin: two
+    gather_rows_scaled launches (the beta half on a transposed copy of the
+    rows) and the transposed add."""
+    srcA_k, sgnA_k, tA_k = grid._row_tables(gm, x, r0, r1)
+    _, _, tB, srcB, sgnB, _ = gm.tables(x)
+    pa = gk.gather_rows_scaled(x, srcA_k, sgnA_k, tB)
+    zt = x[..., r0:r1, :].transpose(-1, -2).contiguous()
+    pb = gk.gather_rows_scaled(zt, srcB, sgnB, tA_k)
+    return pa.add_(pb.transpose(-1, -2))
+
+
+def _two_spin_plain(gk, x, tabs, r0, r1, step):
+    """The plain version on ``step`` pairs at a time (all at once for
+    None): yields (first pair, its slab of Phi)."""
+    n2 = tabs[0].shape[0]
+    step = step or n2
+    for k0 in range(0, n2, step):
+        yield k0, gk.gather_two_spin_plain(
+            x, *(t[k0:k0 + step] for t in tabs), r0, r1)
+
+
+def two_spin_check(torch, gk, grid, x, gm, r0, r1, label, stats,
+                   step=None, timed=True, composite=True):
+    """gather_two_spin over grid rows [r0, r1) of x (..., Na, Nb) against
+    its plain version (``step`` pairs at a time) and against the composite
+    it replaced (two gather_rows_scaled launches, the transposed copy and
+    add), equal as values; with ``timed``, the kernel and the composite in
+    turns (composite, kernel, kernel, composite), the plain version and
+    the bound.  Returns the timings (or None)."""
+    tabs = gm.phi_tables(x)
+    out = gk.gather_two_spin(x, *tabs, r0, r1)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"gather_two_spin {label}: "
+          "non-finite")
+    err = 0.0
+    for k0, ref in _two_spin_plain(gk, x, tabs, r0, r1, step):
+        sl = out[..., k0:k0 + ref.shape[-3], :, :]
+        check(sl.shape == ref.shape, f"gather_two_spin {label}: shape "
+              f"{tuple(sl.shape)} != {tuple(ref.shape)}")
+        err = max(err, float((sl - ref).abs().max()))
+        check(torch.equal(sl, ref), f"gather_two_spin {label}: not equal "
+              f"to plain (max abs err {err:.3e})")
+        del ref, sl
+    st = stats["gather_two_spin"]
+    st["max_abs_err"] = max(st["max_abs_err"], err)
+    same = ""
+    if composite:
+        old = two_spin_composite(gk, grid, x, gm, r0, r1)
+        torch.cuda.synchronize()
+        check(torch.equal(out, old), f"gather_two_spin {label}: not equal "
+              "to the composite it replaced")
+        del old
+        same = " equal to the composite"
+    del out
+    if not timed:
+        print(f"  gather_two_spin {label:28s} equal to plain{same}")
+        return None
+    c1 = time_ms(lambda: two_spin_composite(gk, grid, x, gm, r0, r1), torch)
+    k1 = time_ms(lambda: gk.gather_two_spin(x, *tabs, r0, r1), torch)
+    k2 = time_ms(lambda: gk.gather_two_spin(x, *tabs, r0, r1), torch)
+    c2 = time_ms(lambda: two_spin_composite(gk, grid, x, gm, r0, r1), torch)
+    pms = time_ms(lambda: list(_two_spin_plain(gk, x, tabs, r0, r1, step)),
+                  torch, reps=2 if step else 10, rounds=3 if step else 5)
+    ms = 0.5 * (k1 + k2)
+    nbytes = two_spin_bytes(x, gm, r0, r1)
+    plan = gk.plan_two_spin(x.numel() // (gm.Na * gm.Nb), r1 - r0, gm.Nb,
+                            gm.n2, x.element_size())
+    print(f"  gather_two_spin {label:28s} equal to plain{same}; kernel "
+          f"{k1:.4f}, {k2:.4f} ms  composite {c1:.4f}, {c2:.4f} ms  "
+          f"kernel/composite {(k1 + k2) / (c1 + c2):.3f}  plain {pms:.4f} ms"
+          f"{f' ({step} pairs at a time)' if step else ''}  "
+          f"{_share(ms, nbytes)} ({nbytes / 1e9:.3f} GB)  plan {tuple(plan)}")
+    return {"ms": ms, "plain_ms": pms, "bound_ms": bound_ms(nbytes),
+            "composite_ms": 0.5 * (c1 + c2)}
 
 
 def _plans(gm, x, dtype):
@@ -577,12 +732,15 @@ def mechanism_phase(torch, gm, exp, dev):
     return stats
 
 
-def entry_point_phase(gm, exp):
+def entry_point_phase(gm, gk, exp):
     """The probes' entry point once at ncas = 10, K = 4; returns the
-    launches counted during it."""
+    launches counted during it (the probes' and, for its variant L,
+    gather_rows_scaled's)."""
     gm.reset_launches()
+    gk.reset_launches()
     res = exp.main(["10", "4"])
-    launches = dict(gm.LAUNCHES)
+    launches = dict(gm.LAUNCHES,
+                    gather_rows_scaled=gk.LAUNCHES["gather_rows_scaled"])
     for key, r in res.items():
         check(r is not None, f"entry point: variant {key} failed")
         if key != "plain":
@@ -635,9 +793,7 @@ def slice_phase(torch, P, gk):
     for i, (e, ref) in enumerate(zip(energies, ANCHORS_10E10O)):
         check(abs(e - ref) <= TOL_ENERGY,
               f"(10e,10o) iteration {i + 1}: |{e} - {ref}| > {TOL_ENERGY}")
-    for name in FUSED_KERNELS:
-        check(launches[name] > 0,
-              f"kernel {name} was not launched by the slice")
+    check_route_kernels(launches, FUSED_KERNELS, "the slice")
     psi = pqc.state(thetas[-1])
     torch.cuda.synchronize()
     check(psi.shape == (pqc.state_dim,), f"state shape {tuple(psi.shape)}")
@@ -694,9 +850,7 @@ def sector12_phase(torch, P, gk, dev):
     for i, (e, ref) in enumerate(zip(energies, ANCHORS_12E12O)):
         check(abs(e - ref) <= TOL_ENERGY,
               f"(12e,12o) iteration {i + 1}: |{e} - {ref}| > {TOL_ENERGY}")
-    for name in FUSED_KERNELS:
-        check(launches[name] > 0,
-              f"kernel {name} was not launched by the (12e,12o) run")
+    check_route_kernels(launches, FUSED_KERNELS, "the (12e,12o) run")
     psi = pqc.state(thetas[-1])
     torch.cuda.synchronize()
     check(psi.shape == (pqc.state_dim,), f"state shape {tuple(psi.shape)}")
@@ -780,9 +934,7 @@ def routes_equal_fused_phase(torch, P, gk, gh, grid):
         check(de <= 1e-11, f"{route} e0 differs by {de}")
         check(dg <= 1e-11, f"{route} gradient differs by {dg}")
         check(dh <= 1e-9, f"{route} Hessian differs by {dh}")
-        for name in kernels:
-            check(launches[route][name] > 0,
-                  f"kernel {name} was not launched by the {route} route")
+        check_route_kernels(launches[route], kernels, f"the {route} route")
 
 
 def sector14_setup(torch, P):
@@ -859,6 +1011,9 @@ def streamed_kernel_phase(torch, gk, grid, oo, stats):
             st["max_abs_err"] = max(st["max_abs_err"], err)
             if dtype == torch.float64 and half == "alpha":
                 st.update(ms=ms, plain_ms=pms, bound_ms=bound_ms(nbytes))
+        # both halves of the chunk in one launch
+        two_spin_check(torch, gk, grid, x, gm, 0, rows,
+                       f"14e [0, {rows}) {tag}", stats, step=28)
         del x
         Y = torch.randn((pb, Na, Nb), generator=gen, dtype=dtype,
                         device=dev)
@@ -911,7 +1066,14 @@ def beyond_int32(torch, gk, gm, gen, stats, step=28):
     check(out.numel() > 2 ** 31, f"{out.numel()} elements")
     err, rel = _slab_err(out, gk.gather_rows_scaled_plain,
                          (x, srcA, sgnA, tB), step)
-    del out, x
+    del out
+    # both halves over the whole grid: Phi of n2 * D elements
+    check(n2 * Na * Nb > 2 ** 31, f"{n2 * Na * Nb} elements")
+    two_spin_check(torch, gk, None, x, gm, 0, Na,
+                   f"14e all {n2} pairs float32 ({n2 * Na * Nb:,} "
+                   f"elements)", stats, step=step, timed=False,
+                   composite=False)
+    del x
     results = [("gather_rows_scaled", err, rel)]
     Y = torch.empty((n2, Na, Nb), dtype=torch.float32, device=gm.device)
     for k0 in range(0, n2, step):
@@ -970,9 +1132,7 @@ def sector14_phase(torch, gk, pqc, oo):
         e = energies[n - 1]
         check(abs(e - ref) <= TOL_ENERGY,
               f"(14e,14o) iteration {n}: |{e} - {ref}| > {TOL_ENERGY}")
-    for name in FUSED_KERNELS:
-        check(launches[name] > 0,
-              f"kernel {name} was not launched by the (14e,14o) run")
+    check_route_kernels(launches, FUSED_KERNELS, "the (14e,14o) run")
     psi = pqc.state(thetas[-1])
     torch.cuda.synchronize()
     check(psi.shape == (pqc.state_dim,), f"state shape {tuple(psi.shape)}")
@@ -1023,9 +1183,7 @@ def hosted14_phase(torch, P, gk, gh, mol, pqc, oo, theta):
     check(de <= 1e-10, f"(14e,14o) hosted e0 differs by {de}")
     check(dg <= 1e-10, f"(14e,14o) hosted gradient differs by {dg}")
     check(dh <= 1e-8, f"(14e,14o) hosted Hessian differs by {dh}")
-    for name in HOSTED_KERNELS:
-        check(l_h[name] > 0,
-              f"kernel {name} was not launched by the (14e,14o) hosted run")
+    check_route_kernels(l_h, HOSTED_KERNELS, "the (14e,14o) hosted run")
     del oo_h, runs
     torch.cuda.empty_cache()
 
@@ -1139,7 +1297,18 @@ def hosted_kernel_phase(torch, gk, gh, grid, oo, stats, step=28):
         st["max_abs_err"] = max(st["max_abs_err"], err)
         if half == "alpha":
             st.update(ms=ms, plain_ms=pms, bound_ms=bound_ms(nbytes))
-    del x, args
+    del args
+    torch.cuda.empty_cache()
+    # both halves of the chunk in one launch, and in f32 on the ragged
+    # last window (Nb = 12870 is no multiple of 4: scalar loads)
+    res = two_spin_check(torch, gk, grid, x, gm, r0, r1,
+                         f"16e [{r0}, {r1}) f64", stats, step=step)
+    stats["gather_two_spin"].update(ms=res["ms"], plain_ms=res["plain_ms"],
+                                    bound_ms=res["bound_ms"])
+    l0, l1 = chunks[-1]
+    two_spin_check(torch, gk, grid, x.float(), gm, l0, l1,
+                   f"16e [{l0}, {l1}) f32", stats, step=step, timed=False)
+    del x
     torch.cuda.empty_cache()
     Y = torch.randn((n2, R, Nb), generator=gen, dtype=f64, device=dev)
     args = (Y, srcB, sgnB, tA_k)
@@ -1261,9 +1430,8 @@ def sector16_phase(torch, gk, mol, pqc, oo):
     check(abs(e1 - E_NR1_16E16O) <= 5e-5,
           f"(16e,16o) NR energy {e1} misses {E_NR1_16E16O} by more than "
           "5e-5")
-    for name in HOSTED_KERNELS:
-        check(launches[name] > 0,
-              f"kernel {name} was not launched by the (16e,16o) iteration")
+    check_route_kernels(launches, HOSTED_KERNELS,
+                        "the (16e,16o) iteration")
     psi = pqc.state(new_theta)
     torch.cuda.synchronize()
     check(psi.shape == (pqc.state_dim,), f"state shape {tuple(psi.shape)}")
@@ -1334,7 +1502,7 @@ def main():
         stats.update(phase("gather mechanisms vs plain", mechanism_phase,
                            torch, gm, exp, dev))
         paths = {"probes": phase("gather mechanism entry point",
-                                 entry_point_phase, gm, exp)}
+                                 entry_point_phase, gm, gk, exp)}
         paths["10e10o"] = phase("(10e,10o) slice", slice_phase, torch, P, gk)
         paths["12e12o"] = phase("(12e,12o) sector", sector12_phase, torch, P,
                                 gk, dev)
@@ -1363,9 +1531,10 @@ def main():
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     print(f"all phases: {time.perf_counter() - t_all:.2f} s")
-    # each kernel's main path: the probes' entry point, the hosted
-    # (16e,16o) iteration, and (14e,14o) for the row form of
-    # gather_reduce, which the hosted route does not run
+    # each kernel's main path: the probes' entry point (the probes and
+    # gather_rows_scaled, its variant L), the hosted (16e,16o) iteration,
+    # and (14e,14o) for the row form of gather_reduce, which the hosted
+    # route does not run
     main_path = {name: ("probes" if name in paths["probes"]
                         else "14e14o" if name == "gather_reduce"
                         else "16e16o") for name in stats}

@@ -2,27 +2,31 @@
 
 The grid-gather kernels and the row-gather mechanism probes against their
 plain PyTorch versions (the grid kernels also at the row-streamed route's
-row-sliced and pair-sliced shapes), the grid ops (fused and row-streamed)
-and one Newton core on the card against the same code on the CPU, the
-streamed and the hosted Newton cores against the fused one on the card,
-the hosted H-apply's alpha scatter against its plain version, and failed
-builds and launches that raise.  This file imports neither jax nor the JAX package, so
-it also runs where jax is not installed; tests/conftest.py imports jax,
-so run it on the card with
+row-sliced and pair-sliced shapes; the two-spin Phi kernel on the
+(10e,10o) and (12e,12o) maps, windows, pair slices, transposed maps and
+ragged random maps), the grid ops (fused and row-streamed) and one
+Newton core on the card against the same code on the CPU, the streamed
+and the hosted Newton cores against the fused one on the card, the
+hosted H-apply's alpha scatter against its plain version, and failed
+builds and launches that raise.  This file imports neither jax nor the
+JAX package, so it also runs where jax is not installed;
+tests/conftest.py imports jax, so run it on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Without a GPU every test skips (from the fixture, never at import).
 
-Tolerances: ``gather_rows_scaled`` takes the products in the plain
-version's order, so f64 agrees to the last bit (1e-15 relative, 1e-6 in
-f32); ``gather_reduce`` and ``gather_reduce_cols`` sum the pairs in
-another order (1e-13 relative in f64, 1e-5 in f32); ``scatter_rows``
-adds its window's sum to acc once where ``index_add_`` adds term by term
-(1e-14 of max |out| in f64, 1e-6 in f32).  The mechanism
-probes A, B and C take one product per element, so they equal their
-plain version bit for bit; B's and C's plans and refusals on the card are
-checked here too.
+Tolerances: ``gather_two_spin`` rounds its two products and their sum
+one by one in the plain version's order, so it equals the plain version
+as values (``torch.equal``) in f64 and f32; ``gather_rows_scaled`` takes
+the products in the plain version's order, so f64 agrees to the last
+bit (1e-15 relative, 1e-6 in f32); ``gather_reduce`` and
+``gather_reduce_cols`` sum the pairs in another order (1e-13 relative in
+f64, 1e-5 in f32); ``scatter_rows`` adds its window's sum to acc once
+where ``index_add_`` adds term by term (1e-14 of max |out| in f64, 1e-6
+in f32).  The mechanism probes A, B and C take one product per element,
+so they equal their plain version bit for bit; B's and C's plans and
+refusals on the card are checked here too.
 """
 
 import numpy as np
@@ -37,7 +41,7 @@ from auto_oo_tpu_torch.scripts import experiment_gather_mechanisms as exp
 
 # the kernels of the fused and streamed routes (the hosted route runs
 # scatter_rows in place of the row form of gather_reduce)
-FUSED_KERNELS = ("gather_rows_scaled", "gather_reduce", "gather_reduce_cols")
+FUSED_KERNELS = ("gather_two_spin", "gather_reduce", "gather_reduce_cols")
 
 TOL = {torch.float64: {"rows": 1e-15, "reduce": 1e-13},
        torch.float32: {"rows": 1e-6, "reduce": 1e-5}}
@@ -174,6 +178,92 @@ def test_cuda_reduce_forms_match_plain(cuda_device, dtype):
     Ys.copy_(Y)
     assert Ys.data_ptr() % 16 != 0
     _check_reduce("gather_reduce", (Ys, src, s, t), tol)
+
+
+def _check_two_spin(xg, maps, r0, r1):
+    """One gather_two_spin launch on the card against its plain version
+    on the same operands, equal as values (torch.equal; +-0 aside)."""
+    tabs = maps.phi_tables(xg)
+    before = dict(gk.LAUNCHES)
+    out = gk.gather_two_spin(xg, *tabs, r0, r1)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["gather_two_spin"] == before["gather_two_spin"] + 1
+    ref = gk.gather_two_spin_plain(xg, tabs[0].long(), *tabs[1:3],
+                                   tabs[3].long(), *tabs[4:], r0, r1)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert torch.equal(out, ref)
+    return out
+
+
+def _random_port_maps(na, nb, n2, seed, device):
+    """Port GridMaps of random tables: +-1 signs with ~30% invalid (src 0,
+    sign 0) entries, grid row 3 with no valid alpha pair."""
+    rng = np.random.default_rng(seed)
+
+    def half(n, empty):
+        src = rng.integers(0, n, (n2, n)).astype(np.int32)
+        sgn = rng.choice(np.array([-1, 1], np.int8), (n2, n))
+        invalid = rng.random((n2, n)) < 0.3
+        invalid[:, empty] = True
+        src[invalid], sgn[invalid] = 0, 0
+        return src, sgn, rng.choice(np.array([-1, 1], np.int8), (n2, n))
+
+    srcA, sgnA, tA = half(na, 3)
+    srcB, sgnB, tB = half(nb, 2)
+    perm = np.arange(na * nb)
+    return grid.GridMaps(srcA, sgnA, tB, srcB, sgnB, tA, perm, perm,
+                         device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_two_spin_matches_plain(cuda_device, dtype):
+    """gather_two_spin against its plain version, equal as values: the
+    (10e,10o) maps with B = 5 and the (12e,12o) maps on the full grid;
+    a middle and a ragged last window, a pair slice and the transposed
+    maps of (10e,10o); ragged random maps (Nb = 17: scalar loads; Nb = 20;
+    n2 = 5 and 70; a row with no valid alpha pair) with leading batch
+    dims; an x that starts off a 16-byte boundary (scalar loads)."""
+    pm10 = grid.build_grid_maps(10, 10, device=cuda_device, dtype=dtype)
+    x = _rand((5, pm10.Na, pm10.Nb), 70).to(cuda_device, dtype)
+    _check_two_spin(x, pm10, 0, pm10.Na)
+    for maps in (pm10, grid.pair_slice(pm10, 17, 60), pm10.transposed()):
+        for r0, r1 in ((100, 137), (222, 252)):
+            _check_two_spin(x[:2].contiguous(), maps, r0, r1)
+    del x
+    pm12 = grid.build_grid_maps(12, 12, device=cuda_device, dtype=dtype)
+    _check_two_spin(_rand((pm12.Na, pm12.Nb), 71).to(cuda_device, dtype),
+                    pm12, 0, pm12.Na)
+    for na, nb, n2, lead in ((13, 17, 5, (2, 3)), (10, 20, 70, (2,))):
+        maps = _random_port_maps(na, nb, n2, na, cuda_device)
+        xr = _rand(lead + (na, nb), 72).to(cuda_device, dtype)
+        for r0, r1 in ((0, na), (na // 3, na), (3, 4)):
+            _check_two_spin(xr, maps, r0, r1)
+    pm = grid.build_grid_maps(6, 6, device=cuda_device, dtype=dtype)
+    buf = torch.empty(pm.dim + 1, dtype=dtype, device=cuda_device)
+    xs = buf[1:].view(pm.Na, pm.Nb)
+    xs.copy_(_rand((pm.Na, pm.Nb), 73))
+    assert xs.data_ptr() % 16 != 0
+    _check_two_spin(xs, pm, 0, pm.Na)
+
+
+@pytest.mark.cuda
+def test_cuda_phi_launches_two_spin_once(cuda_device):
+    """On a CUDA operand, phi_all and phi_rows launch gather_two_spin once
+    per call and gather_rows_scaled never, and equal the CPU's plain
+    path as values."""
+    pm_c = grid.build_grid_maps(4, (2, 1), device="cpu")
+    pm_g = grid.build_grid_maps(4, (2, 1), device=cuda_device)
+    x = _rand((3, pm_c.dim), 74)
+    for fn, args in ((grid.phi_all, ()), (grid.phi_rows, (2, 5))):
+        before = dict(gk.LAUNCHES)
+        out = fn(x.to(cuda_device), pm_g, *args)
+        torch.cuda.synchronize()
+        assert gk.LAUNCHES["gather_two_spin"] == \
+            before["gather_two_spin"] + 1
+        assert gk.LAUNCHES["gather_rows_scaled"] == \
+            before["gather_rows_scaled"]
+        assert torch.equal(out.cpu(), fn(x, pm_c, *args))
 
 
 @pytest.mark.cuda
@@ -406,7 +496,7 @@ def test_cuda_hosted_grad_hess_matches_fused(cuda_device, monkeypatch):
     before = dict(gk.LAUNCHES)
     e_h, g_h, h_h = (a.cpu() for a in oo._grad_hess(theta))
     torch.cuda.synchronize()
-    for name in ("gather_rows_scaled", "gather_reduce_cols", "scatter_rows"):
+    for name in ("gather_two_spin", "gather_reduce_cols", "scatter_rows"):
         assert gk.LAUNCHES[name] > before[name], name
     e_f, g_f, h_f = out_f
     assert abs(float(e_h) - float(e_f)) < 1e-11
