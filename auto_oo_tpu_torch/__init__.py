@@ -6,12 +6,14 @@ held against.  It imports torch, numpy and scipy, never jax.  Modules and
 public names mirror auto_oo_tpu, so each counterpart is found under the
 same name.
 
-The port runs the sector string-grid damped-Newton path
-(``Parameterized_circuit(..., sector=True)`` with a built-in ansatz,
-``OO_pqc.full_optimization``) up to (12e,12o); its two grid-gather kernels
-are CUDA on the card (ops/grid_kernels.py, csrc/grid_gather.cu).  The
-row-gather mechanism probes (ops/gather_mechanisms.py,
-csrc/gather_mechanisms.cu) run from their own entry point,
+The port runs the damped-Newton path (``Parameterized_circuit``,
+``OO_pqc.full_optimization``) in the full space (``sector=False``, the
+default: a flat gate program and element gathers in plain PyTorch) and
+on the sector string grid (``sector=True``) up to (16e,16o), where its
+grid-gather kernels are CUDA on the card (ops/grid_kernels.py,
+csrc/grid_gather.cu).  The row-gather mechanism probes
+(ops/gather_mechanisms.py, csrc/gather_mechanisms.cu) run from their own
+entry point,
 ``python -m auto_oo_tpu_torch.scripts.experiment_gather_mechanisms``.
 """
 
@@ -30,7 +32,8 @@ from .ops.transforms import (
     molecular_hamiltonian_coefficients,
 )
 from .ops.linalg import expm
-from .simulator.circuit import Parameterized_circuit
+from .simulator.ansatze import gatefabric_circuit, uccd_circuit
+from .simulator.circuit import Parameterized_circuit, dirac_notation
 from .models import OO_energy, OO_pqc, mo_ao_to_mo_oao
 
 __all__ = [
@@ -41,4 +44,5 @@ __all__ = [
     "int1e_transform", "int2e_transform",
     "molecular_hamiltonian_coefficients", "expm",
     "Parameterized_circuit", "OO_energy", "OO_pqc", "mo_ao_to_mo_oao",
+    "uccd_circuit", "gatefabric_circuit", "dirac_notation",
 ]

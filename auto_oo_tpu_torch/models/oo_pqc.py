@@ -1,16 +1,16 @@
 """OO_pqc: hybrid circuit + orbital cost with exact gradients/Hessians.
 
-Port of auto_oo_tpu/models/oo_pqc.py (reference oo_pqc.py:30-207) on the
-fused sector-grid route.  The cost is
+Port of auto_oo_tpu/models/oo_pqc.py (reference oo_pqc.py:30-207).  The
+cost is
 E(theta, kappa) = c0 + sum h~ gamma(theta) + sum g Gamma(theta) with MOs
 rotated by expm(-kappa).  One ``grad_hess`` call gives every derivative
 block:
 
 * circuit gradient / circuit-circuit Hessian: the quadratic form
   2 J (H psi) / 2 J H J^T + d2<w, psi(theta)> with w = 2 H psi, where
-  (psi, J) come from one tangent-batched sweep of the grid gate program
-  and d2<w, psi> from one reverse sweep (simulator/grid_program.py), and
-  H applies through the grid kernels (ops/hamiltonian.py);
+  (psi, J) come from one tangent-batched sweep of the circuit's gate
+  program and d2<w, psi> from one reverse sweep (simulator/program.py),
+  and H applies through the circuit's E_pq maps (ops/hamiltonian.py);
 * orbital gradient / orbital-orbital Hessian: closed-form generalized-Fock
   expressions (ops/fock.py);
 * mixed block: the affine analytic-gradient map applied to the transition
@@ -20,6 +20,12 @@ block:
 ``grad_hess``, then the augmented eigh solve, an Armijo line search with
 one scalar sync per trial, and the fold of kappa into the OAO
 coefficients.
+
+A full-space circuit (``sector=False``) takes the "flat" route: the same
+``grad_hess`` on the flat gate program and the flat E_pq maps, in the
+canonical basis order.  It holds one (n^2, D) Phi, as the JAX package's
+flat route does (33.5 MB at (8e,8o)).  A sector circuit runs on the
+string grid, by the rules below.
 
 Above D = 2^19 the JAX package splits the same math into its staged
 pipeline, only so that one XLA program does not spill; ``grad_hess`` here
@@ -53,7 +59,6 @@ from ..ops import hamiltonian as _ham
 from ..ops import kappa as _kappa
 from ..ops import rdms as _rdms
 from ..ops import transforms as _tr
-from ..ops.grid import phi_all
 from ..ops.linalg import expm
 from ..utils.newton_raphson import damped_newton_step_pure
 from .oo_energy import OO_energy
@@ -73,10 +78,13 @@ _HOSTED_RESIDENT_VECTORS = 10
 
 
 def _route(pqc, streamed=False):
-    """The JAX package's route for this sector: "fused", "staged",
-    "streamed" or "hosted" (``streamed`` forces the streamed route below
-    the hosting threshold, ops/grid_hosted.needs_hosting)."""
+    """"flat" for a full-space circuit; on a sector, the JAX package's
+    route: "fused", "staged", "streamed" or "hosted" (``streamed`` forces
+    the streamed route below the hosting threshold,
+    ops/grid_hosted.needs_hosting)."""
     D, n2 = pqc.state_dim, pqc.ncas * pqc.ncas
+    if pqc.grid_program is None:
+        return "flat"
     if _gh.needs_hosting(pqc.sector_maps):
         return "hosted"
     if streamed or _grid._pair_chunk(1, D, n2, 8) < n2:
@@ -97,7 +105,7 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
     nt = int(pqc.theta_shape)
     ncas = pqc.ncas
     n2 = ncas * ncas
-    maps = pqc.sector_maps
+    maps = pqc.epq_maps
     streamed = route == "streamed"
     hosted = route == "hosted"
     plan = None
@@ -176,7 +184,7 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
             dgamma = torch.stack([r[0] for r in rows])
             dgram = torch.stack([r[1] for r in rows])
         else:
-            phiJ = phi_all(Jc, maps)                     # (c, n^2, D)
+            phiJ = _rdms.apply_epq_all(Jc, ncas, maps)   # (c, n^2, D)
             # d corr[a,b] = <dphi_a|phi_b> + <phi_a|dphi_b>
             A = phiJ @ phi.T
             dgram = A + A.transpose(1, 2)
@@ -259,7 +267,8 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
           hess_cc  = 2 J (H J^T) + hess_theta <w, psi(theta)>,  w = 2 H psi
           hess_oc  = analytic-gradient linear map applied to the
                      transition RDMs d(gamma, Gamma)/d theta_i
-        Every state here is GRID-ordered (ops/grid.py)."""
+        Every state here is in the maps' order: GRID order (ops/grid.py)
+        on a sector, canonical in the full space."""
         h1, g2, c0, c1eff, c2 = coefficients(oao, int1e_ao, int2e_ao,
                                              oao_coeff, nuc)
         if hosted:

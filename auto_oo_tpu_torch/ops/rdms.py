@@ -1,38 +1,113 @@
-"""Spin-summed RDMs from a sector statevector on the string grid.
+"""Spin-summed RDMs from a statevector, on the string grid or the full space.
 
-Port of the grid branches of auto_oo_tpu/ops/rdms.py
-(``apply_epq_all`` and ``rdms_from_state``):
+Port of auto_oo_tpu/ops/rdms.py (``apply_epq_all`` and
+``rdms_from_state``):
 
-1. Phi[p,q] = E_pq |psi> for ALL (p,q) at once (ops/grid.phi_all — the
-   gather_two_spin kernel, both spin halves in one launch);
+1. Phi[p,q] = E_pq |psi> for ALL (p,q) at once;
 2. gamma = Phi @ psi                                    (one matvec)
 3. <E_pq E_rs> = <E_qp psi | E_rs psi> = Phi @ Phi^T    (one matmul)
 4. Gamma = that matrix minus the delta_qr gamma_ps contraction term
    (e_pqrs = E_pq E_rs - delta_qr E_ps).
 
+Two kinds of maps give step 1.  On a particle sector, ``GridMaps``
+(ops/grid.py): ``phi_all``, the gather_two_spin kernel, on GRID-ordered
+states.  In the full 4^ncas space, ``FlatMaps``: per spin one element
+gather psi[src_s] scaled by sign_s, on the canonical basis order — plain
+PyTorch indexing, as the JAX package's flat branch is plain XLA.  The
+JAX package computes the flat maps from bit arithmetic above D = 2^16,
+only to keep them out of XLA program constants; the port keeps the
+tables (int32 and int8 on the device, 42 MB at (8e,8o)).
+
 The JAX package's ``gram_last`` / ``small_matmul_free_last`` sliced the
 large state axis only to bound the TPU's f64-emulation temporaries; here
 they are plain ``torch.matmul``.  States are real (the built-in ansatze
-are orthogonal circuits on a real start); the full-space flat maps come
-in a later PR of the port.
+and gate programs are orthogonal circuits on a real start).
 """
 
+import numpy as np
+import torch
+
+from ..config import get_device
+from . import fermion
 from .grid import (GridMaps, _pair_chunk, assemble_rdms, phi_all,
                    rdms_rows, stream_plan, to_grid)
 
 
-def _require_grid(maps):
-    if not isinstance(maps, GridMaps):
-        raise NotImplementedError(
-            "the port runs the sector string grid only; the full-space "
-            "flat E_pq maps come in a later PR")
+class FlatMaps:
+    """E_pq gather maps over the full space, on one device:
+
+      src:  (2, n2, D) int32, src[s, p*ncas+q, i] = the basis index that
+            E_pq^s reads for output index i
+      sign: (2, n2, D) int8, its sign (0 where E_pq^s annihilates)
+
+    so that (E_pq psi)[i] = sum_s sign[s, pq, i] * psi[src[s, pq, i]]."""
+
+    def __init__(self, src, sign, device=None):
+        self.device = get_device(device)
+        self.src = torch.as_tensor(np.asarray(src, dtype=np.int32),
+                                   device=self.device)
+        self.sign = torch.as_tensor(np.asarray(sign, dtype=np.int8),
+                                    device=self.device)
+        # the reduction indexes the flattened (n2 * D) axis with int32
+        if self.n2 * self.dim >= 1 << 31:
+            raise ValueError(f"flat E_pq maps of {self.n2} pairs over "
+                             f"D = {self.dim} exceed int32 indexing")
+
+    @property
+    def n2(self):
+        return self.src.shape[1]
+
+    @property
+    def dim(self):
+        return self.src.shape[2]
+
+
+def build_flat_maps(ncas, device=None):
+    """FlatMaps of all ncas^2 pairs over the 4^ncas space (interleaved
+    spin ordering), on ``device``."""
+    src, sign = fermion.epq_gather(ncas)            # (n, n, 2, D)
+    n2, D = ncas * ncas, src.shape[-1]
+    return FlatMaps(src.transpose(2, 0, 1, 3).reshape(2, n2, D),
+                    sign.transpose(2, 0, 1, 3).reshape(2, n2, D),
+                    device=device)
+
+
+def _check_maps(maps):
+    if not isinstance(maps, (GridMaps, FlatMaps)):
+        raise TypeError(f"expected GridMaps or FlatMaps, got "
+                        f"{type(maps).__name__}")
 
 
 def apply_epq_all(psi, ncas, maps):
     """Phi[..., p*ncas+q, :] = E_pq |psi> for all pairs, shape
-    (..., ncas^2, D); psi and the result are GRID-ordered."""
-    _require_grid(maps)
-    return phi_all(psi, maps)
+    (..., ncas^2, D); psi and the result are in the maps' order (GRID
+    order for GridMaps, canonical for FlatMaps)."""
+    _check_maps(maps)
+    if isinstance(maps, GridMaps):
+        return phi_all(psi, maps)
+    shape = psi.shape[:-1] + (maps.n2, maps.dim)
+    out = None
+    for s in range(2):
+        term = psi.index_select(-1, maps.src[s].reshape(-1)).reshape(
+            shape) * maps.sign[s]
+        out = term if out is None else out + term
+    return out
+
+
+def epq_sum_flat(Y, maps):
+    """out[..., i] = sum_pq (E_pq Y[..., pq, :])[i] over FlatMaps: per
+    spin a gather of each pair's own row of Y, scaled and summed over
+    the pairs (the JAX package's row-wise flat reduction)."""
+    lead = Y.shape[:-2]
+    n2, D = maps.n2, maps.dim
+    Yf = Y.reshape(lead + (n2 * D,))
+    rows = torch.arange(n2, dtype=torch.int32, device=Y.device)[:, None] * D
+    out = None
+    for s in range(2):
+        term = (Yf.index_select(-1, (maps.src[s] + rows).reshape(-1))
+                .reshape(lead + (n2, D)) * maps.sign[s]).sum(dim=-2)
+        out = term if out is None else out + term
+    return out
 
 
 def rdms_from_gram(phi, psi, ncas):
@@ -43,17 +118,19 @@ def rdms_from_gram(phi, psi, ncas):
 
 def rdms_from_state(psi, ncas, maps, grid_order=False, plan=None):
     """Spin-summed restricted (gamma, Gamma), chemist ordering, of a real
-    sector state.  psi arrives in canonical order and is converted once,
-    unless ``grid_order`` (the gram and dot are invariant under any
-    common permutation of both operands).  Given a ``plan`` (a
-    grid.StreamPlan), or where one (n^2, D) Phi does not fit its block,
-    Phi streams over grid A-rows (grid.rdms_rows) in chunks of
-    ``plan.row_chunk`` rows (default grid.stream_plan)."""
-    _require_grid(maps)
-    if not grid_order:
-        psi = to_grid(psi, maps)
-    if plan is not None or _pair_chunk(1, psi.shape[-1], maps.n2,
-                                       psi.element_size()) < maps.n2:
-        plan = plan or stream_plan(maps, 1, psi.element_size())
-        return rdms_rows(psi, maps, ncas, plan.row_chunk)
+    state.  Over FlatMaps psi is in the canonical full-space order.  Over
+    GridMaps psi arrives in canonical order and is converted once, unless
+    ``grid_order`` (the gram and dot are invariant under any common
+    permutation of both operands); given a ``plan`` (a grid.StreamPlan),
+    or where one (n^2, D) Phi does not fit its block, Phi streams over
+    grid A-rows (grid.rdms_rows) in chunks of ``plan.row_chunk`` rows
+    (default grid.stream_plan)."""
+    _check_maps(maps)
+    if isinstance(maps, GridMaps):
+        if not grid_order:
+            psi = to_grid(psi, maps)
+        if plan is not None or _pair_chunk(1, psi.shape[-1], maps.n2,
+                                           psi.element_size()) < maps.n2:
+            plan = plan or stream_plan(maps, 1, psi.element_size())
+            return rdms_rows(psi, maps, ncas, plan.row_chunk)
     return rdms_from_gram(apply_epq_all(psi, ncas, maps), psi, ncas)

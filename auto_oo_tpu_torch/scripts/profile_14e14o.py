@@ -117,10 +117,11 @@ def main(argv=None):
     return 0
 
 
-def device_profile(iteration, it_s):
+def device_profile(iteration, it_s, top=15):
     """Run ``iteration()`` once under torch.profiler and print its device
     kernel time against the unprofiled wall ``it_s`` (busy and idle
-    share), the top kernels and the top PyTorch ops by self device time."""
+    share), the ``top`` kernels and PyTorch ops by self device time.
+    Returns the busy share (None when the trace holds no device time)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
@@ -134,14 +135,14 @@ def device_profile(iteration, it_s):
             if on_device(e) and _device_us(e) > 0]
     if not rows:
         print("  profiled: no device time in the trace (not measured)")
-        return
+        return None
     device_us = sum(_device_us(e) for e in rows)
     print(f"  profiled: device kernel time {device_us / 1e3:.1f} ms against "
           f"the unprofiled iteration's {it_s * 1e3:.1f} ms: busy "
           f"{100 * device_us / 1e6 / it_s:.1f}%, idle "
           f"{100 - 100 * device_us / 1e6 / it_s:.1f}%")
     print("  by kernel:")
-    for e in sorted(rows, key=lambda e: -_device_us(e))[:15]:
+    for e in sorted(rows, key=lambda e: -_device_us(e))[:top]:
         print(f"    {e.key[:60]:60s} {_device_us(e) / 1e3:9.1f} ms"
               f" {e.count:6d} calls")
     # the device time of the kernels each PyTorch op launched itself, by
@@ -151,10 +152,11 @@ def device_profile(iteration, it_s):
            if not on_device(e) and _device_us(e) > 0
            and e.key != "Command Buffer Full"]
     print("  by PyTorch op and input shapes (self device time):")
-    for e in sorted(ops, key=lambda e: -_device_us(e))[:15]:
+    for e in sorted(ops, key=lambda e: -_device_us(e))[:top]:
         shapes = str(e.input_shapes)[:70]
         print(f"    {e.key[:24]:24s} {shapes:70s} "
               f"{_device_us(e) / 1e3:9.1f} ms {e.count:6d} calls")
+    return device_us / 1e6 / it_s
 
 
 if __name__ == "__main__":

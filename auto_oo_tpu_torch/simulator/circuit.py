@@ -1,15 +1,23 @@
 """Parameterized_circuit: the user-facing circuit/RDM interface.
 
-Port of auto_oo_tpu/simulator/circuit.py (reference pqc.py:86-235) on the
-direct string-grid route: ``sector=True`` with a built-in ansatz ('ucc',
-'np_fabric', 'kupccd'), whose gate program is built straight on the
-alpha/beta string lists (simulator/grid_gates.py).  The statevector is
-REAL float64: every built-in ansatz is an orthogonal circuit acting on a
-real initial state.
+Port of auto_oo_tpu/simulator/circuit.py (reference pqc.py:86-235).  Two
+routes, as in the JAX package:
 
-The full-space route, prebuilt or callable (custom, possibly complex)
-ansatze, ``up_then_down`` ordering and unrestricted RDMs raise
-NotImplementedError until later PRs of the port bring them.
+* the full space (``sector=False``, the default): a flat GateProgram
+  (simulator/program.py) over the 4^ncas basis in canonical order, with
+  the flat E_pq maps (ops/rdms.FlatMaps);
+* the sector string grid (``sector=True``): a GridGateProgram over the
+  (n_alpha, n_beta) sector's (Na, Nb) grid, with GridMaps (ops/grid.py).
+  A built-in ansatz ('ucc', 'np_fabric', 'kupccd') is built directly on
+  the grid (simulator/grid_gates.py); a prebuilt full-space GateProgram
+  is projected onto the sector (simulator/sector.py) and factorized onto
+  the grid (grid_program.factorize_program).
+
+``ansatz`` may be a built-in name or a prebuilt GateProgram.  The
+statevector is REAL float64: every such circuit is orthogonal and acts
+on a real initial state.  Callable (custom, possibly complex) ansatze,
+``up_then_down`` ordering and unrestricted RDMs raise
+NotImplementedError until later slices of the port bring them.
 """
 
 import numpy as np
@@ -21,12 +29,13 @@ from ..ops import grid as _grid
 from ..ops import rdms as _rdms
 from . import ansatze as A
 from . import grid_gates as _gg
+from .program import GateProgram
 
 _BUILTIN = ("ucc", "np_fabric", "kupccd")
 
 
 class Parameterized_circuit:
-    """Active-space PQC on the sector string grid: state(theta) and RDMs.
+    """Active-space PQC: state(theta) and RDMs.
 
     Args mirror the JAX package (reference pqc.py:91-109); ``device``
     places the gate tables, maps and states (default: config's device)."""
@@ -35,18 +44,18 @@ class Parameterized_circuit:
                  add_singles=False, interface=None, diff_method=None,
                  k=None, up_then_down=False, sector=False,
                  theta_shape=None, device=None):
-        if ansatz not in _BUILTIN:
-            raise NotImplementedError(
-                "prebuilt GatePrograms and callable ansatze come in a "
-                "later PR of the port; use 'ucc', 'np_fabric' or 'kupccd'")
-        if not sector:
-            raise NotImplementedError(
-                "the full-space (sector=False) route comes in a later PR "
-                "of the port; pass sector=True")
+        builtin = isinstance(ansatz, str) and ansatz in _BUILTIN
+        if not builtin and not isinstance(ansatz, GateProgram):
+            if callable(ansatz):
+                raise NotImplementedError(
+                    "callable ansatze come in a later slice of the port "
+                    "(they need torch.func Jacobians); use a built-in "
+                    "ansatz or a GateProgram")
+            raise ValueError(f"unknown ansatz {ansatz!r}")
         if up_then_down:
             raise NotImplementedError(
-                "sector circuits fix the interleaved JW ordering; the "
-                "up_then_down routes come in a later PR of the port")
+                "the port fixes the interleaved JW ordering; the "
+                "up_then_down routes come in a later slice of the port")
         self.ncas = ncas
         self.nelecas = nelecas
         self.n_qubits = 2 * ncas
@@ -54,10 +63,13 @@ class Parameterized_circuit:
         self.add_singles = add_singles
         self.interface = "torch"
         self.up_then_down = False
-        self.sector = True
+        self.sector = bool(sector)
         self.ansatz = ansatz
         self.device = get_device(device)
+        k = k if k is not None else n_layers
 
+        self.hfstate = A.hf_state(nelecas, self.n_qubits) if builtin \
+            else None
         if ansatz == "ucc":
             self.singles, self.doubles = A.excitations(nelecas,
                                                        self.n_qubits)
@@ -72,20 +84,70 @@ class Parameterized_circuit:
             self.params_idx = np.array(
                 [x for x in range(nfull) if x not in self.redundant_idx])
             self.theta_shape = len(self.params_idx)
-        else:
-            self.k = k if k is not None else n_layers
+        elif ansatz == "kupccd":
+            self.k = k
             self.d_wires = A.generalized_pair_doubles(
                 list(range(self.n_qubits)))
             self.theta_shape = self.k * len(self.d_wires)
-        self.hfstate = A.hf_state(nelecas, self.n_qubits)
+        else:
+            self.theta_shape = ansatz.n_params
 
+        self._program = None
+        self._program_builder = None
         self._sector_basis = None
-        self.sector_maps = _grid.build_grid_maps(ncas, nelecas,
-                                                 device=self.device)
-        self.grid_program = _gg.build_direct(
-            ncas, nelecas, ansatz, n_layers=n_layers,
-            add_singles=add_singles,
-            k=(k if k is not None else n_layers), device=self.device)
+        self.sector_maps = None
+        self.grid_program = None
+        if builtin:
+            def build():
+                dets = self.sector_basis if self.sector else None
+                if ansatz == "ucc":
+                    return A.uccd_program(ncas, nelecas, add_singles,
+                                          dets=dets, device=self.device)
+                if ansatz == "np_fabric":
+                    return A.gatefabric_program(ncas, nelecas, n_layers,
+                                                dets=dets,
+                                                device=self.device)
+                return A.kupccd_program(ncas, nelecas, k=k, dets=dets,
+                                        device=self.device)
+
+            # on the grid the flat program is built only if asked for
+            # (draw_circuit): O(n_gates * D) to build, and no route runs it
+            self._program_builder = build
+        else:
+            if ansatz.device.type != self.device.type:
+                raise ValueError(f"the GateProgram's tables are on "
+                                 f"{ansatz.device}, the circuit's device "
+                                 f"is {self.device}")
+            self._program = ansatz
+        if self.sector:
+            if builtin:
+                self.grid_program = _gg.build_direct(
+                    ncas, nelecas, ansatz, n_layers=n_layers,
+                    add_singles=add_singles, k=k, device=self.device)
+            else:
+                from . import grid_program as _gp
+                from . import sector as _sector
+                if ansatz.dim == 1 << self.n_qubits:
+                    self._program, self._sector_basis = \
+                        _sector.project_program(ansatz, ncas, nelecas)
+                elif ansatz.dim != len(self.sector_basis):
+                    raise ValueError(
+                        f"a sector circuit needs a program over 4^{ncas} "
+                        f"states or the sector's {len(self.sector_basis)}, "
+                        f"got dim {ansatz.dim}")
+                self.grid_program = _gp.factorize_program(
+                    self.program, self.sector_basis, ncas)
+            self.sector_maps = _grid.build_grid_maps(ncas, nelecas,
+                                                     device=self.device)
+            self.epq_maps = self.sector_maps
+            self._sweep = self.grid_program
+        else:
+            if self.program.dim != 1 << self.n_qubits:
+                raise ValueError(
+                    f"a full-space circuit needs a program over 4^{ncas} "
+                    f"states, got dim {self.program.dim}")
+            self.epq_maps = _rdms.build_flat_maps(ncas, device=self.device)
+            self._sweep = self.program
         # tangent rows of the Jacobian: full program parameter of each
         # entry of theta (np_fabric drops its redundant parameters)
         self._tangent_params = (self.params_idx if ansatz == "np_fabric"
@@ -93,6 +155,15 @@ class Parameterized_circuit:
         self._tangent_params_dev = torch.as_tensor(
             np.asarray(self._tangent_params, dtype=np.int64),
             device=self.device)
+
+    @property
+    def program(self):
+        """The flat GateProgram: the full-space circuit, or in sector mode
+        the sector-rank one (built on first use for a built-in ansatz,
+        whose grid program serves every route)."""
+        if self._program is None:
+            self._program = self._program_builder()
+        return self._program
 
     @property
     def sector_basis(self):
@@ -106,8 +177,8 @@ class Parameterized_circuit:
 
     @property
     def state_dim(self):
-        """C(n,na) * C(n,nb), the sector dimension."""
-        return self.grid_program.dim
+        """C(n,na) * C(n,nb) in sector mode, else 4^ncas."""
+        return self._sweep.dim
 
     # -- state ------------------------------------------------------------
 
@@ -124,20 +195,24 @@ class Parameterized_circuit:
             return full.index_put((self._tangent_params_dev,), theta)
         return theta
 
+    # The ``_grid`` methods give states in the order of the route's maps
+    # (``epq_maps``): GRID order (ops/grid.py) in sector mode, the
+    # canonical basis order in the full space.
+
     def _state_impl_grid(self, theta):
-        """|psi(theta)> in GRID order (ops/grid.py layout contract)."""
-        return self.grid_program.apply(self._expand_theta(theta))
+        """|psi(theta)> in the maps' order."""
+        return self._sweep.apply(self._expand_theta(theta))
 
     def _state_and_jacobian_grid(self, theta):
-        """(psi, J) in GRID order, J = d psi / d theta of shape
+        """(psi, J) in the maps' order, J = d psi / d theta of shape
         (theta_shape, D), from one tangent-batched forward sweep."""
-        return self.grid_program.apply_with_jacobian(
+        return self._sweep.apply_with_jacobian(
             self._expand_theta(theta), self._tangent_params)
 
     def _state_hessian_dot_grid(self, theta, w, psi, J):
-        """d^2 <w, psi(theta)> / d theta^2 for a GRID-ordered w, given
-        (psi, J) at the same theta."""
-        return self.grid_program.hessian_dot(
+        """d^2 <w, psi(theta)> / d theta^2 for w in the maps' order,
+        given (psi, J) at the same theta."""
+        return self._sweep.hessian_dot(
             self._expand_theta(theta), w, psi, J, self._tangent_params)
 
     def _pair_state_grid(self, theta, v):
@@ -160,13 +235,23 @@ class Parameterized_circuit:
 
     def _state_impl(self, theta):
         """|psi(theta)> in canonical (sorted determinant) order."""
-        return _grid.from_grid(self._state_impl_grid(theta),
-                               self.sector_maps)
+        psi = self._state_impl_grid(theta)
+        if self.sector:
+            return _grid.from_grid(psi, self.sector_maps)
+        return psi
 
     def state(self, theta):
-        """|psi(theta)> as a real float64 vector over
-        ``self.sector_basis`` (canonical ascending-determinant order)."""
+        """|psi(theta)> as a real float64 vector: dim 4^ncas in the full
+        space, or over ``self.sector_basis`` (canonical ascending-
+        determinant order) when sector=True."""
         return self._state_impl(self._as_theta(theta))
+
+    def state_complex(self, theta):
+        return self.state(theta).to(torch.complex128)
+
+    def qnode(self, theta):
+        """Reference-compatible alias (pqc.py:133)."""
+        return self.state(theta)
 
     def init_zeros(self):
         """All-zero parameter init (reference pqc.py:188)."""
@@ -175,27 +260,111 @@ class Parameterized_circuit:
     # -- RDMs -------------------------------------------------------------
 
     def _rdms_impl(self, theta):
-        # grid order end to end (no boundary permutations)
+        # the maps' order end to end (no boundary permutations)
         psi = self._state_impl_grid(theta)
-        return _rdms.rdms_from_state(psi, self.ncas, self.sector_maps,
+        return _rdms.rdms_from_state(psi, self.ncas, self.epq_maps,
                                      grid_order=True)
 
     def get_rdms(self, theta, restricted=True):
         if not restricted:
             raise NotImplementedError(
-                "unrestricted RDMs come in a later PR of the port")
+                "unrestricted RDMs come in a later slice of the port")
         return self._rdms_impl(self._as_theta(theta))
 
     def get_rdms_from_state(self, state, restricted=True):
         """gamma_pq = <E_pq>, Gamma_pqrs = <e_pqrs> (reference
-        pqc.py:192-218) of a canonical-order sector state."""
+        pqc.py:192-218) of a canonical-order state: over the full 4^ncas
+        space, or over the sector basis when sector=True."""
         if not restricted:
             raise NotImplementedError(
-                "unrestricted RDMs come in a later PR of the port")
+                "unrestricted RDMs come in a later slice of the port")
         state = torch.as_tensor(state, device=self.device)
         if state.shape[-1] != self.state_dim:
+            where = ("the (n_alpha, n_beta) sector basis" if self.sector
+                     else f"the full 4^{self.ncas} space")
             raise ValueError(
                 f"state has dim {state.shape[-1]}, but this circuit works "
-                f"over the (n_alpha, n_beta) sector basis (dim "
-                f"{self.state_dim})")
-        return _rdms.rdms_from_state(state, self.ncas, self.sector_maps)
+                f"over {where} (dim {self.state_dim})")
+        return _rdms.rdms_from_state(state, self.ncas, self.epq_maps)
+
+    # -- misc -------------------------------------------------------------
+
+    def draw_circuit(self, theta):
+        """Wire-diagram rendering of the flat program, in the style of
+        qml.draw (reference pqc.py:223): one row per qubit, one column per
+        gate, multi-wire gates joined by box connectors.  Falls back to a
+        flat gate table when the program carries no display metadata."""
+        prog = self.program
+        full = self._expand_theta(self._as_theta(theta)).cpu().numpy()
+        meta = prog.gate_meta
+        header = (f"GateProgram: {prog.half.shape[0]} pair-rotation gates, "
+                  f"{prog.n_params} parameters, dim {prog.dim}")
+        if not meta or any(m[0] is None for m in meta):
+            lines = [header]
+            for i in range(prog.half.shape[0]):
+                ang = prog.half[i] * full[prog.param[i]]
+                lines.append(
+                    f"  gate {i:3d}: param {prog.param[i]:3d} "
+                    f"angle {ang:+.4f} pairs {int(prog.n_real_pairs[i])}")
+            return "\n".join(lines)
+
+        abbrev = {"FermionicDouble": "G2", "FermionicSingle": "G1",
+                  "DoubleExcitation": "G2", "SingleExcitation": "G",
+                  "OrbitalRotation": "OR"}
+        # merge consecutive PairGates sharing (name, wires, param) — e.g.
+        # OrbitalRotation compiles to two pair gates with one parameter
+        merged = []
+        for name, wires, param in meta:
+            if merged and merged[-1] == (name, wires, param):
+                continue
+            merged.append((name, wires, param))
+        nq = self.n_qubits
+        rows = [[] for _ in range(nq)]
+        for name, wires, param in merged:
+            label = f"{abbrev.get(name, name)}({full[param]:+.2f})"
+            lo, hi = min(wires), max(wires)
+            width = len(label) + 1
+            for q in range(nq):
+                if q in wires:
+                    conn = ("╭" if q == lo else
+                            "╰" if q == hi else "├")
+                    cell = conn + label
+                elif lo < q < hi:
+                    cell = "│"
+                else:
+                    cell = ""
+                rows[q].append(cell.ljust(width, "─"))
+        out = [header]
+        for q in range(nq):
+            out.append(f"q{q:02d}: ─" + "─".join(rows[q]) + "─")
+        return "\n".join(out)
+
+
+def dirac_notation(state, decimals=2, atol=1e-8):
+    """Pretty-print a statevector as a Dirac-notation sum (the
+    cirq.dirac_notation capability the reference tutorials use).  Qubit 0
+    is the leftmost bit label, matching the simulator's layout."""
+    if isinstance(state, torch.Tensor):
+        state = state.detach().cpu().numpy()
+    state = np.asarray(state).ravel()
+    nq = int(round(np.log2(state.size)))
+    if 1 << nq != state.size:
+        raise ValueError(f"statevector length {state.size} is not 2^n")
+    terms = []
+    for idx in np.flatnonzero(np.abs(state) > atol):
+        amp = state[idx]
+        label = format(idx, f"0{nq}b")
+        if abs(np.imag(amp)) < atol:
+            a = float(np.real(amp))
+            mag = f"{abs(a):.{decimals}f}"
+            sign = "-" if a < 0 else "+"
+        else:
+            mag = (f"({np.real(amp):.{decimals}f}"
+                   f"{np.imag(amp):+.{decimals}f}j)")
+            sign = "+"
+        if not terms and sign == "+":
+            terms.append(f"{mag}|{label}⟩")
+        else:
+            terms.append(f"{sign} {mag}|{label}⟩" if terms
+                         else f"-{mag}|{label}⟩")
+    return " ".join(terms) if terms else "0"

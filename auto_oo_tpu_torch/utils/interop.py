@@ -1,10 +1,10 @@
 """Bring the JAX package's state into the port.
 
 ``from_jax`` takes arrays of auto_oo_tpu — ``theta``, ``oao_mo_coeff``,
-a ``GridMaps``' tables — as numpy arrays (or anything ``np.asarray``
-accepts, which includes jax arrays without importing jax here) and
-returns the port's tensors, so both packages can start from the same
-state.
+a ``GridMaps``' tables, a ``GateProgram``'s host tables — as numpy
+arrays (or anything ``np.asarray`` accepts, which includes jax arrays
+without importing jax here) and returns the port's tensors or objects,
+so both packages can start from the same state.
 """
 
 from collections.abc import Mapping
@@ -14,8 +14,12 @@ import torch
 
 from ..config import get_device
 from ..ops.grid import GridMaps
+from ..simulator.gates import PairGate
+from ..simulator.program import GateProgram
 
 _GRID_FIELDS = ("srcA", "sgnA", "tB", "srcB", "sgnB", "tA", "g2s", "s2g")
+_PROGRAM_FIELDS = ("ia", "ib", "sign", "half", "param", "n_params",
+                   "init_idx", "dim")
 
 
 def _tensor(a, device, dtype):
@@ -25,6 +29,24 @@ def _tensor(a, device, dtype):
     return torch.as_tensor(a, device=device)
 
 
+def _program(prog, device):
+    """The port's GateProgram of a JAX GateProgram: each gate's first
+    ``n_real_pairs`` pairs of its padded rows (the JAX package pads a
+    gate by repeating its first pair), with its display metadata."""
+    half = np.asarray(prog.half, dtype=np.float64)
+    ia, ib, sign = (np.asarray(getattr(prog, k)) for k in ("ia", "ib",
+                                                           "sign"))
+    n_real = (np.asarray(prog.n_real_pairs) if hasattr(prog, "n_real_pairs")
+              else np.asarray(prog.mask).sum(axis=1).astype(np.int64))
+    meta = getattr(prog, "gate_meta", None) or [(None, None, None)] * len(
+        half)
+    gates = [PairGate(ia[g, :k], ib[g, :k], sign[g, :k], half[g],
+                      int(prog.param[g]), name=meta[g][0], wires=meta[g][1])
+             for g, k in enumerate(int(k) for k in n_real)]
+    return GateProgram(gates, prog.n_params, prog.init_idx, prog.dim,
+                       device=device)
+
+
 def from_jax(arrays, device=None, dtype=torch.float64):
     """Convert JAX-package state to the port's tensors on ``device``.
 
@@ -32,8 +54,13 @@ def from_jax(arrays, device=None, dtype=torch.float64):
     arrays become ``dtype``; integer arrays keep their type.  A mapping
     (or a namedtuple, via ``_asdict``) holding the eight GridMaps tables
     (srcA, sgnA, tB, srcB, sgnB, tA, g2s, s2g) becomes a port
-    ``GridMaps`` whose sign tables are in ``dtype``."""
+    ``GridMaps`` whose sign tables are in ``dtype``.  An object with a
+    GateProgram's host tables (ia, ib, sign, half, param, n_params,
+    init_idx, dim; the padded rows cut at n_real_pairs) becomes a port
+    ``GateProgram``."""
     device = get_device(device)
+    if all(hasattr(arrays, k) for k in _PROGRAM_FIELDS):
+        return _program(arrays, device)
     if hasattr(arrays, "_asdict"):
         arrays = arrays._asdict()
     if isinstance(arrays, Mapping):

@@ -103,7 +103,28 @@ prints its seconds:
    below E(theta0) and within 5e-5 Ha of the JAX package's
    mixed-precision iteration 1, -8.3671002296, with the step length, the
    iteration's time, peak device memory and kernel launches, then the new
-   state's norm within 1e-12 of 1 and tr(gamma) = 16 within 1e-10.
+   state's norm within 1e-12 of 1 and tr(gamma) = 16 within 1e-10;
+11. the full space (sector=False, the default), formaldimine sto-3g f64
+   on the flat route, every object built with no sector= and no device=:
+   (2e,2o) np_fabric L=1 with freeze_active (the README quick start) and
+   ucc without it, each to convergence within 1e-8 Ha of CASSCF; the
+   (3e,3o) doublet (the cation, nelecas=(2, 1), ucc with singles), 3
+   iterations; (6e,6o) np_fabric L=2 (bench.py's headline tier) to
+   convergence, iterations 1-HELD_6E6O held to the JAX trajectory and
+   the end a converged minimum (positive lowest Hessian eigenvalue) above
+   the CASSCF energy; (8e,8o) np_fabric L=2, 3 iterations with its
+   iteration taken apart on the host clock.  Each energy held to its CPU
+   JAX anchor within 1e-8 Ha; each phase prints its s/NR-iter (median of
+   iterations 2-4, or 2-3), peak device memory and the device's busy and
+   idle share over one more iteration under torch.profiler (with its top
+   kernels and ops), beside the card's name and power limit; the final
+   state's norm within 1e-12 of 1 and tr(gamma) equal to the electron
+   count within 1e-10; the flat route launches no grid kernel;
+12. a prebuilt (4e,4o) kupccd GateProgram through sector=True (projected
+   onto the sector and factorized onto the string grid) against the
+   built-in sector circuit: grad_hess e0, gradient and Hessian within
+   1e-12, 1e-11 and 1e-9 at a seeded theta, the fused route's grid kernels
+   launched by the prebuilt circuit's grad_hess.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
 its main path's run, which is the (16e,16o) iteration of phase 10 for
@@ -111,7 +132,7 @@ the hosted route's kernels (gather_two_spin among them), phase 8's
 (14e,14o) iterations for the row form of gather_reduce, and phase 4 for
 the probes and gather_rows_scaled (its variant L; no route launches it
 since gather_two_spin, and every route phase checks that), with each
-path's launches under "launches_by_path"; max abs error against the
+path's launches under "launches_by_path" (0 on the flat paths); max abs error against the
 plain version over every comparison; kernel and plain times and the
 bound at the (16e,16o) f64 chunk shapes for the hosted route's kernels
 (gather_two_spin on the chunk and gather_rows_scaled on its alpha half;
@@ -168,6 +189,35 @@ STEP = dict(alpha=1e-4, beta=0.5, mu=1e-6, rho=1.1, lambda_min=1e-6)
 FUSED_KERNELS = ("gather_two_spin", "gather_reduce", "gather_reduce_cols")
 HOSTED_KERNELS = ("gather_two_spin", "gather_reduce_cols", "scatter_rows")
 E_CASSCF_2E2O = -92.74923230445957
+# CPU JAX trajectories of the full-space cells, formaldimine sto-3g f64
+# from init_zeros with STEP's parameters and freeze_active=True
+# (scripts/full_space_anchors.py on the JAX package of commit 6a9ea9f):
+# the (3e,3o) doublet, (6e,6o) to convergence and (8e,8o), by iteration
+ANCHORS_3E3O = [-92.51745437073947, -92.54145670915005, -92.55181115638135]
+ANCHORS_6E6O = [-92.70446478216726, -92.73380097454339, -92.74277238394593,
+                -92.74712759174129, -92.74818590775784, -92.748876016738,
+                -92.7497130616656, -92.75082142127079, -92.75263191682166,
+                -92.75921366074664, -92.7603240076009, -92.76076102015165,
+                -92.76126688199123, -92.7616380382401, -92.76303366571479,
+                -92.7631268730031, -92.76576564015811, -92.7661364869268,
+                -92.76687932711428, -92.76719844660202, -92.76728138442752,
+                -92.76764009017123, -92.76771525872152, -92.76924849420224,
+                -92.7693388867086, -92.7695327476724, -92.77038693023916,
+                -92.7706751667173, -92.77086718231205, -92.77117903428424,
+                -92.77130908190833, -92.77148779236006, -92.7715943271201,
+                -92.77188428340047, -92.77198737395302, -92.77207216077838,
+                -92.77207852170653, -92.77207903582347, -92.77207903857753,
+                -92.77207903870999, -92.77207903872626]
+ANCHORS_8E8O = [-92.72082866088444, -92.72961785304307, -92.73840872357711]
+# the (6e,6o) trajectory amplifies a difference in its last bits about
+# tenfold per iteration from iteration 7 on (its lowest Hessian
+# eigenvalue is negative at 30 of its first 33 iterations): the JAX
+# package's own run from theta = 1e-13 (full_space_anchors.py --perturb
+# 1e-13) leaves it by 7.2e-10 Ha at iteration 13 and 1.5e-5 Ha at
+# iteration 21, and converges to another minimum, 1.1e-5 Ha away.  So
+# iterations 1-12 are held to it, and the rest are printed beside it
+HELD_6E6O = 12
+E_CASSCF_6E6O = -92.80039255291021
 TOL_ENERGY = 1e-8
 # published HBM rate of one H100 SXM at its 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -1466,6 +1516,235 @@ def convergence_phase(torch, P):
     check(abs(diff) <= TOL_ENERGY, f"(2e,2o) misses CASSCF by {diff}")
 
 
+
+def check_no_kernels(launches, what):
+    """The flat route runs no grid kernel (its gathers are element
+    gathers over the full space, plain PyTorch as in the JAX package)."""
+    check(not any(launches.values()),
+          f"{what} launched grid kernels: {launches}")
+
+
+def full_space_convergence_phase(torch, P, gk):
+    """(2e,2o) in the full space to convergence, every object built with
+    no sector= and no device=: np_fabric L=1 with freeze_active (the
+    README quick start) and ucc without it (its one double reaches CASSCF
+    only with the active-active rotations); returns the launches."""
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
+    gk.reset_launches()
+    for label, kw, frozen in (
+            ("np_fabric L=1", dict(ansatz="np_fabric", n_layers=1), True),
+            ("ucc", dict(ansatz="ucc"), False)):
+        pqc = P.Parameterized_circuit(2, 2, **kw)
+        oo = P.OO_pqc(pqc, mol, 2, 2, freeze_active=frozen)
+        check(pqc.init_zeros().device.type == "cuda",
+              f"default device is {pqc.init_zeros().device}, not the card")
+        check(oo._core["route"] == "flat",
+              f"(2e,2o) full space route {oo._core['route']}")
+        t0 = time.perf_counter()
+        energies, *_ = oo.full_optimization(pqc.init_zeros())
+        torch.cuda.synchronize()
+        diff = energies[-1] - E_CASSCF_2E2O
+        print(f"  (2e,2o) full space {label} (freeze_active={frozen}): "
+              f"{len(energies)} iterations, E = {energies[-1]:.14f}, "
+              f"CASSCF {E_CASSCF_2E2O:.14f}, diff {diff:+.3e}, "
+              f"{time.perf_counter() - t0:.2f} s")
+        check(abs(diff) <= TOL_ENERGY,
+              f"(2e,2o) full space {label} misses CASSCF by {diff}")
+    launches = dict(gk.LAUNCHES)
+    check_no_kernels(launches, "the (2e,2o) full-space runs")
+    return launches
+
+
+def flat_phase(torch, P, gk, label, ncas, nelecas, kw, anchors, held,
+               max_iterations, molkw=None, converge=False, parts=False):
+    """Damped Newton on the full-space (flat) route from init_zeros,
+    built with no sector= and no device=: energies 1-``held`` within
+    1e-8 Ha of the CPU JAX ``anchors`` (the rest printed beside them);
+    with ``converge``, the run must converge to a minimum above the
+    CASSCF energy.  Prints s/NR-iter, peak memory and the busy/idle
+    share of one more iteration under the profiler (with ``parts``, that
+    iteration taken apart on the host clock first); returns the grid
+    kernel launches of the run."""
+    from auto_oo_tpu_torch.models import oo_pqc
+    from auto_oo_tpu_torch.ops import hamiltonian as ham
+    from auto_oo_tpu_torch.ops import rdms as rd
+    from auto_oo_tpu_torch.ops import transforms as tr
+    from auto_oo_tpu_torch.scripts.profile_14e14o import (_timed,
+                                                          device_profile)
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    ne = nelecas if isinstance(nelecas, int) else sum(nelecas)
+    t0 = time.perf_counter()
+    mol = P.Moldata(get_formal_geo(140, 80), "sto-3g", **(molkw or {}))
+    pqc = P.Parameterized_circuit(ncas, nelecas, **kw)
+    oo = P.OO_pqc(pqc, mol, ncas, nelecas, freeze_active=True)
+    torch.cuda.synchronize()
+    print(f"{label} setup: {time.perf_counter() - t0:.2f} s "
+          f"(n_theta={pqc.theta_shape}, n_kappa={oo.n_kappa}, "
+          f"D={pqc.state_dim}, route={oo._core['route']}, "
+          f"{len(pqc.program.half)} gates)")
+    check(oo._core["route"] == "flat", f"{label} route {oo._core['route']}")
+    check(oo.mo_coeff.device.type == "cuda",
+          f"default device is {oo.mo_coeff.device}, not the card")
+
+    stamps = []
+
+    class Stamp:
+        def log(self, n, energy, **kw):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    gk.reset_launches()
+    t_start = time.perf_counter()
+    energies, thetas, _, oaos, eigs = oo.full_optimization(
+        pqc.init_zeros(), max_iterations=max_iterations, monitor=Stamp(),
+        **STEP)
+    launches = dict(gk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    iter_s = [b - a for a, b in zip([t_start] + stamps[:-1], stamps)]
+    for i, e in enumerate(energies):
+        ref = (f"JAX-CPU {anchors[i]:.14f}  diff {e - anchors[i]:+.3e}"
+               + ("" if i < held else " (not held)")
+               if i < len(anchors) else "JAX-CPU (none)")
+        print(f"  iter {i + 1}: E = {e:.14f}  {ref}  wall {iter_s[i]:.3f} s"
+              f"  lowest eig {eigs[i]:+.6e}")
+    check(len(energies) >= held, f"{label}: ran {len(energies)} iterations")
+    for i in range(held):
+        check(abs(energies[i] - anchors[i]) <= TOL_ENERGY,
+              f"{label} iteration {i + 1}: |{energies[i]} - {anchors[i]}| "
+              f"> {TOL_ENERGY}")
+    if converge:
+        e_cas = E_CASSCF_6E6O
+        check(len(energies) < max_iterations
+              and abs(energies[-1] - energies[-2]) < 1e-10,
+              f"{label} did not converge in {max_iterations} iterations")
+        check(eigs[-1] > 0, f"{label} ends at a saddle (lowest eig "
+              f"{eigs[-1]})")
+        check(energies[-1] >= e_cas - TOL_ENERGY,
+              f"{label} ends below CASSCF {e_cas}: {energies[-1]}")
+        print(f"  converged in {len(energies)} iterations (JAX-CPU "
+              f"{len(anchors)}): E = {energies[-1]:.14f}, JAX-CPU "
+              f"{anchors[-1]:.14f} (diff {energies[-1] - anchors[-1]:+.3e}),"
+              f" CASSCF {e_cas:.14f} (above by {energies[-1] - e_cas:.3e})")
+    check_no_kernels(launches, label)
+    psi = pqc.state(thetas[-1])
+    torch.cuda.synchronize()
+    check(psi.shape == (4 ** ncas,), f"state shape {tuple(psi.shape)}")
+    check(bool(torch.isfinite(psi).all()), f"non-finite {label} state")
+    norm = float(psi @ psi)
+    trace = float(torch.trace(pqc.get_rdms(thetas[-1])[0]))
+    check(abs(norm - 1.0) < 1e-12, f"{label} state norm {norm}")
+    check(abs(trace - ne) < 1e-10, f"{label} tr(gamma) = {trace}")
+    check(bool(torch.isfinite(oaos[-1]).all()), "non-finite OAO-MO")
+    warm = iter_s[1:4]
+    print(f"  {card_line()}: median s/NR-iter of iterations 2-"
+          f"{len(warm) + 1}: {statistics.median(warm):.4f} s; peak device "
+          f"memory {peak / 1e9:.4f} GB allocated, {(peak - resident) / 1e9:.4f}"
+          f" GB above the {resident / 1e9:.4f} GB resident before the run; "
+          f"|norm - 1| "
+          f"{abs(norm - 1):.1e}, tr(gamma) - {ne} {trace - ne:+.1e}")
+
+    core, args = oo._core, oo._mol_args
+    theta = thetas[-1]
+
+    def iteration():
+        e0, grad, hess = core["grad_hess"](theta, oo.oao_mo_coeff, *args)
+        return core["newton_update"](theta, oo.oao_mo_coeff, *args, e0,
+                                     grad, hess, *STEP.values())
+
+    if parts:
+        # the heavy parts of grad_hess at the final point, one by one
+        mo = oo.oao_coeff @ oo.oao_mo_coeff
+        h1 = tr.int1e_transform(oo.int1e_ao, mo)
+        g2 = tr.int2e_transform(oo.int2e_ao, mo)
+        _, c1, c2 = tr.molecular_hamiltonian_coefficients(
+            oo.nuc, h1, g2, oo._occ, oo._act)
+        c1eff, maps = ham.c1_effective(c1, c2), pqc.epq_maps
+        out = []
+        psi_g, J = _timed("state + J sweep",
+                          lambda: pqc._state_and_jacobian_grid(theta), out)
+        w = 2.0 * _timed("H psi", lambda: ham.ham_apply(
+            c1eff, c2, psi_g, ncas, maps), out)
+        # grad_hess's tangent chunks
+        chunk = max(1, min(J.shape[0], oo_pqc._CHUNK_ELEMENTS
+                           // (ncas ** 2 * J.shape[1])))
+        chunks = [J[lo:lo + chunk] for lo in range(0, J.shape[0], chunk)]
+        _timed(f"H J ({J.shape[0]} rows, chunks of {chunk})",
+               lambda: [ham.ham_apply(c1eff, c2, Jc, ncas, maps)
+                        for Jc in chunks], out)
+        _timed("circuit-Hessian sweep", lambda: pqc._state_hessian_dot_grid(
+            theta, w, psi_g, J), out)
+        phi = _timed("Phi of psi", lambda: rd.apply_epq_all(psi_g, ncas,
+                                                            maps), out)
+        _timed("Phi of J (transition RDMs)",
+               lambda: [rd.apply_epq_all(Jc, ncas, maps) for Jc in chunks],
+               out)
+        _timed("RDM grams", lambda: rd.rdms_from_gram(phi, psi_g, ncas),
+               out)
+        _timed("one energy (line-search trial)",
+               lambda: oo.energy_from_parameters(theta), out)
+        for name, sec in out:
+            print(f"    {name:32s} {sec * 1e3:9.2f} ms")
+        del psi_g, J, phi, chunks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iteration()
+    torch.cuda.synchronize()
+    it_s = time.perf_counter() - t0
+    print(f"  one more iteration at the final point: {it_s:.4f} s")
+    busy = device_profile(iteration, it_s, top=8)
+    if busy is not None:
+        print(f"  {label}: device busy {100 * busy:.1f}%, idle "
+              f"{100 - 100 * busy:.1f}% of the iteration")
+    return launches
+
+
+def prebuilt_program_phase(torch, P, gk):
+    """A prebuilt (4e,4o) kupccd GateProgram through sector=True (projected
+    onto the sector, factorized onto the string grid) against the
+    built-in sector circuit at a seeded theta; returns the launches of
+    the prebuilt circuit's grad_hess."""
+    from auto_oo_tpu_torch.simulator import ansatze as A
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
+    built = P.Parameterized_circuit(4, 4, ansatz="kupccd", k=1, sector=True)
+    prebuilt = P.Parameterized_circuit(4, 4, ansatz=A.kupccd_program(4, 4),
+                                       sector=True)
+    check(prebuilt.program.dim == built.state_dim,
+          f"projected program dim {prebuilt.program.dim}")
+    oo_b = P.OO_pqc(built, mol, 4, 4, freeze_active=True)
+    oo_p = P.OO_pqc(prebuilt, mol, 4, 4, freeze_active=True)
+    check(oo_p._core["route"] == "fused",
+          f"prebuilt route {oo_p._core['route']}")
+    theta = 0.3 * np.random.default_rng(31).standard_normal(
+        built.theta_shape)
+    torch.cuda.synchronize()
+    gk.reset_launches()
+    e_p, g_p, h_p = oo_p._grad_hess(theta)
+    torch.cuda.synchronize()
+    launches = dict(gk.LAUNCHES)
+    e_b, g_b, h_b = oo_b._grad_hess(theta)
+    de = abs(float(e_p - e_b))
+    dg = float((g_p - g_b).abs().max())
+    dh = float((h_p - h_b).abs().max())
+    print(f"  prebuilt (4e,4o) kupccd ({len(prebuilt.program.half)} flat "
+          f"gates -> {len(prebuilt.grid_program.gates)} grid gates, "
+          f"n_kappa={oo_p.n_kappa}): |de0| {de:.3e}  max|dgrad| {dg:.3e}  "
+          f"max|dhess| {dh:.3e}; launches {launches}")
+    check(de <= 1e-12, f"prebuilt e0 differs by {de}")
+    check(dg <= 1e-11, f"prebuilt gradient differs by {dg}")
+    check(dh <= 1e-9, f"prebuilt Hessian differs by {dh}")
+    check_route_kernels(launches, FUSED_KERNELS,
+                        "the prebuilt program's grad_hess")
+    return launches
+
+
 def main():
     import torch
 
@@ -1521,6 +1800,26 @@ def main():
         del mol14, pqc14, oo14, theta14
         torch.cuda.empty_cache()
         phase("(2e,2o) convergence", convergence_phase, torch, P)
+        paths["full_2e2o"] = phase("(2e,2o) full space convergence",
+                                   full_space_convergence_phase, torch, P,
+                                   gk)
+        paths["full_3e3o"] = phase(
+            "(3e,3o) doublet, full space", flat_phase, torch, P, gk,
+            "(3e,3o) doublet", 3, (2, 1),
+            dict(ansatz="ucc", add_singles=True), ANCHORS_3E3O, 3, 3,
+            dict(charge=1, spin=1))
+        paths["full_6e6o"] = phase(
+            "(6e,6o) full space", flat_phase, torch, P, gk, "(6e,6o)", 6, 6,
+            dict(ansatz="np_fabric", n_layers=2), ANCHORS_6E6O, HELD_6E6O,
+            100, None, True)
+        paths["full_8e8o"] = phase(
+            "(8e,8o) full space", flat_phase, torch, P, gk, "(8e,8o)", 8, 8,
+            dict(ansatz="np_fabric", n_layers=2), ANCHORS_8E8O, 3, 3, None,
+            False, True)
+        paths["prebuilt_4e4o"] = phase(
+            "prebuilt (4e,4o) GateProgram, sector=True",
+            prebuilt_program_phase, torch, P, gk)
+        torch.cuda.empty_cache()
         mol16, pqc16, oo16 = phase("(16e,16o) setup", sector16_setup, torch,
                                    P)
         phase("(16e,16o) grid kernels vs plain", hosted_kernel_phase, torch,

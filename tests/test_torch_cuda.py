@@ -7,8 +7,10 @@ row-sliced and pair-sliced shapes; the two-spin Phi kernel on the
 ragged random maps), the grid ops (fused and row-streamed) and one
 Newton core on the card against the same code on the CPU, the streamed
 and the hosted Newton cores against the fused one on the card, the
-hosted H-apply's alpha scatter against its plain version, and failed
-builds and launches that raise.  This file imports neither jax nor the
+hosted H-apply's alpha scatter against its plain version, the
+full-space route's flat sweeps, E_pq maps and H-apply on the card against
+the CPU with a (2e,2o) full-space convergence, and failed builds and
+launches that raise.  This file imports neither jax nor the
 JAX package, so it also runs where jax is not installed;
 tests/conftest.py imports jax, so run it on the card with
 
@@ -321,6 +323,56 @@ def test_cuda_grad_hess_matches_cpu(cuda_device):
     assert abs(float(e_g) - float(e_c)) < 1e-11
     np.testing.assert_allclose(g_g, g_c, rtol=0, atol=1e-11)
     np.testing.assert_allclose(h_g, h_c, rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_cuda_flat_sweeps_and_ham_apply_match_cpu(cuda_device):
+    """The full-space route on the card against the CPU: the flat
+    program's state, J and circuit-Hessian sweep, the flat E_pq maps'
+    Phi and RDMs, and ham_apply (batched), launching no grid kernel."""
+    from auto_oo_tpu_torch.ops import hamiltonian, rdms
+
+    ncas, ne = 4, (2, 1)
+    rng = np.random.default_rng(12)
+    n_theta = P.Parameterized_circuit(ncas, ne, ansatz="np_fabric",
+                                      n_layers=2, device="cpu").theta_shape
+    theta = torch.from_numpy(0.4 * rng.standard_normal(n_theta))
+    w = torch.from_numpy(rng.standard_normal(4 ** ncas))
+    c1 = torch.from_numpy(rng.standard_normal((ncas, ncas)))
+    c2 = torch.from_numpy(rng.standard_normal((ncas,) * 4))
+    out = []
+    for dev in ("cpu", cuda_device):
+        pqc = P.Parameterized_circuit(ncas, ne, ansatz="np_fabric",
+                                      n_layers=2, device=dev)
+        th, maps = theta.to(dev), pqc.epq_maps
+        before = dict(gk.LAUNCHES)
+        psi, J = pqc._state_and_jacobian_grid(th)
+        H = pqc._state_hessian_dot_grid(th, w.to(dev), psi, J)
+        phi = rdms.apply_epq_all(psi, ncas, maps)
+        g1, g2 = rdms.rdms_from_state(psi, ncas, maps)
+        HJ = hamiltonian.ham_apply(
+            hamiltonian.c1_effective(c1.to(dev), c2.to(dev)), c2.to(dev), J,
+            ncas, maps)
+        assert gk.LAUNCHES == before
+        out.append([a.cpu() for a in (psi, J, H, phi, g1, g2, HJ)])
+    for name, b, a, tol in zip(
+            ("psi", "J", "hessian_dot", "Phi", "gamma", "Gamma", "H J"),
+            *out, (1e-14, 1e-13, 1e-12, 1e-14, 1e-12, 1e-12, 1e-11)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_full_space_converges_to_casscf(cuda_device):
+    """(2e,2o) in the full space, built with no sector= and no device=
+    (the README quick start), reaches CASSCF on the card within 1e-8 Ha
+    on the flat route."""
+    mol = P.Moldata(P.get_formal_geo(140, 80), "sto-3g")
+    pqc = P.Parameterized_circuit(2, 2, ansatz="np_fabric", n_layers=1)
+    oo = P.OO_pqc(pqc, mol, 2, 2, freeze_active=True)
+    assert oo._core["route"] == "flat"
+    assert pqc.init_zeros().device.type == "cuda"
+    energies, *_ = oo.full_optimization(pqc.init_zeros())
+    assert abs(energies[-1] - (-92.74923230445957)) < 1e-8
 
 
 @pytest.mark.cuda

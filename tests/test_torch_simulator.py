@@ -144,8 +144,9 @@ def test_pair_gates_match(builder, kw, sector):
 
 
 def test_unported_routes_raise():
+    full = P.Parameterized_circuit(2, 2, ansatz="ucc")      # full space
     with pytest.raises(NotImplementedError):
-        P.Parameterized_circuit(2, 2, ansatz="ucc")          # full space
+        full.get_rdms(full.init_zeros(), restricted=False)
     with pytest.raises(NotImplementedError):
         P.Parameterized_circuit(2, 2, ansatz="ucc", sector=True,
                                 up_then_down=True)
