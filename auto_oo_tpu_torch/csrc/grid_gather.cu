@@ -94,33 +94,54 @@
 //   version to rounding (1e-13 relative), not bit for bit.
 //
 // gather_reduce_cols (the column form, the beta half read in place):
-//   out[b, a, c] = sum_k (Y[b, k, a, src[k, c]] * s[k, c]) * t[k, a]
+//   out[b, a, c] (+)= sum_k (Y[b, k, a, src[k, c]] * s[k, c]) * t[k, a]
 //   with Y (B, n2, Na, Ns), src/s (n2, Nc), t (n2, Na), out (B, Na, Nc).
 //   It equals gather_reduce(Y^T, src, s, t)^T over the last two axes, the
 //   beta half of the TPU wrapper's epq_sum, which pays for one transposed
 //   copy of Y first (auto_oo_tpu/ops/pallas_grid.py:270): Mosaic gathers
 //   only whole rows.  Here the gather runs inside the rows of Y in its
 //   natural grid layout, so that copy (983.5 MB read + 983.5 MB written
-//   at (12e,12o) f64) is gone.  Bound: the same valid elements as the row
-//   form (0.0885 ms at (12e,12o) f64 B = 1); but a valid element is an
-//   8-byte piece of a row, and in sorted string order the valid sources
-//   of one pair come in runs, so the 32-byte sectors they touch are 52%
-//   of Y (506.7 MB, a 0.1513 ms floor) and the 64-byte pieces 60%
-//   (592.4 MB, 0.1768 ms).  Staging whole rows of Y in shared memory
-//   instead would read all of it (983.5 MB, 0.2936 ms).
-//   Design.  Lanes take neighbouring output columns c, so one warp's loads
-//   for a fixed (k, a) fall on the runs of src[k, .] inside one row of Y
-//   and share sectors; each warp owns kColRows rows a, so one (src, s)
-//   load per pair serves kColRows Y loads; the (src, s) of the next
-//   kColK pairs are loaded while the current pairs' Y loads are in
-//   flight, kColK * kColRows Y loads per thread at once.  The eight warps
-//   of a block share the same columns, so the table loads after the first
-//   warp's hit L1.  The sum runs over the valid k in increasing order with
-//   the product (Y * s) * t, the order of the row form on the transposed
-//   copy.  (Landing the gathered elements in shared memory with cp.async,
-//   which frees the registers of the loads in flight, was slower on an
-//   H100 at every pipeline depth tried.)
-//
+//   at (12e,12o) f64) is gone.  With add != 0 the sum over k is added to
+//   out once (out + sum, the bits of the callers' earlier out += result),
+//   so no temporary of out's size is written and read again.
+//   Bound: bytes, the Y elements of the valid (s != 0) entries once, the
+//   tables once and out once (0.0885 ms at (12e,12o) f64 B = 1; 1.12 ms on
+//   a (16e,16o) Y chunk of 495 rows).  A valid element is an 8-byte piece
+//   of a row, and in sorted string order the valid sources of one pair
+//   come in runs, so the 32-byte sectors they touch are 45-57% of Y where
+//   28-30% of its elements are valid: the sector floor (0.1513 ms at
+//   (12e,12o), 1.74 ms on the (16e,16o) chunk).  On an H100 the card
+//   fetches the whole 128-byte line of a missed sector (setting
+//   cudaLimitMaxL2FetchGranularity to 32, 64 or 128 changes nothing), so
+//   the floor that bounds this kernel is the 128-byte lines the valid
+//   elements touch, 57-76% of Y (0.198 ms at (12e,12o), 2.20 ms on the
+//   (16e,16o) chunk); every plan swept runs at 84-95% of it, about the
+//   rate of a streaming copy on the same card.
+//   Design.  The valid entries depend on the maps only, so the wrapper
+//   compacts them once per maps (cached on GridMaps) into lists, one per
+//   tile of output columns: (source column int32, output column in the
+//   tile int16, sign int8) in increasing pair k, each pair's run padded
+//   to whole groups of 32 entries with sign 0, and the pair of each group.
+//   Each warp owns RW output rows a of one column tile and walks the
+//   tile's list in order: lane l takes entry l of a group, so every Y load
+//   issued is live but for the padding (16-21% of the lanes at a tile of
+//   256 columns, against ~70% predicated-off loads when lanes were output
+//   columns).  A group's loads fall on its pair's runs of src inside one
+//   row of Y, so they share sectors; one table entry serves the warp's RW
+//   rows, and t[k, a] is one broadcast load per group and row.  The terms
+//   land in the warp's RW x tile accumulators in shared memory, group
+//   after group (a pair's output columns are distinct, so a group's lanes
+//   never collide; __syncwarp orders the groups).  Each thread issues the
+//   Y loads of U groups (U * RW live loads) before the first add, and the
+//   next U groups' entries are loaded while they are in flight.  Each
+//   output element is summed over its valid k in increasing order, with
+//   the products and sums rounded one by one ((y * s) * t, no FMA), so the
+//   result does not depend on the plan, and add mode equals out + result
+//   bit for bit.  The wrapper's plan (rows per warp, unroll, warps per
+//   block) and the list tile were swept on an H100
+//   (scripts/sweep_reduce_cols.py).  The signs must be +-1 or 0 (the
+//   maps' own); t may be any value.
+
 // scatter_rows (the alpha half of the hosted H-apply, accumulated):
 //   acc[b, i, j] += sum_k (Y[b, k, src[k, i] - r0, j] * s[k, i]) * t[k, j]
 //   over the k whose src[k, i] lies in the window [r0, r0 + Ns), with
@@ -150,10 +171,7 @@ constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 8;   // warps (output rows) per block
 constexpr int kMaxThreads = 512;   // gather_reduce: largest block the plan asks
 constexpr int kUnroll = 4;         // gather_reduce: Y loads in flight per task
-constexpr int kColWarps = 8;       // gather_reduce_cols: warps per block
-constexpr int kColRows = 4;        // gather_reduce_cols: rows a per warp
-constexpr int kColK = 2;           // gather_reduce_cols: pairs per step
-constexpr int kColBlocksPerSM = 3; // gather_reduce_cols: register budget
+constexpr int kColsThreads = 256;  // gather_reduce_cols: largest block
 constexpr int kTwoSpinThreads = 512;  // gather_two_spin: largest block
 constexpr int kTwoSpinRows = 2;       // gather_two_spin: most rows per block
 constexpr int kTwoSpinBlocksPerSM = 2;
@@ -342,82 +360,6 @@ gather_reduce_kernel(const T* __restrict__ Y, const int* __restrict__ src,
     } else {
       *o = acc;
     }
-  }
-}
-
-// ---- gather_reduce_cols ---------------------------------------------------
-
-// Block (32, kColWarps): lane -> output column c, warp -> kColRows rows a.
-// Grid (ceil(Nc / 32), ceil(Na / (kColWarps * kColRows)), B).
-template <typename T>
-__global__ void __launch_bounds__(kWarp * kColWarps, kColBlocksPerSM)
-gather_reduce_cols_kernel(const T* __restrict__ Y,
-                          const int* __restrict__ src,
-                          const T* __restrict__ s, const T* __restrict__ t,
-                          T* __restrict__ out, int n2, int Na, int Ns,
-                          int Nc) {
-  const int c = blockIdx.x * kWarp + threadIdx.x;
-  const int a0 = (blockIdx.y * kColWarps + threadIdx.y) * kColRows;
-  if (a0 >= Na) return;
-  const bool col = c < Nc;
-  const int n_a = min(kColRows, Na - a0);
-  const T* Yb = Y + static_cast<long long>(blockIdx.z) * n2 * Na * Ns;
-
-  T acc[kColRows];
-#pragma unroll
-  for (int r = 0; r < kColRows; ++r) acc[r] = T(0);
-
-  // (src, s) of pairs k0 .. k0 + kColK - 1, loaded one step ahead
-  int nsrc[kColK];
-  T ns[kColK];
-#pragma unroll
-  for (int q = 0; q < kColK; ++q) {
-    const bool in = col && q < n2;
-    ns[q] = in ? __ldg(s + static_cast<long long>(q) * Nc + c) : T(0);
-    nsrc[q] = in ? __ldg(src + static_cast<long long>(q) * Nc + c) : 0;
-  }
-  for (int k0 = 0; k0 < n2; k0 += kColK) {
-    int csrc[kColK];
-    T cs[kColK];
-#pragma unroll
-    for (int q = 0; q < kColK; ++q) {
-      csrc[q] = nsrc[q];
-      cs[q] = ns[q];
-    }
-    T y[kColK][kColRows];
-#pragma unroll
-    for (int q = 0; q < kColK; ++q) {
-      const T* Yk = Yb + (static_cast<long long>(k0 + q) * Na + a0) * Ns +
-                    csrc[q];
-#pragma unroll
-      for (int r = 0; r < kColRows; ++r)
-        y[q][r] = (cs[q] != T(0) && r < n_a)
-                      ? __ldcs(Yk + static_cast<long long>(r) * Ns)
-                      : T(0);
-    }
-#pragma unroll
-    for (int q = 0; q < kColK; ++q) {
-      const int k = k0 + kColK + q;
-      const bool in = col && k < n2;
-      ns[q] = in ? __ldg(s + static_cast<long long>(k) * Nc + c) : T(0);
-      nsrc[q] = in ? __ldg(src + static_cast<long long>(k) * Nc + c) : 0;
-    }
-#pragma unroll
-    for (int q = 0; q < kColK; ++q) {
-      if (cs[q] != T(0)) {
-        const T* tk = t + static_cast<long long>(k0 + q) * Na + a0;
-#pragma unroll
-        for (int r = 0; r < kColRows; ++r)
-          if (r < n_a) acc[r] += (y[q][r] * cs[q]) * __ldg(tk + r);
-      }
-    }
-  }
-  if (col) {
-#pragma unroll
-    for (int r = 0; r < kColRows; ++r)
-      if (r < n_a)
-        out[(static_cast<long long>(blockIdx.z) * Na + a0 + r) * Nc + c] =
-            acc[r];
   }
 }
 
@@ -645,6 +587,129 @@ gather_two_spin_kernel(const T* __restrict__ x, const int* __restrict__ srcA,
   }
 }
 
+// ---- gather_reduce_cols ---------------------------------------------------
+
+// The list entries of U groups from group g on (sign 0 and pair 0 at and
+// past the tile's end g1): lane's source column, output column in the
+// tile and sign, and each group's pair.
+template <int U>
+__device__ __forceinline__ void cols_entries(
+    const int* __restrict__ lsrc, const short* __restrict__ lcol,
+    const signed char* __restrict__ lsgn, const int* __restrict__ lpair,
+    int g, int g1, int lane, int (&src)[U], int (&col)[U], int (&sgn)[U],
+    int (&k)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const bool in = g + u < g1;
+    const long long e = static_cast<long long>(g + u) * kWarp + lane;
+    sgn[u] = in ? __ldg(lsgn + e) : 0;
+    src[u] = in ? __ldg(lsrc + e) : 0;
+    col[u] = in ? __ldg(lcol + e) : 0;
+    k[u] = in ? __ldg(lpair + g + u) : 0;
+  }
+}
+
+// The column form's operands: Y, the lists (source column, output column
+// in the tile, sign; each group's pair; each tile's first group), t, out;
+// B tangents; n2, Na, Ns, Nc; the list tile; add (out += the sum).
+template <typename T>
+struct ColsArgs {
+  const T* Y;
+  const int* lsrc;
+  const short* lcol;
+  const signed char* lsgn;
+  const int* lpair;
+  const int* lstart;
+  const T* t;
+  T* out;
+  long long B;
+  int n2, Na, Ns, Nc, tile, add;
+};
+
+// Block (32 * warps): column tile blockIdx.x (list groups [lstart[x],
+// lstart[x + 1])), RW output rows per warp from blockIdx.y * warps * RW,
+// tangent blockIdx.z.  Dynamic shared memory: each warp's RW x tile
+// accumulators.  The warps share nothing but the list (read through L1).
+template <typename T, int RW, int U>
+__global__ void __launch_bounds__(kColsThreads, 2)
+gather_reduce_cols_kernel(const ColsArgs<T> p) {
+  const int n2 = p.n2, Na = p.Na, Ns = p.Ns, tile = p.tile;
+  const T* __restrict__ t = p.t;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int a0 = (blockIdx.y * (blockDim.x / kWarp) + warp) * RW;
+  if (a0 >= Na) return;
+  const int n_a = min(RW, Na - a0);
+  T* acc = reinterpret_cast<T*>(smem) + warp * RW * tile;
+  for (int e = lane; e < RW * tile; e += kWarp) acc[e] = T(0);
+  const long long b = blockIdx.z;
+  const T* __restrict__ Yb = p.Y + b * n2 * static_cast<long long>(Na) * Ns;
+  const int g0 = __ldg(p.lstart + blockIdx.x);
+  const int g1 = __ldg(p.lstart + blockIdx.x + 1);
+
+  int nsrc[U], ncol[U], nsgn[U], nk[U];
+  cols_entries<U>(p.lsrc, p.lcol, p.lsgn, p.lpair, g0, g1, lane, nsrc, ncol,
+                  nsgn, nk);
+  for (int g = g0; g < g1; g += U) {
+    int src[U], col[U], sgn[U], k[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      src[u] = nsrc[u];
+      col[u] = ncol[u];
+      sgn[u] = nsgn[u];
+      k[u] = nk[u];
+    }
+    // every Y load of the U groups, then their t, before the first add
+    T y[U][RW], tt[U][RW];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const T* Yk =
+          Yb + (static_cast<long long>(k[u]) * Na + a0) * Ns + src[u];
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+        y[u][r] = (sgn[u] != 0 && r < n_a)
+                      ? __ldcs(Yk + static_cast<long long>(r) * Ns)
+                      : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const T* tk = t + static_cast<long long>(k[u]) * Na + a0;
+#pragma unroll
+      for (int r = 0; r < RW; ++r) tt[u][r] = r < n_a ? __ldg(tk + r) : T(0);
+    }
+    cols_entries<U>(p.lsrc, p.lcol, p.lsgn, p.lpair, g + U, g1, lane, nsrc,
+                    ncol, nsgn, nk);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      // the previous group's adds (other lanes, maybe the same column)
+      // are visible before this group's
+      __syncwarp();
+      if (sgn[u] != 0) {
+        const T sv = T(sgn[u]);
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          if (r < n_a) {
+            T* a = acc + r * tile + col[u];
+            *a = add_rn(*a, mul_rn(mul_rn(y[u][r], sv), tt[u][r]));
+          }
+        }
+      }
+    }
+  }
+  __syncwarp();
+  const int c0 = blockIdx.x * tile;
+  const int n_c = min(tile, p.Nc - c0);
+  T* o = p.out + (b * Na + a0) * static_cast<long long>(p.Nc) + c0;
+  for (int r = 0; r < n_a; ++r) {
+    for (int c = lane; c < n_c; c += kWarp) {
+      const T v = acc[r * tile + c];
+      T* q = o + static_cast<long long>(r) * p.Nc + c;
+      *q = p.add ? add_rn(*q, v) : v;
+    }
+  }
+}
+
 template <typename T>
 int launch_gather_rows_scaled(const T* x, const int* src, const T* s,
                               const T* t, T* out, long long B, int n2,
@@ -695,19 +760,62 @@ int launch_gather_reduce(const T* Y, const int* src, const T* s, const T* t,
                                           Nb, rows, threads, r0, stream);
 }
 
-template <typename T>
-int launch_gather_reduce_cols(const T* Y, const int* src, const T* s,
-                              const T* t, T* out, long long B, int n2,
-                              int Na, int Ns, int Nc, cudaStream_t stream) {
-  if (B == 0 || Na == 0 || Nc == 0) return static_cast<int>(cudaSuccess);
-  const long long gy = (Na + kColWarps * kColRows - 1) / (kColWarps * kColRows);
-  if (B > 65535 || gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kWarp, kColWarps);
-  const dim3 grid((Nc + kWarp - 1) / kWarp, static_cast<unsigned int>(gy),
-                  static_cast<unsigned int>(B));
-  gather_reduce_cols_kernel<T><<<grid, block, 0, stream>>>(Y, src, s, t, out,
-                                                           n2, Na, Ns, Nc);
+template <typename T, int RW, int U>
+int launch_cols(const ColsArgs<T>& p, int warps, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(warps) * RW * p.tile * sizeof(T);
+  const long long gy = (p.Na + warps * RW - 1) / (warps * RW);
+  const long long gx = (p.Nc + p.tile - 1) / p.tile;
+  if (smem > kMaxBlockSmem || gy > 65535 || gx > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = gather_reduce_cols_kernel<T, RW, U>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(static_cast<unsigned int>(gx),
+                  static_cast<unsigned int>(gy),
+                  static_cast<unsigned int>(p.B));
+  kern<<<grid, warps * kWarp, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// unroll U in {2, 4, 8}, at most 32 Y loads in flight per thread
+template <typename T, int RW>
+int launch_cols_rows(const ColsArgs<T>& p, int unroll, int warps,
+                     cudaStream_t stream) {
+  switch (unroll) {
+    case 2:
+      return launch_cols<T, RW, 2>(p, warps, stream);
+    case 4:
+      return launch_cols<T, RW, 4>(p, warps, stream);
+    case 8:
+      if constexpr (RW <= 4) return launch_cols<T, RW, 8>(p, warps, stream);
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int launch_gather_reduce_cols(const ColsArgs<T>& p, int rows, int unroll,
+                              int warps, cudaStream_t stream) {
+  if (p.B == 0 || p.Na == 0 || p.Nc == 0)
+    return static_cast<int>(cudaSuccess);
+  if (p.B < 0 || p.B > 65535 || p.tile < 1 || p.tile > 32767 || warps < 1 ||
+      warps * kWarp > kColsThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (rows) {
+    case 1:
+      return launch_cols_rows<T, 1>(p, unroll, warps, stream);
+    case 2:
+      return launch_cols_rows<T, 2>(p, unroll, warps, stream);
+    case 4:
+      return launch_cols_rows<T, 4>(p, unroll, warps, stream);
+    case 8:
+      return launch_cols_rows<T, 8>(p, unroll, warps, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, int VEC, int ROWS>
@@ -853,22 +961,26 @@ int grid_scatter_rows_f32(const float* Y, const int* src, const float* s,
       static_cast<cudaStream_t>(stream));
 }
 
-int grid_gather_reduce_cols_f64(const double* Y, const int* src,
-                                const double* s, const double* t,
-                                double* out, long long B, int n2, int Na,
-                                int Ns, int Nc, void* stream) {
-  return launch_gather_reduce_cols<double>(
-      Y, src, s, t, out, B, n2, Na, Ns, Nc,
-      static_cast<cudaStream_t>(stream));
+int grid_gather_reduce_cols_f64(
+    const double* Y, const int* lsrc, const short* lcol,
+    const signed char* lsgn, const int* lpair, const int* lstart,
+    const double* t, double* out, long long B, int n2, int Na, int Ns, int Nc,
+    int tile, int rows, int unroll, int warps, int add, void* stream) {
+  const ColsArgs<double> p{Y,  lsrc, lcol, lsgn, lpair, lstart, t,   out,
+                           B,  n2,   Na,   Ns,   Nc,    tile,   add};
+  return launch_gather_reduce_cols<double>(p, rows, unroll, warps,
+                                           static_cast<cudaStream_t>(stream));
 }
 
-int grid_gather_reduce_cols_f32(const float* Y, const int* src,
-                                const float* s, const float* t, float* out,
-                                long long B, int n2, int Na, int Ns, int Nc,
-                                void* stream) {
-  return launch_gather_reduce_cols<float>(
-      Y, src, s, t, out, B, n2, Na, Ns, Nc,
-      static_cast<cudaStream_t>(stream));
+int grid_gather_reduce_cols_f32(
+    const float* Y, const int* lsrc, const short* lcol,
+    const signed char* lsgn, const int* lpair, const int* lstart,
+    const float* t, float* out, long long B, int n2, int Na, int Ns, int Nc,
+    int tile, int rows, int unroll, int warps, int add, void* stream) {
+  const ColsArgs<float> p{Y,  lsrc, lcol, lsgn, lpair, lstart, t,   out,
+                          B,  n2,   Na,   Ns,   Nc,    tile,   add};
+  return launch_gather_reduce_cols<float>(p, rows, unroll, warps,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

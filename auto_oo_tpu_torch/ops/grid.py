@@ -40,7 +40,8 @@ import torch
 
 from ..config import get_device
 from . import fermion
-from .grid_kernels import gather_reduce, gather_reduce_cols, gather_two_spin
+from .grid_kernels import (gather_reduce, gather_reduce_cols, gather_two_spin,
+                           reduce_cols_lists)
 
 
 class GridMaps:
@@ -173,6 +174,13 @@ class GridMaps:
         sel._scales = {dt: tuple(a.index_select(0, pairs) for a in v)
                        for dt, v in self._scales.items()}
         return sel
+
+    def col_lists(self):
+        """The beta maps' compacted column lists, the tables of
+        ``gather_reduce_cols`` on the card (``reduce_cols_lists`` of srcB
+        and sgnB), built once per maps."""
+        return self._cached("col_lists",
+                            lambda: reduce_cols_lists(self.srcB, self.sgnB))
 
     def transposed(self):
         """The maps of E_qp for each pair pq of these maps: E_pq^T = E_qp,
@@ -349,8 +357,9 @@ def _epq_impl(Y, gm):
     srcA, sgnA, tB, srcB, sgnB, tA = gm.tables(Y)
     Yg = Y.reshape(Y.shape[:-1] + (gm.Na, gm.Nb))
     out = gather_reduce(Yg, srcA, sgnA, tB)
-    # the beta half gathers inside the rows of Yg: no transposed copy
-    out += gather_reduce_cols(Yg, srcB, sgnB, tA)
+    # the beta half gathers inside the rows of Yg (no transposed copy) and
+    # adds into out
+    gather_reduce_cols(Yg, srcB, sgnB, tA, out=out, lists=gm.col_lists())
     return out.reshape(Y.shape[:-2] + (gm.dim,))
 
 

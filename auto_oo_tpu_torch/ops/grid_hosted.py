@@ -80,7 +80,8 @@ def _ham_chunk(acc, phi_c, rows, c1, C2, gm, r0, r1):
     srcA, sgnA, tB, srcB, sgnB, _ = gm.tables(yc)
     tA_k = _grid._row_tables(gm, yc, r0, r1)[2]
     scatter_rows(acc, yc, srcA, sgnA, tB, *_inverse_tables(gm, yc), r0)
-    acc[r0:r1] += gather_reduce_cols(yc, srcB, sgnB, tA_k)
+    gather_reduce_cols(yc, srcB, sgnB, tA_k, out=acc[r0:r1],
+                       lists=gm.col_lists())
 
 
 def rdms_hosted(psi, gm, ncas, row_chunk=None, grid_order=True):

@@ -10,7 +10,9 @@ on every route of the port, and ``gather_rows_scaled`` stays as the 1:1
 port that the row-gather probes time; ``gather_reduce_cols``: the column
 form of ``gather_reduce``, which reads the beta half of ``epq_sum`` in the
 grid's natural layout where the TPU wrapper first made a transposed copy
-of Y (pallas_grid.py:270); and ``scatter_rows``: the alpha half of the
+of Y (pallas_grid.py:270), walking lists of the maps' valid entries
+compacted once per maps (``reduce_cols_lists``) and adding into its
+caller's output where asked; and ``scatter_rows``: the alpha half of the
 hosted H-apply (auto_oo_tpu/ops/grid_hosted.py:260-262, an XLA scatter
 there), the windowed, accumulating form of ``gather_reduce``.  The CUDA
 source is ``csrc/grid_gather.cu``; its
@@ -43,16 +45,21 @@ _ARGS = [PTR, PTR, PTR, PTR, PTR, I64, I32, I32, I32, I32]
 # plan (vec, rows, threads, pairs); the stream
 _TWO_SPIN_ARGS = [PTR] * 8 + [I64] + [I32] * 9 + [PTR]
 
+# gather_reduce_cols: Y, the five list tensors, t, out; B; n2, Na, Ns, Nc,
+# the list tile, the plan (rows, unroll, warps) and add; the stream
+_COLS_ARGS = [PTR] * 8 + [I64] + [I32] * 9 + [PTR]
+
 #: the kernel library, built from csrc/grid_gather.cu at first use
 LIBRARY = CudaLibrary(
     os.path.join(CSRC_DIR, "grid_gather.cu"),
     {**{f"grid_{kern}_{sfx}": _ARGS + extra + [PTR]
         for kern, extra in (("gather_rows_scaled", []),
                             ("gather_reduce", [I32, I32, I32]),
-                            ("gather_reduce_cols", []),
                             ("scatter_rows", [I32, I32, I32, I32]))
         for sfx in _SUFFIX.values()},
      **{f"grid_gather_two_spin_{sfx}": _TWO_SPIN_ARGS
+        for sfx in _SUFFIX.values()},
+     **{f"grid_gather_reduce_cols_{sfx}": _COLS_ARGS
         for sfx in _SUFFIX.values()}})
 
 #: launches of each CUDA kernel through its wrapper (plain runs excluded)
@@ -92,11 +99,39 @@ def gather_reduce_plain(Y, src, s, t):
     return (G * s[:, :, None] * t[:, None, :]).sum(dim=-3)
 
 
-def gather_reduce_cols_plain(Y, src, s, t):
+def gather_reduce_cols_plain(Y, src, s, t, out=None):
     """out[..., a, c] = sum_k (Y[..., k, a, src[k, c]] * s[k, c]) * t[k, a]:
-    ``gather_reduce`` on the transposed copy of Y, transposed back."""
-    return gather_reduce_plain(Y.transpose(-1, -2).contiguous(), src, s,
-                               t).transpose(-1, -2)
+    ``gather_reduce`` on the transposed copy of Y, transposed back; with
+    ``out`` the sum is added to it in place (``out += sum``) and out is
+    returned."""
+    res = gather_reduce_plain(Y.transpose(-1, -2).contiguous(), src, s,
+                              t).transpose(-1, -2)
+    if out is None:
+        return res
+    out += res
+    return out
+
+
+def gather_reduce_cols_walk(Y, lists, t):
+    """The column form as the card's kernel sums it, in plain PyTorch: each
+    tile's list (``reduce_cols_lists``) walked group by group in order,
+    each group adding (Y[..., k, :, src] * sign) * t[k, :] into its output
+    columns, so every output element is summed over its valid k in
+    increasing order.  The reference of the lists' layout; a Python loop
+    over the groups, for small maps."""
+    Na = Y.shape[-2]
+    out = Y.new_zeros(Y.shape[:-3] + (Na, lists.Nc))
+    start, pair = lists.start.tolist(), lists.pair.tolist()
+    for tile in range(len(start) - 1):
+        for g in range(start[tile], start[tile + 1]):
+            e = slice(COLS_GROUP * g, COLS_GROUP * (g + 1))
+            live = lists.sgn[e] != 0
+            src = lists.src[e][live].long()
+            c = tile * lists.tile + lists.col[e][live].long()
+            sgn = lists.sgn[e][live].to(Y.dtype)
+            k = pair[g]
+            out[..., c] += (Y[..., k, :, src] * sgn) * t[k, :, None]
+    return out
 
 
 def scatter_rows_plain(acc, Y, src, s, t, dst, dsg, r0):
@@ -150,6 +185,122 @@ def plan_reduce(B, Na, Nb, n2, itemsize, aligned=True):
     per_list = n2 * (12 + itemsize) + (-(-n2 // 32) + 1) * 4
     rows = max(1, min(Na, REDUCE_BLOCK // per_row, _REDUCE_SMEM // per_list))
     return ReducePlan(vec, rows, _warps(rows * per_row))
+
+
+# ---- lists and launch plan of gather_reduce_cols ---------------------------
+
+#: entries per group of gather_reduce_cols' lists: one warp's loads
+COLS_GROUP = 32
+#: output columns per tile of the lists: COLS_TILE where the maps have at
+#: least two such tiles of columns, else COLS_TILE_NARROW (or the width
+#: rounded up to a warp, where that is less)
+COLS_TILE, COLS_TILE_NARROW = 256, 64
+#: gather_reduce_cols' plan: output rows per warp, list groups per step,
+#: warps per block (the kernel takes rows 1, 2, 4, 8, unroll 2, 4, 8 with
+#: rows * unroll <= 32, and at most 8 warps)
+COLS_ROWS, COLS_UNROLL, COLS_WARPS = 2, 4, 4
+# warps the grid should hold before rows per warp stop shrinking: 8 per
+# SM of the H100's 132
+_COLS_FILL = 8 * 132
+
+
+def cols_tile(Nc):
+    """The lists' default tile for Nc output columns.  Swept on an H100
+    (scripts/sweep_reduce_cols.py, f64, the wrapper's other choices
+    fixed): at (10e,10o) (Nc = 252, B = 5) 64 columns beat 256 (0.0656
+    against 0.0889 ms: four tiles give the grid four times the warps and
+    each warp a walk a quarter as long); from (12e,12o) (Nc = 924) on 256
+    was the best tile or within 0.5% of it (512 pads less but holds
+    fewer warps per SM)."""
+    if Nc >= 2 * COLS_TILE:
+        return COLS_TILE
+    return min(COLS_TILE_NARROW, _warps(Nc))
+
+
+class ColLists(NamedTuple):
+    """gather_reduce_cols' compacted tables of (src, s) (n2, Nc): per tile
+    of ``tile`` output columns, the valid (s != 0) entries in increasing
+    pair k (in increasing column within a pair), each pair's run padded
+    to whole groups of COLS_GROUP entries with sign 0 (src 0, col 0)."""
+    tile: int
+    n2: int
+    Nc: int
+    src: torch.Tensor    # (E,) int32 source column
+    col: torch.Tensor    # (E,) int16 output column within the tile
+    sgn: torch.Tensor    # (E,) int8 sign, +-1 (0: padding)
+    pair: torch.Tensor   # (E // COLS_GROUP,) int32 pair of each group
+    start: torch.Tensor  # (tiles + 1,) int32 first group of each tile
+
+
+def reduce_cols_lists(src, s, tile=None):
+    """The ``ColLists`` of the tables src (n2, Nc) and s (n2, Nc, signs +-1
+    or 0 in any dtype; ValueError otherwise), on their device; ``tile``
+    defaults to ``cols_tile(Nc)`` columns."""
+    n2, Nc = src.shape
+    tile = cols_tile(Nc) if tile is None else int(tile)
+    if not 1 <= tile <= 32767:
+        raise ValueError(f"gather_reduce_cols: a tile of {tile} columns")
+    if not bool(((s == 0) | (s == 1) | (s == -1)).all()):
+        raise ValueError("gather_reduce_cols: the card's kernel takes "
+                         "signs +-1 or 0 in s")
+    dev = src.device
+    tiles = -(-Nc // tile)
+    valid = torch.zeros((n2, tiles * tile), dtype=torch.bool, device=dev)
+    valid[:, :Nc] = s != 0
+    valid = valid.view(n2, tiles, tile)
+    groups = (valid.sum(-1) + COLS_GROUP - 1) // COLS_GROUP  # (n2, tiles)
+    per = groups.T.reshape(-1)  # groups of (tile, k), tile-major
+    first = (torch.cumsum(per, 0) - per).view(tiles, n2)
+    rank = torch.cumsum(valid, -1) - 1
+    k, tl, c = torch.nonzero(valid, as_tuple=True)
+    pos = first[tl, k] * COLS_GROUP + rank[k, tl, c]
+    n_ent = int(per.sum()) * COLS_GROUP
+    cols = tl * tile + c
+    lsrc = torch.zeros(n_ent, dtype=torch.int32, device=dev)
+    lsrc[pos] = src[k, cols].to(torch.int32)
+    lcol = torch.zeros(n_ent, dtype=torch.int16, device=dev)
+    lcol[pos] = c.to(torch.int16)
+    lsgn = torch.zeros(n_ent, dtype=torch.int8, device=dev)
+    lsgn[pos] = s[k, cols].to(torch.int8)
+    pair = torch.repeat_interleave(
+        torch.arange(n2, dtype=torch.int32, device=dev).repeat(tiles), per)
+    start = torch.zeros(tiles + 1, dtype=torch.int32, device=dev)
+    start[1:] = torch.cumsum(groups.sum(0), 0)
+    return ColLists(tile, n2, Nc, lsrc, lcol, lsgn, pair, start)
+
+
+class ReduceColsPlan(NamedTuple):
+    rows: int     # output rows per warp
+    unroll: int   # list groups per step (rows * unroll Y loads in flight)
+    warps: int    # warps per block
+
+
+def plan_reduce_cols(B, Na, Nc, tile, itemsize):
+    """gather_reduce_cols' launch plan.  A warp owns ``rows`` output rows of
+    one column tile (COLS_ROWS, halved while the grid holds fewer than
+    _COLS_FILL warps, or while one warp's rows x tile accumulators exceed
+    a block's shared memory) and takes ``unroll`` list groups per step;
+    a block packs up to COLS_WARPS warps within its shared memory.
+    (Swept on an H100 with scripts/sweep_reduce_cols.py over rows 1-8,
+    unroll 2-8 and 2-8 warps at tiles of 32-512 columns: 2 rows, 4 groups
+    and 4 warps were within 1% of the best plan at the (10e,10o),
+    (12e,12o), (14e,14o) and (16e,16o) shapes; every plan of a shape ran
+    within 7% of the best from (12e,12o) on, all near the rate at which
+    the card fetches the 128-byte lines that the valid entries touch.)
+    Raises ValueError when one row of a tile does not fit a block's shared
+    memory."""
+    if tile * itemsize > _BLOCK_SMEM:
+        raise ValueError(f"gather_reduce_cols: a tile of {tile} columns "
+                         f"does not fit a block's shared memory")
+    tiles = -(-Nc // tile)
+    rows = COLS_ROWS
+    while rows > 1 and (rows * tile * itemsize > _BLOCK_SMEM
+                        or B * tiles * -(-Na // rows) < _COLS_FILL):
+        rows //= 2
+    unroll = min(COLS_UNROLL, 32 // rows)
+    warps = max(1, min(COLS_WARPS, -(-Na // rows),
+                       _BLOCK_SMEM // (rows * tile * itemsize)))
+    return ReduceColsPlan(rows, unroll, warps)
 
 
 # ---- launch plan of gather_two_spin ----------------------------------------
@@ -375,20 +526,46 @@ def gather_reduce(Y, src, s, t):
     return out
 
 
-def gather_reduce_cols(Y, src, s, t):
+def gather_reduce_cols(Y, src, s, t, out=None, lists=None, plan=None):
     """out[..., a, c] = sum_k (Y[..., k, a, src[k, c]] * s[k, c]) * t[k, a].
 
     Y (..., n2, Na, Ns); src/s (n2, Nc); t (n2, Na) -> (..., Na, Nc):
     ``gather_reduce`` of the transposed Y, transposed back, read in
-    place.  CPU tensors take the plain version; CUDA tensors the kernel."""
+    place.  With ``out`` (a contiguous (..., Na, Nc) tensor) the sum is
+    added to it in place and out is returned: out + sum, the bits of
+    ``out += gather_reduce_cols(...)``.  CPU tensors take the plain
+    version; CUDA tensors the kernel, which walks the compacted lists of
+    (src, s) (``reduce_cols_lists``: s must hold signs +-1 or 0 there):
+    ``lists`` passes them (``GridMaps.col_lists()``, built once per
+    maps), None builds them here.  ``plan`` (a ``ReduceColsPlan``) replaces
+    ``plan_reduce_cols``'s, for sweeps."""
     if not _on_card("gather_reduce_cols", Y):
-        return gather_reduce_cols_plain(Y, src, s, t)
+        return gather_reduce_cols_plain(Y, src, s, t, out)
     B, Na, Ns = _check("gather_reduce_cols", Y, src, s, t, 3, t_axis=-2)
     n2, Nc = src.shape
-    out = torch.empty(Y.shape[:-3] + (Na, Nc), dtype=Y.dtype,
-                      device=Y.device)
-    _launch("gather_reduce_cols", Y.dtype, *_ptrs(Y, src, s, t, out), B, n2,
-            Na, Ns, Nc, _stream(Y))
+    shape = Y.shape[:-3] + (Na, Nc)
+    if lists is None:
+        lists = reduce_cols_lists(src, s)
+    if (lists.n2, lists.Nc) != (n2, Nc) or lists.src.device != Y.device:
+        raise ValueError(f"gather_reduce_cols: lists of {lists.n2} pairs x "
+                         f"{lists.Nc} columns on {lists.src.device} for "
+                         f"tables {tuple(src.shape)} on {Y.device}")
+    if out is None:
+        out = torch.empty(shape, dtype=Y.dtype, device=Y.device)
+        add = 0
+    elif (out.dtype != Y.dtype or out.device != Y.device
+          or not out.is_contiguous() or out.shape != shape):
+        raise ValueError(f"gather_reduce_cols: out {tuple(out.shape)} "
+                         f"{out.dtype} must be a contiguous {tuple(shape)} "
+                         f"{Y.dtype} tensor on {Y.device}")
+    else:
+        add = 1
+    if plan is None:
+        plan = plan_reduce_cols(B, Na, Nc, lists.tile, Y.element_size())
+    _launch("gather_reduce_cols", Y.dtype,
+            *_ptrs(Y, lists.src, lists.col, lists.sgn, lists.pair,
+                   lists.start, t, out), B, n2, Na, Ns, Nc, lists.tile,
+            *plan, add, _stream(Y))
     return out
 
 

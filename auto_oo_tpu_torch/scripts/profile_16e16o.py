@@ -106,8 +106,9 @@ def chunk_memory(oo, x):
     srcA, sgnA, tB, srcB, sgnB, _ = maps.tables(yc)
     _gk.scatter_rows(acc, yc, srcA, sgnA, tB,
                      *_gh._inverse_tables(maps, yc), r0)
-    acc[r0:r1] += _gk.gather_reduce_cols(
-        yc, srcB, sgnB, _grid._row_tables(maps, yc, r0, r1)[2])
+    _gk.gather_reduce_cols(yc, srcB, sgnB,
+                           _grid._row_tables(maps, yc, r0, r1)[2],
+                           out=acc[r0:r1], lists=maps.col_lists())
     mark("scatter + column form")
     del yc, acc
     print(f"  one chunk [{r0}, {r1}), GB above the resident set: "

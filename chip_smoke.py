@@ -22,9 +22,11 @@ prints its seconds:
    composite in turns (composite, kernel, kernel, composite);
    gather_rows_scaled and the row form of gather_reduce on both spin
    halves (the beta half on a transposed copy), the column form
-   gather_reduce_cols on the beta half in place (with the 32- and 64-byte
-   pieces of Y its valid elements touch); epq_sum in place against the
-   composite it replaced (transposed copy, two row-form launches,
+   gather_reduce_cols on the beta half in place, on the compacted lists of
+   its tables built once (with the 32- and 128-byte pieces of Y its valid
+   elements touch, and its shares of those floors; random tables with
+   signs in s: the kernel's lists hold int8 signs); epq_sum in place
+   against the composite it replaced (transposed copy, two row-form launches,
    transposed add), equal to rounding and timed in the same call in
    turns, with the transposed copy alone; the hosted route's alpha
    scatter scatter_rows on two windows of the maps' rows (the second
@@ -94,7 +96,8 @@ prints its seconds:
    versions (a slab of pairs at a time), timed beside their bounds: both
    halves of a Phi chunk through gather_rows_scaled, then gather_two_spin
    on the chunk (f64, against the composite in turns; f32 on the ragged
-   last window), the column form on the chunk's Y, and the
+   last window), the column form on the chunk's Y (and its add mode into
+   a window of an accumulator, the same bits as acc + the result), and the
    scatter on it (f64 and f32, the middle and the ragged last window, the
    same bits on two launches) beside index_add_ of its contributions;
    then E(0) within 1e-8 Ha of the RHF energy, one grad_hess at the
@@ -339,6 +342,31 @@ def reduce_bytes(Y, src, s, t, cols):
             + out)
 
 
+_COLS_LISTS = {}
+
+
+def cols_kernel(gk, Y, src, s, t, out=None):
+    """gk.gather_reduce_cols with the compacted lists of (src, s) built
+    once per pair of tables, as GridMaps.col_lists builds them once per
+    maps on the routes (so a timed call times the kernel alone)."""
+    hit = _COLS_LISTS.get((id(src), id(s)))
+    if hit is None or hit[0] is not src or hit[1] is not s:
+        hit = _COLS_LISTS[(id(src), id(s))] = (
+            src, s, gk.reduce_cols_lists(src, s))
+    return gk.gather_reduce_cols(Y, src, s, t, out=out, lists=hit[2])
+
+
+def floor_share(ms, Y, src, s):
+    """The column form's 32-byte sector floor and 128-byte line floor, and
+    their shares of ``ms``."""
+    out = ""
+    for size in (32, 128):
+        sec = sector_floor_bytes(Y, src, s, size)
+        out += (f" {size}-byte floor {sec / 1e6:.1f} MB {bound_ms(sec):.4f}"
+                f" ms (share {100 * bound_ms(sec) / ms:5.1f}%)")
+    return out
+
+
 def sector_floor_bytes(Y, src, s, sector=32):
     """The column form's sector floor: the ``sector``-byte pieces of Y
     that its valid elements touch (each valid (k, c) reads
@@ -399,7 +427,7 @@ def kernel_phase(torch, gk, gh, grid, dev):
     kern = {"gather_rows_scaled": (gk.gather_rows_scaled,
                                    gk.gather_rows_scaled_plain),
             "gather_reduce": (gk.gather_reduce, gk.gather_reduce_plain),
-            "gather_reduce_cols": (gk.gather_reduce_cols,
+            "gather_reduce_cols": (lambda *a: cols_kernel(gk, *a),
                                    gk.gather_reduce_cols_plain)}
     stats = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
                  "bound_ms": None, "library_ms": None}
@@ -462,12 +490,8 @@ def kernel_phase(torch, gk, gh, grid, dev):
                     ms = time_ms(lambda: fn(*args), torch)
                     one = launch_ms(lambda: fn(*args), torch)
                     pms = time_ms(lambda: plain(*args), torch)
-                    extra = ""
-                    if name == "gather_reduce_cols":
-                        for size in (32, 64):
-                            sec = sector_floor_bytes(*args[:3], size)
-                            extra += (f" {size}-byte floor {sec / 1e6:.1f} "
-                                      f"MB {bound_ms(sec):.4f} ms")
+                    extra = (floor_share(ms, *args[:3])
+                             if name == "gather_reduce_cols" else "")
                     print(f"  {name:18s} {label:26s} "
                           f"max_abs_err={err:.3e} rel={rel:.3e} "
                           f"kernel={ms:.4f} ms (one launch {one:.4f}) "
@@ -527,7 +551,8 @@ def kernel_phase(torch, gk, gh, grid, dev):
             Yc = Y.transpose(-1, -2).contiguous()
             for name, args in (("gather_rows_scaled", (x, srcd, s, t)),
                                ("gather_reduce", (Y, srcd, s, t)),
-                               ("gather_reduce_cols", (Yc, srcd, s, t))):
+                               ("gather_reduce_cols",
+                                (Yc, srcd, torch.sign(s), t))):
                 err, rel = compare(name, dtype, args,
                                    f"ragged {str(dtype)[6:]}")
                 print(f"  {name:18s} ragged (2,3)x({ns},{na},{nb}) n2={k2} "
@@ -1071,7 +1096,8 @@ def streamed_kernel_phase(torch, gk, grid, oo, stats):
         for name, half, args in (
                 ("gather_reduce", "alpha", (Y, srcA, sgnA, tB)),
                 ("gather_reduce_cols", "beta", (Y, srcB, sgnB, tA))):
-            fn = getattr(gk, name)
+            fn = (getattr(gk, name) if name == "gather_reduce"
+                  else lambda *a: cols_kernel(gk, *a))
             plain = getattr(gk, name + "_plain")
             out = fn(*args)
             ref = plain(*args)
@@ -1085,11 +1111,7 @@ def streamed_kernel_phase(torch, gk, grid, oo, stats):
             nbytes = reduce_bytes(*args, cols)
             ms = time_ms(lambda: fn(*args), torch)
             pms = time_ms(lambda: plain(*args), torch, reps=2, rounds=3)
-            extra = ""
-            if cols:
-                sec = sector_floor_bytes(*args[:3], 32)
-                extra = (f" 32-byte floor {sec / 1e6:.1f} MB "
-                         f"{bound_ms(sec):.4f} ms")
+            extra = floor_share(ms, *args[:3]) if cols else ""
             print(f"  {name:18s} 14e {half:5s} {tag} Y {tuple(Y.shape)} "
                   f"max_abs_err={err:.3e} rel={rel:.3e} kernel={ms:.4f} ms "
                   f"plain={pms:.4f} ms {_share(ms, nbytes)}{extra}")
@@ -1130,7 +1152,8 @@ def beyond_int32(torch, gk, gm, gen, stats, step=28):
         Y[k0:k0 + step].normal_(generator=gen)
     for name, tabs in (("gather_reduce", (srcA, sgnA, tB)),
                        ("gather_reduce_cols", (srcB, sgnB, tA))):
-        out = getattr(gk, name)(Y, *tabs)
+        out = (gk.gather_reduce(Y, *tabs) if name == "gather_reduce"
+               else cols_kernel(gk, Y, *tabs))
         plain = getattr(gk, name + "_plain")
         ref = sum(plain(Y[k0:k0 + step], *(a[k0:k0 + step] for a in tabs))
                   for k0 in range(0, n2, step))
@@ -1362,24 +1385,33 @@ def hosted_kernel_phase(torch, gk, gh, grid, oo, stats, step=28):
     torch.cuda.empty_cache()
     Y = torch.randn((n2, R, Nb), generator=gen, dtype=f64, device=dev)
     args = (Y, srcB, sgnB, tA_k)
-    out = gk.gather_reduce_cols(*args)
+    out = cols_kernel(gk, *args)
     ref = sum(gk.gather_reduce_cols_plain(*(a[k0:k0 + step] for a in args))
               for k0 in range(0, n2, step))
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     rel = err / max(float(ref.abs().max()), 1e-300)
-    del out, ref
+    del ref
     check(rel <= 1e-13, f"gather_reduce_cols 16e: relative error {rel:.3e}")
+    # the route's add mode into the window of an accumulator: acc + the
+    # kernel's result, bit for bit
+    acc = torch.randn((R, Nb), generator=gen, dtype=f64, device=dev)
+    added = cols_kernel(gk, *args, out=acc.clone())
+    check(torch.equal(added, acc + out), "gather_reduce_cols 16e: add mode "
+          "differs from out + the kernel's result")
+    del out, added
     nbytes = reduce_bytes(*args, True)
-    ms = time_ms(lambda: gk.gather_reduce_cols(*args), torch)
+    ms = time_ms(lambda: cols_kernel(gk, *args), torch)
+    add_ms = time_ms(lambda: cols_kernel(gk, *args, out=acc), torch)
+    del acc
     pms = time_ms(lambda: sum(gk.gather_reduce_cols_plain(
         *(a[k0:k0 + step] for a in args)) for k0 in range(0, n2, step)),
         torch, reps=2, rounds=3)
-    sec = sector_floor_bytes(*args[:3], 32)
     print(f"  gather_reduce_cols 16e beta  Y {tuple(Y.shape)} "
-          f"max_abs_err={err:.3e} rel={rel:.3e} kernel={ms:.4f} ms "
-          f"plain={pms:.4f} ms {_share(ms, nbytes)} 32-byte floor "
-          f"{sec / 1e6:.1f} MB {bound_ms(sec):.4f} ms")
+          f"max_abs_err={err:.3e} rel={rel:.3e} kernel={ms:.4f} ms (add "
+          f"mode {add_ms:.4f} ms, the same bits as out + kernel) "
+          f"plain={pms:.4f} ms {_share(ms, nbytes)}"
+          f"{floor_share(ms, *args[:3])}")
     st = stats["gather_reduce_cols"]
     st.update(max_abs_err=max(st["max_abs_err"], err), ms=ms, plain_ms=pms,
               bound_ms=bound_ms(nbytes))

@@ -24,7 +24,9 @@ as values (``torch.equal``) in f64 and f32; ``gather_rows_scaled`` takes
 the products in the plain version's order, so f64 agrees to the last
 bit (1e-15 relative, 1e-6 in f32); ``gather_reduce`` and
 ``gather_reduce_cols`` sum the pairs in another order (1e-13 relative in
-f64, 1e-5 in f32); ``scatter_rows`` adds its window's sum to acc once
+f64, 1e-5 in f32; the column form equals the plain walk of its compacted
+lists as values, ``gather_reduce_cols_walk``, which sums in its order);
+``scatter_rows`` adds its window's sum to acc once
 where ``index_add_`` adds term by term (1e-14 of max |out| in f64, 1e-6
 in f32).  The mechanism probes A, B and C take one product per element,
 so they equal their plain version bit for bit; B's and C's plans and
@@ -110,13 +112,16 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
         <= tol["reduce"]
 
 
-def _reduce_case(ns, na, nb, n2, lead, seed, dtype, device, empty=None):
+def _reduce_case(ns, na, nb, n2, lead, seed, dtype, device, empty=None,
+                 signs=False):
     """Random gather_reduce operands of a ragged shape, with invalid
     (src 0, s 0) entries; ``empty`` names one output row (of the row
-    form; a column of the column form) with no valid pair."""
+    form; a column of the column form) with no valid pair; ``signs``
+    makes s +-1 (the column form's kernel takes signs only)."""
     rng = np.random.default_rng(seed)
     src = rng.integers(0, ns, size=(n2, na)).astype(np.int32)
-    s = rng.standard_normal((n2, na))
+    s = (rng.choice([-1.0, 1.0], (n2, na)) if signs
+         else rng.standard_normal((n2, na)))
     invalid = rng.random((n2, na)) < 0.3
     if empty is not None:
         invalid[:, empty] = True
@@ -169,7 +174,10 @@ def test_cuda_reduce_forms_match_plain(cuda_device, dtype):
                                     cuda_device, empty=3)
         out = _check_reduce("gather_reduce", (Y, src, s, t), tol)
         assert not out[..., 3, :].any()
-        # the column form: Y rows along t, sources along its last axis
+        # the column form (signs in s): Y rows along t, sources along its
+        # last axis
+        Y, src, s, t = _reduce_case(ns, na, nb, n2, lead, 40, dtype,
+                                    cuda_device, empty=3, signs=True)
         Yc = Y.transpose(-1, -2).contiguous()
         out = _check_reduce("gather_reduce_cols", (Yc, src, s, t), tol)
         assert not out[..., :, 3].any()
@@ -180,6 +188,80 @@ def test_cuda_reduce_forms_match_plain(cuda_device, dtype):
     Ys.copy_(Y)
     assert Ys.data_ptr() % 16 != 0
     _check_reduce("gather_reduce", (Ys, src, s, t), tol)
+
+
+def _all_cols_plans(tile, itemsize):
+    """Every launch plan of gather_reduce_cols that fits shared memory."""
+    return [gk.ReduceColsPlan(r, u, w)
+            for r in (1, 2, 4, 8) for u in (2, 4, 8) for w in (1, 3, 8)
+            if r * u <= 32 and w * r * tile * itemsize <= 232448]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_reduce_cols_lists_match_plain(cuda_device, dtype):
+    """The column form's kernel on its compacted lists: equal to the plain
+    walk of the lists as values (the same sums in the same order) and to
+    the plain version within 1e-13 (1e-5 in f32) relative, one launch
+    each: the (6e,6o) beta maps at tiles of 8 (Nc = 20: a ragged last
+    tile) and 32, with B = 2 x 3 and every plan (the same values from
+    each); random sign maps (Nc = 37) where two pairs have no valid entry
+    in the first tile; the hosted route's ragged last window (a row
+    window of Y and of t) in add mode; add mode equal to out + the
+    kernel's result bit for bit."""
+    tol = TOL[dtype]["reduce"]
+    like = torch.zeros((), dtype=dtype, device=cuda_device)
+    pm = grid.build_grid_maps(6, 6, device=cuda_device)
+    _, _, _, srcB, sgnB, tA = pm.tables(like)
+    Y = _rand((2, 3, pm.n2, pm.Na, pm.Nb), 100).to(cuda_device, dtype)
+    ref = gk.gather_reduce_cols_plain(Y, srcB.long(), sgnB, tA)
+    for tile in (8, 32):
+        lists = gk.reduce_cols_lists(srcB, sgnB, tile)
+        walk = gk.gather_reduce_cols_walk(Y, lists, tA)
+        for plan in [None] + _all_cols_plans(tile, Y.element_size()):
+            before = gk.LAUNCHES["gather_reduce_cols"]
+            out = gk.gather_reduce_cols(Y, srcB, sgnB, tA, lists=lists,
+                                        plan=plan)
+            torch.cuda.synchronize()
+            assert gk.LAUNCHES["gather_reduce_cols"] == before + 1
+            assert torch.equal(out, walk), (tile, plan)
+        assert _rel_err(walk, ref) <= tol
+    # random sign maps over 37 columns: pairs 1 and 4 have no valid entry
+    # in the first tile of 16 columns
+    Y, src, s, t = _reduce_case(9, 37, 11, 6, (2,), 101, dtype, cuda_device,
+                                signs=True)
+    s[1, :16] = 0
+    s[4, :16] = 0
+    src[s == 0] = 0
+    lists = gk.reduce_cols_lists(src, s, 16)
+    first = lists.pair[:int(lists.start[1])].tolist()
+    assert 1 not in first and 4 not in first and 0 in first
+    Yc = Y.transpose(-1, -2).contiguous()
+    out = gk.gather_reduce_cols(Yc, src, s, t, lists=lists)
+    assert torch.equal(out, gk.gather_reduce_cols_walk(Yc, lists, t))
+    assert _rel_err(out, gk.gather_reduce_cols_plain(Yc, src.long(), s,
+                                                     t)) <= tol
+    # the hosted route: a ragged last window of 7 rows of (6e,6o)'s 20, Y
+    # of the window and t's window, added into the window of acc
+    r0, r1 = 13, pm.Na
+    tA_k = grid._row_tables(pm, like, r0, r1)[2]
+    Yw = _rand((pm.n2, r1 - r0, pm.Nb), 102).to(cuda_device, dtype)
+    acc0 = _rand((pm.Na, pm.Nb), 103).to(cuda_device, dtype)
+    acc = acc0.clone()
+    got = gk.gather_reduce_cols(Yw, srcB, sgnB, tA_k, out=acc[r0:r1],
+                                lists=pm.col_lists())
+    torch.cuda.synchronize()
+    assert got.data_ptr() == acc[r0:r1].data_ptr()
+    assert torch.equal(acc[:r0], acc0[:r0])
+    assert torch.equal(acc[r0:r1], acc0[r0:r1] + gk.gather_reduce_cols(
+        Yw, srcB, sgnB, tA_k, lists=pm.col_lists()))
+    assert _rel_err(acc[r0:r1], acc0[r0:r1] + gk.gather_reduce_cols_plain(
+        Yw, srcB.long(), sgnB, tA_k)) <= tol
+    # the card's lists take signs only, and out must match
+    with pytest.raises(ValueError, match="signs"):
+        gk.gather_reduce_cols(Yw, srcB, 0.5 * sgnB, tA_k)
+    with pytest.raises(ValueError, match="out"):
+        gk.gather_reduce_cols(Yw, srcB, sgnB, tA_k, out=acc)
 
 
 def _check_two_spin(xg, maps, r0, r1):
