@@ -1,8 +1,9 @@
 """Global numerical configuration for auto_oo_tpu_torch.
 
-The port works in float64 throughout (``DTYPE``); every tensor it creates
-names its dtype, and the global default dtype is left alone (the port's
-tests share a process with the JAX package's).
+The port works in float64 (``DTYPE``), but for the float32 Hessian blocks
+of ``OO_pqc(precision="mixed")``; every tensor it creates names its
+dtype, and the global default dtype is left alone (the port's tests share
+a process with the JAX package's).
 
 The port runs on the card: every entry point (``Parameterized_circuit``,
 ``OO_energy`` / ``OO_pqc``, ``GridMaps`` / ``build_grid_maps``, the grid

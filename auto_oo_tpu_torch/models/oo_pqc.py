@@ -38,16 +38,37 @@ time, with sizes chosen once from the free device memory
 (``grid.stream_plan``).  Where one full-Phi pass reaches the JAX
 package's hosting threshold ((16e,16o) on), the route is "hosted": the
 (n_theta, D) stacks of J and H J no longer fit beside the Phi chunks, so
-``grad_hess`` follows the JAX package's per-tangent hosted branch
-(``grad_hess_hosted``): one pass over Phi for (H psi, RDMs), then per
-tangent one pair sweep for J_i, one scatter-form H-apply (with the
-transition RDMs when n_kappa > 0) and one reverse pair sweep for the
-Hessian row (ops/grid_hosted.py, simulator/grid_program.py); the energy
-takes its RDMs from one hosted pass.  Later PRs of the port bring the
-Gram route of the hosted regime, ``precision="mixed"``,
+``grad_hess`` takes one of the JAX package's two hosted forms, chosen by
+its rule: where
+the (n_theta + 1, D) stack of psi and its tangent columns fits
+``grid_hosted._HOSTED_STACK_MAX_BYTES`` the "gram" form
+(``grad_hess_hosted_gram``): the n_theta pair sweeps fill the stack, one
+multi-state sweep over its Phi chunks (``grid_hosted.cross_hosted``)
+gives e0, the gradient, the quadratic term of the Hessian and every RDM
+gram, then one hosted H-apply of psi seeds one reverse pair sweep per
+Hessian row; else the "per_tangent" form (``grad_hess_hosted``): one
+pass over Phi for (H psi, RDMs), then per tangent one pair sweep for
+J_i, one scatter-form H-apply (with the transition RDMs when n_kappa >
+0) and one reverse pair sweep for the Hessian row (ops/grid_hosted.py,
+simulator/grid_program.py).  The energy takes its RDMs from one hosted
+pass.
+
+``precision="mixed"`` is the JAX package's mixed mode
+(auto_oo_tpu/models/oo_pqc.py:62-140): the Hessian blocks (J, H J, the
+circuit-Hessian sweep, the grams, the transition RDMs) run in float32
+on every route, energy, gradient, psi's RDMs and every Fock pack stay
+float64, and the Hessian is float64 for the solve.  On the hosted route
+the passes over Phi run on the float32 state, so e0 and the gradient
+carry float32-level error there, and the Armijo comparison takes the
+JAX package's hosted-mixed slack.  Float32 matmuls run at full float32
+precision (config.py); the sums over the state axis are
+``linalg.gram_last``'s.  Later PRs of the port bring
 ``device_loop=True``, ``energy_and_gradient`` and
 ``gradient_optimization``; those raise NotImplementedError here.
 """
+
+import contextlib
+import time
 
 import numpy as np
 import torch
@@ -59,7 +80,7 @@ from ..ops import hamiltonian as _ham
 from ..ops import kappa as _kappa
 from ..ops import rdms as _rdms
 from ..ops import transforms as _tr
-from ..ops.linalg import expm
+from ..ops.linalg import expm, gram_last
 from ..utils.newton_raphson import damped_newton_step_pure
 from .oo_energy import OO_energy
 
@@ -75,6 +96,15 @@ _CHUNK_ELEMENTS = 1 << 25
 # one J_i, one H J_i, and the reverse pair sweep's four grids with their
 # out-of-place temporaries
 _HOSTED_RESIDENT_VECTORS = 10
+
+_PRECISIONS = ("f64", "mixed")
+_HOSTED_FORMS = ("gram", "per_tangent")
+
+# the Armijo slack of the hosted mixed route, relative to max(1, |e0|):
+# its trial energies come from float32 passes (~1e-6 relative noise), so
+# the roundoff slack would burn every halving on precision
+# (auto_oo_tpu/models/oo_pqc.py:1057-1061)
+_HOSTED_MIXED_SLACK = 2e-6
 
 
 def _route(pqc, streamed=False):
@@ -92,10 +122,49 @@ def _route(pqc, streamed=False):
     return "staged" if D >= _STAGED_MIN_D else "fused"
 
 
-def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
+class _Parts:
+    """Host-clock seconds and peak device memory of the parts of a
+    grad_hess, summed by label over a call, while ``enabled`` (the
+    profile scripts): each part starts and ends in a synchronize.  Off, a
+    part is a bare ``with`` block."""
+
+    def __init__(self, device):
+        self.device = device
+        self.enabled = False
+        self.seconds = {}
+        self.peaks = {}
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def __call__(self, label):
+        if not self.enabled:
+            yield
+            return
+        self._sync()
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(self.device)
+        t0 = time.perf_counter()
+        yield
+        self._sync()
+        self.seconds[label] = (self.seconds.get(label, 0.0)
+                               + time.perf_counter() - t0)
+        if cuda:
+            self.peaks[label] = max(self.peaks.get(label, 0),
+                                    torch.cuda.max_memory_allocated(
+                                        self.device))
+
+
+def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
+                   precision="f64", hosted_form=None):
     """Geometry-independent functional core for one problem spec: the
     molecule arrays (int1e_ao, int2e_ao, oao_coeff, nuc) are arguments of
-    every function, so one core serves every geometry."""
+    every function, so one core serves every geometry.  ``hosted_form``
+    ("gram" or "per_tangent") forces the hosted route's form; by default
+    it follows the JAX package's rule (``grid_hosted.gram_fits``)."""
     route = _route(pqc, streamed=stream_plan is not None)
     params_idx = tuple(int(i) for i in params_idx)
     params_idx_dev = torch.as_tensor(np.asarray(params_idx, dtype=np.int64),
@@ -105,28 +174,65 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
     nt = int(pqc.theta_shape)
     ncas = pqc.ncas
     n2 = ncas * ncas
+    D = pqc.state_dim
     maps = pqc.epq_maps
     streamed = route == "streamed"
     hosted = route == "hosted"
-    plan = None
+    # mixed precision: the Hessian-only work runs in float32 (lp); the
+    # route is chosen on the f64 itemsize in both modes, as in the JAX
+    # package (oo_pqc.py:937-943)
+    mixed = precision == "mixed"
+    lp_dtype = torch.float32 if mixed else torch.float64
+    lp_size = 4 if mixed else 8
+
+    def lp(x):
+        return x.to(lp_dtype)
+
+    if hosted_form is not None and not hosted:
+        raise ValueError(f"hosted_form={hosted_form!r} on the {route} "
+                         "route: only the hosted route has forms")
+    form = None
+    if hosted:
+        form = hosted_form or ("gram" if _gh.gram_fits(nt, D, lp_size)
+                               else "per_tangent")
+    gram = form == "gram"
+    parts = _Parts(pqc.device)
+    # plan sizes the passes over f64 states, plan_lp those over the
+    # Hessian's lp states (the JAX package's f32 rows take 4-byte items,
+    # oo_pqc.py:594-595); one given stream_plan sizes both
+    plan = plan_lp = cross_rows = None
     if streamed or hosted:
         # the streamed grad_hess keeps psi, J, H psi, w and the H J rows
         # resident beside the Phi chunks and Y blocks; the hosted one O(D)
         vectors = _HOSTED_RESIDENT_VECTORS if hosted else 2 * nt + 4
-        plan = stream_plan or _grid.stream_plan(
-            maps, 1, 8, resident=vectors * pqc.state_dim * 8)
+        resident = vectors * D * 8
+        plan = stream_plan or _grid.stream_plan(maps, 1, 8, resident)
+        plan_lp = (stream_plan or _grid.stream_plan(maps, 1, 4, resident)
+                   if mixed else plan)
         budget = ("" if plan.budget is None
                   else f", {plan.budget / 1e9:.1f} GB budget")
         if hosted:
             # the per-tangent pass with n_kappa > 0 builds two Phi chunks
-            pair_rows = _grid._even(maps.Na, plan.row_chunk // 2)
-            print(f"OO_pqc: hosted route, row chunk {plan.row_chunk} of "
-                  f"{maps.Na} grid rows ({pair_rows} where a pass builds "
-                  f"two Phi chunks){budget}", flush=True)
+            pair_rows = _grid._even(maps.Na, plan_lp.row_chunk // 2)
+            extra = ""
+            if gram:
+                # the cross sweep runs beside the (nt + 1, D) stack
+                cross_rows = (stream_plan.row_chunk if stream_plan else
+                              _gh.cross_plan(maps, nt + 1, lp_size,
+                                             resident + (nt + 1) * D
+                                             * lp_size))
+                extra = (f"; cross sweep row chunk {cross_rows} for "
+                         f"{nt + 1} states")
+            print(f"OO_pqc: hosted route ({form} form, {precision}), row "
+                  f"chunk {plan_lp.row_chunk} of {maps.Na} grid rows "
+                  f"({pair_rows} where a pass builds two Phi chunks)"
+                  f"{extra}{budget}", flush=True)
         else:
+            lp_rows = (f" ({plan_lp.row_chunk} and {plan_lp.pair_block} "
+                       f"for the f32 Hessian rows)" if mixed else "")
             print(f"OO_pqc: streamed route, row chunk {plan.row_chunk} of "
                   f"{maps.Na} grid rows, pair block {plan.pair_block} of "
-                  f"{n2} pairs{budget}", flush=True)
+                  f"{n2} pairs{lp_rows}{budget}", flush=True)
 
     def k2m(kappa):
         total = torch.zeros(tril_size, dtype=kappa.dtype,
@@ -149,8 +255,10 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
             nuc, h1, g2, occ_rel, act_rel)
         psi = pqc._state_impl_grid(theta)
         if hosted:
-            one_rdm, two_rdm = _gh.rdms_hosted(psi, maps, ncas,
-                                               plan.row_chunk)
+            # mixed: the hosted RDM pass on the f32 state (the JAX
+            # package's energy_hosted); f64 accumulators
+            one_rdm, two_rdm = _gh.rdms_hosted(lp(psi), maps, ncas,
+                                               plan_lp.row_chunk)
         else:
             one_rdm, two_rdm = _rdms.rdms_from_state(
                 psi, ncas, maps, grid_order=True, plan=plan)
@@ -177,18 +285,20 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
         """d(gamma, Gamma)/d theta_i for a chunk of tangents Jc, by the
         product rule on the Phi gram of psi; on the streamed route (no
         phi) one tangent at a time through grid.transition_rdms_rows (the
-        JAX package's _row_streamed)."""
+        JAX package's _row_streamed).  The grams run in the operands'
+        dtype (f32 in mixed mode); the blocks are f64."""
         if phi is None:
             rows = [_grid.transition_rdms_rows(psi, Ji, maps, ncas,
-                                               plan.row_chunk) for Ji in Jc]
+                                               plan_lp.row_chunk)
+                    for Ji in Jc]
             dgamma = torch.stack([r[0] for r in rows])
             dgram = torch.stack([r[1] for r in rows])
         else:
             phiJ = _rdms.apply_epq_all(Jc, ncas, maps)   # (c, n^2, D)
             # d corr[a,b] = <dphi_a|phi_b> + <phi_a|dphi_b>
-            A = phiJ @ phi.T
+            A = gram_last(phiJ, phi)
             dgram = A + A.transpose(1, 2)
-            dgamma = phiJ @ psi + (phi @ Jc.T).T
+            dgamma = gram_last(phiJ, psi) + gram_last(phi, Jc).T
         return trdm_blocks(dgamma, dgram)
 
     def coefficients(oao, int1e_ao, int2e_ao, oao_coeff, nuc):
@@ -220,43 +330,113 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
             h1, g2, gamma, Gamma, occ, act)
         hess_oo = _fock.full_hessian_to_matrix(hess4, params_idx, nao)
         grad = torch.cat([grad_c, grad_o])
-        hess = torch.cat([torch.cat([hess_cc, hess_oc.T], dim=1),
+        # mixed: the f32 circuit block joins the f64 blocks as f64, for
+        # the solve (the JAX package's hess.astype(f64))
+        hess = torch.cat([torch.cat([hess_cc.to(grad.dtype), hess_oc.T],
+                                    dim=1),
                           torch.cat([hess_oc, hess_oo], dim=1)])
         return grad, hess
 
+    def unit(th, i):
+        v = torch.zeros_like(th)
+        v[i] = 1.0
+        return v
+
+    def zero_state(like):
+        """A zero cotangent (or tangent state) without a D-sized buffer."""
+        return like.new_zeros(()).expand(like.shape)
+
     def grad_hess_hosted(theta, h1, g2, c0, c1eff, c2):
-        """The hosted route's (e0, grad, hess): the JAX package's
+        """The hosted route's per-tangent form: the JAX package's
         per-tangent hosted branch (auto_oo_tpu/models/oo_pqc.py:770-819).
-        One pass over Phi gives H psi and psi's RDMs; then per tangent i
-        one pair sweep gives J_i, one pass gives H J_i (with the
-        transition RDMs of (psi, J_i) when n_kappa > 0), grad_c[i] =
-        2 <J_i, H psi>, and one reverse pair sweep gives the Hessian row
-        2 d/d theta [<psi(theta), H J_i> + <J(theta) e_i, H psi>].  J and
-        H J are never stacked."""
-        pair_rows = _grid._even(maps.Na, plan.row_chunk // 2)
-        psi = pqc._state_impl_grid(theta)
-        Hpsi, gamma, Gamma = _gh.ham_and_rdms_hosted(c1eff, c2, psi, maps,
-                                                     ncas, plan.row_chunk)
-        e0 = c0 + psi @ Hpsi
-        grad_c = theta.new_empty(nt)
+        One pass over Phi gives H psi and psi's RDMs; e0 = c0 + <psi, H
+        psi> and grad_c = d/d theta <psi(theta), 2 H psi> by one reverse
+        sweep in f64 (the JAX package's _grad_c_vjp: pair_row with v = 0
+        and no delta cotangent); then per tangent i one pair sweep gives
+        J_i, one pass gives H J_i (with the transition RDMs of (psi, J_i)
+        when n_kappa > 0), and one reverse pair sweep gives the Hessian
+        row 2 d/d theta [<psi(theta), H J_i> + <J(theta) e_i, H psi>].
+        J and H J are never stacked.  Mixed: the passes and the pair
+        sweeps run on f32 states and theta."""
+        pair_rows = _grid._even(maps.Na, plan_lp.row_chunk // 2)
+        with parts("state sweep"):
+            psi = pqc._state_impl_grid(theta)
+            psi_p = lp(psi)
+        with parts("(H psi, RDMs) pass"):
+            Hpsi, gamma, Gamma = _gh.ham_and_rdms_hosted(
+                c1eff, c2, psi_p, maps, ncas, plan_lp.row_chunk)
+        with parts("gradient sweep"):
+            Hpsi64 = Hpsi.to(psi.dtype)
+            e0 = c0 + psi @ Hpsi64
+            grad_c = pqc._pair_row_grid(theta, torch.zeros_like(theta),
+                                        2.0 * Hpsi64, zero_state(psi), psi,
+                                        zero_state(psi))
+            del Hpsi64
+        th_p = lp(theta)
         hess_cc = theta.new_empty((nt, nt))
         trdms = []
         for i in range(nt):
-            v = torch.zeros_like(theta)
-            v[i] = 1.0
-            Ji = pqc._pair_state_grid(theta, v)[1]
-            if n_kappa:
-                HJi, dgamma, dgram = _gh.ham_and_trdms_hosted(
-                    c1eff, c2, psi, Ji, maps, ncas, pair_rows)
-                trdms.append(trdm_blocks(dgamma, dgram))
-            else:
-                HJi = _gh.ham_apply_hosted(c1eff, c2, Ji, maps,
-                                           plan.row_chunk)
-            grad_c[i] = 2.0 * (Ji @ Hpsi)
-            hess_cc[i] = 2.0 * pqc._pair_row_grid(theta, v, HJi, Hpsi, psi,
-                                                  Ji)
+            v = unit(th_p, i)
+            with parts("pair sweeps (J_i)"):
+                Ji = pqc._pair_state_grid(th_p, v)[1]
+            with parts("H J_i passes"):
+                if n_kappa:
+                    HJi, dgamma, dgram = _gh.ham_and_trdms_hosted(
+                        c1eff, c2, psi_p, Ji, maps, ncas, pair_rows)
+                    trdms.append(trdm_blocks(dgamma, dgram))
+                else:
+                    HJi = _gh.ham_apply_hosted(c1eff, c2, Ji, maps,
+                                               plan_lp.row_chunk)
+            with parts("reverse pair sweeps (rows)"):
+                hess_cc[i] = 2.0 * pqc._pair_row_grid(th_p, v, HJi, Hpsi,
+                                                      psi_p, Ji)
             del Ji, HJi
         grad, hess = assemble(h1, g2, gamma, Gamma, grad_c, hess_cc, trdms)
+        return e0, grad, hess
+
+    def grad_hess_gram(theta, h1, g2, c0, c1eff, c2):
+        """The hosted route's Gram form: the JAX package's
+        grad_hess_hosted_gram (auto_oo_tpu/models/oo_pqc.py:704-761).  The
+        pair sweeps write psi and the n_theta tangent columns J_i into one
+        (nt + 1, Na, Nb) stack (f32 in mixed mode), one
+        ``grid_hosted.cross_hosted`` sweep over it gives <s_a|H|s_b>, so
+        e0, grad_c = 2 <J_i|H|psi> and term1 = 2 sym <J_i|H|J_j>, psi's
+        RDMs and, when n_kappa > 0, the transition RDMs; the stack is
+        freed, one hosted H-apply gives H psi, and one reverse pair sweep
+        per tangent gives the term2 row d/d theta <J(theta) e_i, 2 H psi>
+        (the JAX package's _t2_row_pair).  No tangent H-apply runs."""
+        th_p = lp(theta)
+        with parts("state sweep"):
+            psi_p = lp(pqc._state_impl_grid(theta))
+        S = psi_p.new_empty((nt + 1, maps.Na, maps.Nb))
+        S[0] = psi_p.reshape(maps.Na, maps.Nb)
+        for i in range(nt):
+            with parts("pair sweeps (J_i)"):
+                S[i + 1] = pqc._pair_state_grid(th_p, unit(th_p, i))[
+                    1].reshape(maps.Na, maps.Nb)
+        with parts("cross sweep"):
+            M1, gsmall, cross0 = _gh.cross_hosted(
+                S, c2, maps, ncas, cross_rows, tangent_grams=n_kappa > 0)
+        # the stack goes before the H-apply pass allocates its chunks
+        del S
+        with parts("H psi pass"):
+            Hpsi = _gh.ham_apply_hosted(c1eff, c2, psi_p, maps,
+                                        plan_lp.row_chunk)
+        ham = M1 + gsmall @ c1eff.reshape(n2).to(M1.dtype)
+        e0 = c0 + ham[0, 0]
+        grad_c = 2.0 * ham[1:, 0]
+        term1 = ham[1:, 1:] + ham[1:, 1:].T
+        gamma, Gamma = _grid.assemble_rdms(gsmall[0, 0], cross0[0], ncas)
+        trdms = ([trdm_blocks(gsmall[0, 1:] + gsmall[1:, 0],
+                              cross0[1:] + cross0[1:].transpose(1, 2))]
+                 if n_kappa else [])
+        t2 = torch.empty_like(term1)
+        for i in range(nt):
+            with parts("reverse pair sweeps (rows)"):
+                t2[i] = 2.0 * pqc._pair_row_grid(th_p, unit(th_p, i),
+                                                 zero_state(psi_p), Hpsi)
+        grad, hess = assemble(h1, g2, gamma, Gamma, grad_c, term1 + t2,
+                              trdms)
         return e0, grad, hess
 
     def grad_hess(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc):
@@ -272,35 +452,45 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
         h1, g2, c0, c1eff, c2 = coefficients(oao, int1e_ao, int2e_ao,
                                              oao_coeff, nuc)
         if hosted:
-            return grad_hess_hosted(theta, h1, g2, c0, c1eff, c2)
+            return (grad_hess_gram if gram else grad_hess_hosted)(
+                theta, h1, g2, c0, c1eff, c2)
 
-        def ham(chi):
-            return _ham.ham_apply(c1eff, c2, chi, ncas, maps, plan)
-
-        psi, J = pqc._state_and_jacobian_grid(theta)       # (D,), (nt, D)
-        Hpsi = ham(psi)
+        with parts("state + J sweep"):
+            psi, J = pqc._state_and_jacobian_grid(theta)   # (D,), (nt, D)
+        with parts("H psi"):
+            Hpsi = _ham.ham_apply(c1eff, c2, psi, ncas, maps, plan)
         e0 = c0 + psi @ Hpsi
         w = 2.0 * Hpsi
         grad_c = J @ w
-        D = psi.shape[0]
+        # mixed: from here on the Hessian-only work runs on f32 copies
+        # (the JAX package's lp(J), lowered tables and f32 theta)
+        J = lp(J)
         chunk = max(1, min(nt, _CHUNK_ELEMENTS // max(1, n2 * D)))
         chunks = [J[lo:lo + chunk] for lo in range(0, nt, chunk)]
-        HJ = torch.cat([ham(Jc) for Jc in chunks])
-        term2 = pqc._state_hessian_dot_grid(theta, w, psi, J)
-        hess_cc = 2.0 * (J @ HJ.T) + term2
+        with parts(f"H J ({nt} rows)"):
+            HJ = torch.cat([_ham.ham_apply(c1eff, c2, Jc, ncas, maps,
+                                           plan_lp) for Jc in chunks])
+        with parts("circuit-Hessian sweep"):
+            term2 = pqc._state_hessian_dot_grid(lp(theta), lp(w), lp(psi),
+                                                J)
+        hess_cc = 2.0 * gram_last(J, HJ) + term2
         del HJ
 
-        if streamed:
-            # no (n^2, D) Phi: every RDM streams its own over grid rows
-            phi = None
-            gamma, Gamma = _rdms.rdms_from_state(psi, ncas, maps,
-                                                 grid_order=True, plan=plan)
-        else:
-            phi = _rdms.apply_epq_all(psi, ncas, maps)     # (n^2, D)
-            gamma, Gamma = _rdms.rdms_from_gram(phi, psi, ncas)
-        grad, hess = assemble(h1, g2, gamma, Gamma, grad_c, hess_cc,
-                              (transition_rdms(phi, psi, Jc)
-                               for Jc in chunks))
+        with parts("RDMs of psi"):
+            if streamed:
+                # no (n^2, D) Phi: every RDM streams its own over grid rows
+                phi = None
+                gamma, Gamma = _rdms.rdms_from_state(
+                    psi, ncas, maps, grid_order=True, plan=plan)
+            else:
+                phi = _rdms.apply_epq_all(psi, ncas, maps)     # (n^2, D)
+                gamma, Gamma = _rdms.rdms_from_gram(phi, psi, ncas)
+        phi_p = None if phi is None else lp(phi)
+        psi_p = lp(psi)
+        with parts("transition RDMs and Fock blocks"):
+            grad, hess = assemble(h1, g2, gamma, Gamma, grad_c, hess_cc,
+                                  (transition_rdms(phi_p, psi_p, Jc)
+                                   for Jc in chunks))
         return e0, grad, hess
 
     def newton_update(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc, e0,
@@ -316,7 +506,8 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
                                               device=theta.device)])
         new_flat, lowest, t, e_t = damped_newton_step_pure(
             objective, flat0, grad, hess, alpha=alpha, beta=beta, mu=mu,
-            rho=rho, lambda_min=lambda_min, e0=e0)
+            rho=rho, lambda_min=lambda_min, e0=e0,
+            min_rel_slack=_HOSTED_MIXED_SLACK if mixed and hosted else 0.0)
         new_theta = new_flat[:nt]
         new_kappa = new_flat[nt:]
         # e_t IS the energy at (new_theta, new_oao): folding kappa into
@@ -335,26 +526,35 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None):
 
     return {"energy": energy, "grad_hess": grad_hess,
             "newton_update": newton_update, "nr_iteration": nr_iteration,
-            "route": route, "plan": plan}
+            "route": route, "hosted_form": form, "precision": precision,
+            "plan": plan, "plan_lp": plan_lp, "cross_rows": cross_rows,
+            "parts": parts}
 
 
 class OO_pqc(OO_energy):
     """Orbital-optimized PQC energy (reference oo_pqc.py:30), on the
     circuit's device.
 
-    ``stream_plan`` (a grid.StreamPlan) forces the streamed route with
-    that row chunk and pair block below the hosting threshold (it holds
-    the streamed route against the fused one at a small D), and sets the
-    hosted route's row chunk at or above it; by default the route follows
-    the JAX package's rule and, when streamed or hosted, its sizes come
-    from the free device memory at construction."""
+    ``precision`` is "f64" or "mixed" (the Hessian blocks in float32,
+    see the module docstring).  ``stream_plan`` (a grid.StreamPlan)
+    forces the streamed route with that row chunk and pair block below
+    the hosting threshold (it holds the streamed route against the fused
+    one at a small D), and sets the hosted route's row chunks at or above
+    it; by default the route follows the JAX package's rule and, when
+    streamed or hosted, its sizes come from the free device memory at
+    construction.  ``hosted_form`` ("gram" or "per_tangent") forces the
+    hosted route's form (a ValueError on any other route); by default
+    it is the JAX package's choice (``_core["hosted_form"]``)."""
 
     def __init__(self, pqc, mol, ncas, nelecas, oao_mo_coeff=None,
                  freeze_active=False, interface=None, newton_method=None,
-                 precision="f64", stream_plan=None):
-        if precision != "f64":
-            raise NotImplementedError(
-                f"precision={precision!r} comes in a later PR of the port")
+                 precision="f64", stream_plan=None, hosted_form=None):
+        if precision not in _PRECISIONS:
+            raise ValueError(f"precision must be one of {_PRECISIONS}, "
+                             f"got {precision!r}")
+        if hosted_form not in (None,) + _HOSTED_FORMS:
+            raise ValueError(f"hosted_form must be one of {_HOSTED_FORMS}"
+                             f", got {hosted_form!r}")
         if newton_method not in (None, "eigh"):
             raise NotImplementedError(
                 "the port solves the Newton step by eigh only")
@@ -364,7 +564,8 @@ class OO_pqc(OO_energy):
         self.newton_method = newton_method
         self.precision = precision
         self._core = _build_nr_core(pqc, self.nao, self._occ, self._act,
-                                    self.params_idx, stream_plan)
+                                    self.params_idx, stream_plan, precision,
+                                    hosted_form)
         self._mol_args = (self.int1e_ao, self.int2e_ao, self.oao_coeff,
                           self.nuc)
 

@@ -42,6 +42,7 @@ from ..config import get_device
 from . import fermion
 from .grid_kernels import (gather_reduce, gather_reduce_cols, gather_two_spin,
                            reduce_cols_lists)
+from .linalg import gram_last
 
 
 class GridMaps:
@@ -579,15 +580,15 @@ def rdms_rows(psi, gm, ncas, row_chunk):
     grid A-rows: each chunk of Phi is made once and consumed by the
     (n2, L) x (L, n2) gram; one pass over Phi, one chunk live.  The
     accumulators are f64 whatever the state's dtype (the JAX package's
-    hosted RDMs)."""
+    hosted RDMs; an f32 state's grams are ``gram_last``'s)."""
     n2 = gm.n2
     psig = psi.contiguous().reshape(gm.Na, gm.Nb)
     gamma = psi.new_zeros(n2, dtype=torch.float64)
     corr = psi.new_zeros((n2, n2), dtype=torch.float64)
     for r0, r1 in _row_chunks(gm.Na, row_chunk):
         phi_c = _phi_chunk(psig, gm, r0, r1).reshape(n2, -1)
-        gamma += phi_c @ psig[r0:r1].reshape(-1)
-        corr += phi_c @ phi_c.T
+        gamma += gram_last(phi_c, psig[r0:r1].reshape(-1))
+        corr += gram_last(phi_c, phi_c)
         del phi_c
     return assemble_rdms(gamma, corr, ncas)
 
@@ -601,18 +602,20 @@ def transition_rdms_rows(psi, tpsi, gm, ncas, row_chunk):
         dcorr[pq,rs] = <E_qp tpsi|E_rs psi> + <E_qp psi|E_rs tpsi>
 
     the pair order of the fused route's dense formulas.  Both Phi chunks
-    are made once per row chunk.  Returns (dgamma (n2,), dcorr (n2, n2))."""
+    are made once per row chunk.  Returns (dgamma (n2,), dcorr (n2, n2)),
+    f64 accumulators whatever the states' dtype (an f32 pair's grams are
+    ``gram_last``'s)."""
     n2 = gm.n2
     psig = psi.contiguous().reshape(gm.Na, gm.Nb)
     tpsig = tpsi.contiguous().reshape(gm.Na, gm.Nb)
-    dgamma = psi.new_zeros(n2)
-    dcorr = psi.new_zeros((n2, n2))
+    dgamma = psi.new_zeros(n2, dtype=torch.float64)
+    dcorr = psi.new_zeros((n2, n2), dtype=torch.float64)
     for r0, r1 in _row_chunks(gm.Na, row_chunk):
         phi_p = _phi_chunk(psig, gm, r0, r1).reshape(n2, -1)
         phi_t = _phi_chunk(tpsig, gm, r0, r1).reshape(n2, -1)
-        dgamma += (phi_t @ psig[r0:r1].reshape(-1)
-                   + phi_p @ tpsig[r0:r1].reshape(-1))
-        A = phi_t @ phi_p.T
+        dgamma += (gram_last(phi_t, psig[r0:r1].reshape(-1))
+                   + gram_last(phi_p, tpsig[r0:r1].reshape(-1)))
+        A = gram_last(phi_t, phi_p)
         dcorr += A + A.T
         del phi_p, phi_t
     return dgamma, dcorr

@@ -21,12 +21,19 @@ the math stays:
 * ``ham_and_rdms_hosted``: both of the above from one pass;
 * ``ham_and_trdms_hosted``: H|t> and the transition-RDM grams of
   (psi, t) from one pass that builds both Phi chunks, so its default row
-  chunk is half the single-Phi one.
+  chunk is half the single-Phi one;
+* ``cross_hosted``: the Gram route's multi-state sweep (the JAX package's
+  ``cross_hosted``, grid_hosted.py:460-582): one pass over the Phi chunks
+  of a (B, Na, Nb) stack of states gives every <s_a|H|s_b> and the RDM
+  grams of the first state against all, so the Hessian's tangent
+  H-applies never run (``gram_fits`` says where the stack fits).
 
 Each Phi chunk is ``grid._phi_chunk`` (one ``gather_two_spin`` launch for
-both spin halves).  H|x> stays in the state's dtype; the RDM accumulators are f64.
-Row chunks default to ``grid.stream_plan`` (the free device memory on the
-card); the callers in models/oo_pqc.py pass the plan sized once at
+both spin halves, over every state of a stack).  H|x> stays in the
+state's dtype; the RDM and Gram accumulators are f64, and an f32 state's
+grams are ``linalg.gram_last``'s (f32 products, f64 sums of pieces).  Row
+chunks default to ``grid.stream_plan`` (the free device memory on the
+card); the callers in models/oo_pqc.py pass the plans sized once at
 construction.
 """
 
@@ -34,6 +41,7 @@ import torch
 
 from . import grid as _grid
 from .grid_kernels import gather_reduce_cols, scatter_rows
+from .linalg import gram_last
 
 # one full-Phi pass of this many f64 bytes or more takes the hosted route:
 # the JAX package's threshold (auto_oo_tpu/ops/grid_hosted.py:63-75), so
@@ -42,10 +50,24 @@ from .grid_kernels import gather_reduce_cols, scatter_rows
 _HOSTED_MIN_BYTES = 64e9
 
 
+# the hosted route takes the Gram form where the (n_theta + 1, D) stack of
+# psi and its tangent columns is at most this many bytes: the JAX
+# package's budget (auto_oo_tpu/models/oo_pqc.py:763-768), so every
+# problem takes the same form in both packages; (16e,16o) is 19.9 GB in
+# f64 (per-tangent) and 9.9 GB in mixed precision (Gram)
+_HOSTED_STACK_MAX_BYTES = 11e9
+
+
 def needs_hosting(gm, itemsize=8):
     """True when one full-Phi pass over ``gm`` reaches the hosting
     threshold."""
     return gm.n2 * gm.Na * gm.Nb * itemsize >= _HOSTED_MIN_BYTES
+
+
+def gram_fits(n_theta, dim, itemsize):
+    """True when the Gram route's stack of n_theta + 1 states of ``dim``
+    items of ``itemsize`` bytes fits its budget."""
+    return (n_theta + 1) * dim * itemsize <= _HOSTED_STACK_MAX_BYTES
 
 
 def _inverse_tables(gm, like):
@@ -123,8 +145,8 @@ def ham_and_rdms_hosted(c1eff, c2, x, gm, ncas, row_chunk=None):
     for r0, r1 in _grid._row_chunks(gm.Na, _row_chunk(gm, row_chunk, 1, x)):
         phi_c = _grid._phi_chunk(xg, gm, r0, r1)
         phi_f = phi_c.reshape(n2, -1)
-        gamma += phi_f @ xg[r0:r1].reshape(-1)
-        corr += phi_f @ phi_f.T
+        gamma += gram_last(phi_f, xg[r0:r1].reshape(-1))
+        corr += gram_last(phi_f, phi_f)
         _ham_chunk(acc, phi_c, xg[r0:r1], c1, C2, gm, r0, r1)
         del phi_c, phi_f
     gamma, Gamma = _grid.assemble_rdms(gamma, corr, ncas)
@@ -150,12 +172,66 @@ def ham_and_trdms_hosted(c1eff, c2, psi, tpsi, gm, ncas, row_chunk=None):
         phi_p = _grid._phi_chunk(psig, gm, r0, r1).reshape(n2, -1)
         phi_t = _grid._phi_chunk(tg, gm, r0, r1)
         phi_tf = phi_t.reshape(n2, -1)
-        dgamma += (phi_tf @ psig[r0:r1].reshape(-1)
-                   + phi_p @ tg[r0:r1].reshape(-1))
-        A = phi_tf @ phi_p.T
+        dgamma += (gram_last(phi_tf, psig[r0:r1].reshape(-1))
+                   + gram_last(phi_p, tg[r0:r1].reshape(-1)))
+        A = gram_last(phi_tf, phi_p)
         dcorr += A + A.T
         # the state's chunk is done: free it before Y is made
         del phi_p
         _ham_chunk(acc, phi_t, tg[r0:r1], c1, C2, gm, r0, r1)
         del phi_t, phi_tf
     return acc.reshape(-1), dgamma, dcorr
+
+
+def cross_plan(gm, B, itemsize, resident=0):
+    """The cross sweep's row chunk for B states: ``grid.stream_plan``
+    sized for ~4 live (B, n2, rows, Nb) blocks (the JAX package's
+    ``cross_stack_spec``, grid_hosted.py:515-524): the Phi chunk, its C2
+    product and the GEMMs' partial sums."""
+    return _grid.stream_plan(gm, 4 * B, itemsize, resident).row_chunk
+
+
+def cross_hosted(states, c2, gm, ncas, row_chunk=None, tangent_grams=True):
+    """The Gram route's sweep over a stack of B GRID-ordered states
+    (state 0 is psi, the others its tangent columns): states (B, D) or
+    (B, Na, Nb), one dtype.  Per chunk of grid rows, one
+    ``gather_two_spin`` launch builds the (B, n2, rows, Nb) Phi chunk of
+    every state, and GEMMs add into f64 accumulators
+
+      M1     (B, B)       M1[a, b] = sum_pq <E_qp s_a, (C2 Phi(s_b))_pq>
+      gsmall (B, B, n2)   gsmall[a, b, p] = <s_a, E_p s_b>
+      cross0 (B, n2, n2)  cross0[b, p, q] = <E_p s_0, E_q s_b>
+
+    so that <s_a|H|s_b> = M1[a, b] + gsmall[a, b] @ c1eff (gamma =
+    gsmall[0, 0], corr = cross0[0]; the transition RDMs of s_b read
+    gsmall[0, b], gsmall[b, 0] and cross0[b]).  The pair transpose
+    E_pq^T = E_qp is an involution, so M1 takes C2's rows permuted once
+    (sum_q <Phi_q(s_a), (C2[permT] Phi(s_b))_q>) where the JAX package
+    gathered each chunk's Phi at permT.  With ``tangent_grams`` False
+    only cross0[0] is summed (the rows b > 0 stay zero): the transition
+    RDMs are read only when the problem has orbital rotations.  The row
+    chunk defaults to ``cross_plan``."""
+    n2, Na, Nb = gm.n2, gm.Na, gm.Nb
+    S = states.contiguous().reshape(-1, Na, Nb)
+    B = S.shape[0]
+    if row_chunk is None:
+        row_chunk = cross_plan(gm, B, S.element_size())
+    C2t = c2.reshape(n2, n2)[gm.pair_perm()].to(S.dtype)
+    M1 = S.new_zeros((B, B), dtype=torch.float64)
+    gsmall = S.new_zeros((B, B, n2), dtype=torch.float64)
+    cross0 = S.new_zeros((B, n2, n2), dtype=torch.float64)
+    for r0, r1 in _grid._row_chunks(Na, row_chunk):
+        phi = _grid._phi_chunk(S, gm, r0, r1).reshape(B, n2, -1)
+        flat = phi.reshape(B * n2, -1)
+        W = torch.matmul(C2t, phi)
+        M1 += gram_last(phi.reshape(B, -1), W.reshape(B, -1))
+        del W
+        gsmall += gram_last(S[:, r0:r1].reshape(B, -1), flat).reshape(
+            B, B, n2)
+        if tangent_grams:
+            cross0 += gram_last(phi[0], flat).reshape(n2, B, n2).transpose(
+                0, 1)
+        else:
+            cross0[0] += gram_last(phi[0], phi[0])
+        del phi, flat
+    return M1, gsmall, cross0

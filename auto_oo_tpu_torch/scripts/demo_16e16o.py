@@ -4,10 +4,13 @@
 
 Port of scripts/demo_16e16o.py, with its argv: the H16 chain
 ``"; ".join(f"H 0 0 {0.9 * i:.2f}" for i in range(16))`` in sto-3g,
-sector ``np_fabric`` (n_layers 1 by default), ``freeze_active=True``, f64,
+sector ``np_fabric`` (n_layers 1 by default), ``freeze_active=True``,
 from the demo's theta0 = 0.02 * arange(n_theta).  One f64 state is 1.325
 GB and one (n2, D) Phi would be 339 GB, so ``OO_pqc`` takes the hosted
-route (models/oo_pqc.py, ops/grid_hosted.py).  Runs on the card only.
+route (models/oo_pqc.py, ops/grid_hosted.py): its per-tangent form in
+f64, its Gram form in mixed precision (the (n_theta + 1, D) stack is
+19.9 GB in f64, 9.9 GB in f32), as in the JAX package.  Runs on the card
+only.
 
 Stages (argv 2, comma-separated, default "state,rdms,energy"), each
 printing its seconds:
@@ -17,11 +20,12 @@ printing its seconds:
   energy  E(theta0), and E(0) against the RHF energy, through
           ``OO_pqc.energy_from_parameters`` (one hosted RDM pass each)
   nr      3 second-order damped-Newton iterations from theta0 through the
-          hosted route (``OO_pqc._nr_iteration``)
+          hosted route (``OO_pqc._nr_iteration``), f64
+  nrmixed the same through ``precision="mixed"``
 
 The JAX demo's other stages raise NotImplementedError, each naming the
-ROADMAP queue 1 item that brings it: s2 (item 6), grad and adam (item
-2), gradmixed, adammixed and nrmixed (item 4).
+ROADMAP queue 1 item that brings it: s2 (item 6), grad, adam, gradmixed
+and adammixed (item 2, the gradient-only pipeline).
 """
 
 import sys
@@ -29,19 +33,49 @@ import time
 
 import torch
 
+import auto_oo_tpu_torch as P
+
 GEOMETRY = "; ".join(f"H 0 0 {0.9 * i:.2f}" for i in range(16))
 STEP = (1e-4, 0.5, 1e-6, 1.1, 1e-6)   # alpha, beta, mu, rho, lambda_min
-_REFUSED = {"s2": 6, "grad": 2, "adam": 2, "gradmixed": 4, "adammixed": 4,
-            "nrmixed": 4}
+_REFUSED = {"s2": 6, "grad": 2, "adam": 2, "gradmixed": 2, "adammixed": 2}
+_NR_STAGES = {"nr": "f64", "nrmixed": "mixed"}
 
 
 def _synced(fn):
-    """fn() and its seconds on the host clock, ending in a synchronize."""
-    torch.cuda.synchronize()
+    """fn() and its seconds on the host clock, ending in a synchronize
+    where a card is in use."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else None
+    if sync:
+        sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    if sync:
+        sync()
     return out, time.perf_counter() - t0
+
+
+def nr_stage(pqc, mol, ncas, nelecas, theta, precision, iterations=3):
+    """The nr / nrmixed stage: ``iterations`` damped-Newton iterations
+    from ``theta`` through an ``OO_pqc`` of ``precision`` (freeze_active),
+    each printed with its seconds; the energies must descend (mixed
+    energies carry ~1e-6 relative noise, the JAX demo's 1e-5 slack).
+    Returns (the OO_pqc, the energies)."""
+    oo = P.OO_pqc(pqc, mol, ncas, nelecas, freeze_active=True,
+                  precision=precision)
+    core = oo._core
+    print(f"OO_pqc ({precision}): route {core['route']}, hosted form "
+          f"{core['hosted_form']}", flush=True)
+    th, oao = theta, oo.oao_mo_coeff
+    es = []
+    for i in range(iterations):
+        (th, _, oao, e, low), sec = _synced(
+            lambda: oo._nr_iteration(th, oao, *STEP))
+        es.append(float(e))
+        print(f"NR iter {i + 1} ({precision}): {sec:.1f} s  E = "
+              f"{es[-1]:.10f}  lam0 = {float(low):.3e}", flush=True)
+    slack = 1e-5 if precision == "mixed" else 1e-10
+    assert es[-1] <= es[0] + slack, es
+    return oo, es
 
 
 def main(argv=None):
@@ -53,13 +87,11 @@ def main(argv=None):
             raise NotImplementedError(
                 f"stage {st!r} comes in a later PR of the port (ROADMAP "
                 f"queue 1 item {_REFUSED[st]})")
-        if st not in ("state", "rdms", "energy", "nr"):
+        if st not in ("state", "rdms", "energy") and st not in _NR_STAGES:
             raise ValueError(f"unknown stage {st!r}")
     if not torch.cuda.is_available():
         print("demo_16e16o: needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    import auto_oo_tpu_torch as P
-
     ncas = nelecas = 16
     mol, sec = _synced(lambda: P.Moldata(GEOMETRY, "sto-3g"))
     mol.run_rhf()
@@ -91,14 +123,14 @@ def main(argv=None):
         print(f"RDMs: {sec:.2f} s  tr gamma = {tr:.10f}  sum-rule err = "
               f"{sum_err:.1e}", flush=True)
         assert abs(tr - nelecas) < 1e-8 and sum_err < 1e-8
-    if not {"energy", "nr"} & set(stages):
+    if "energy" not in stages and not set(_NR_STAGES) & set(stages):
         print("DEMO OK", flush=True)
         return 0
-    oo, sec = _synced(lambda: P.OO_pqc(pqc, mol, ncas, nelecas,
-                                       freeze_active=True))
-    print(f"OO_pqc setup: {sec:.1f} s (route {oo._core['route']})",
-          flush=True)
     if "energy" in stages:
+        oo, sec = _synced(lambda: P.OO_pqc(pqc, mol, ncas, nelecas,
+                                           freeze_active=True))
+        print(f"OO_pqc setup: {sec:.1f} s (route {oo._core['route']})",
+              flush=True)
         e, sec = _synced(lambda: float(oo.energy_from_parameters(theta)))
         print(f"E(theta0) = {e:.10f} Ha ({sec:.2f} s)", flush=True)
         e0, sec = _synced(lambda: float(oo.energy_from_parameters(
@@ -107,16 +139,11 @@ def main(argv=None):
               f" diff {e0 - mol.hf.e_tot:+.2e}: the HF determinant in the "
               f"active space", flush=True)
         assert abs(e0 - mol.hf.e_tot) < 1e-6, (e0, mol.hf.e_tot)
-    if "nr" in stages:
-        th, oao = theta, oo.oao_mo_coeff
-        es = []
-        for i in range(3):
-            (th, _, oao, e, low), sec = _synced(
-                lambda: oo._nr_iteration(th, oao, *STEP))
-            es.append(float(e))
-            print(f"NR iter {i + 1} (f64): {sec:.1f} s  E = {es[-1]:.10f}  "
-                  f"lam0 = {float(low):.3e}", flush=True)
-        assert es[-1] <= es[0] + 1e-10, es
+        del oo
+    for stage, precision in _NR_STAGES.items():
+        if stage in stages:
+            nr_stage(pqc, mol, ncas, nelecas, theta, precision)
+            torch.cuda.empty_cache()
     print("DEMO OK", flush=True)
     return 0
 

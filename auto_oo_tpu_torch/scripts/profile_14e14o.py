@@ -1,18 +1,22 @@
 """Where the time goes in one (14e,14o) damped-Newton iteration on the card.
 
     python -m auto_oo_tpu_torch.scripts.profile_14e14o [n_warm]
+        [--precision f64|mixed]
 
 Builds the H14 chain of scripts/bench_14e14o.py (sto-3g, np_fabric L=1,
-freeze_active, f64, D = 11,778,624; the streamed route), runs ``n_warm``
-NR iterations from init_zeros (default 1), then takes the next iteration
-apart on the host clock (each part ends in a synchronize): the state + J
-sweep, H psi, the H J rows, the circuit-Hessian sweep, the RDMs, and
-the whole grad_hess and Newton update (eigh, line search, MO fold).
-Then it runs that iteration again under torch.profiler and prints the
-device time by kernel and the device busy share against the unprofiled
-wall.  Needs a card; prints the card's name and power limit first.
+freeze_active, D = 11,778,624; the streamed route) in ``--precision``
+(default f64), runs ``n_warm`` NR iterations from init_zeros (default
+1), then takes the next iteration apart on the host clock (each part
+ends in a synchronize): the whole iteration, the grad_hess and the
+Newton update (eigh, line search, MO fold), then one more grad_hess with
+the core's part timer on (``_core["parts"]``: the state + J sweep, H
+psi, the H J rows, the circuit-Hessian sweep, the RDMs).  Then it runs
+that iteration again under torch.profiler and prints the device time by
+kernel and the device busy share against the unprofiled wall.  Needs a
+card; prints the card's name and power limit first.
 """
 
+import argparse
 import subprocess
 import sys
 import time
@@ -20,9 +24,6 @@ import time
 import torch
 
 import auto_oo_tpu_torch as P
-from auto_oo_tpu_torch.ops import hamiltonian as _ham
-from auto_oo_tpu_torch.ops import rdms as _rdms
-from auto_oo_tpu_torch.ops import transforms as _tr
 
 GEOMETRY = "; ".join(f"H 0 0 {0.9 * i:.2f}" for i in range(14))
 STEP = dict(alpha=1e-4, beta=0.5, mu=1e-6, rho=1.1, lambda_min=1e-6)
@@ -44,36 +45,26 @@ def _device_us(event):
             or getattr(event, "self_cuda_time_total", 0))
 
 
-def parts_of_grad_hess(oo, theta, parts):
-    """The streamed grad_hess's heavy parts, each on its own (n_kappa = 0
-    here, so there is no transition-RDM row)."""
-    pqc, plan, maps = oo.pqc, oo._core["plan"], oo.pqc.sector_maps
-    ncas = oo.ncas
-    mo = oo.oao_coeff @ oo.oao_mo_coeff
-    h1 = _tr.int1e_transform(oo.int1e_ao, mo)
-    g2 = _tr.int2e_transform(oo.int2e_ao, mo)
-    _, c1, c2 = _tr.molecular_hamiltonian_coefficients(
-        oo.nuc, h1, g2, oo._occ, oo._act)
-    c1eff = _ham.c1_effective(c1, c2)
-
-    def ham(x):
-        return _ham.ham_apply(c1eff, c2, x, ncas, maps, plan)
-
-    psi, J = _timed("state + J sweep",
-                    lambda: pqc._state_and_jacobian_grid(theta), parts)
-    w = 2.0 * _timed("H psi", lambda: ham(psi), parts)
-    _timed(f"H J ({J.shape[0]} rows)",
-           lambda: [ham(J[i:i + 1]) for i in range(J.shape[0])], parts)
-    _timed("circuit-Hessian sweep",
-           lambda: pqc._state_hessian_dot_grid(theta, w, psi, J), parts)
-    _timed("RDMs of psi (rdms_rows)",
-           lambda: _rdms.rdms_from_state(psi, ncas, maps, grid_order=True,
-                                         plan=plan), parts)
+def grad_hess_parts(oo, theta, parts):
+    """One grad_hess at ``theta`` with the core's part timer on: appends
+    each part's seconds (summed over tangents) to ``parts`` and prints
+    each part's peak device memory."""
+    timer = oo._core["parts"]
+    timer.seconds, timer.peaks, timer.enabled = {}, {}, True
+    try:
+        oo._core["grad_hess"](theta, oo.oao_mo_coeff, *oo._mol_args)
+    finally:
+        timer.enabled = False
+    parts.extend(timer.seconds.items())
+    print("  peak device memory by part: " + ", ".join(
+        f"{key} {peak / 1e9:.3f} GB" for key, peak in timer.peaks.items()))
 
 
 def main(argv=None):
-    argv = sys.argv[1:] if argv is None else argv
-    n_warm = int(argv[0]) if argv else 1
+    ap = argparse.ArgumentParser(prog="profile_14e14o")
+    ap.add_argument("n_warm", nargs="?", type=int, default=1)
+    ap.add_argument("--precision", choices=("f64", "mixed"), default="f64")
+    args_ = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_14e14o: needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -84,13 +75,15 @@ def main(argv=None):
     mol = P.Moldata(GEOMETRY, "sto-3g")
     pqc = P.Parameterized_circuit(14, 14, ansatz="np_fabric", n_layers=1,
                                   sector=True)
-    oo = P.OO_pqc(pqc, mol, 14, 14, freeze_active=True)
+    oo = P.OO_pqc(pqc, mol, 14, 14, freeze_active=True,
+                  precision=args_.precision)
     torch.cuda.synchronize()
     print(f"setup {time.perf_counter() - t0:.2f} s, route "
-          f"{oo._core['route']}, plan {oo._core['plan']}")
+          f"{oo._core['route']} ({args_.precision}), plan "
+          f"{oo._core['plan']}, f32 plan {oo._core['plan_lp']}")
     theta = pqc.init_zeros()
-    if n_warm:
-        theta = oo.full_optimization(theta, max_iterations=n_warm,
+    if args_.n_warm:
+        theta = oo.full_optimization(theta, max_iterations=args_.n_warm,
                                      **STEP)[1][-1]
     core, args = oo._core, oo._mol_args
 
@@ -107,9 +100,9 @@ def main(argv=None):
         theta, oo.oao_mo_coeff, *args), parts)
     _timed("newton_update", lambda: core["newton_update"](
         theta, oo.oao_mo_coeff, *args, *gh, *STEP.values()), parts)
-    parts_of_grad_hess(oo, theta, parts)
+    grad_hess_parts(oo, theta, parts)
     for label, sec in parts:
-        print(f"  {label:28s} {sec * 1e3:10.1f} ms")
+        print(f"  {label:32s} {sec * 1e3:10.1f} ms")
     print(f"  peak device memory of the iteration {peak / 1e9:.3f} GB "
           f"(max_memory_allocated); energy after it {float(energy):.12f}")
 

@@ -8,8 +8,9 @@ utils/newton_raphson.py:16-224) on the eigh path only:
 * the Armijo backtracking line search, as a host loop with one scalar
   sync per trial, with the JAX package's exact semantics: the first trial
   is t = 1.0 exactly, t halves (times beta) up to lmax trials, the
-  comparison carries a roundoff slack of 64 eps max(1, |e0|), and an
-  exhausted search returns t = 0 and e0;
+  comparison carries a roundoff slack of 64 eps max(1, |e0|) (or
+  ``min_rel_slack`` max(1, |e0|) where that is larger: the hosted route's
+  mixed-precision trials), and an exhausted search returns t = 0 and e0;
 * the lowest Hessian eigenvalue is returned (a physics observable tracked
   through Berry-phase loops).
 """
@@ -37,12 +38,16 @@ def newton_step_pure(gradient, hessian, mu=1e-6, rho=1.1, lambda_min=1e-6,
 
 
 def backtracking_pure(objective_flat, params_flat, dp, gradient,
-                      alpha=1e-4, beta=0.5, lmax=20, e0=None):
+                      alpha=1e-4, beta=0.5, lmax=20, e0=None,
+                      min_rel_slack=0.0):
     """Armijo backtracking on a flat parameter vector.
 
     objective_flat: f(flat_params) -> scalar tensor.  e0: optional
-    objective at params_flat.  Returns (new_flat_params, t, new_energy)
-    with t and new_energy as Python floats."""
+    objective at params_flat.  ``min_rel_slack``: the least slack of the
+    comparison relative to max(1, |e0|) (the JAX package's 2e-6 where the
+    trial energies come from float32 passes,
+    auto_oo_tpu/models/oo_pqc.py:1057-1061).  Returns (new_flat_params, t,
+    new_energy) with t and new_energy as Python floats."""
     if e0 is None:
         e0 = objective_flat(params_flat)
     e0 = float(e0)
@@ -50,7 +55,8 @@ def backtracking_pure(objective_flat, params_flat, dp, gradient,
     # floating-point slack on the Armijo comparison: near convergence the
     # true decrease drops below f64 resolution of the energy (~eps |e0|),
     # and a strict test would burn all lmax halvings on roundoff
-    slack = 64.0 * np.finfo(np.float64).eps * max(1.0, abs(e0))
+    slack = (max(64.0 * np.finfo(np.float64).eps, min_rel_slack)
+             * max(1.0, abs(e0)))
     t = 1.0
     for _ in range(lmax):
         e_t = float(objective_flat(params_flat + t * dp))
@@ -64,14 +70,16 @@ def backtracking_pure(objective_flat, params_flat, dp, gradient,
 
 def damped_newton_step_pure(objective_flat, params_flat, gradient, hessian,
                             alpha=1e-4, beta=0.5, mu=1e-6, rho=1.1,
-                            lambda_min=1e-6, lmax=20, aug=True, e0=None):
+                            lambda_min=1e-6, lmax=20, aug=True, e0=None,
+                            min_rel_slack=0.0):
     """One damped Newton step on flat parameters; returns
     (new_flat_params, lowest_eigenvalue, t, energy_after)."""
     dp, lowest = newton_step_pure(gradient, hessian, mu=mu, rho=rho,
                                   lambda_min=lambda_min, aug=aug)
     newp, t, e_t = backtracking_pure(objective_flat, params_flat, dp,
                                      gradient, alpha=alpha, beta=beta,
-                                     lmax=lmax, e0=e0)
+                                     lmax=lmax, e0=e0,
+                                     min_rel_slack=min_rel_slack)
     return newp, lowest, t, e_t
 
 

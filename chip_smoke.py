@@ -59,14 +59,22 @@ prints its seconds:
    1e-8 Ha of the JAX package's CPU energies, every fused-route kernel
    launched; its setup time, iteration times and peak device memory are
    printed;
-7. streamed and hosted equal fused: the (10e,10o) slice's grad_hess at a
-   seeded theta on the streamed route (a small row chunk and pair block
-   forced, so every H-apply, RDM and transition-RDM row streams Phi over
-   grid rows) and on the hosted route (the hosting threshold forced to 1
-   byte, the same row chunk: scatter-form H-applies, per-tangent pair
-   sweeps, transition RDMs from two Phi chunks) against the fused route:
-   e0 and gradient within 1e-11, the Hessian within 1e-9, and each
-   route's grid kernels launched;
+7. the (10e,10o) slice in precision="mixed" (the Hessian blocks in f32,
+   the fused route): at init_zeros e0 and the gradient within 1e-12 of
+   the f64 ones and the Hessian within 1e-5 relative (Frobenius), then 4
+   NR iterations, each energy held to the JAX package's CPU mixed
+   trajectory (ANCHORS_10E10O_MIXED: iteration 1 within 1e-6 Ha, 2-4
+   within 1e-5 Ha, the f32 noise of a mixed trajectory), the fused
+   route's kernels launched; then streamed and hosted equal fused: the slice's grad_hess
+   at a seeded theta on the streamed route (a small row chunk and pair
+   block forced, so every H-apply, RDM and transition-RDM row streams Phi
+   over grid rows) and on the hosted route (the hosting threshold forced
+   to 1 byte, the same row chunk) in its per-tangent form (scatter-form
+   H-applies, per-tangent pair sweeps, transition RDMs from two Phi
+   chunks) and in its Gram form (the cross sweep over the stack of psi
+   and its 28 tangent columns, one H psi pass, the term2 rows) against
+   the fused route, f64: e0 and gradient within 1e-11, the Hessian within
+   1e-9, and each route's grid kernels launched;
 8. the (14e,14o) H14 chain (scripts/bench_14e14o.py's configuration:
    sto-3g, np_fabric L=1, freeze_active, f64, D = 11,778,624), built on
    the default device: the route must be "streamed"; its row chunk and
@@ -84,11 +92,18 @@ prints its seconds:
    state's norm within 1e-12 of 1 and tr(gamma) = 14 within 1e-10, with
    the setup time, iteration times, peak device memory and kernel
    launches printed; then one grad_hess at the final theta on the hosted
-   route (forced, its row chunk from the free memory) against the
+   route (forced, its row chunk from the free memory; the JAX rule's form
+   there, the Gram form: the (15, D) f64 stack is 1.4 GB) against the
    streamed one, timed in turns (streamed, hosted, hosted, streamed): e0
-   and gradient within 1e-10, the Hessian within 1e-8;
+   and gradient within 1e-10, the Hessian within 1e-8; then 2 NR
+   iterations in precision="mixed" (the streamed route, its f32 rows on
+   their own plan), iteration 2 within 1e-7 Ha of the JAX package's mixed
+   -7.3342933466 and of the port's f64 iteration 2;
 9. convergence: (2e,2o) sector ucc full_optimization, built on the
-   default device, must end within 1e-8 Ha of CASSCF;
+   default device, must end within 1e-8 Ha of CASSCF; and (2e,2o) ucc in
+   the full space with freeze_active=False to convergence in f64 and in
+   mixed precision: within 1e-9 Ha of each other, the mixed one within
+   1e-8 Ha of CASSCF;
 10. the (16e,16o) H16 chain (scripts/demo_16e16o.py's configuration:
    sto-3g, np_fabric L=1, freeze_active, f64, D = 165,636,900): the route
    must be "hosted", its setup seconds and row chunk are printed; the
@@ -106,7 +121,15 @@ prints its seconds:
    below E(theta0) and within 5e-5 Ha of the JAX package's
    mixed-precision iteration 1, -8.3671002296, with the step length, the
    iteration's time, peak device memory and kernel launches, then the new
-   state's norm within 1e-12 of 1 and tr(gamma) = 16 within 1e-10;
+   state's norm within 1e-12 of 1 and tr(gamma) = 16 within 1e-10; then
+   the same chain in precision="mixed", which takes the hosted route's
+   Gram form as in the JAX package (its (15, D) f32 stack is 9.9 GB, under
+   the 11e9-byte budget): one f32 gather_two_spin launch over a (15, Na,
+   Nb) stack at the cross sweep's chunk shape (a middle and the ragged
+   last window) equal to plain and timed beside its bound, then one NR
+   iteration from theta0: |grad| within 1e-4 relative of 5.379e-02, the
+   energy below E(theta0) and within 5e-5 Ha of -8.3671002296, with the
+   step length, the iteration's time, peak memory and launches;
 11. the full space (sector=False, the default), formaldimine sto-3g f64
    on the flat route, every object built with no sector= and no device=:
    (2e,2o) np_fabric L=1 with freeze_active (the README quick start) and
@@ -135,7 +158,9 @@ the hosted route's kernels (gather_two_spin among them), phase 8's
 (14e,14o) iterations for the row form of gather_reduce, and phase 4 for
 the probes and gather_rows_scaled (its variant L; no route launches it
 since gather_two_spin, and every route phase checks that), with each
-path's launches under "launches_by_path" (0 on the flat paths); max abs error against the
+path's launches under "launches_by_path" (0 on the flat paths; the mixed
+paths' f32 launches under "10e10o_mixed", "14e14o_mixed" and
+"16e16o_mixed"); max abs error against the
 plain version over every comparison; kernel and plain times and the
 bound at the (16e,16o) f64 chunk shapes for the hosted route's kernels
 (gather_two_spin on the chunk and gather_rows_scaled on its alpha half;
@@ -184,6 +209,27 @@ H14_GEOMETRY = "; ".join(f"H 0 0 {0.9 * i:.2f}" for i in range(14))
 H16_GEOMETRY = "; ".join(f"H 0 0 {0.9 * i:.2f}" for i in range(16))
 GRAD_NORM_16E16O = 5.379e-02
 E_NR1_16E16O = -8.3671002296
+# precision="mixed" anchors.  (10e,10o): CPU JAX energies after NR
+# iterations 1-4 of the slice's configuration in mixed precision
+# (PYTHONPATH=. JAX_PLATFORMS=cpu python scripts/full_space_anchors.py
+# 10e10o_mixed, the JAX package of commit 03c9325).  Iteration 1 is held
+# to 1e-6 Ha; from iteration 2 on each trajectory carries its own f32
+# noise: the circuit block 2 J H J^T + d2<2 H psi, psi> sums two terms
+# of norm ~52 to ~0.57 at this slice (python -m
+# auto_oo_tpu_torch.scripts.mixed_hessian_terms), so its f32 rounding
+# is ~1e-5 relative in either package, and the JAX mixed trajectory
+# itself leaves the f64 one by 4.6e-7, 7.3e-7 and 1.6e-6 Ha at
+# iterations 2-4: iterations 2-4 are held to 1e-5 Ha, the JAX package's
+# bound on an f32-affected energy (tests/test_grid.py:772)
+# (14e,14o): the JAX package's mixed second iteration (BASELINE.md:365,
+# "iter-1" there being the second, as for ANCHORS_14E14O), held to 1e-7
+# Ha, as is the port's own f64 iteration 2.  (16e,16o): E_NR1_16E16O is
+# itself the JAX package's mixed iteration 1, held to 5e-5 Ha (its pass
+# carries ~1e-6 relative noise), |grad| to 1e-4 relative.
+ANCHORS_10E10O_MIXED = [-92.71490192892506, -92.74063322179997,
+                        -92.74294436652184, -92.74381132021185]
+TOL_10E10O_MIXED = [1e-6, 1e-5, 1e-5, 1e-5]
+E_ITER2_14E14O_MIXED = -7.3342933466
 STEP = dict(alpha=1e-4, beta=0.5, mu=1e-6, rho=1.1, lambda_min=1e-6)
 # the grid kernels each route launches (the hosted route adds its alpha
 # half with scatter_rows where the others run the row form); every route
@@ -620,11 +666,19 @@ def epq_compare(torch, gk, grid, gm, Yg, label, tol):
 
 def two_spin_bytes(x, gm, r0, r1):
     """Bytes gather_two_spin must move for grid rows [r0, r1): Phi written
-    once, x read once, the alpha tables' window and the beta tables once
-    (int32 src and two int8 sign tables per entry)."""
+    once, each row of x that it reads read once (the valid alpha source
+    rows of the window and the window's own rows, for the beta half), the
+    alpha tables' window and the beta tables once (int32 src and two int8
+    sign tables per entry)."""
+    import torch
+
     B = x.numel() // (gm.Na * gm.Nb)
     out = B * gm.n2 * (r1 - r0) * gm.Nb * x.element_size()
-    return out + _nbytes(x) + gm.n2 * ((r1 - r0) + gm.Nb) * 6
+    srcA = gm.srcA[:, r0:r1]
+    rows = torch.cat([srcA[gm.sgnA[:, r0:r1] != 0].long(),
+                      torch.arange(r0, r1, device=srcA.device)])
+    read = B * int(torch.unique(rows).numel()) * gm.Nb * x.element_size()
+    return out + read + gm.n2 * ((r1 - r0) + gm.Nb) * 6
 
 
 def two_spin_composite(gk, grid, x, gm, r0, r1):
@@ -970,36 +1024,44 @@ def forced_hosting(gh):
 def routes_equal_fused_phase(torch, P, gk, gh, grid):
     """grad_hess of the (10e,10o) slice at a seeded theta on the streamed
     route (row chunk 37 of 252, pair block 23 of 100: ragged last pieces)
-    and on the hosted route forced (row chunk 37; 18 where its per-tangent
-    pass builds two Phi chunks) against the fused route, all on the
-    card."""
+    and on the hosted route forced, in its per-tangent form (row chunk 37;
+    18 where its per-tangent pass builds two Phi chunks) and in its Gram
+    form (the cross sweep over the 29-state stack in chunks of 37 rows,
+    one H psi pass), against the fused route, all on the card, f64."""
     from auto_oo_tpu_torch.utils.misc import get_formal_geo
 
     mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
     out, launches = {}, {}
     plan = grid.StreamPlan(37, 23, None)
-    for route, kw, force in (("fused", {}, False),
-                             ("streamed", {"stream_plan": plan}, False),
-                             ("hosted", {"stream_plan": plan}, True)):
+    for name, kw, force in (
+            ("fused", {}, False),
+            ("streamed", {"stream_plan": plan}, False),
+            ("hosted", {"stream_plan": plan, "hosted_form": "per_tangent"},
+             True),
+            ("gram", {"stream_plan": plan, "hosted_form": "gram"}, True)):
         pqc = P.Parameterized_circuit(10, 10, ansatz="np_fabric",
                                       n_layers=2, sector=True)
         with (forced_hosting(gh) if force else contextlib.nullcontext()):
             oo = P.OO_pqc(pqc, mol, 10, 10, freeze_active=True, **kw)
+        route = "hosted" if force else name
         check(oo._core["route"] == route,
               f"(10e,10o) route {oo._core['route']}, expected {route}")
+        check(oo._core["hosted_form"] == kw.get("hosted_form"),
+              f"(10e,10o) hosted form {oo._core['hosted_form']}")
         theta = 0.1 * np.random.default_rng(21).standard_normal(
             pqc.theta_shape)
         torch.cuda.synchronize()
         gk.reset_launches()
         t0 = time.perf_counter()
-        out[route] = oo._grad_hess(theta)
+        out[name] = oo._grad_hess(theta)
         torch.cuda.synchronize()
-        launches[route] = dict(gk.LAUNCHES)
-        print(f"  {route:8s} grad_hess {time.perf_counter() - t0:.3f} s "
-              f"(n_kappa={oo.n_kappa}), launches {launches[route]}")
+        launches[name] = dict(gk.LAUNCHES)
+        print(f"  {name:8s} grad_hess {time.perf_counter() - t0:.3f} s "
+              f"(n_kappa={oo.n_kappa}), launches {launches[name]}")
     e_f, g_f, h_f = out["fused"]
     for route, kernels in (("streamed", FUSED_KERNELS),
-                           ("hosted", HOSTED_KERNELS)):
+                           ("hosted", HOSTED_KERNELS),
+                           ("gram", HOSTED_KERNELS)):
         e_r, g_r, h_r = out[route]
         de = abs(float(e_r - e_f))
         dg = float((g_r - g_f).abs().max())
@@ -1220,12 +1282,13 @@ def sector14_phase(torch, gk, pqc, oo):
     print(f"  launches: {launches}; peak device memory of the iterations "
           f"{peak / 1e9:.3f} GB (max_memory_allocated); |norm - 1| "
           f"{abs(norm - 1.0):.2e}, tr(gamma) - 14 {trace - 14.0:+.2e}")
-    return launches, thetas[-1]
+    return launches, thetas[-1], energies
 
 
 def hosted14_phase(torch, P, gk, gh, mol, pqc, oo, theta):
     """One grad_hess of (14e,14o) at ``theta`` on the hosted route (forced;
-    its row chunk from the free device memory) against the streamed route
+    its row chunk from the free device memory; its default form, the Gram
+    form there) against the streamed route
     of ``oo``, timed in turns (streamed, hosted, hosted, streamed): e0 and
     gradient within 1e-10, the Hessian within 1e-8."""
     torch.cuda.empty_cache()
@@ -1234,6 +1297,8 @@ def hosted14_phase(torch, P, gk, gh, mol, pqc, oo, theta):
                         oao_mo_coeff=oo.oao_mo_coeff)
     check(oo_h._core["route"] == "hosted",
           f"(14e,14o) forced route {oo_h._core['route']}, expected hosted")
+    check(oo_h._core["hosted_form"] == "gram",
+          f"(14e,14o) hosted form {oo_h._core['hosted_form']}, expected gram")
     runs = []
     for name, o in (("streamed", oo), ("hosted", oo_h), ("hosted", oo_h),
                     ("streamed", oo)):
@@ -1529,6 +1594,240 @@ def sector16_phase(torch, gk, mol, pqc, oo):
     return launches
 
 
+def mixed10_phase(torch, P, gk):
+    """The (10e,10o) slice in precision="mixed" (fused route): at
+    init_zeros its grad_hess against the f64 one (e0 and gradient stay
+    f64: within 1e-12; the f32 Hessian within 1e-5 relative, Frobenius),
+    then 4 NR iterations, each energy within TOL_10E10O_MIXED of the JAX
+    package's CPU mixed trajectory; returns the launches of the
+    iterations."""
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
+    pqc = P.Parameterized_circuit(10, 10, ansatz="np_fabric", n_layers=2,
+                                  sector=True)
+    oo = P.OO_pqc(pqc, mol, 10, 10, freeze_active=True, precision="mixed")
+    check(oo._core["route"] == "fused",
+          f"(10e,10o) mixed route {oo._core['route']}, expected fused")
+    oo64 = P.OO_pqc(pqc, mol, 10, 10, freeze_active=True)
+    theta0 = pqc.init_zeros()
+    e_m, g_m, h_m = oo._grad_hess(theta0)
+    e_d, g_d, h_d = oo64._grad_hess(theta0)
+    de = abs(float(e_m - e_d))
+    dg = float((g_m - g_d).abs().max())
+    rel = float((h_m - h_d).norm() / h_d.norm())
+    print(f"  iteration 0, mixed against f64: |de0| {de:.3e}  max|dgrad| "
+          f"{dg:.3e}  |dH|/|H| {rel:.3e} (Hessian {h_m.dtype})")
+    check(de <= 1e-12, f"(10e,10o) mixed e0 differs from f64 by {de}")
+    check(dg <= 1e-12, f"(10e,10o) mixed gradient differs by {dg}")
+    check(0.0 < rel <= 1e-5, f"(10e,10o) mixed Hessian relative error {rel}")
+    check(h_m.dtype == torch.float64, "the mixed Hessian is not f64")
+    stamps = []
+
+    class Stamp:
+        def log(self, n, energy, **kw):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    t_start = time.perf_counter()
+    energies, thetas, *_ = oo.full_optimization(
+        theta0, max_iterations=4, monitor=Stamp(), **STEP)
+    launches = dict(gk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    iter_s = [b - a for a, b in zip([t_start] + stamps[:-1], stamps)]
+    for i, (e, ref) in enumerate(zip(energies, ANCHORS_10E10O_MIXED)):
+        print(f"  iter {i + 1}: E = {e:.14f}  JAX-CPU mixed {ref:.14f}  "
+              f"diff {e - ref:+.3e}  (f64 JAX {ANCHORS_10E10O[i]:.14f}, "
+              f"diff {e - ANCHORS_10E10O[i]:+.3e})  wall {iter_s[i]:.3f} s")
+    check(len(energies) == 4, f"ran {len(energies)} iterations, not 4")
+    for i, (e, ref, tol) in enumerate(zip(energies, ANCHORS_10E10O_MIXED,
+                                          TOL_10E10O_MIXED)):
+        check(abs(e - ref) <= tol, f"(10e,10o) mixed iteration {i + 1}: "
+              f"|{e} - {ref}| > {tol}")
+    check_route_kernels(launches, FUSED_KERNELS, "the (10e,10o) mixed run")
+    norm = float(pqc.state(thetas[-1]).norm())
+    check(abs(norm - 1.0) < 1e-12, f"(10e,10o) mixed final norm {norm}")
+    print(f"  launches: {launches}; median wall of iterations 2-4: "
+          f"{statistics.median(iter_s[1:]):.4f} s; peak device memory "
+          f"{peak / 1e9:.3f} GB")
+    return launches
+
+
+def sector14_mixed_phase(torch, P, gk, mol, pqc, energies64):
+    """2 NR iterations of the (14e,14o) path in precision="mixed" (the
+    streamed route, its f32 rows on their own plan): iteration 2 within
+    1e-7 Ha of the JAX package's mixed value and of the port's f64
+    iteration 2 (``energies64``); returns the launches."""
+    oo = P.OO_pqc(pqc, mol, pqc.ncas, pqc.nelecas, freeze_active=True,
+                  precision="mixed")
+    check(oo._core["route"] == "streamed",
+          f"(14e,14o) mixed route {oo._core['route']}, expected streamed")
+    stamps = []
+
+    class Stamp:
+        def log(self, n, energy, **kw):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    t_start = time.perf_counter()
+    energies, thetas, *_ = oo.full_optimization(
+        pqc.init_zeros(), max_iterations=ITERATIONS_14E14O, monitor=Stamp(),
+        **STEP)
+    launches = dict(gk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    iter_s = [b - a for a, b in zip([t_start] + stamps[:-1], stamps)]
+    for n, (e, e64) in enumerate(zip(energies, energies64), 1):
+        print(f"  iter {n}: E = {e:.14f}  f64 {e64:.14f}  diff "
+              f"{e - e64:+.3e}  wall {iter_s[n - 1]:.3f} s")
+    check(len(energies) == ITERATIONS_14E14O,
+          f"ran {len(energies)} iterations, not {ITERATIONS_14E14O}")
+    e2 = energies[1]
+    print(f"  iteration 2 against the JAX mixed {E_ITER2_14E14O_MIXED:.10f}"
+          f": {e2 - E_ITER2_14E14O_MIXED:+.3e}; plans f64 "
+          f"{oo._core['plan']}, f32 {oo._core['plan_lp']}")
+    check(abs(e2 - E_ITER2_14E14O_MIXED) <= 1e-7,
+          f"(14e,14o) mixed iteration 2 {e2} misses {E_ITER2_14E14O_MIXED}")
+    check(abs(e2 - energies64[1]) <= 1e-7,
+          f"(14e,14o) mixed iteration 2 {e2} misses the f64 {energies64[1]}")
+    check_route_kernels(launches, FUSED_KERNELS, "the (14e,14o) mixed run")
+    print(f"  launches: {launches}; peak device memory {peak / 1e9:.3f} GB")
+    del oo
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gram_stack_check(torch, gk, gm, B, rows):
+    """One f32 gather_two_spin launch over a (B, Na, Nb) stack at the
+    (16e,16o) Gram route's chunk shape (``rows`` grid rows: a middle and
+    the ragged last window) against its plain version a slab of pairs at
+    a time, equal as values, timed beside its bound."""
+    gen = torch.Generator(device=gm.device).manual_seed(1616)
+    S = torch.randn((B, gm.Na, gm.Nb), generator=gen, dtype=torch.float32,
+                    device=gm.device)
+    tabs = gm.phi_tables(S)
+    chunks = [(r0, min(gm.Na, r0 + rows)) for r0 in range(0, gm.Na, rows)]
+    for r0, r1 in (chunks[len(chunks) // 2], chunks[-1]):
+        out = gk.gather_two_spin(S, *tabs, r0, r1)
+        torch.cuda.synchronize()
+        for k0, ref in _two_spin_plain(gk, S, tabs, r0, r1, 16):
+            check(torch.equal(out[:, k0:k0 + ref.shape[1]], ref),
+                  f"gather_two_spin over {B} f32 states [{r0}, {r1}): not "
+                  "equal to plain")
+            del ref
+        nbytes = two_spin_bytes(S, gm, r0, r1)
+        del out
+        ms = time_ms(lambda: gk.gather_two_spin(S, *tabs, r0, r1), torch,
+                     reps=3, rounds=3)
+        print(f"  gather_two_spin 16e stack ({B}, {gm.Na}, {gm.Nb}) f32 rows"
+              f" [{r0}, {r1}): equal to plain; kernel {ms:.4f} ms "
+              f"{_share(ms, nbytes)} ({nbytes / 1e9:.3f} GB)")
+    del S
+    torch.cuda.empty_cache()
+
+
+def sector16_mixed_phase(torch, gk, P, mol, pqc):
+    """The (16e,16o) H16 chain in precision="mixed": the hosted route's
+    Gram form (the (15, D) f32 stack fits the 11e9-byte budget, as in the
+    JAX package); one f32 stack launch of gather_two_spin at its chunk
+    shape against plain; then one grad_hess at theta0 and one
+    damped-Newton update from it, with |grad| within 1e-4 relative of the
+    JAX package's 5.379e-02, E(1) below E(theta0) and within 5e-5 Ha of
+    its mixed iteration 1; the step length, the iteration's time, peak
+    memory and launches.  Returns the launches of the iteration."""
+    from auto_oo_tpu_torch.utils.newton_raphson import newton_step_pure
+
+    nt = pqc.theta_shape
+    t0 = time.perf_counter()
+    oo = P.OO_pqc(pqc, mol, pqc.ncas, pqc.nelecas, freeze_active=True,
+                  precision="mixed")
+    core = oo._core
+    print(f"  mixed OO_pqc {time.perf_counter() - t0:.2f} s: route "
+          f"{core['route']}, hosted form {core['hosted_form']}, cross "
+          f"sweep row chunk {core['cross_rows']}, pass row chunk "
+          f"{core['plan_lp'].row_chunk}")
+    check(core["route"] == "hosted" and core["hosted_form"] == "gram",
+          f"(16e,16o) mixed: {core['route']} {core['hosted_form']}, "
+          "expected the hosted route's Gram form")
+    gram_stack_check(torch, gk, pqc.sector_maps, nt + 1, core["cross_rows"])
+    theta0 = 0.02 * torch.arange(nt, dtype=torch.float64, device=pqc.device)
+    args = oo._mol_args
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    e0, grad, hess = core["grad_hess"](theta0, oo.oao_mo_coeff, *args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    new_theta, _, _, e1, _ = core["newton_update"](
+        theta0, oo.oao_mo_coeff, *args, e0, grad, hess, *STEP.values())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(gk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    check(bool(torch.isfinite(grad).all() and torch.isfinite(hess).all()),
+          "(16e,16o) mixed: non-finite gradient or Hessian")
+    check(hess.dtype == torch.float64 and hess.shape == (nt, nt),
+          f"(16e,16o) mixed Hessian {hess.dtype} {tuple(hess.shape)}")
+    gnorm = float(grad.norm())
+    e0, e1 = float(e0), float(e1)
+    step = new_theta - theta0
+    dp = newton_step_pure(grad, hess, mu=STEP["mu"], rho=STEP["rho"],
+                          lambda_min=STEP["lambda_min"])[0]
+    t_step = float(step @ dp) / float(dp @ dp)
+    print(f"  grad_hess at theta0 {t1 - t0:.3f} s: E(theta0) = {e0:.12f}, "
+          f"|grad| = {gnorm:.6e} (JAX f64 {GRAD_NORM_16E16O:.3e}, relative "
+          f"diff {gnorm / GRAD_NORM_16E16O - 1:+.2e})")
+    print(f"  newton_update {t2 - t1:.3f} s; NR iteration {t2 - t0:.3f} s: "
+          f"E = {e1:.12f} (below E(theta0) by {e0 - e1:.3e}; JAX mixed "
+          f"{E_NR1_16E16O:.10f}, diff {e1 - E_NR1_16E16O:+.3e}), step "
+          f"length |dtheta| = {float(step.norm()):.6e}, t = {t_step:.6f}")
+    print(f"  launches of the iteration: {launches}; peak device memory "
+          f"{peak / 1e9:.3f} GB allocated, {reserved / 1e9:.3f} GB reserved")
+    check(abs(gnorm / GRAD_NORM_16E16O - 1) <= 1e-4,
+          f"(16e,16o) mixed |grad| {gnorm} misses {GRAD_NORM_16E16O}")
+    check(e1 < e0, f"(16e,16o) mixed NR energy {e1} not below {e0}")
+    check(abs(e1 - E_NR1_16E16O) <= 5e-5,
+          f"(16e,16o) mixed NR energy {e1} misses {E_NR1_16E16O} by more "
+          "than 5e-5")
+    check_route_kernels(launches, HOSTED_KERNELS,
+                        "the (16e,16o) mixed iteration")
+    del oo, core, grad, hess
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mixed_2e2o_phase(torch, P):
+    """(2e,2o) ucc in the full space, freeze_active=False (the JAX
+    package's tests/test_mixed_precision.py:25-44 case), to convergence in
+    f64 and in mixed precision: the two energies within 1e-9 Ha, the mixed
+    one within 1e-8 Ha of CASSCF."""
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
+    pqc = P.Parameterized_circuit(2, 2, ansatz="ucc")
+    out = {}
+    for precision in ("f64", "mixed"):
+        oo = P.OO_pqc(pqc, mol, 2, 2, precision=precision)
+        check(oo._core["route"] == "flat", f"(2e,2o) {oo._core['route']}")
+        energies, *_ = oo.full_optimization(pqc.init_zeros())
+        out[precision] = energies
+    e64, emx = out["f64"][-1], out["mixed"][-1]
+    print(f"  (2e,2o) ucc full space: f64 {e64:.14f} ({len(out['f64'])} "
+          f"iterations), mixed {emx:.14f} ({len(out['mixed'])}), diff "
+          f"{emx - e64:+.3e}; CASSCF diff {emx - E_CASSCF_2E2O:+.3e}")
+    check(abs(emx - e64) <= 1e-9, f"(2e,2o) mixed {emx} != f64 {e64}")
+    check(abs(emx - E_CASSCF_2E2O) <= TOL_ENERGY,
+          f"(2e,2o) mixed misses CASSCF by {emx - E_CASSCF_2E2O}")
+
+
 def convergence_phase(torch, P):
     """(2e,2o) to convergence, built on the port's default device."""
     from auto_oo_tpu_torch.utils.misc import get_formal_geo
@@ -1818,20 +2117,30 @@ def main():
         paths["12e12o"] = phase("(12e,12o) sector", sector12_phase, torch, P,
                                 gk, dev)
         torch.cuda.empty_cache()
-        phase("streamed and hosted equal fused at (10e,10o)",
-              routes_equal_fused_phase, torch, P, gk, gh, grid)
+        paths["10e10o_mixed"] = phase("(10e,10o) slice, mixed precision",
+                                      mixed10_phase, torch, P, gk)
+        torch.cuda.empty_cache()
+        phase("streamed and hosted (per-tangent and Gram) equal fused at "
+              "(10e,10o)", routes_equal_fused_phase, torch, P, gk, gh, grid)
         torch.cuda.empty_cache()
         mol14, pqc14, oo14 = phase("(14e,14o) setup", sector14_setup, torch,
                                    P)
         phase("(14e,14o) grid kernels vs plain", streamed_kernel_phase,
               torch, gk, grid, oo14, stats)
-        paths["14e14o"], theta14 = phase("(14e,14o) sector", sector14_phase,
-                                         torch, gk, pqc14, oo14)
+        paths["14e14o"], theta14, energies14 = phase(
+            "(14e,14o) sector", sector14_phase, torch, gk, pqc14, oo14)
         phase("(14e,14o) hosted against streamed", hosted14_phase, torch, P,
               gk, gh, mol14, pqc14, oo14, theta14)
-        del mol14, pqc14, oo14, theta14
+        del oo14, theta14
+        torch.cuda.empty_cache()
+        paths["14e14o_mixed"] = phase(
+            "(14e,14o) sector, mixed precision", sector14_mixed_phase,
+            torch, P, gk, mol14, pqc14, energies14)
+        del mol14, pqc14
         torch.cuda.empty_cache()
         phase("(2e,2o) convergence", convergence_phase, torch, P)
+        phase("(2e,2o) full space, mixed precision", mixed_2e2o_phase,
+              torch, P)
         paths["full_2e2o"] = phase("(2e,2o) full space convergence",
                                    full_space_convergence_phase, torch, P,
                                    gk)
@@ -1858,6 +2167,11 @@ def main():
               gk, gh, grid, oo16, stats)
         paths["16e16o"] = phase("(16e,16o) sector", sector16_phase, torch,
                                 gk, mol16, pqc16, oo16)
+        del oo16
+        torch.cuda.empty_cache()
+        paths["16e16o_mixed"] = phase(
+            "(16e,16o) sector, mixed precision (Gram form)",
+            sector16_mixed_phase, torch, gk, P, mol16, pqc16)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

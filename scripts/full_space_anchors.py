@@ -1,5 +1,6 @@
-"""CPU JAX trajectories of the full-space (sector=False) cells, the anchors
-the PyTorch port is held to on the card (chip_smoke.py).
+"""CPU JAX trajectories of the full-space (sector=False) cells and of the
+mixed-precision sector cells, the anchors the PyTorch port is held to on
+the card (chip_smoke.py).
 
     JAX_PLATFORMS=cpu python scripts/full_space_anchors.py [cell ...]
         [--perturb EPS]
@@ -14,6 +15,8 @@ lambda_min=1e-6; freeze_active=True unless noted):
                singles, 3 iterations (bench.py's 3e3o_doublet tier)
   6e6o         np_fabric L=2 to convergence (bench.py's headline tier)
   8e8o         np_fabric L=2, 3 iterations (bench.py's 8e8o tier)
+  10e10o_mixed sector=True, np_fabric L=2, precision="mixed", 4
+               iterations (bench.py's 10e10o_sector tier in mixed mode)
 
 Each cell prints one JSON line: the energy after every iteration, the
 lowest Hessian eigenvalues, n_theta, n_kappa, D and, for the cells run
@@ -43,6 +46,9 @@ CELLS = {
                  iters=50),
     "8e8o": dict(ncas=8, ne=8, kw=dict(ansatz="np_fabric", n_layers=2),
                  iters=3),
+    "10e10o_mixed": dict(ncas=10, ne=10, kw=dict(ansatz="np_fabric",
+                                                 n_layers=2, sector=True),
+                         iters=4, precision="mixed"),
 }
 
 
@@ -52,7 +58,8 @@ def run(name, perturb=0.0):
                       **c.get("mol", {}))
     pqc = Parameterized_circuit(c["ncas"], c["ne"], **c["kw"])
     oo = OO_pqc(pqc, mol, c["ncas"], c["ne"],
-                freeze_active=c.get("freeze_active", True))
+                freeze_active=c.get("freeze_active", True),
+                precision=c.get("precision", "f64"))
     energies, _, _, _, eigs = oo.full_optimization(
         pqc.init_zeros() + perturb, max_iterations=c["iters"])
     out = dict(cell=name, perturb=perturb, energies=energies,

@@ -9,7 +9,10 @@ Newton core on the card against the same code on the CPU, the streamed
 and the hosted Newton cores against the fused one on the card, the
 hosted H-apply's alpha scatter against its plain version, the
 full-space route's flat sweeps, E_pq maps and H-apply on the card against
-the CPU with a (2e,2o) full-space convergence, and failed builds and
+the CPU with a (2e,2o) full-space convergence, mixed precision (the
+fused Newton core on the card against the CPU, one f32 launch of
+``gather_two_spin`` over a stack of 15 states, the Gram form of the
+hosted core against the per-tangent one), and failed builds and
 launches that raise.  This file imports neither jax nor the
 JAX package, so it also runs where jax is not installed;
 tests/conftest.py imports jax, so run it on the card with
@@ -625,7 +628,8 @@ def test_cuda_hosted_grad_hess_matches_fused(cuda_device, monkeypatch):
     out_f = [a.cpu() for a in fused._grad_hess(theta)]
     monkeypatch.setattr(grid_hosted, "_HOSTED_MIN_BYTES", 1)
     oo = P.OO_pqc(pqc, mol, 4, 4, freeze_active=True,
-                  stream_plan=grid.StreamPlan(3, 1, None))
+                  stream_plan=grid.StreamPlan(3, 1, None),
+                  hosted_form="per_tangent")
     assert oo._core["route"] == "hosted" and oo.n_kappa > 0
     before = dict(gk.LAUNCHES)
     e_h, g_h, h_h = (a.cpu() for a in oo._grad_hess(theta))
@@ -638,6 +642,84 @@ def test_cuda_hosted_grad_hess_matches_fused(cuda_device, monkeypatch):
     np.testing.assert_allclose(h_h, h_f, rtol=0, atol=1e-9)
     assert abs(float(oo.energy_from_parameters(theta))
                - float(fused.energy_from_parameters(theta))) < 1e-12
+
+
+def _rel(a, b):
+    return float((a - b).norm()) / float(b.norm())
+
+
+@pytest.mark.cuda
+def test_cuda_mixed_grad_hess_matches_cpu(cuda_device):
+    """One mixed fused grad_hess of (4e,4o) sector np_fabric on the card
+    (the kernels' f32 launches) against the same call on the CPU (their
+    plain versions): e0 and gradient stay f64 (1e-11), the f32 Hessian
+    blocks sum in other orders (1e-5 relative)."""
+    mol = P.Moldata(P.get_formal_geo(140, 80), "sto-3g")
+    theta = 0.3 * np.random.default_rng(0).standard_normal(
+        P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
+                                sector=True).theta_shape)
+    out = []
+    for dev in ("cpu", cuda_device):
+        pqc = P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
+                                      sector=True, device=dev)
+        oo = P.OO_pqc(pqc, mol, 4, 4, freeze_active=True, precision="mixed")
+        before = dict(gk.LAUNCHES)
+        out.append([a.cpu() for a in oo._grad_hess(theta)])
+    for name in FUSED_KERNELS:
+        assert gk.LAUNCHES[name] > before[name], name
+    (e_c, g_c, h_c), (e_g, g_g, h_g) = out
+    assert h_g.dtype == torch.float64
+    assert abs(float(e_g) - float(e_c)) < 1e-11
+    np.testing.assert_allclose(g_g, g_c, rtol=0, atol=1e-11)
+    assert _rel(h_g, h_c) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_two_spin_state_stack_f32(cuda_device):
+    """The Gram route's launch: one gather_two_spin over a (15, Na, Nb)
+    f32 stack of states (the (10e,10o) maps; the whole grid, a middle and
+    a ragged last window), equal to its plain version as values."""
+    pm = grid.build_grid_maps(10, 10, device=cuda_device)
+    S = _rand((15, pm.Na, pm.Nb), 75).to(cuda_device, torch.float32)
+    for r0, r1 in ((0, pm.Na), (100, 137), (222, 252)):
+        out = _check_two_spin(S, pm, r0, r1)
+        assert out.shape == (15, pm.n2, r1 - r0, pm.Nb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f64", "mixed"])
+def test_cuda_gram_matches_per_tangent(cuda_device, monkeypatch, precision):
+    """(4e,4o) formaldimine (n_kappa > 0) with the hosting threshold forced
+    to 1 byte, on the card: the Gram form's grad_hess (the cross sweep
+    over the stack, one H psi pass) against the per-tangent form's, to
+    rounding in f64 (1e-11, 1e-9) and to f32 resolution in mixed
+    precision; the Gram form launched gather_two_spin, the column form
+    and the scatter (its H psi pass)."""
+    mol = P.Moldata(P.get_formal_geo(140, 80), "sto-3g")
+    pqc = P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
+                                  sector=True, device=cuda_device)
+    theta = 0.3 * np.random.default_rng(66).standard_normal(pqc.theta_shape)
+    monkeypatch.setattr(grid_hosted, "_HOSTED_MIN_BYTES", 1)
+    out = {}
+    for form in ("per_tangent", "gram"):
+        oo = P.OO_pqc(pqc, mol, 4, 4, freeze_active=True,
+                      precision=precision, hosted_form=form,
+                      stream_plan=grid.StreamPlan(3, 1, None))
+        assert oo._core["hosted_form"] == form and oo.n_kappa > 0
+        before = dict(gk.LAUNCHES)
+        out[form] = [a.cpu() for a in oo._grad_hess(theta)]
+        torch.cuda.synchronize()
+    for name in ("gather_two_spin", "gather_reduce_cols", "scatter_rows"):
+        assert gk.LAUNCHES[name] > before[name], name
+    (e_t, g_t, h_t), (e_g, g_g, h_g) = out["per_tangent"], out["gram"]
+    if precision == "f64":
+        assert abs(float(e_g) - float(e_t)) < 1e-11
+        np.testing.assert_allclose(g_g, g_t, rtol=0, atol=1e-11)
+        np.testing.assert_allclose(h_g, h_t, rtol=0, atol=1e-9)
+    else:
+        assert abs(float(e_g) - float(e_t)) < 1e-6
+        assert _rel(g_g, g_t) < 1e-5
+        assert _rel(h_g, h_t) < 1e-5
 
 
 @pytest.mark.cuda

@@ -16,10 +16,14 @@ inputs go through the JAX package's functions and the port's:
   computes, to 1e-13;
 * ``apply_pair`` / ``pair_row`` against ``_pair_state_impl_grid`` and
   ``jax.grad`` over it: 1e-13 forward, 1e-11 reverse;
-* ``OO_pqc`` with the hosting threshold forced to 1 byte against the JAX
-  package's forced hosted per-tangent ``grad_hess_staged``: e0 and
-  gradient to 1e-11, the Hessian to 1e-9, and one damped-Newton update
-  (theta to 1e-9, energy to 1e-11).
+* ``OO_pqc`` with the hosting threshold forced to 1 byte and the
+  per-tangent form against the JAX package's forced hosted per-tangent
+  ``grad_hess_staged``: e0 and gradient to 1e-11, the Hessian to 1e-9,
+  and one damped-Newton update (theta to 1e-9, energy to 1e-11) (the Gram
+  form: tests/test_torch_gram.py);
+* the (16e,16o) demo's stages: the refused ones name their ROADMAP item,
+  and its nrmixed stage takes the Gram form at a small forced-hosted
+  size.
 """
 
 import numpy as np
@@ -215,8 +219,10 @@ def test_forced_hosted_grad_hess_matches_jax(name, monkeypatch):
     pqc = P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
                                   sector=True)
     po = P.OO_pqc(pqc, P.Moldata(geo, "sto-3g"), 4, 4, freeze_active=True,
-                  stream_plan=grid.StreamPlan(3, 1, None))
+                  stream_plan=grid.StreamPlan(3, 1, None),
+                  hosted_form="per_tangent")
     assert po._core["route"] == "hosted"
+    assert po._core["hosted_form"] == "per_tangent"
     assert (po.n_kappa > 0) == (name == "formaldimine")
     th = torch.from_numpy(theta)
     e_p, g_p, h_p = po._grad_hess(th)
@@ -231,13 +237,33 @@ def test_forced_hosted_grad_hess_matches_jax(name, monkeypatch):
 
 def test_demo_refuses_unported_stages():
     """The (16e,16o) demo names the ROADMAP item of each stage it does not
-    run, before it looks for a card."""
+    run, before it looks for a card: the gradient-only pipeline (item 2)
+    for its grad and adam stages in both precisions."""
     for stage, item in (("s2", 6), ("grad", 2), ("adam", 2),
-                        ("nrmixed", 4), ("gradmixed", 4)):
+                        ("gradmixed", 2), ("adammixed", 2)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             demo_16e16o.main(["1", f"state,{stage}"])
     with pytest.raises(ValueError, match="unknown stage"):
         demo_16e16o.main(["1", "nope"])
+
+
+def test_demo_nrmixed_reaches_gram(monkeypatch, capsys):
+    """The demo's nrmixed stage on the H4 chain (4e,4o) with hosting
+    forced: a mixed OO_pqc on the hosted route's Gram form (the JAX
+    package's form for the (16e,16o) mixed iteration), one descending
+    iteration."""
+    monkeypatch.setattr(grid_hosted, "_HOSTED_MIN_BYTES", 1)
+    pqc = P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
+                                  sector=True)
+    mol = P.Moldata("H 0 0 0; H 0 0 1.2; H 0 0 2.4; H 0 0 3.6", "sto-3g")
+    theta = 0.02 * torch.arange(pqc.theta_shape, dtype=torch.float64)
+    oo, es = demo_16e16o.nr_stage(pqc, mol, 4, 4, theta, "mixed",
+                                  iterations=2)
+    assert oo._core["route"] == "hosted"
+    assert oo._core["hosted_form"] == "gram"
+    assert oo._core["precision"] == "mixed"
+    assert len(es) == 2
+    assert "hosted form gram" in capsys.readouterr().out
 
 
 def test_sector_basis_is_built_on_first_use():

@@ -345,8 +345,14 @@ def test_default_device_is_the_card(monkeypatch):
 def test_unported_routes_raise(molecules, monkeypatch):
     _, mp = molecules({})
     pqc = P.Parameterized_circuit(2, 2, ansatz="ucc", sector=True)
-    with pytest.raises(NotImplementedError):
-        P.OO_pqc(pqc, mp, 2, 2, precision="mixed")
+    # "mixed" runs (tests/test_torch_mixed.py); other precisions, and a
+    # hosted form off the hosted route, are refused
+    with pytest.raises(ValueError, match="precision"):
+        P.OO_pqc(pqc, mp, 2, 2, precision="f32")
+    with pytest.raises(ValueError, match="hosted_form"):
+        P.OO_pqc(pqc, mp, 2, 2, hosted_form="gram")
+    with pytest.raises(ValueError, match="hosted_form"):
+        P.OO_pqc(pqc, mp, 2, 2, hosted_form="chunked")
     oo = P.OO_pqc(pqc, mp, 2, 2)
     theta = pqc.init_zeros()
     for call in (lambda: oo.full_optimization(theta, device_loop=True),
