@@ -7,9 +7,11 @@ public names mirror auto_oo_tpu, so each counterpart is found under the
 same name.
 
 The port runs the damped-Newton path (``Parameterized_circuit``,
-``OO_pqc.full_optimization``) in the full space (``sector=False``, the
-default: a flat gate program and element gathers in plain PyTorch) and
-on the sector string grid (``sector=True``) up to (16e,16o), where its
+``OO_pqc.full_optimization``) and the first-order one
+(``OO_pqc.gradient_optimization``: Adam with orbital relaxations) in the
+full space (``sector=False``, the default: a flat gate program and
+element gathers in plain PyTorch) and on the sector string grid
+(``sector=True``) up to (16e,16o), where its
 grid-gather kernels are CUDA on the card (ops/grid_kernels.py,
 csrc/grid_gather.cu).  The row-gather mechanism probes
 (ops/gather_mechanisms.py, csrc/gather_mechanisms.cu) run from their own

@@ -62,9 +62,17 @@ the passes over Phi run on the float32 state, so e0 and the gradient
 carry float32-level error there, and the Armijo comparison takes the
 JAX package's hosted-mixed slack.  Float32 matmuls run at full float32
 precision (config.py); the sums over the state axis are
-``linalg.gram_last``'s.  Later PRs of the port bring
-``device_loop=True``, ``energy_and_gradient`` and
-``gradient_optimization``; those raise NotImplementedError here.
+``linalg.gram_last``'s.  A later PR of the port brings
+``device_loop=True``, which raises NotImplementedError here.
+
+The gradient-only pipeline (``energy_and_gradient``,
+``gradient_optimization``) is the JAX package's first-order OO-VQE for
+the scales where no Hessian fits: per step the state, one H-apply, one
+adjoint reverse sweep for the circuit gradient and the RDMs for the
+orbital one (``energy_gradient_staged``, on every route, in both
+precisions), Adam on theta in optax's order (utils/optim.py), and every
+``orbital_every`` steps a damped-Newton orbital relaxation at fixed RDMs
+(``OO_energy.orbital_optimization``).
 """
 
 import contextlib
@@ -81,6 +89,7 @@ from ..ops import kappa as _kappa
 from ..ops import rdms as _rdms
 from ..ops import transforms as _tr
 from ..ops.linalg import expm, gram_last
+from ..utils import optim as _optim
 from ..utils.newton_raphson import damped_newton_step_pure
 from .oo_energy import OO_energy
 
@@ -346,19 +355,25 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
         """A zero cotangent (or tangent state) without a D-sized buffer."""
         return like.new_zeros(()).expand(like.shape)
 
-    def grad_hess_hosted(theta, h1, g2, c0, c1eff, c2):
-        """The hosted route's per-tangent form: the JAX package's
-        per-tangent hosted branch (auto_oo_tpu/models/oo_pqc.py:770-819).
-        One pass over Phi gives H psi and psi's RDMs; e0 = c0 + <psi, H
-        psi> and grad_c = d/d theta <psi(theta), 2 H psi> by one reverse
-        sweep in f64 (the JAX package's _grad_c_vjp: pair_row with v = 0
-        and no delta cotangent); then per tangent i one pair sweep gives
-        J_i, one pass gives H J_i (with the transition RDMs of (psi, J_i)
-        when n_kappa > 0), and one reverse pair sweep gives the Hessian
-        row 2 d/d theta [<psi(theta), H J_i> + <J(theta) e_i, H psi>].
-        J and H J are never stacked.  Mixed: the passes and the pair
-        sweeps run on f32 states and theta."""
-        pair_rows = _grid._even(maps.Na, plan_lp.row_chunk // 2)
+    def energy_grad(theta, psi, Hpsi, c0):
+        """e0 = c0 + <psi, H psi> and grad_c = d/d theta <psi(theta), 2 H
+        psi> by one reverse sweep in f64 (the JAX package's _grad_c_vjp:
+        pair_row with v = 0 and no delta cotangent), never an autograd
+        tape over the gate program; an f32 H psi (mixed) joins the f64
+        state as f64."""
+        Hpsi64 = Hpsi.to(psi.dtype)
+        e0 = c0 + psi @ Hpsi64
+        grad_c = pqc._pair_row_grid(theta, torch.zeros_like(theta),
+                                    2.0 * Hpsi64, zero_state(psi), psi,
+                                    zero_state(psi))
+        return e0, grad_c
+
+    def hosted_pass(theta, c0, c1eff, c2):
+        """The hosted route's gradient pass: the state (and its f32 copy
+        in mixed mode), one pass over Phi for H psi and psi's RDMs
+        (``grid_hosted.ham_and_rdms_hosted``, the low-precision plan's row
+        chunk), then ``energy_grad``.  Returns (psi, psi_p, H psi, gamma,
+        Gamma, e0, grad_c)."""
         with parts("state sweep"):
             psi = pqc._state_impl_grid(theta)
             psi_p = lp(psi)
@@ -366,12 +381,22 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
             Hpsi, gamma, Gamma = _gh.ham_and_rdms_hosted(
                 c1eff, c2, psi_p, maps, ncas, plan_lp.row_chunk)
         with parts("gradient sweep"):
-            Hpsi64 = Hpsi.to(psi.dtype)
-            e0 = c0 + psi @ Hpsi64
-            grad_c = pqc._pair_row_grid(theta, torch.zeros_like(theta),
-                                        2.0 * Hpsi64, zero_state(psi), psi,
-                                        zero_state(psi))
-            del Hpsi64
+            e0, grad_c = energy_grad(theta, psi, Hpsi, c0)
+        return psi, psi_p, Hpsi, gamma, Gamma, e0, grad_c
+
+    def grad_hess_hosted(theta, h1, g2, c0, c1eff, c2):
+        """The hosted route's per-tangent form: the JAX package's
+        per-tangent hosted branch (auto_oo_tpu/models/oo_pqc.py:770-819).
+        ``hosted_pass`` gives psi, H psi, psi's RDMs, e0 and grad_c; then
+        per tangent i one pair sweep gives J_i, one pass gives H J_i (with
+        the transition RDMs of (psi, J_i) when n_kappa > 0), and one
+        reverse pair sweep gives the Hessian row 2 d/d theta [<psi(theta),
+        H J_i> + <J(theta) e_i, H psi>].  J and H J are never stacked.
+        Mixed: the passes and the pair sweeps run on f32 states and
+        theta."""
+        pair_rows = _grid._even(maps.Na, plan_lp.row_chunk // 2)
+        psi, psi_p, Hpsi, gamma, Gamma, e0, grad_c = hosted_pass(
+            theta, c0, c1eff, c2)
         th_p = lp(theta)
         hess_cc = theta.new_empty((nt, nt))
         trdms = []
@@ -493,6 +518,40 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
                                    for Jc in chunks))
         return e0, grad, hess
 
+    def energy_gradient_staged(theta, oao, int1e_ao, int2e_ao, oao_coeff,
+                               nuc):
+        """(e0, [grad_c, grad_o], (gamma, Gamma)) with no Hessian work: the
+        JAX package's gradient-only pipeline
+        (auto_oo_tpu/models/oo_pqc.py:945-988), branch by branch on this
+        core's route.  Hosted: ``hosted_pass``.  Else H psi through the
+        route's H-apply (``ham_apply``; ``grid.ham_apply_rows`` streamed),
+        the f64 reverse sweep, then the route's RDMs (f64 accumulators);
+        in mixed precision the H-apply and the RDMs take the f32 state
+        (the coefficients cast to f32 inside the H-apply) on the f32
+        plan.  grad_o is the Fock pack at those RDMs (empty when n_kappa
+        = 0).  Memory is O(D): psi, H psi and the reverse sweep's states;
+        no (nt, D) or (n^2, D) stack beyond the route's own Phi."""
+        h1, g2, c0, c1eff, c2 = coefficients(oao, int1e_ao, int2e_ao,
+                                             oao_coeff, nuc)
+        if hosted:
+            gamma, Gamma, e0, grad_c = hosted_pass(theta, c0, c1eff,
+                                                   c2)[3:]
+        else:
+            with parts("state sweep"):
+                psi = pqc._state_impl_grid(theta)
+                psi_p = lp(psi)
+            with parts("H psi"):
+                Hpsi = _ham.ham_apply(c1eff, c2, psi_p, ncas, maps, plan_lp)
+            with parts("gradient sweep"):
+                e0, grad_c = energy_grad(theta, psi, Hpsi, c0)
+            del Hpsi
+            with parts("RDMs"):
+                gamma, Gamma = _rdms.rdms_from_state(
+                    psi_p, ncas, maps, grid_order=True, plan=plan_lp)
+        grad_o = (pack_grad(h1, g2, gamma, Gamma) if n_kappa
+                  else grad_c.new_zeros(0))
+        return e0, torch.cat([grad_c, grad_o]), (gamma, Gamma)
+
     def newton_update(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc, e0,
                       grad, hess, alpha, beta, mu, rho, lambda_min):
         """Augmented-Newton solve + Armijo line search + MO update, given
@@ -525,6 +584,7 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
                              lambda_min)
 
     return {"energy": energy, "grad_hess": grad_hess,
+            "energy_gradient_staged": energy_gradient_staged,
             "newton_update": newton_update, "nr_iteration": nr_iteration,
             "route": route, "hosted_form": form, "precision": precision,
             "plan": plan, "plan_lp": plan_lp, "cross_rows": cross_rows,
@@ -628,16 +688,87 @@ class OO_pqc(OO_energy):
         """2x2 block Hessian (reference oo_pqc.py:136-148)."""
         return self._grad_hess(theta)[2]
 
-    # -- the optimizer loop ----------------------------------------------
+    def full_circuit_hessian_to_matrix(self, full_circuit_hessian):
+        """The circuit Hessian as an (n_theta, n_theta) matrix (the JAX
+        package's auto_oo_tpu/models/oo_pqc.py:1356-1358)."""
+        size = int(np.prod(self.pqc.theta_shape))
+        return full_circuit_hessian.reshape(size, size)
+
+    # -- the optimizer loops ---------------------------------------------
 
     def energy_and_gradient(self, theta):
-        raise NotImplementedError(
-            "the gradient-only pipeline comes with the staged large-D "
-            "route in a later PR of the port")
+        """(E, full [circuit, orbital] gradient, (gamma, Gamma)) with no
+        Hessian work: the state, one H-apply (with the RDMs in one pass on
+        the hosted route), one adjoint reverse sweep and the RDMs (see
+        ``energy_gradient_staged`` in ``_build_nr_core``).  The derivative
+        path that fits a card from (14e,14o) up: no (n_theta, D) stack."""
+        return self._core["energy_gradient_staged"](
+            self._theta(theta), self.oao_mo_coeff, *self._mol_args)
 
-    def gradient_optimization(self, theta_init, **kwargs):
-        raise NotImplementedError(
-            "gradient_optimization comes in a later PR of the port")
+    def gradient_optimization(self, theta_init, max_iterations=200,
+                              learning_rate=0.05, conv_tol=None,
+                              orbital_every=10, orbital_kwargs=None,
+                              verbose=0, flush=True, monitor=None,
+                              optimizer=None, eval_fn=None):
+        """Two-step first-order OO-VQE (reference-API extension of the JAX
+        package, auto_oo_tpu/models/oo_pqc.py:1372-1444): Adam on the
+        circuit parameters with the analytic gradient, and a damped-Newton
+        orbital relaxation (``orbital_optimization``) at the current RDMs
+        every ``orbital_every`` steps where n_kappa > 0.  Returns
+        (energy_l, theta).  The optimizer of the problems whose
+        quadratic-form Hessian cannot fit; at small D prefer
+        ``full_optimization``.
+
+        ``optimizer`` is any object with ``init(theta)`` and
+        ``update(grad, state, theta)`` (utils/optim.py; default
+        ``adam(learning_rate)``, optax's Adam).  ``eval_fn`` overrides the
+        evaluation: theta -> (energy, circuit_gradient, rdms_thunk), the
+        thunk returning (gamma, Gamma) at the same theta, called only on
+        relaxation steps.  The RDMs are those of the pre-update theta;
+        the relaxation runs after the update and changes
+        ``self.oao_mo_coeff``, which the next evaluation reads.
+        ``conv_tol`` defaults to 1e-8 (f64) and 1e-5 (mixed, whose
+        energies carry ~1e-6 relative noise): the loop stops after two
+        consecutive energy changes below it.  ``monitor.log(n, energy)``
+        is called for every step."""
+        if conv_tol is None:
+            conv_tol = 1e-5 if self.precision == "mixed" else 1e-8
+        theta = self._theta(theta_init)
+        opt = _optim.adam(learning_rate) if optimizer is None else optimizer
+        opt_state = opt.init(theta)
+        orbital_kwargs = dict(orbital_kwargs or {})
+        orbital_kwargs.setdefault("max_iterations", 20)
+        orbital_kwargs.setdefault("verbose", 0)
+        nt = self._nt
+        if eval_fn is None:
+            def eval_fn(th):
+                e, grad, rdms = self.energy_and_gradient(th)
+                return e, grad[:nt], (lambda: rdms)
+        energy_l = []
+        for n in range(max_iterations):
+            e, grad_c, rdms_thunk = eval_fn(theta)
+            energy_l.append(float(e))
+            if monitor is not None:
+                monitor.log(n, energy_l[-1])
+            if verbose:
+                print(f"iter = {n:03}, energy = {energy_l[-1]:.12f}",
+                      flush=flush)
+            relax = (orbital_every and (n + 1) % orbital_every == 0
+                     and self.n_kappa)
+            if relax:
+                # the RDMs at the pre-update theta (the gradient's point)
+                g1, G2 = rdms_thunk()
+            updates, opt_state = opt.update(grad_c, opt_state, theta)
+            theta = _optim.apply_updates(theta, updates)
+            if relax:
+                orb_l = self.orbital_optimization(g1, G2, **orbital_kwargs)
+                if orb_l and verbose:
+                    print(f"  orbital relaxation -> {orb_l[-1]:.12f}",
+                          flush=flush)
+            if (n > 2 and abs(energy_l[-1] - energy_l[-2]) < conv_tol
+                    and abs(energy_l[-2] - energy_l[-3]) < conv_tol):
+                break
+        return energy_l, theta
 
     def full_optimization(self, theta_init, max_iterations=50,
                           conv_tol=1e-10, verbose=0, flush=True,

@@ -91,6 +91,16 @@ def full_rdms(one_rdm, two_rdm, occ_idx, act_idx, nao):
     return one_full, two_full
 
 
+def y_matrix(int2e_mo, two_full):
+    """Y_pqrs = sum_mn [(G_pmrn + G_pmnr) g_qmns + G_prmn g_qsmn]
+    (reference oo_energy.py:381-393).  Dense O(nao^6) form; the Hessian
+    below uses the blocked form instead."""
+    y0 = torch.einsum("pmrn,qmns->pqrs", two_full, int2e_mo)
+    y1 = torch.einsum("pmnr,qmns->pqrs", two_full, int2e_mo)
+    y2 = torch.einsum("prmn,qsmn->pqrs", two_full, int2e_mo)
+    return y0 + y1 + y2
+
+
 def analytic_hessian_from_integrals(int1e_mo, int2e_mo, one_rdm, two_rdm,
                                     occ_idx, act_idx):
     """(1-P_pq)(1-P_rs)[2 gamma_pr h_qs - (F_pr+F_rp) delta_qs + 2 Y_pqrs]

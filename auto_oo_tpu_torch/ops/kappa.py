@@ -16,11 +16,12 @@ def vector_to_skew_symmetric(vector, size=None):
     """
     if size is None:
         size = int(np.sqrt(8 * vector.shape[0] + 1) + 1) // 2
-    rows, cols = np.tril_indices(size, k=-1)
+    rows, cols = (torch.as_tensor(ix, device=vector.device)
+                  for ix in np.tril_indices(size, k=-1))
+    # out of place, so torch.func transforms (grad, hessian) trace it
     mat = torch.zeros((size, size), dtype=vector.dtype, device=vector.device)
-    mat[rows, cols] = vector
-    mat[cols, rows] = -vector
-    return mat
+    return mat.index_put((rows, cols), vector).index_put((cols, rows),
+                                                         -vector)
 
 
 def skew_symmetric_to_vector(kappa_matrix):

@@ -20,8 +20,10 @@ tables (int32 and int8 on the device, 42 MB at (8e,8o)).
 
 The JAX package's ``gram_last`` / ``small_matmul_free_last`` sliced the
 large state axis only to bound the TPU's f64-emulation temporaries; here
-they are plain ``torch.matmul``.  States are real (the built-in ansatze
-and gate programs are orthogonal circuits on a real start).
+a float64 gram is one ``torch.matmul``, and a float32 one (the mixed
+precision mode) is ``linalg.gram_last``'s, summed in float64 pieces.
+States are real (the built-in ansatze and gate programs are orthogonal
+circuits on a real start).
 """
 
 import numpy as np
@@ -29,6 +31,7 @@ import torch
 
 from ..config import get_device
 from . import fermion
+from .linalg import gram_last
 from .grid import (GridMaps, _pair_chunk, assemble_rdms, phi_all,
                    rdms_rows, stream_plan, to_grid)
 
@@ -111,9 +114,11 @@ def epq_sum_flat(Y, maps):
 
 
 def rdms_from_gram(phi, psi, ncas):
-    """(gamma, Gamma) from Phi = E_pq psi and psi (one order for both)."""
+    """(gamma, Gamma) from Phi = E_pq psi and psi (one order for both);
+    float64 whatever the state's dtype (a float32 state's grams are
+    ``gram_last``'s)."""
     # corr[(q,p),(r,s)] = <E_qp psi|E_rs psi> = <psi|E_pq E_rs|psi>
-    return assemble_rdms(phi @ psi, phi @ phi.T, ncas)
+    return assemble_rdms(gram_last(phi, psi), gram_last(phi, phi), ncas)
 
 
 def rdms_from_state(psi, ncas, maps, grid_order=False, plan=None):

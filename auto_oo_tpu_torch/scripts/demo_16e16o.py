@@ -14,18 +14,27 @@ only.
 
 Stages (argv 2, comma-separated, default "state,rdms,energy"), each
 printing its seconds:
-  state   circuit state build and its norm
-  rdms    restricted RDMs (Phi streamed over grid rows), tr gamma and the
-          sum rule
-  energy  E(theta0), and E(0) against the RHF energy, through
-          ``OO_pqc.energy_from_parameters`` (one hosted RDM pass each)
-  nr      3 second-order damped-Newton iterations from theta0 through the
-          hosted route (``OO_pqc._nr_iteration``), f64
-  nrmixed the same through ``precision="mixed"``
+  state     circuit state build and its norm
+  rdms      restricted RDMs (Phi streamed over grid rows), tr gamma and
+            the sum rule
+  energy    E(theta0), and E(0) against the RHF energy, through
+            ``OO_pqc.energy_from_parameters`` (one hosted RDM pass each)
+  grad      energy + full gradient at theta0 through
+            ``OO_pqc.energy_and_gradient`` (one hosted (H psi, RDMs) pass
+            and one adjoint reverse sweep), twice, with |grad|
+  gradmixed the same through ``precision="mixed"`` (the pass on the f32
+            state, the reverse sweep in f64)
+  adam      2 Adam steps of ``OO_pqc.gradient_optimization`` from
+            init_zeros (learning rate 0.05, no orbital relaxation), which
+            must descend
+  adammixed 3 such steps in mixed precision: they must descend to 1e-5,
+            and E(0) must equal RHF to 1e-4
+  nr        3 second-order damped-Newton iterations from theta0 through
+            the hosted route (``OO_pqc._nr_iteration``), f64
+  nrmixed   the same through ``precision="mixed"``
 
-The JAX demo's other stages raise NotImplementedError, each naming the
-ROADMAP queue 1 item that brings it: s2 (item 6), grad, adam, gradmixed
-and adammixed (item 2, the gradient-only pipeline).
+The JAX demo's s2 stage raises NotImplementedError, naming the ROADMAP
+queue 1 item that brings it (item 7).
 """
 
 import sys
@@ -37,8 +46,12 @@ import auto_oo_tpu_torch as P
 
 GEOMETRY = "; ".join(f"H 0 0 {0.9 * i:.2f}" for i in range(16))
 STEP = (1e-4, 0.5, 1e-6, 1.1, 1e-6)   # alpha, beta, mu, rho, lambda_min
-_REFUSED = {"s2": 6, "grad": 2, "adam": 2, "gradmixed": 2, "adammixed": 2}
+_REFUSED = {"s2": 7}
+_GRAD_STAGES = {"grad": "f64", "gradmixed": "mixed"}
+_ADAM_STAGES = {"adam": ("f64", 2), "adammixed": ("mixed", 3)}
 _NR_STAGES = {"nr": "f64", "nrmixed": "mixed"}
+_STAGES = (("state", "rdms", "energy") + tuple(_GRAD_STAGES)
+           + tuple(_ADAM_STAGES) + tuple(_NR_STAGES))
 
 
 def _synced(fn):
@@ -52,6 +65,99 @@ def _synced(fn):
     if sync:
         sync()
     return out, time.perf_counter() - t0
+
+
+def grad_stage(pqc, mol, ncas, nelecas, theta, precision,
+               check_energy=False):
+    """The grad / gradmixed stage: ``energy_and_gradient`` at ``theta``
+    through an ``OO_pqc`` of ``precision`` (freeze_active), twice (the
+    first call carries the card's start-up), each printed with its
+    seconds and |grad|; with ``check_energy`` its energy must equal
+    ``energy_from_parameters(theta)`` to 1e-9.  Returns (the OO_pqc, the
+    energy, the circuit gradient)."""
+    oo = P.OO_pqc(pqc, mol, ncas, nelecas, freeze_active=True,
+                  precision=precision)
+    for label in ("first", "warm"):
+        (e, grad, _), sec = _synced(lambda: oo.energy_and_gradient(theta))
+        print(f"energy+gradient ({precision}, {label}): {sec:.2f} s  E = "
+              f"{float(e):.10f}  |grad| = {float(grad.norm()):.6e}  "
+              f"(route {oo._core['route']})", flush=True)
+    if check_energy:
+        e_ref = float(oo.energy_from_parameters(theta))
+        print(f"E(theta) through energy_from_parameters: {e_ref:.10f}, "
+              f"diff {float(e) - e_ref:+.2e}", flush=True)
+        assert abs(float(e) - e_ref) < 1e-9, (float(e), e_ref)
+    return oo, float(e), grad[:oo._nt]
+
+
+def adam_stage(pqc, mol, ncas, nelecas, precision, steps):
+    """The adam / adammixed stage: ``steps`` Adam steps of
+    ``gradient_optimization`` from init_zeros (learning rate 0.05, no
+    orbital relaxation) through an ``OO_pqc`` of ``precision``
+    (freeze_active), with seconds per step; the energies must descend
+    (mixed: to the JAX demo's 1e-5, and E(0), the HF determinant, must
+    equal the RHF energy to 1e-4).  Returns (the OO_pqc, the energies)."""
+    oo = P.OO_pqc(pqc, mol, ncas, nelecas, freeze_active=True,
+                  precision=precision)
+    (energy_l, _), sec = _synced(lambda: oo.gradient_optimization(
+        pqc.init_zeros(), max_iterations=steps, learning_rate=0.05,
+        orbital_every=0, verbose=1))
+    n = len(energy_l)
+    print(f"{n} Adam steps ({precision}): {sec:.1f} s ({sec / n:.2f} "
+          f"s/step)  dE = {energy_l[-1] - energy_l[0]:+.3e} Ha", flush=True)
+    mixed = precision == "mixed"
+    assert energy_l[-1] <= energy_l[0] + (1e-5 if mixed else 1e-10), energy_l
+    if mixed:
+        assert abs(energy_l[0] - mol.hf.e_tot) < 1e-4, (energy_l[0],
+                                                        mol.hf.e_tot)
+    return oo, energy_l
+
+
+def state_stages(pqc, mol, ncas, nelecas, theta, stages):
+    """The state, rdms and energy stages of ``stages``: the norm of the
+    state at ``theta``, tr gamma and the partial-trace sum rule (to
+    1e-8), and E(theta) and E(0) through ``OO_pqc.energy_from_parameters``
+    with E(0), the HF determinant, equal to the RHF energy to 1e-6."""
+    if "state" in stages:
+        psi, sec = _synced(lambda: pqc.state(theta))
+        nrm = float(psi @ psi)
+        print(f"state build: {sec:.2f} s  |psi|^2 = {nrm:.12f}", flush=True)
+        assert abs(nrm - 1.0) < 1e-10
+        del psi
+    if "rdms" in stages:
+        (g1, G2), sec = _synced(lambda: pqc.get_rdms(theta))
+        tr = float(torch.trace(g1))
+        part = torch.einsum("pqrr->pq", G2)
+        sum_err = float((part - (nelecas - 1) * g1).abs().max())
+        print(f"RDMs: {sec:.2f} s  tr gamma = {tr:.10f}  sum-rule err = "
+              f"{sum_err:.1e}", flush=True)
+        assert abs(tr - nelecas) < 1e-8 and sum_err < 1e-8
+    if "energy" in stages:
+        oo, sec = _synced(lambda: P.OO_pqc(pqc, mol, ncas, nelecas,
+                                           freeze_active=True))
+        print(f"OO_pqc setup: {sec:.1f} s (route {oo._core['route']})",
+              flush=True)
+        e, sec = _synced(lambda: float(oo.energy_from_parameters(theta)))
+        print(f"E(theta0) = {e:.10f} Ha ({sec:.2f} s)", flush=True)
+        e0, sec = _synced(lambda: float(oo.energy_from_parameters(
+            pqc.init_zeros())))
+        print(f"E(0) = {e0:.10f} Ha ({sec:.2f} s), RHF {mol.hf.e_tot:.10f},"
+              f" diff {e0 - mol.hf.e_tot:+.2e}: the HF determinant in the "
+              f"active space", flush=True)
+        assert abs(e0 - mol.hf.e_tot) < 1e-6, (e0, mol.hf.e_tot)
+        del oo
+
+
+def check_stages(stages, known=_STAGES):
+    """Refuse the stages this port does not run yet, naming their ROADMAP
+    item, and those not in ``known``, before any card is looked for."""
+    for st in stages:
+        if st in _REFUSED:
+            raise NotImplementedError(
+                f"stage {st!r} comes in a later PR of the port (ROADMAP "
+                f"queue 1 item {_REFUSED[st]})")
+        if st not in known:
+            raise ValueError(f"unknown stage {st!r}")
 
 
 def nr_stage(pqc, mol, ncas, nelecas, theta, precision, iterations=3):
@@ -82,13 +188,7 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     n_layers = int(argv[0]) if argv else 1
     stages = (argv[1] if len(argv) > 1 else "state,rdms,energy").split(",")
-    for st in stages:
-        if st in _REFUSED:
-            raise NotImplementedError(
-                f"stage {st!r} comes in a later PR of the port (ROADMAP "
-                f"queue 1 item {_REFUSED[st]})")
-        if st not in ("state", "rdms", "energy") and st not in _NR_STAGES:
-            raise ValueError(f"unknown stage {st!r}")
+    check_stages(stages)
     if not torch.cuda.is_available():
         print("demo_16e16o: needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -109,37 +209,15 @@ def main(argv=None):
 
     theta = 0.02 * torch.arange(pqc.theta_shape, dtype=torch.float64,
                                 device=pqc.device)
-    if "state" in stages:
-        psi, sec = _synced(lambda: pqc.state(theta))
-        nrm = float(psi @ psi)
-        print(f"state build: {sec:.2f} s  |psi|^2 = {nrm:.12f}", flush=True)
-        assert abs(nrm - 1.0) < 1e-10
-        del psi
-    if "rdms" in stages:
-        (g1, G2), sec = _synced(lambda: pqc.get_rdms(theta))
-        tr = float(torch.trace(g1))
-        part = torch.einsum("pqrr->pq", G2)
-        sum_err = float((part - (nelecas - 1) * g1).abs().max())
-        print(f"RDMs: {sec:.2f} s  tr gamma = {tr:.10f}  sum-rule err = "
-              f"{sum_err:.1e}", flush=True)
-        assert abs(tr - nelecas) < 1e-8 and sum_err < 1e-8
-    if "energy" not in stages and not set(_NR_STAGES) & set(stages):
-        print("DEMO OK", flush=True)
-        return 0
-    if "energy" in stages:
-        oo, sec = _synced(lambda: P.OO_pqc(pqc, mol, ncas, nelecas,
-                                           freeze_active=True))
-        print(f"OO_pqc setup: {sec:.1f} s (route {oo._core['route']})",
-              flush=True)
-        e, sec = _synced(lambda: float(oo.energy_from_parameters(theta)))
-        print(f"E(theta0) = {e:.10f} Ha ({sec:.2f} s)", flush=True)
-        e0, sec = _synced(lambda: float(oo.energy_from_parameters(
-            pqc.init_zeros())))
-        print(f"E(0) = {e0:.10f} Ha ({sec:.2f} s), RHF {mol.hf.e_tot:.10f},"
-              f" diff {e0 - mol.hf.e_tot:+.2e}: the HF determinant in the "
-              f"active space", flush=True)
-        assert abs(e0 - mol.hf.e_tot) < 1e-6, (e0, mol.hf.e_tot)
-        del oo
+    state_stages(pqc, mol, ncas, nelecas, theta, stages)
+    for stage, precision in _GRAD_STAGES.items():
+        if stage in stages:
+            grad_stage(pqc, mol, ncas, nelecas, theta, precision)
+            torch.cuda.empty_cache()
+    for stage, (precision, steps) in _ADAM_STAGES.items():
+        if stage in stages:
+            adam_stage(pqc, mol, ncas, nelecas, precision, steps)
+            torch.cuda.empty_cache()
     for stage, precision in _NR_STAGES.items():
         if stage in stages:
             nr_stage(pqc, mol, ncas, nelecas, theta, precision)

@@ -216,19 +216,20 @@ class Parameterized_circuit:
             self._expand_theta(theta), w, psi, J, self._tangent_params)
 
     def _pair_state_grid(self, theta, v):
-        """(|psi(theta)>, J(theta) v) in GRID order from one forward sweep
-        carrying the state and one tangent column (the forward of the JAX
-        package's ``_pair_state_impl_grid``); ``_expand_theta`` is
-        linear, so v expands through it."""
-        return self.grid_program.apply_pair(self._expand_theta(theta),
-                                            self._expand_theta(v))
+        """(|psi(theta)>, J(theta) v) in the maps' order from one forward
+        sweep carrying the state and one tangent column (the forward of
+        the JAX package's ``_pair_state_impl_grid``); ``_expand_theta``
+        is linear, so v expands through it."""
+        return self._sweep.apply_pair(self._expand_theta(theta),
+                                      self._expand_theta(v))
 
     def _pair_row_grid(self, theta, v, a, b, psi=None, delta=None):
-        """grad_theta [<psi(theta), a> + <J(theta) v, b>] for GRID-ordered
-        a and b from one reverse sweep (the backward of the JAX package's
-        ``_pair_state_impl_grid``), given ``(psi, delta) =
-        _pair_state_grid(theta, v)`` or computing it."""
-        full = self.grid_program.pair_row(
+        """grad_theta [<psi(theta), a> + <J(theta) v, b>] for a and b in
+        the maps' order from one reverse sweep (the backward of the JAX
+        package's ``_pair_state_impl_grid``), given ``(psi, delta) =
+        _pair_state_grid(theta, v)`` or computing it.  With v = 0 and b =
+        0 it is the adjoint gradient of <psi(theta), a>."""
+        full = self._sweep.pair_row(
             self._expand_theta(theta), self._expand_theta(v), a, b, psi,
             delta)
         return full[self._tangent_params_dev]

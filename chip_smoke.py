@@ -150,7 +150,33 @@ prints its seconds:
    onto the sector and factorized onto the string grid) against the
    built-in sector circuit: grad_hess e0, gradient and Hessian within
    1e-12, 1e-11 and 1e-9 at a seeded theta, the fused route's grid kernels
-   launched by the prebuilt circuit's grad_hess.
+   launched by the prebuilt circuit's grad_hess;
+13. the gradient-only pipeline (``OO_pqc.energy_and_gradient``: the
+   state, one H-apply, one adjoint reverse sweep and the RDMs; and
+   ``gradient_optimization``: Adam in optax's order, with damped-Newton
+   orbital relaxations), each run with its launches counted, s/gradient
+   step and peak memory: after phase 7, the (10e,10o) slice 10 steps
+   from init_zeros (relaxations after steps 4 and 9) in f64 and mixed,
+   against the CPU JAX trajectories: f64 steps 0-4 to 1e-8 Ha and mixed
+   step 0 to 1e-5 Ha, the rest to 1e-3 Ha (the relaxations amplify last
+   bits: the JAX package's own run from theta = 1e-13 leaves it by up to
+   4.8e-4 Ha; and Adam scales the f32 error of small gradient entries to
+   steps of the learning rate);
+   after phase 8, (14e,14o) on the streamed route: one
+   energy_and_gradient at theta0 = 0.02 * arange(14) with its parts
+   (E = E(theta0) to 1e-9) and 3 Adam steps from init_zeros (dE within
+   1e-4 Ha of the JAX package's -5.3 mHa), then the same in mixed (E and
+   gradient against the f64 ones within 1e-5 Ha and 1e-4 (max|g| + 1),
+   descending); after phase 9, (2e,2o) ucc in the full space, 60 steps
+   (a relaxation every 5), every energy within 1e-8 Ha of CPU JAX and
+   the last within 2e-4 Ha of CASSCF; after phase 10's f64 iteration,
+   (16e,16o) on the hosted route: energy_and_gradient at theta0 with its
+   parts (E equal to the grad_hess e0 and to E(theta0) to 1e-9, the
+   gradient equal to grad_hess's to 1e-12 relative, |grad| = 5.379e-02
+   to 4 digits) and 2 Adam steps from init_zeros (dE within 1e-5 Ha of
+   the JAX package's -2.57e-3); after its mixed iteration, the same in
+   mixed (|grad| within 1e-4 relative of the JAX package's 5.378922e-02;
+   3 steps descending to 1e-5, E(0) = RHF to 1e-4).
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
 its main path's run, which is the (16e,16o) iteration of phase 10 for
@@ -160,7 +186,9 @@ the probes and gather_rows_scaled (its variant L; no route launches it
 since gather_two_spin, and every route phase checks that), with each
 path's launches under "launches_by_path" (0 on the flat paths; the mixed
 paths' f32 launches under "10e10o_mixed", "14e14o_mixed" and
-"16e16o_mixed"); max abs error against the
+"16e16o_mixed"; the gradient-only pipeline's under "*_grad*", one
+energy_and_gradient, and "*_adam*", a whole Adam run); max abs error
+against the
 plain version over every comparison; kernel and plain times and the
 bound at the (16e,16o) f64 chunk shapes for the hosted route's kernels
 (gather_two_spin on the chunk and gather_rows_scaled on its alpha half;
@@ -230,6 +258,67 @@ ANCHORS_10E10O_MIXED = [-92.71490192892506, -92.74063322179997,
                         -92.74294436652184, -92.74381132021185]
 TOL_10E10O_MIXED = [1e-6, 1e-5, 1e-5, 1e-5]
 E_ITER2_14E14O_MIXED = -7.3342933466
+# the gradient-only pipeline (OO_pqc.energy_and_gradient and Adam's
+# gradient_optimization).  (16e,16o) from theta0: the JAX package's mixed
+# |grad|, 5.378922e-02 (BASELINE.md:553), held to 1e-4 relative; 2 f64
+# Adam steps from init_zeros lower E by 2.57e-3 Ha (BASELINE.md:446, held
+# to 1e-5 Ha); (14e,14o): 3 steps by 5.3 mHa (BASELINE.md:342, 1e-4 Ha)
+GRAD_NORM_16E16O_MIXED = 5.378922e-02
+ADAM_DE_16E16O = -2.57e-3
+ADAM_DE_14E14O = -5.3e-3
+# CPU JAX energies at every step of gradient_optimization from init_zeros
+# with conv_tol=0 (PYTHONPATH=. JAX_PLATFORMS=cpu python
+# scripts/full_space_anchors.py 10e10o_adam 10e10o_adam_mixed 2e2o_adam).
+# (10e,10o), the slice's configuration, 10 steps at learning rate 0.05
+# with an orbital relaxation after steps 4 and 9: the relaxation's
+# augmented Newton iterations amplify last-bit differences, so the JAX
+# package's own run from theta = 1e-13 (--perturb 1e-13) leaves this one
+# by up to 4.8e-4 Ha (f64) and 5.3e-5 Ha (mixed) after the first
+# relaxation.  In mixed precision Adam's g / (|g| + eps) also scales the
+# f32 error of every gradient entry below ~1e-6 to a step of order the
+# learning rate, so two mixed trajectories part from step 1 on (by 9e-5
+# Ha at step 2 on the card).
+# f64 steps 0-4 are held to 1e-8 Ha and mixed step 0 (E(0) through an
+# f32 pass) to 1e-5 Ha, the JAX package's bound on such an energy
+# (tests/test_grid.py:686); the other steps to 1e-3 Ha, printed beside
+# the anchors.
+ANCHORS_10E10O_ADAM = [
+    -92.66372180882314, -92.66797692060042, -92.67175521438807,
+    -92.67731445524758, -92.68361386543269, -92.73097339876335,
+    -92.73735889932263, -92.74105930006615, -92.74134864463566,
+    -92.74053636476124]
+ANCHORS_10E10O_ADAM_MIXED = [
+    -92.66371951747232, -92.66796397610099, -92.67185676288611,
+    -92.67734813681686, -92.68361610157189, -92.73131329323446,
+    -92.73780827927416, -92.74144218926529, -92.7416398196448,
+    -92.74083248102117]
+HELD_10E10O_ADAM = {"f64": (5, 1e-8), "mixed": (1, 1e-5)}
+TOL_10E10O_ADAM_SPREAD = 1e-3
+# (2e,2o) ucc in the full space, freeze_active=False, 60 steps at 0.1 with
+# a relaxation every 5 (tests/test_oo_pqc.py:189-203): a 1e-13 start moves
+# it by 6e-14 Ha, so every step is held to 1e-8 Ha, and the end to 2e-4
+# Ha of CASSCF (the JAX test's bound)
+ANCHORS_2E2O_ADAM = [
+    -92.66372180882317, -92.66781936912368, -92.67020580292842,
+    -92.67099972083778, -92.67062730116064, -92.72750480528924,
+    -92.73392780242432, -92.73971579220996, -92.74400319394292,
+    -92.7463511926893, -92.74902277705291, -92.74860869215374,
+    -92.74718485089444, -92.74552462251536, -92.74429054963053,
+    -92.74624249798225, -92.74625044765898, -92.74649911556875,
+    -92.74690278761881, -92.74735339945613, -92.74794400105036,
+    -92.74834067235871, -92.74856434209252, -92.74860269183162,
+    -92.74849159069365, -92.74921370472433, -92.74912901662034,
+    -92.74901311320001, -92.74891208029061, -92.74885960609363,
+    -92.74895108284571, -92.74899429014948, -92.74905724862782,
+    -92.74912030621749, -92.74916659646519, -92.74921721060672,
+    -92.7492231656799, -92.74920711704206, -92.74917998632618,
+    -92.74915440675412, -92.74918357538097, -92.74918155351145,
+    -92.7491872521066, -92.74919811389195, -92.74921016484106,
+    -92.74922149464783, -92.74922728102699, -92.74922749923435,
+    -92.74922347961171, -92.74921781679117, -92.74922560144536,
+    -92.74922378285008, -92.74922359404044, -92.74922498249198,
+    -92.74922729258577, -92.74922955848007, -92.74923102535553,
+    -92.7492313762446, -92.74923076227412, -92.74922968156379]
 STEP = dict(alpha=1e-4, beta=0.5, mu=1e-6, rho=1.1, lambda_min=1e-6)
 # the grid kernels each route launches (the hosted route adds its alpha
 # half with scatter_rows where the others run the row form); every route
@@ -1522,7 +1611,8 @@ def sector16_phase(torch, gk, mol, pqc, oo):
     energy, then one grad_hess at the demo's theta0 = 0.02 * arange(14)
     and one damped-Newton update from it (the NR iteration), with its
     time, peak memory and kernel launches; the new state's norm and
-    tr(gamma).  Returns the launches of the iteration."""
+    tr(gamma).  Returns the launches of the iteration, e0 and the
+    gradient."""
     from auto_oo_tpu_torch.utils.newton_raphson import newton_step_pure
 
     t0 = time.perf_counter()
@@ -1591,7 +1681,7 @@ def sector16_phase(torch, gk, mol, pqc, oo):
           f"tr(gamma) - 16 {trace - 16.0:+.2e}")
     check(abs(norm - 1.0) < 1e-12, f"(16e,16o) state norm {norm}")
     check(abs(trace - 16.0) < 1e-10, f"(16e,16o) tr(gamma) = {trace}")
-    return launches
+    return launches, e0, grad
 
 
 def mixed10_phase(torch, P, gk):
@@ -2076,6 +2166,254 @@ def prebuilt_program_phase(torch, P, gk):
     return launches
 
 
+def gradient_call(torch, gk, oo, theta, label, kernels):
+    """One energy_and_gradient of ``oo`` at ``theta`` with the core's part
+    timer on (each part between synchronizes, with its peak) and its
+    kernel launches counted (``kernels`` launched, gather_rows_scaled
+    not); tr(gamma) must be the electron count (to 1e-8, mixed 1e-5).
+    Returns (e, gradient, launches)."""
+    parts = oo._core["parts"]
+    parts.seconds, parts.peaks = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    parts.enabled = True
+    t0 = time.perf_counter()
+    try:
+        e, grad, (gamma, _) = oo.energy_and_gradient(theta)
+        torch.cuda.synchronize()
+    finally:
+        parts.enabled = False
+    sec = time.perf_counter() - t0
+    launches = dict(gk.LAUNCHES)
+    # the part timer resets the peak at each part
+    peak = max([torch.cuda.max_memory_allocated()]
+               + list(parts.peaks.values()))
+    nt = oo.pqc.theta_shape
+    check(grad.shape == (nt + oo.n_kappa,) and grad.dtype == torch.float64,
+          f"{label}: gradient {grad.dtype} {tuple(grad.shape)}")
+    check(bool(torch.isfinite(grad).all()), f"{label}: non-finite gradient")
+    trace = float(torch.trace(gamma))
+    nelec = sum(oo.nelecas) if isinstance(oo.nelecas, tuple) else oo.nelecas
+    # mixed: gamma comes from an f32 pass (the JAX package's 1e-5 bound)
+    tol = 1e-8 if oo.precision == "f64" else 1e-5
+    check(abs(trace - nelec) < tol, f"{label}: tr(gamma) = {trace}")
+    print(f"  {label}: energy_and_gradient {sec:.3f} s (part timer on), E ="
+          f" {float(e):.12f}, |grad| = {float(grad.norm()):.6e}, tr(gamma) - "
+          f"{nelec} {trace - nelec:+.2e}; peak {peak / 1e9:.3f} GB")
+    print("    parts: " + "; ".join(
+        f"{k} {1e3 * v:.1f} ms (peak {parts.peaks.get(k, 0) / 1e9:.3f} GB)"
+        for k, v in parts.seconds.items()))
+    print(f"    launches: {launches}")
+    if kernels:
+        check_route_kernels(launches, kernels, label)
+    else:
+        check_no_kernels(launches, label)
+    return float(e), grad, launches
+
+
+def adam_run(torch, gk, oo, theta0, steps, label, kernels, lr=0.05,
+             every=0):
+    """``steps`` steps of gradient_optimization from ``theta0`` (conv_tol
+    0), with s/gradient step (host clock over the run, which ends in a
+    synchronize: each step is one energy_and_gradient and one Adam
+    update, plus the relaxations), peak memory and launches; returns
+    (energies, theta, launches)."""
+    stamps = []
+
+    class Stamp:
+        def log(self, n, energy):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    energies, theta = oo.gradient_optimization(
+        theta0, max_iterations=steps, learning_rate=lr, orbital_every=every,
+        conv_tol=0, monitor=Stamp())
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = dict(gk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(len(energies) == steps, f"{label}: {len(energies)} steps")
+    check(all(np.isfinite(energies)), f"{label}: non-finite energies")
+    evals = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    print(f"  {label}: {steps} steps {sec:.3f} s, {sec / steps:.4f} "
+          f"s/gradient step; to each step's energy: "
+          f"{', '.join(f'{x:.3f}' for x in evals)} s; peak {peak / 1e9:.3f} "
+          f"GB; launches {launches} "
+          f"({', '.join(f'{k} {v / steps:g}' for k, v in launches.items())}"
+          f" per step)")
+    if kernels:
+        check_route_kernels(launches, kernels, label)
+    else:
+        check_no_kernels(launches, label)
+    return energies, theta, launches
+
+
+def gradient16_phase(torch, gk, pqc, oo, e0, grad_ref, precision, e_rhf):
+    """The (16e,16o) H16 chain's gradient-only pipeline on the hosted
+    route: energy_and_gradient at theta0 (f64: E equal to the grad_hess
+    e0 ``e0`` and to energy_from_parameters to 1e-9, the gradient equal
+    to the per-tangent grad_hess one ``grad_ref`` to 1e-12 relative, the
+    same sweep, |grad| = 5.379e-02 to 4 digits; mixed: |grad| within 1e-4
+    relative of the JAX package's 5.378922e-02), then Adam from
+    init_zeros as in the demo (f64: 2 steps, dE within 1e-5 Ha of the
+    JAX package's -2.57e-3; mixed: 3 steps descending to 1e-5, E(0) = RHF
+    to 1e-4).  Returns {path: launches}."""
+    theta0 = 0.02 * torch.arange(pqc.theta_shape, dtype=torch.float64,
+                                 device=pqc.device)
+    tag = "" if precision == "f64" else "_mixed"
+    e, grad, l_grad = gradient_call(torch, gk, oo, theta0,
+                                    f"(16e,16o) {precision}", HOSTED_KERNELS)
+    gnorm = float(grad.norm())
+    if precision == "f64":
+        e_ref = float(oo.energy_from_parameters(theta0))
+        rel = float((grad - grad_ref).norm() / grad_ref.norm())
+        print(f"    E - grad_hess e0 {e - e0:+.3e}, E - E(theta0) "
+              f"{e - e_ref:+.3e}; |grad - grad_hess grad| / |grad| "
+              f"{rel:.3e}; |grad| - JAX f64 {gnorm - GRAD_NORM_16E16O:+.2e}")
+        check(abs(e - e_ref) <= 1e-9 and abs(e - e0) <= 1e-9,
+              f"(16e,16o) energy_and_gradient E {e} misses {e_ref}, {e0}")
+        check(rel <= 1e-12, f"(16e,16o) gradient differs from grad_hess's "
+              f"by {rel} relative")
+        check(round(gnorm, 5) == GRAD_NORM_16E16O,
+              f"(16e,16o) |grad| {gnorm} is not {GRAD_NORM_16E16O}")
+    else:
+        rel = gnorm / GRAD_NORM_16E16O_MIXED - 1
+        print(f"    |grad| against the JAX mixed {GRAD_NORM_16E16O_MIXED:.6e}"
+              f": {rel:+.2e} relative")
+        check(abs(rel) <= 1e-4, f"(16e,16o) mixed |grad| {gnorm} misses "
+              f"{GRAD_NORM_16E16O_MIXED}")
+    del grad
+    torch.cuda.empty_cache()
+    steps = 2 if precision == "f64" else 3
+    energies, _, l_adam = adam_run(torch, gk, oo, pqc.init_zeros(), steps,
+                                   f"(16e,16o) {precision} Adam",
+                                   HOSTED_KERNELS)
+    de = energies[-1] - energies[0]
+    print(f"    energies {', '.join(f'{x:.12f}' for x in energies)}; dE = "
+          f"{de:+.4e} Ha")
+    if precision == "f64":
+        check(abs(de - ADAM_DE_16E16O) <= 1e-5,
+              f"(16e,16o) Adam dE {de} misses {ADAM_DE_16E16O}")
+    else:
+        print(f"    E(0) - RHF {energies[0] - e_rhf:+.3e}")
+        check(energies[-1] <= energies[0] + 1e-5,
+              f"(16e,16o) mixed Adam does not descend: {energies}")
+        check(abs(energies[0] - e_rhf) <= 1e-4,
+              f"(16e,16o) mixed E(0) {energies[0]} misses RHF {e_rhf}")
+    return {f"16e16o_grad{tag}": l_grad, f"16e16o_adam{tag}": l_adam}
+
+
+def gradient14_phase(torch, gk, P, mol, pqc, oo):
+    """The (14e,14o) H14 chain's gradient-only pipeline on the streamed
+    route: energy_and_gradient at theta0 = 0.02 * arange(14), E equal to
+    energy_from_parameters to 1e-9, then 3 Adam steps from init_zeros
+    with dE within 1e-4 Ha of the JAX package's -5.3 mHa; the same in
+    precision="mixed" (E and gradient against the f64 ones within 1e-5
+    Ha and 1e-4 (max|g| + 1), 3 steps descending to 1e-5).  Returns
+    {path: launches}."""
+    theta0 = 0.02 * torch.arange(pqc.theta_shape, dtype=torch.float64,
+                                 device=pqc.device)
+    paths = {}
+    e64 = g64 = None
+    for precision, o in (("f64", oo), ("mixed", None)):
+        tag = "" if precision == "f64" else "_mixed"
+        if o is None:
+            o = P.OO_pqc(pqc, mol, pqc.ncas, pqc.nelecas, freeze_active=True,
+                         precision=precision)
+        check(o._core["route"] == "streamed",
+              f"(14e,14o) route {o._core['route']}, expected streamed")
+        e, grad, paths[f"14e14o_grad{tag}"] = gradient_call(
+            torch, gk, o, theta0, f"(14e,14o) {precision}", FUSED_KERNELS)
+        if precision == "f64":
+            e_ref = float(o.energy_from_parameters(theta0))
+            print(f"    E - E(theta0) {e - e_ref:+.3e}")
+            check(abs(e - e_ref) <= 1e-9,
+                  f"(14e,14o) energy_and_gradient E {e} misses {e_ref}")
+            e64, g64 = e, grad
+        else:
+            dg = float((grad - g64).abs().max())
+            print(f"    mixed - f64: E {e - e64:+.3e}, max|dgrad| {dg:.3e}")
+            check(abs(e - e64) <= 1e-5, f"(14e,14o) mixed E {e} vs {e64}")
+            check(dg <= 1e-4 * (float(g64.abs().max()) + 1),
+                  f"(14e,14o) mixed gradient differs by {dg}")
+        energies, _, paths[f"14e14o_adam{tag}"] = adam_run(
+            torch, gk, o, pqc.init_zeros(), 3, f"(14e,14o) {precision} Adam",
+            FUSED_KERNELS)
+        de = energies[-1] - energies[0]
+        print(f"    energies {', '.join(f'{x:.12f}' for x in energies)}; "
+              f"dE = {de:+.4e} Ha (JAX f64 {ADAM_DE_14E14O:+.1e})")
+        if precision == "f64":
+            check(abs(de - ADAM_DE_14E14O) <= 1e-4,
+                  f"(14e,14o) Adam dE {de} misses {ADAM_DE_14E14O}")
+        else:
+            check(energies[-1] <= energies[0] + 1e-5,
+                  f"(14e,14o) mixed Adam does not descend: {energies}")
+        del o
+        torch.cuda.empty_cache()
+    return paths
+
+
+def adam10_phase(torch, P, gk, precision):
+    """10 steps of gradient_optimization on the (10e,10o) slice from
+    init_zeros (learning rate 0.05, an orbital relaxation of its 30
+    rotations after steps 4 and 9), each energy printed beside the CPU
+    JAX anchor; f64 steps 0-4 held to 1e-8 Ha and mixed step 0 to 1e-5
+    Ha, the rest to 1e-3 Ha (see ANCHORS_10E10O_ADAM).  Returns the
+    launches."""
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
+    pqc = P.Parameterized_circuit(10, 10, ansatz="np_fabric", n_layers=2,
+                                  sector=True)
+    oo = P.OO_pqc(pqc, mol, 10, 10, freeze_active=True, precision=precision)
+    anchors = (ANCHORS_10E10O_ADAM if precision == "f64"
+               else ANCHORS_10E10O_ADAM_MIXED)
+    held, held_tol = HELD_10E10O_ADAM[precision]
+    energies, theta, launches = adam_run(
+        torch, gk, oo, pqc.init_zeros(), len(anchors),
+        f"(10e,10o) {precision} Adam", FUSED_KERNELS, every=5)
+    for n, (e, ref) in enumerate(zip(energies, anchors)):
+        tol = held_tol if n < held else TOL_10E10O_ADAM_SPREAD
+        print(f"  step {n}: E = {e:.14f}  JAX-CPU {ref:.14f}  diff "
+              f"{e - ref:+.3e}  (held to {tol:.0e})")
+        check(abs(e - ref) <= tol, f"(10e,10o) {precision} Adam step {n}: "
+              f"|{e} - {ref}| > {tol}")
+    norm = float(pqc.state(theta).norm())
+    check(abs(norm - 1.0) < 1e-12, f"(10e,10o) Adam final norm {norm}")
+    check(bool(torch.isfinite(oo.oao_mo_coeff).all()), "non-finite OAO-MO")
+    return launches
+
+
+def adam_2e2o_phase(torch, P, gk):
+    """(2e,2o) ucc in the full space (freeze_active=False): 60 steps of
+    gradient_optimization from init_zeros (learning rate 0.1, a
+    relaxation every 5), every energy within 1e-8 Ha of the CPU JAX
+    anchor and the last within 2e-4 Ha of CASSCF; returns the launches
+    (none: the flat route)."""
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
+    pqc = P.Parameterized_circuit(2, 2, ansatz="ucc")
+    oo = P.OO_pqc(pqc, mol, 2, 2)
+    check(oo._core["route"] == "flat", f"(2e,2o) {oo._core['route']}")
+    energies, _, launches = adam_run(
+        torch, gk, oo, pqc.init_zeros(), len(ANCHORS_2E2O_ADAM),
+        "(2e,2o) full space Adam", (), lr=0.1, every=5)
+    diff = max(abs(e - r) for e, r in zip(energies, ANCHORS_2E2O_ADAM))
+    print(f"  max |E - JAX-CPU| over the 60 steps {diff:.3e}; last E = "
+          f"{energies[-1]:.14f}, CASSCF {E_CASSCF_2E2O:.14f}, diff "
+          f"{energies[-1] - E_CASSCF_2E2O:+.3e}")
+    check(diff <= TOL_ENERGY, f"(2e,2o) Adam trajectory off by {diff}")
+    check(abs(energies[-1] - E_CASSCF_2E2O) <= 2e-4,
+          f"(2e,2o) Adam ends {energies[-1]}, not within 2e-4 of CASSCF")
+    return launches
+
+
 def main():
     import torch
 
@@ -2120,6 +2458,11 @@ def main():
         paths["10e10o_mixed"] = phase("(10e,10o) slice, mixed precision",
                                       mixed10_phase, torch, P, gk)
         torch.cuda.empty_cache()
+        for precision in ("f64", "mixed"):
+            tag = "" if precision == "f64" else "_mixed"
+            paths[f"10e10o_adam{tag}"] = phase(
+                f"(10e,10o) slice, Adam with orbital relaxations, "
+                f"{precision}", adam10_phase, torch, P, gk, precision)
         phase("streamed and hosted (per-tangent and Gram) equal fused at "
               "(10e,10o)", routes_equal_fused_phase, torch, P, gk, gh, grid)
         torch.cuda.empty_cache()
@@ -2131,6 +2474,9 @@ def main():
             "(14e,14o) sector", sector14_phase, torch, gk, pqc14, oo14)
         phase("(14e,14o) hosted against streamed", hosted14_phase, torch, P,
               gk, gh, mol14, pqc14, oo14, theta14)
+        paths.update(phase("(14e,14o) gradient-only pipeline, f64 and mixed",
+                           gradient14_phase, torch, gk, P, mol14, pqc14,
+                           oo14))
         del oo14, theta14
         torch.cuda.empty_cache()
         paths["14e14o_mixed"] = phase(
@@ -2144,6 +2490,9 @@ def main():
         paths["full_2e2o"] = phase("(2e,2o) full space convergence",
                                    full_space_convergence_phase, torch, P,
                                    gk)
+        paths["full_2e2o_adam"] = phase(
+            "(2e,2o) full space, Adam with orbital relaxations",
+            adam_2e2o_phase, torch, P, gk)
         paths["full_3e3o"] = phase(
             "(3e,3o) doublet, full space", flat_phase, torch, P, gk,
             "(3e,3o) doublet", 3, (2, 1),
@@ -2165,13 +2514,24 @@ def main():
                                    P)
         phase("(16e,16o) grid kernels vs plain", hosted_kernel_phase, torch,
               gk, gh, grid, oo16, stats)
-        paths["16e16o"] = phase("(16e,16o) sector", sector16_phase, torch,
-                                gk, mol16, pqc16, oo16)
-        del oo16
+        paths["16e16o"], e0_16, grad16 = phase(
+            "(16e,16o) sector", sector16_phase, torch, gk, mol16, pqc16,
+            oo16)
+        paths.update(phase("(16e,16o) gradient-only pipeline, f64",
+                           gradient16_phase, torch, gk, pqc16, oo16, e0_16,
+                           grad16, "f64", mol16.hf.e_tot))
+        del oo16, grad16
         torch.cuda.empty_cache()
         paths["16e16o_mixed"] = phase(
             "(16e,16o) sector, mixed precision (Gram form)",
             sector16_mixed_phase, torch, gk, P, mol16, pqc16)
+        torch.cuda.empty_cache()
+        paths.update(phase(
+            "(16e,16o) gradient-only pipeline, mixed", gradient16_phase,
+            torch, gk, pqc16, P.OO_pqc(pqc16, mol16, 16, 16,
+                                       freeze_active=True,
+                                       precision="mixed"),
+            None, None, "mixed", mol16.hf.e_tot))
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

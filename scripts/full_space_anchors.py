@@ -18,11 +18,24 @@ lambda_min=1e-6; freeze_active=True unless noted):
   10e10o_mixed sector=True, np_fabric L=2, precision="mixed", 4
                iterations (bench.py's 10e10o_sector tier in mixed mode)
 
-Each cell prints one JSON line: the energy after every iteration, the
-lowest Hessian eigenvalues, n_theta, n_kappa, D and, for the cells run
-to convergence, the CASSCF energy of the active space.  ``--perturb
-EPS`` starts from theta = EPS instead of 0 (for every entry), which
-shows how far a trajectory amplifies a difference in its last bits.
+and the gradient-only pipeline's cells (``OO_pqc.gradient_optimization``
+from init_zeros with conv_tol=0, Adam steps with a damped-Newton orbital
+relaxation every ``orbital_every`` steps):
+
+  10e10o_adam        the 10e10o_mixed cell's circuit in f64, 10 steps,
+                     learning_rate=0.05, orbital_every=5
+  10e10o_adam_mixed  the same in precision="mixed"
+  2e2o_adam          ucc in the full space (sector=False), freeze_active
+                     False, 60 steps, learning_rate=0.1, orbital_every=5
+                     (tests/test_oo_pqc.py:189-203), with the CASSCF energy
+
+Each cell prints one JSON line: the energy after every iteration (for
+the Adam cells, the energy at every step before its update), the lowest
+Hessian eigenvalues (Newton cells), n_theta, n_kappa, D and, for the
+cells run to convergence, the CASSCF energy of the active space.
+``--perturb EPS`` starts from theta = EPS instead of 0 (for every
+entry), which shows how far a trajectory amplifies a difference in its
+last bits.
 """
 
 import json
@@ -49,6 +62,17 @@ CELLS = {
     "10e10o_mixed": dict(ncas=10, ne=10, kw=dict(ansatz="np_fabric",
                                                  n_layers=2, sector=True),
                          iters=4, precision="mixed"),
+    "10e10o_adam": dict(ncas=10, ne=10, kw=dict(ansatz="np_fabric",
+                                                n_layers=2, sector=True),
+                        adam=dict(steps=10, lr=0.05, every=5)),
+    "10e10o_adam_mixed": dict(ncas=10, ne=10,
+                              kw=dict(ansatz="np_fabric", n_layers=2,
+                                      sector=True),
+                              adam=dict(steps=10, lr=0.05, every=5),
+                              precision="mixed"),
+    "2e2o_adam": dict(ncas=2, ne=2, kw=dict(ansatz="ucc"),
+                      freeze_active=False,
+                      adam=dict(steps=60, lr=0.1, every=5), casscf=True),
 }
 
 
@@ -60,12 +84,19 @@ def run(name, perturb=0.0):
     oo = OO_pqc(pqc, mol, c["ncas"], c["ne"],
                 freeze_active=c.get("freeze_active", True),
                 precision=c.get("precision", "f64"))
-    energies, _, _, _, eigs = oo.full_optimization(
-        pqc.init_zeros() + perturb, max_iterations=c["iters"])
+    if "adam" in c:
+        a = c["adam"]
+        energies, _ = oo.gradient_optimization(
+            pqc.init_zeros() + perturb, max_iterations=a["steps"],
+            learning_rate=a["lr"], orbital_every=a["every"], conv_tol=0)
+        eigs = None
+    else:
+        energies, _, _, _, eigs = oo.full_optimization(
+            pqc.init_zeros() + perturb, max_iterations=c["iters"])
     out = dict(cell=name, perturb=perturb, energies=energies,
                lowest_hess_eig=eigs, n_theta=int(pqc.theta_shape),
                n_kappa=int(oo.n_kappa), D=int(pqc.state_dim))
-    if c["iters"] == 50:
+    if c.get("iters") == 50 or c.get("casscf"):
         mol.run_casscf(c["ncas"], c["ne"])
         out["casscf"] = float(mol.casscf.e_tot)
     return out

@@ -12,8 +12,10 @@ full-space route's flat sweeps, E_pq maps and H-apply on the card against
 the CPU with a (2e,2o) full-space convergence, mixed precision (the
 fused Newton core on the card against the CPU, one f32 launch of
 ``gather_two_spin`` over a stack of 15 states, the Gram form of the
-hosted core against the per-tangent one), and failed builds and
-launches that raise.  This file imports neither jax nor the
+hosted core against the per-tangent one), the gradient-only pipeline
+(the hosted ``energy_and_gradient`` and a (2e,2o) ``gradient_optimization``
+on the card against the CPU), and failed builds and launches that
+raise.  This file imports neither jax nor the
 JAX package, so it also runs where jax is not installed;
 tests/conftest.py imports jax, so run it on the card with
 
@@ -720,6 +722,70 @@ def test_cuda_gram_matches_per_tangent(cuda_device, monkeypatch, precision):
         assert abs(float(e_g) - float(e_t)) < 1e-6
         assert _rel(g_g, g_t) < 1e-5
         assert _rel(h_g, h_t) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f64", "mixed"])
+def test_cuda_hosted_energy_and_gradient_matches_cpu(cuda_device, monkeypatch,
+                                                     precision):
+    """(4e,4o) formaldimine (n_kappa > 0) with the hosting threshold forced
+    to 1 byte: energy_and_gradient on the card (one hosted (H psi, RDMs)
+    pass through the kernels, the adjoint reverse sweep) against the same
+    call on the CPU (their plain versions): f64 e0, gradient and RDMs to
+    1e-11; mixed, whose pass runs on the f32 state, e0 to 1e-6 and the
+    rest to 1e-5 relative; the hosted pass's kernels launched."""
+    mol = P.Moldata(P.get_formal_geo(140, 80), "sto-3g")
+    theta = 0.3 * np.random.default_rng(67).standard_normal(
+        P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
+                                sector=True).theta_shape)
+    monkeypatch.setattr(grid_hosted, "_HOSTED_MIN_BYTES", 1)
+    out = []
+    for dev in ("cpu", cuda_device):
+        pqc = P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
+                                      sector=True, device=dev)
+        oo = P.OO_pqc(pqc, mol, 4, 4, freeze_active=True,
+                      precision=precision,
+                      stream_plan=grid.StreamPlan(3, 1, None))
+        assert oo._core["route"] == "hosted" and oo.n_kappa > 0
+        before = dict(gk.LAUNCHES)
+        e, g, (g1, G2) = oo.energy_and_gradient(theta)
+        out.append([a.cpu() for a in (e, g, g1, G2)])
+    for name in ("gather_two_spin", "gather_reduce_cols", "scatter_rows"):
+        assert gk.LAUNCHES[name] > before[name], name
+    (e_c, g_c, g1_c, G2_c), (e_g, g_g, g1_g, G2_g) = out
+    assert g1_g.dtype == G2_g.dtype == torch.float64
+    if precision == "f64":
+        assert abs(float(e_g) - float(e_c)) < 1e-11
+        for a, b in ((g_g, g_c), (g1_g, g1_c), (G2_g, G2_c)):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-11)
+    else:
+        assert abs(float(e_g) - float(e_c)) < 1e-6
+        for a, b in ((g_g, g_c), (g1_g, g1_c), (G2_g, G2_c)):
+            assert _rel(a, b) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_gradient_optimization_matches_cpu(cuda_device):
+    """(2e,2o) ucc in the full space (freeze_active=False), 12 Adam steps
+    from init_zeros with an orbital relaxation every 3 (conv_tol 0) on
+    the card against the same run on the CPU: the energies to 1e-10 Ha,
+    theta to 1e-9 and the OAO coefficients after the relaxations to
+    1e-9."""
+    mol = P.Moldata(P.get_formal_geo(140, 80), "sto-3g")
+    out = []
+    for dev in ("cpu", cuda_device):
+        pqc = P.Parameterized_circuit(2, 2, ansatz="ucc", device=dev)
+        oo = P.OO_pqc(pqc, mol, 2, 2)
+        energies, theta = oo.gradient_optimization(
+            pqc.init_zeros(), max_iterations=12, learning_rate=0.1,
+            orbital_every=3, conv_tol=0)
+        out.append((np.asarray(energies), theta.cpu(),
+                    oo.oao_mo_coeff.cpu()))
+    (e_c, th_c, oao_c), (e_g, th_g, oao_g) = out
+    assert len(e_g) == 12 and e_g[-1] < e_g[0]
+    np.testing.assert_allclose(e_g, e_c, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(th_g, th_c, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(oao_g, oao_c, rtol=0, atol=1e-9)
 
 
 @pytest.mark.cuda
