@@ -32,39 +32,67 @@
 // gather_two_spin (both spin halves of Phi = E_pq x, grid rows [r0, r0+R)):
 //   out[b, k, m, j] = (x[b, srcA[k, r0+m], j] * sgnA[k, r0+m]) * tB[k, j]
 //                   + (x[b, r0+m, srcB[k, j]] * sgnB[k, j]) * tA[k, r0+m]
-//   with x (B, Na, Nb), srcA/sgnA/tA (n2, Na), srcB/sgnB/tB (n2, Nb), the
-//   four sign tables int8 (the maps' own +-1/0), out (B, n2, R, Nb).
+//   with x (B, Na, Nb), out (B, n2, R, Nb), read from compact tables built
+//   once per maps (grid_kernels.two_spin_tables): srcA (n2, Na) int32,
+//   srcB (n2, Nbp) int16 (int32 past 32,767 columns; rows padded to
+//   Nbp, a multiple of 16 columns), and an int8 code per entry, (sign + 1)
+//   | (parity + 1) << 2, of (sgnA, tA) and of (sgnB, tB): 3 bytes per beta
+//   entry where the dense tables take 6.
 //   Replaces gather_rows_scaled (auto_oo_tpu/ops/pallas_grid.py:110) on
 //   both halves together with its callers' transposed copy of the grid
 //   rows and transposed add (pallas_grid.py:259-262, :354-357;
 //   auto_oo_tpu/ops/grid.py:560-575): Mosaic gathers only whole rows, so
 //   the TPU builds the beta half as a row gather of a transposed copy.
-//   Bound: bytes.  Phi written once dominates (13.05 GB per (16e,16o)
-//   chunk of 495 rows in f64, against 1.33 GB for all of x and 19.8 MB of
-//   tables): 4.3 ms at 3.35 TB/s.  Design.  A block owns up to
-//   kTwoSpinRows consecutive grid rows m of one tangent and a range of
-//   pairs k.  It stages its rows of x in shared memory once (103 KB per
-//   f64 row at (16e,16o): dynamic shared memory above 48 KB; the wrapper
-//   sizes the rows so two blocks share an SM), so every beta read
-//   x[b, r0+m, srcB[k, j]] is a shared-memory read inside the row and
-//   nothing is transposed.  Its threads stride the row's columns j in
-//   16-byte vectors where Nb and the pointers allow (else scalars): each
-//   (k, j-vector) loads srcB, sgnB and tB once (int32 + two int8: 6 bytes
-//   per (pair, column), 19.8 MB at (16e,16o), which stays in the 50 MB
-//   L2) and applies them to all the block's rows; the alpha half reads
-//   the source row of a valid (k, m) only (s = 0 writes the beta term
-//   alone), with vector loads; the next pair's per-row scalars are loaded
-//   while the current pair is written.  At 64 registers a thread (two
-//   blocks of 512 threads per SM) the kernel is bound by the loads it
-//   keeps in flight, so each thread takes several column vectors per step
-//   (8 elements of each staged row) and starts all their table and alpha
-//   loads before the first product.  Phi leaves through streaming
-//   (evict-first) 16-byte stores, so the output does not evict the tables
-//   or x from L2; the pairs are split over blocks so the grid fills the
-//   card's 132 SMs with a small last wave.  The two products and their
-//   sum are rounded separately (__dmul_rn / __dadd_rn: nvcc would
-//   otherwise contract a * b + c into an FMA), the order of the plain
-//   version, so the results equal it as values in f64 and f32.
+//   Bound: bytes.  Phi written once, the rows of x it needs once, the
+//   compact tables once: 4.09 ms for a (16e,16o) chunk of 495 rows in
+//   f64 (13.05 GB of Phi), 0.95 ms for the Gram route's 15 f32 states of
+//   14 rows.  Every valid alpha entry reads its source row again, and
+//   where x exceeds the L2 those rows do not stay there (one wave of 132
+//   window rows reads ~2,170 distinct source rows, 223 MB in f64), so
+//   the floor a kernel reading each entry's row from memory can reach is
+//   the re-read floor (grid_kernels.two_spin_bytes): 4.99 ms and 1.06 ms
+//   there.
+//   What bounded the first version of this kernel (one or two staged rows
+//   a block, the dense tables read per output row, stores from column 0;
+//   timed apart on an H100 with the variants of
+//   csrc/two_spin_attribution.cu, scripts/sweep_two_spin.py
+//   --attribute): its stores.  A (16e,16o) row
+//   of Phi is 102,960 bytes in f64 (51,480 in f32), no multiple of 32, so
+//   a warp's stores from column 0 straddled 32-byte sectors that another
+//   warp finished: writing Phi's bytes alone took 6.54 ms (2.0 TB/s),
+//   the same stores started on 128-byte lines 4.20 ms.  After the stores:
+//   the alpha re-reads (1.1 ms), the dense tables' L2 reads (0.65 ms); the
+//   staging (0.16 ms alone) and the beta gather's bank conflicts (none)
+//   were small.
+//   Design.  A block owns one row (b, m) and a range of pairs.  It
+//   stages the row of x in shared memory, so every beta read x[b, r0+m,
+//   srcB[k, j]] is a shared-memory read and nothing is transposed, and
+//   the row's alpha entries (source row, code; the staged row itself
+//   where the source is the row) for its pairs.  For each pair its
+//   threads take the row's columns in VEC-element slots that start on the
+//   32-byte sector (rows of whole sectors) or 128-byte line (else) at or
+//   before the row's start in out, so every warp's streaming
+//   (evict-first) stores cover whole sectors or lines and no sector is
+//   written by two warps; slots before column 0 or past Nb stay idle.
+//   Loads and stores are 16 bytes wide where Nb and the pointers allow (8
+//   for f32 at (16e,16o), Nb even), else one element.  Each warp owns a
+//   contiguous run of slots.  In f32 where a pair's tables pass 16 KB
+//   ((16e,16o): an f32 row has twice the columns per byte written, so
+//   its tables are twice the share of the traffic) each warp copies its
+//   columns of the next pair's beta tables into its own two buffers in
+//   shared memory (cp.async) while it works on the current pair, so no
+//   block barrier follows the staging; elsewhere the tables are read in
+//   memory, where they stay in L1 and L2.  Each lane starts the alpha
+//   loads of its slots (the source row of a valid entry only: sign 0
+//   writes the beta term alone) before the first product.  Two or four
+//   rows a block, sharing each beta table entry, did not pay in the sweep
+//   of an intermediate design, and were dropped.  The two products and
+//   their sum are rounded separately (__dmul_rn / __dadd_rn: nvcc would
+//   otherwise contract a * b + c into an FMA), in the plain version's
+//   order, so the results equal it as values in f64 and f32 on every
+//   plan.  64-bit element offsets throughout.  On an H100 80GB HBM3 at
+//   700 W (scripts/sweep_two_spin.py): 5.80 ms on the (16e,16o) f64 chunk
+//   (86% of its re-read floor), 1.41 ms on the Gram stack (75%).
 //
 // gather_reduce (the row form):
 //   out[b, i, j] = sum_k (Y[b, k, src[k, i], j] * s[k, i]) * t[k, j]
@@ -172,9 +200,7 @@ constexpr int kRowsPerBlock = 8;   // warps (output rows) per block
 constexpr int kMaxThreads = 512;   // gather_reduce: largest block the plan asks
 constexpr int kUnroll = 4;         // gather_reduce: Y loads in flight per task
 constexpr int kColsThreads = 256;  // gather_reduce_cols: largest block
-constexpr int kTwoSpinThreads = 512;  // gather_two_spin: largest block
-constexpr int kTwoSpinRows = 2;       // gather_two_spin: most rows per block
-constexpr int kTwoSpinBlocksPerSM = 2;
+constexpr int kTwoSpinThreads = 1024;  // gather_two_spin: largest block
 // the most dynamic shared memory one block can use on Hopper (227 KB)
 constexpr size_t kMaxBlockSmem = 232448;
 
@@ -208,6 +234,7 @@ __global__ void gather_rows_scaled_kernel(const T* __restrict__ x,
 template <typename T, int VEC> struct Vec;
 template <> struct Vec<double, 2> { using type = double2; };
 template <> struct Vec<float, 4> { using type = float4; };
+template <> struct Vec<float, 2> { using type = float2; };
 template <> struct Vec<double, 1> { using type = double; };
 template <> struct Vec<float, 1> { using type = float; };
 
@@ -365,16 +392,32 @@ gather_reduce_kernel(const T* __restrict__ Y, const int* __restrict__ src,
 
 // ---- gather_two_spin ------------------------------------------------------
 
-// VEC consecutive int32 table entries (aligned to VEC entries)
-__device__ __forceinline__ void load_tab(const int* p, int (&o)[1]) {
+// VEC consecutive beta source columns (int16 where Nb <= 32767, else int32;
+// aligned to VEC entries)
+__device__ __forceinline__ void load_idx(const short* p, int (&o)[1]) {
   o[0] = __ldg(p);
 }
-__device__ __forceinline__ void load_tab(const int* p, int (&o)[2]) {
+__device__ __forceinline__ void load_idx(const short* p, int (&o)[2]) {
+  const short2 v = __ldg(reinterpret_cast<const short2*>(p));
+  o[0] = v.x;
+  o[1] = v.y;
+}
+__device__ __forceinline__ void load_idx(const short* p, int (&o)[4]) {
+  const short4 v = __ldg(reinterpret_cast<const short4*>(p));
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+__device__ __forceinline__ void load_idx(const int* p, int (&o)[1]) {
+  o[0] = __ldg(p);
+}
+__device__ __forceinline__ void load_idx(const int* p, int (&o)[2]) {
   const int2 v = __ldg(reinterpret_cast<const int2*>(p));
   o[0] = v.x;
   o[1] = v.y;
 }
-__device__ __forceinline__ void load_tab(const int* p, int (&o)[4]) {
+__device__ __forceinline__ void load_idx(const int* p, int (&o)[4]) {
   const int4 v = __ldg(reinterpret_cast<const int4*>(p));
   o[0] = v.x;
   o[1] = v.y;
@@ -382,14 +425,15 @@ __device__ __forceinline__ void load_tab(const int* p, int (&o)[4]) {
   o[3] = v.w;
 }
 
-// VEC consecutive int8 signs, kept packed in one register
-template <int VEC> struct Signs;
-template <> struct Signs<1> {
+// VEC consecutive int8 codes, each (sign + 1) | (parity + 1) << 2, kept
+// packed in one register
+template <int VEC> struct Codes;
+template <> struct Codes<1> {
   signed char v;
   __device__ __forceinline__ void load(const signed char* p) { v = __ldg(p); }
   __device__ __forceinline__ int operator[](int) const { return v; }
 };
-template <> struct Signs<2> {
+template <> struct Codes<2> {
   char2 v;
   __device__ __forceinline__ void load(const signed char* p) {
     v = __ldg(reinterpret_cast<const char2*>(p));
@@ -398,7 +442,7 @@ template <> struct Signs<2> {
     return u == 0 ? v.x : v.y;
   }
 };
-template <> struct Signs<4> {
+template <> struct Codes<4> {
   char4 v;
   __device__ __forceinline__ void load(const signed char* p) {
     v = __ldg(reinterpret_cast<const char4*>(p));
@@ -407,8 +451,12 @@ template <> struct Signs<4> {
     return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
   }
 };
+// the sign (low two bits) and the parity (next two) of a code
+__device__ __forceinline__ int code_sign(int c) { return (c & 3) - 1; }
+__device__ __forceinline__ int code_parity(int c) { return ((c >> 2) & 3) - 1; }
 
-// VEC consecutive elements of x (read-only path), and streaming stores
+// VEC consecutive elements of x (read-only path) or of a staged row, and
+// streaming stores
 __device__ __forceinline__ void load_x(const double* p, double (&o)[1]) {
   o[0] = __ldg(p);
 }
@@ -420,12 +468,25 @@ __device__ __forceinline__ void load_x(const double* p, double (&o)[2]) {
 __device__ __forceinline__ void load_x(const float* p, float (&o)[1]) {
   o[0] = __ldg(p);
 }
+__device__ __forceinline__ void load_x(const float* p, float (&o)[2]) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+  o[0] = v.x;
+  o[1] = v.y;
+}
 __device__ __forceinline__ void load_x(const float* p, float (&o)[4]) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p));
   o[0] = v.x;
   o[1] = v.y;
   o[2] = v.z;
   o[3] = v.w;
+}
+template <typename T, int VEC>
+__device__ __forceinline__ void load_staged(const T* p, T (&o)[VEC]) {
+  using V = typename Vec<T, VEC>::type;
+  const V v = *reinterpret_cast<const V*>(p);
+  const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+  for (int u = 0; u < VEC; ++u) o[u] = e[u];
 }
 __device__ __forceinline__ void store_cs(double* p, const double (&o)[1]) {
   __stcs(p, o[0]);
@@ -435,6 +496,9 @@ __device__ __forceinline__ void store_cs(double* p, const double (&o)[2]) {
 }
 __device__ __forceinline__ void store_cs(float* p, const float (&o)[1]) {
   __stcs(p, o[0]);
+}
+__device__ __forceinline__ void store_cs(float* p, const float (&o)[2]) {
+  __stcs(reinterpret_cast<float2*>(p), make_float2(o[0], o[1]));
 }
 __device__ __forceinline__ void store_cs(float* p, const float (&o)[4]) {
   __stcs(reinterpret_cast<float4*>(p), make_float4(o[0], o[1], o[2], o[3]));
@@ -454,134 +518,219 @@ __device__ __forceinline__ float add_rn(float a, float b) {
   return __fadd_rn(a, b);
 }
 
-// column vectors one thread takes per step: 8 elements of each staged row
-// in flight (a block of ROWS rows already has ROWS alpha loads per vector)
-__host__ __device__ constexpr int two_spin_unroll(int vec, int rows) {
-  return 8 / (vec * rows) > 1 ? 8 / (vec * rows) : 1;
+// column slots one lane takes per step: 64 bytes of the row in flight
+__host__ __device__ constexpr int two_spin_unroll(int vec, int itemsize) {
+  return 64 / (vec * itemsize) > 1 ? 64 / (vec * itemsize) : 1;
 }
 
-// (source row, sign) of the alpha half and the beta half's row parity for
-// the first n of ROWS rows from table entry e (zeros beyond n; no source
-// row read where the sign is 0)
-template <int ROWS>
-__device__ __forceinline__ void two_spin_scalars(
-    const int* __restrict__ srcA, const signed char* __restrict__ sgnA,
-    const signed char* __restrict__ tA, long long e, int n,
-    int (&src)[ROWS], int (&sgn)[ROWS], int (&tt)[ROWS]) {
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    sgn[r] = r < n ? __ldg(sgnA + e + r) : 0;
-    src[r] = sgn[r] != 0 ? __ldg(srcA + e + r) : 0;
-    tt[r] = r < n ? __ldg(tA + e + r) : 0;
+// table columns a warp of `cols` columns copies: its own and the line
+// before them, from a multiple of 16, in whole 16-column pieces
+__host__ __device__ constexpr int two_spin_width(int cols, int line) {
+  return (cols + line + 16 + 15) / 16 * 16;
+}
+
+// 16-byte asynchronous copies from device memory into shared memory
+// (cp.async, completion by commit group)
+__device__ __forceinline__ void cp_async16(void* to, const void* from) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(to));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(from));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most one committed group is still in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// The operands of one launch: x, the alpha tables (srcA int32, codeA),
+// the beta tables (srcB, codeB; rows of Nbp entries, Nbp a multiple of 16),
+// out; n2, Na, Nb, Nbp, r0, R; pairs per block; the bytes of the lines
+// each row's stores start on.
+template <typename T, typename Idx>
+struct TwoSpinArgs {
+  const T* x;
+  const int* srcA;
+  const signed char* codeA;
+  const Idx* srcB;
+  const signed char* codeB;
+  T* out;
+  int n2, Na, Nb, Nbp, r0, R, pairs, line;
+};
+
+// The calling warp's columns [c0, c0 + n) of pair k's beta tables into
+// its buffer in shared memory, 16 bytes per copy (c0 and n multiples of
+// 16); one commit group per call.
+template <typename Idx>
+__device__ __forceinline__ void two_spin_slice_async(
+    const Idx* srcB, const signed char* codeB, int Nbp, int k, int c0, int n,
+    Idx* s_idx, signed char* s_code, int lane) {
+  const long long at = static_cast<long long>(k) * Nbp + c0;
+  const int n_idx = n * static_cast<int>(sizeof(Idx)) / 16;
+  for (int e = lane; e < n_idx + n / 16; e += kWarp) {
+    if (e < n_idx)
+      cp_async16(reinterpret_cast<char*>(s_idx) + 16 * e,
+                 reinterpret_cast<const char*>(srcB + at) + 16 * e);
+    else
+      cp_async16(s_code + 16 * (e - n_idx), codeB + at + 16 * (e - n_idx));
   }
+  cp_async_commit();
 }
 
-// Block (threads): grid rows [m0, m0 + n_m), n_m <= ROWS, of tangent b
-// (blockIdx.x), pairs [k0, k1) (blockIdx.y).  Dynamic shared memory: the
-// rows of x, ROWS * Nb elements.  Each step of a thread takes U column
-// vectors v0 + q * blockDim.x: all their table and alpha loads start
-// before the first product.
-template <typename T, int VEC, int ROWS>
-__global__ void __launch_bounds__(kTwoSpinThreads, kTwoSpinBlocksPerSM)
-gather_two_spin_kernel(const T* __restrict__ x, const int* __restrict__ srcA,
-                       const signed char* __restrict__ sgnA,
-                       const signed char* __restrict__ tB,
-                       const int* __restrict__ srcB,
-                       const signed char* __restrict__ sgnB,
-                       const signed char* __restrict__ tA,
-                       T* __restrict__ out, int n2, int Na, int Nb, int r0,
-                       int R, int pairs) {
-  using V = typename Vec<T, VEC>::type;
-  constexpr int U = two_spin_unroll(VEC, ROWS);
+// Block (threads): the row (b, m) = blockIdx.x (b-major) and the pairs
+// [k0, k1) of blockIdx.y.  It stages the row of x and its alpha entries
+// for its pairs in shared memory.  For each pair the threads take the
+// row's columns in VEC-element slots that start on the line (p.line
+// bytes) at or before the row's start in out, so every warp's stores
+// cover whole lines (slots before column 0 or past Nb stay idle).  Warp w
+// owns the slots [w * S, (w + 1) * S), S = 32 * U * rounds, and each step
+// of a lane takes U of them 32 apart, with all their alpha loads started
+// before the first product.  With STAGED each warp copies its columns of
+// the next pair's beta tables into its own two buffers (cp.async) while
+// it works on the current pair, so the warps meet at no block barrier
+// after the staging; without, the threads read the tables in memory,
+// where they stay in L1 and L2 at the small grids.  Dynamic shared
+// memory: the row (Nb elements), the alpha entries (int, pairs): source *
+// 16 + codeA, the source a grid row of x or -1 for the staged row itself,
+// and with STAGED two buffers of `width` columns per warp (Idx, then int8
+// codes).
+template <typename T, typename Idx, int VEC, bool STAGED>
+__global__ void __launch_bounds__(kTwoSpinThreads, 1)
+gather_two_spin_kernel(const TwoSpinArgs<T, Idx> p) {
+  constexpr int U = two_spin_unroll(VEC, sizeof(T));
   extern __shared__ __align__(16) unsigned char smem[];
+  const int n2 = p.n2, Nb = p.Nb, Nbp = p.Nbp, R = p.R, r0 = p.r0;
+  const int P = p.pairs;
+  const int line = p.line / static_cast<int>(sizeof(T));
+  const int slots = Nb / VEC + line / VEC;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int rounds = (slots + U * blockDim.x - 1) / (U * blockDim.x);
+  const int S = kWarp * U * rounds;  // slots of a warp
+  const int width = two_spin_width(S * VEC, line);
   T* xs = reinterpret_cast<T*>(smem);
-  const int groups = (R + ROWS - 1) / ROWS;
-  const long long b = blockIdx.x / groups;
-  const int m0 = static_cast<int>(blockIdx.x % groups) * ROWS;
-  const int n_m = min(ROWS, R - m0);
-  const int k0 = blockIdx.y * pairs;
-  const int k1 = min(n2, k0 + pairs);
-  const T* xb = x + b * Na * static_cast<long long>(Nb);
+  int* s_alpha = reinterpret_cast<int*>(
+      smem + ((static_cast<size_t>(Nb) * sizeof(T) + 15) & ~size_t(15)));
+  Idx* s_idx = reinterpret_cast<Idx*>(
+      smem + ((static_cast<size_t>(Nb) * sizeof(T) + 15) & ~size_t(15)) +
+      ((4 * static_cast<size_t>(P) + 15) & ~size_t(15)));
+  signed char* s_code = reinterpret_cast<signed char*>(
+      s_idx + 2 * width * (blockDim.x / kWarp));
+  Idx* w_idx = s_idx + 2 * width * warp;
+  signed char* w_code = s_code + 2 * width * warp;
+  const long long b = blockIdx.x / R;
+  const int m = static_cast<int>(blockIdx.x - b * R);
+  const long long plane = static_cast<long long>(p.Na) * Nb;
+  const T* xb = p.x + b * plane;
+  T* ob = p.out + (b * n2 * R + m) * static_cast<long long>(Nb);
+  const int k0 = blockIdx.y * P;
+  const int np = min(n2, k0 + P) - k0;
+  // the warp's table columns: from the line before its first slot
+  const int c0 = max(0, (warp * S * VEC - line) & ~15);
+  const int cn = max(0, min(Nbp - c0, width));
 
-  // stage the block's rows of x (consecutive in memory)
+  if (STAGED)
+    two_spin_slice_async(p.srcB, p.codeB, Nbp, k0, c0, cn, w_idx, w_code,
+                         lane);
+  // the row of x
   {
+    using V = typename Vec<T, VEC>::type;
     const V* from = reinterpret_cast<const V*>(
-        xb + static_cast<long long>(r0 + m0) * Nb);
+        xb + static_cast<long long>(r0 + m) * Nb);
     V* to = reinterpret_cast<V*>(xs);
-    const int n = n_m * (Nb / VEC);
-    for (int e = threadIdx.x; e < n; e += blockDim.x) to[e] = __ldg(from + e);
+    for (int e = threadIdx.x; e < Nb / VEC; e += blockDim.x)
+      to[e] = __ldg(from + e);
+  }
+  // the alpha entries of the block's pairs; no source row of an invalid
+  // entry is read
+  for (int i = threadIdx.x; i < np; i += blockDim.x) {
+    const long long at = static_cast<long long>(k0 + i) * p.Na + r0 + m;
+    const int c = __ldg(p.codeA + at);
+    int src = 0;
+    if (code_sign(c) != 0) {
+      src = __ldg(p.srcA + at);
+      if (src == r0 + m) src = -1;
+    }
+    s_alpha[i] = src * 16 + c;
   }
   __syncthreads();
 
-  // per-row scalars of the alpha half (source row, sign) and the beta
-  // half's row parity, for pair k; the next pair's are loaded ahead
-  int sa[ROWS], ga[ROWS], ta[ROWS], nsa[ROWS], nga[ROWS], nta[ROWS];
-  const long long rowA = r0 + m0;
-  two_spin_scalars<ROWS>(srcA, sgnA, tA,
-                         k0 * static_cast<long long>(Na) + rowA, n_m, nsa,
-                         nga, nta);
-
-  const int Nv = Nb / VEC;
-  for (int k = k0; k < k1; ++k) {
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      sa[r] = nsa[r];
-      ga[r] = nga[r];
-      ta[r] = nta[r];
+  for (int i = 0; i < np; ++i) {
+    const int k = k0 + i;
+    const Idx* tidx;
+    const signed char* tcode;
+    if (STAGED) {
+      // the lanes are done with the other buffer: copy the next pair's
+      // columns into it; then this pair's have landed
+      __syncwarp();
+      if (i + 1 < np)
+        two_spin_slice_async(p.srcB, p.codeB, Nbp, k + 1, c0, cn,
+                             w_idx + ((i + 1) & 1) * width,
+                             w_code + ((i + 1) & 1) * width, lane);
+      else
+        cp_async_commit();
+      cp_async_wait_one();
+      __syncwarp();
+      tidx = w_idx + (i & 1) * width - c0;
+      tcode = w_code + (i & 1) * width - c0;
+    } else {
+      tidx = p.srcB + static_cast<long long>(k) * Nbp;
+      tcode = p.codeB + static_cast<long long>(k) * Nbp;
     }
-    two_spin_scalars<ROWS>(srcA, sgnA, tA,
-                           (k + 1) * static_cast<long long>(Na) + rowA,
-                           k + 1 < k1 ? n_m : 0, nsa, nga, nta);
-    const long long kb = static_cast<long long>(k) * Nb;
-    T* ok = out + ((b * n2 + k) * R + m0) * static_cast<long long>(Nb);
-    for (int v0 = threadIdx.x; v0 < Nv; v0 += U * blockDim.x) {
+    const long long ko = static_cast<long long>(k) * R * Nb;
+    const int ae = s_alpha[i];
+    const int c = ae & 15;
+    const int src = (ae - c) / 16;
+    const T sa = T(code_sign(c)), ta = T(code_parity(c));
+    const T* xa_row = src >= 0 ? xb + static_cast<long long>(src) * Nb : xs;
+    // the column of slot 0: the line at or before the row's start
+    const int first = -static_cast<int>(
+        (reinterpret_cast<size_t>(ob + ko) / sizeof(T)) % line);
+    for (int r = 0; r < rounds; ++r) {
+      const int s0 = warp * S + r * U * kWarp + lane;
+      T xa[U][VEC];
       int sb[U][VEC];
-      Signs<VEC> gb[U], tb[U];
-      T xa[U][ROWS][VEC];
+      Codes<VEC> cb[U];
+      if (!STAGED) {
 #pragma unroll
-      for (int q = 0; q < U; ++q) {
-        const int v = v0 + q * blockDim.x;
-        if (v < Nv) {
-          load_tab(srcB + kb + v * VEC, sb[q]);
-          gb[q].load(sgnB + kb + v * VEC);
-          tb[q].load(tB + kb + v * VEC);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < U; ++q) {
-        const int v = v0 + q * blockDim.x;
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          if (v < Nv && r < n_m && ga[r] != 0) {
-            load_x(xb + static_cast<long long>(sa[r]) * Nb + v * VEC,
-                   xa[q][r]);
-          } else {
-#pragma unroll
-            for (int u = 0; u < VEC; ++u) xa[q][r][u] = T(0);
+        for (int q = 0; q < U; ++q) {
+          const int j = first + (s0 + q * kWarp) * VEC;
+          if (j >= 0 && j < Nb) {
+            load_idx(tidx + j, sb[q]);
+            cb[q].load(tcode + j);
           }
         }
       }
 #pragma unroll
       for (int q = 0; q < U; ++q) {
-        const int v = v0 + q * blockDim.x;
-        if (v >= Nv) continue;
+        const int j = first + (s0 + q * kWarp) * VEC;
+        if (j >= 0 && j < Nb && code_sign(c) != 0) {
+          if (src >= 0)
+            load_x(xa_row + j, xa[q]);
+          else
+            load_staged<T, VEC>(xs + j, xa[q]);
+        } else {
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          if (r >= n_m) continue;
-          const T* xr = xs + r * Nb;
-          const T gar = T(ga[r]), tar = T(ta[r]);
-          T o[VEC];
-#pragma unroll
-          for (int u = 0; u < VEC; ++u) {
-            const T alpha = ga[r] != 0
-                                ? mul_rn(mul_rn(xa[q][r][u], gar),
-                                         T(tb[q][u]))
-                                : T(0);
-            const T beta = mul_rn(mul_rn(xr[sb[q][u]], T(gb[q][u])), tar);
-            o[u] = add_rn(alpha, beta);
-          }
-          store_cs(ok + static_cast<long long>(r) * Nb + v * VEC, o);
+          for (int e = 0; e < VEC; ++e) xa[q][e] = T(0);
         }
+      }
+#pragma unroll
+      for (int q = 0; q < U; ++q) {
+        const int j = first + (s0 + q * kWarp) * VEC;
+        if (j < 0 || j >= Nb) continue;
+        T o[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const int cj = STAGED ? tcode[j + e] : cb[q][e];
+          const int sj = STAGED ? tidx[j + e] : sb[q][e];
+          const T alpha = code_sign(c) != 0
+                              ? mul_rn(mul_rn(xa[q][e], sa),
+                                       T(code_parity(cj)))
+                              : T(0);
+          const T beta = mul_rn(mul_rn(xs[sj], T(code_sign(cj))), ta);
+          o[e] = add_rn(alpha, beta);
+        }
+        store_cs(ob + ko + j, o);
       }
     }
   }
@@ -818,67 +967,86 @@ int launch_gather_reduce_cols(const ColsArgs<T>& p, int rows, int unroll,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T, int VEC, int ROWS>
-int launch_two_spin_rows(const T* x, const int* srcA, const signed char* sgnA,
-                         const signed char* tB, const int* srcB,
-                         const signed char* sgnB, const signed char* tA,
-                         T* out, long long B, int n2, int Na, int Nb, int r0,
-                         int R, int threads, int pairs, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(ROWS) * Nb * sizeof(T);
-  const long long gx = B * ((R + ROWS - 1) / ROWS);
-  if (smem > kMaxBlockSmem || gx > 2147483647LL)
+// gather_two_spin's dynamic shared memory: the row, the alpha entries
+// and, staged, two buffers of a warp's table columns per warp
+template <typename T, typename Idx>
+size_t two_spin_smem(int Nb, int line, int vec, int threads, int pairs,
+                     bool staged) {
+  const int line_e = line / static_cast<int>(sizeof(T));
+  const int slots = Nb / vec + line_e / vec;
+  const int u = two_spin_unroll(vec, sizeof(T));
+  const int rounds = (slots + u * threads - 1) / (u * threads);
+  const size_t width = two_spin_width(kWarp * u * rounds * vec, line_e);
+  return ((static_cast<size_t>(Nb) * sizeof(T) + 15) & ~size_t(15)) +
+         ((4 * static_cast<size_t>(pairs) + 15) & ~size_t(15)) +
+         (staged ? 2 * width * (threads / kWarp) * (sizeof(Idx) + 1) : 0);
+}
+
+template <typename T, typename Idx, int VEC>
+int launch_two_spin_vec(const TwoSpinArgs<T, Idx>& a, long long rows,
+                        int threads, bool staged, cudaStream_t stream) {
+  const size_t smem = two_spin_smem<T, Idx>(a.Nb, a.line, VEC, threads,
+                                            a.pairs, staged);
+  if (smem > kMaxBlockSmem || rows > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = gather_two_spin_kernel<T, VEC, ROWS>;
+  auto kern = staged ? gather_two_spin_kernel<T, Idx, VEC, true>
+                     : gather_two_spin_kernel<T, Idx, VEC, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid(static_cast<unsigned int>(gx), (n2 + pairs - 1) / pairs);
-  kern<<<grid, threads, smem, stream>>>(x, srcA, sgnA, tB, srcB, sgnB, tA,
-                                        out, n2, Na, Nb, r0, R, pairs);
+  const dim3 grid(static_cast<unsigned int>(rows),
+                  (a.n2 + a.pairs - 1) / a.pairs);
+  kern<<<grid, threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int VEC>
-int launch_two_spin_vec(const T* x, const int* srcA, const signed char* sgnA,
-                        const signed char* tB, const int* srcB,
-                        const signed char* sgnB, const signed char* tA,
-                        T* out, long long B, int n2, int Na, int Nb, int r0,
-                        int R, int rows, int threads, int pairs,
+template <typename T, typename Idx>
+int launch_two_spin_idx(const TwoSpinArgs<T, Idx>& a, long long rows,
+                        int vec, int threads, bool staged,
                         cudaStream_t stream) {
-  if (rows == 1)
-    return launch_two_spin_rows<T, VEC, 1>(x, srcA, sgnA, tB, srcB, sgnB, tA,
-                                           out, B, n2, Na, Nb, r0, R,
-                                           threads, pairs, stream);
-  return launch_two_spin_rows<T, VEC, kTwoSpinRows>(
-      x, srcA, sgnA, tB, srcB, sgnB, tA, out, B, n2, Na, Nb, r0, R, threads,
-      pairs, stream);
+  if (vec == 1)
+    return launch_two_spin_vec<T, Idx, 1>(a, rows, threads, staged, stream);
+  if (vec == 2)
+    return launch_two_spin_vec<T, Idx, 2>(a, rows, threads, staged, stream);
+  if constexpr (sizeof(T) == 4) {
+    if (vec == 4)
+      return launch_two_spin_vec<T, Idx, 4>(a, rows, threads, staged,
+                                            stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
 int launch_gather_two_spin(const T* x, const int* srcA,
-                           const signed char* sgnA, const signed char* tB,
-                           const int* srcB, const signed char* sgnB,
-                           const signed char* tA, T* out, long long B, int n2,
-                           int Na, int Nb, int r0, int R, int vec, int rows,
-                           int threads, int pairs, cudaStream_t stream) {
+                           const signed char* codeA, const void* srcB,
+                           const signed char* codeB, T* out, long long B,
+                           int n2, int Na, int Nb, int Nbp, int r0, int R,
+                           int idx_bytes, int vec, int threads, int pairs,
+                           int staged, int line, cudaStream_t stream) {
   if (B == 0 || n2 == 0 || Nb == 0) return static_cast<int>(cudaSuccess);
-  constexpr int kVec = 16 / sizeof(T);
-  if (B < 0 || R < 1 || r0 < 0 || r0 + static_cast<long long>(R) > Na ||
-      (vec != 1 && vec != kVec) || Nb % vec != 0 ||
-      (rows != 1 && rows != kTwoSpinRows) || threads < kWarp ||
+  if (B < 0 || n2 < 0 || Nb < 0 || R < 1 || r0 < 0 ||
+      r0 + static_cast<long long>(R) > Na || Na >= (1 << 27) || vec < 1 ||
+      Nb % vec != 0 || Nbp < Nb || Nbp % 16 != 0 || threads < kWarp ||
       threads > kTwoSpinThreads || threads % kWarp != 0 || pairs < 1 ||
-      (n2 + pairs - 1) / pairs > 65535)
+      (n2 + pairs - 1) / pairs > 65535 || (staged != 0 && staged != 1) ||
+      line < 16 || line > 1024 || (line & (line - 1)) != 0 ||
+      (idx_bytes != 2 && idx_bytes != 4) || (idx_bytes == 2 && Nb > 32767))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (vec == 1)
-    return launch_two_spin_vec<T, 1>(x, srcA, sgnA, tB, srcB, sgnB, tA, out,
-                                     B, n2, Na, Nb, r0, R, rows, threads,
-                                     pairs, stream);
-  return launch_two_spin_vec<T, kVec>(x, srcA, sgnA, tB, srcB, sgnB, tA, out,
-                                      B, n2, Na, Nb, r0, R, rows, threads,
-                                      pairs, stream);
+  if (idx_bytes == 2) {
+    const TwoSpinArgs<T, short> a{
+        x,  srcA, codeA, static_cast<const short*>(srcB), codeB, out,
+        n2, Na,   Nb,    Nbp, r0, R, pairs, line};
+    return launch_two_spin_idx<T, short>(a, B * R, vec, threads, staged != 0,
+                                         stream);
+  }
+  const TwoSpinArgs<T, int> a{
+      x,  srcA, codeA, static_cast<const int*>(srcB), codeB, out,
+      n2, Na,   Nb,    Nbp, r0, R, pairs, line};
+  return launch_two_spin_idx<T, int>(a, B * R, vec, threads, staged != 0,
+                                     stream);
 }
 
 }  // namespace
@@ -886,25 +1054,27 @@ int launch_gather_two_spin(const T* x, const int* srcA,
 extern "C" {
 
 int grid_gather_two_spin_f64(const double* x, const int* srcA,
-                             const signed char* sgnA, const signed char* tB,
-                             const int* srcB, const signed char* sgnB,
-                             const signed char* tA, double* out, long long B,
-                             int n2, int Na, int Nb, int r0, int R, int vec,
-                             int rows, int threads, int pairs, void* stream) {
+                             const signed char* codeA, const void* srcB,
+                             const signed char* codeB, double* out,
+                             long long B, int n2, int Na, int Nb, int Nbp,
+                             int r0, int R, int idx_bytes, int vec,
+                             int threads, int pairs, int staged, int line,
+                             void* stream) {
   return launch_gather_two_spin<double>(
-      x, srcA, sgnA, tB, srcB, sgnB, tA, out, B, n2, Na, Nb, r0, R, vec, rows,
-      threads, pairs, static_cast<cudaStream_t>(stream));
+      x, srcA, codeA, srcB, codeB, out, B, n2, Na, Nb, Nbp, r0, R, idx_bytes,
+      vec, threads, pairs, staged, line, static_cast<cudaStream_t>(stream));
 }
 
 int grid_gather_two_spin_f32(const float* x, const int* srcA,
-                             const signed char* sgnA, const signed char* tB,
-                             const int* srcB, const signed char* sgnB,
-                             const signed char* tA, float* out, long long B,
-                             int n2, int Na, int Nb, int r0, int R, int vec,
-                             int rows, int threads, int pairs, void* stream) {
+                             const signed char* codeA, const void* srcB,
+                             const signed char* codeB, float* out,
+                             long long B, int n2, int Na, int Nb, int Nbp,
+                             int r0, int R, int idx_bytes, int vec,
+                             int threads, int pairs, int staged, int line,
+                             void* stream) {
   return launch_gather_two_spin<float>(
-      x, srcA, sgnA, tB, srcB, sgnB, tA, out, B, n2, Na, Nb, r0, R, vec, rows,
-      threads, pairs, static_cast<cudaStream_t>(stream));
+      x, srcA, codeA, srcB, codeB, out, B, n2, Na, Nb, Nbp, r0, R, idx_bytes,
+      vec, threads, pairs, staged, line, static_cast<cudaStream_t>(stream));
 }
 
 int grid_gather_rows_scaled_f64(const double* x, const int* src,

@@ -41,7 +41,7 @@ import torch
 from ..config import get_device
 from . import fermion
 from .grid_kernels import (gather_reduce, gather_reduce_cols, gather_two_spin,
-                           reduce_cols_lists)
+                           reduce_cols_lists, two_spin_tables)
 from .linalg import gram_last
 
 
@@ -110,9 +110,9 @@ class GridMaps:
         return sa, sgnA, tB, sb, sgnB, tA
 
     def phi_tables(self, like):
-        """(srcA, sgnA, tB, srcB, sgnB, tA) for ``gather_two_spin`` on an
-        operand ``like``: src as ``_src`` gives it, the int8 sign tables as
-        held (the plain version promotes them exactly)."""
+        """(srcA, sgnA, tB, srcB, sgnB, tA) for ``gather_two_spin_plain``
+        on an operand ``like``: src as ``_src`` gives it, the int8 sign
+        tables as held (the plain version promotes them exactly)."""
         sa, sb = self._src(like)
         sgnA, tB, sgnB, tA = self._signs
         return sa, sgnA, tB, sb, sgnB, tA
@@ -182,6 +182,13 @@ class GridMaps:
         and sgnB), built once per maps."""
         return self._cached("col_lists",
                             lambda: reduce_cols_lists(self.srcB, self.sgnB))
+
+    def two_spin_tables(self):
+        """The tables of ``gather_two_spin``
+        (``grid_kernels.two_spin_tables``: int8 codes of each sign and
+        parity pair, int16 beta source columns), built once per maps."""
+        return self._cached("two_spin_tables", lambda: two_spin_tables(
+            self.srcA, self.sgnA, self.tB, self.srcB, self.sgnB, self.tA))
 
     def transposed(self):
         """The maps of E_qp for each pair pq of these maps: E_pq^T = E_qp,
@@ -350,7 +357,7 @@ def pair_slice(gm, lo, hi):
 
 def _phi_impl(x, gm):
     xg = x.reshape(x.shape[:-1] + (gm.Na, gm.Nb))
-    phi = gather_two_spin(xg, *gm.phi_tables(x), 0, gm.Na)
+    phi = gather_two_spin(xg, gm.two_spin_tables(), 0, gm.Na)
     return phi.reshape(x.shape[:-1] + (gm.n2, gm.dim))
 
 
@@ -492,7 +499,7 @@ def _phi_chunk(xg, gm, r0, r1):
     parts are row-local in their output: alpha gathers rows of the whole
     x, beta gathers inside the chunk's own rows; one ``gather_two_spin``
     makes each element of Phi once, with no transposed copy."""
-    return gather_two_spin(xg, *gm.phi_tables(xg), r0, r1)
+    return gather_two_spin(xg, gm.two_spin_tables(), r0, r1)
 
 
 class _PhiRows(torch.autograd.Function):

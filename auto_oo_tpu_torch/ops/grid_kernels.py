@@ -32,7 +32,7 @@ path went through.
 """
 
 import os
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -41,9 +41,10 @@ from .cuda_build import CSRC_DIR, I32, I64, PTR, CudaLibrary
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _ARGS = [PTR, PTR, PTR, PTR, PTR, I64, I32, I32, I32, I32]
 
-# gather_two_spin: x, the six tables, out; B; n2, Na, Nb, r0, R and the
-# plan (vec, rows, threads, pairs); the stream
-_TWO_SPIN_ARGS = [PTR] * 8 + [I64] + [I32] * 9 + [PTR]
+# gather_two_spin: x, the four compact tables, out; B; n2, Na, Nb, the
+# beta tables' padded width, r0, R, the beta source columns' bytes and the
+# plan (vec, threads, pairs, staged, line); the stream
+_TWO_SPIN_ARGS = [PTR] * 6 + [I64] + [I32] * 12 + [PTR]
 
 # gather_reduce_cols: Y, the five list tensors, t, out; B; n2, Na, Ns, Nc,
 # the list tile, the plan (rows, unroll, warps) and add; the stream
@@ -303,62 +304,201 @@ def plan_reduce_cols(B, Na, Nc, tile, itemsize):
     return ReduceColsPlan(rows, unroll, warps)
 
 
-# ---- launch plan of gather_two_spin ----------------------------------------
+# ---- tables and launch plan of gather_two_spin ----------------------------
 
-#: the most threads and grid rows per block gather_two_spin's plan asks for
-#: (the kernel's limits)
-TWO_SPIN_BLOCK = 512
-TWO_SPIN_ROWS = 2
-# the most dynamic shared memory one block can use on Hopper (227 KB), and
-# the share that lets two blocks sit on one SM (half the SM's 228 KB, less
-# the 1 KB the card reserves per block)
+#: the most threads per block gather_two_spin takes, and the bytes of the
+#: lines its stores start on where rows are no whole 32-byte sectors
+TWO_SPIN_BLOCK = 1024
+TWO_SPIN_LINE = 128
+#: bytes of one pair's beta tables above which, in f32, each warp copies
+#: its columns into shared memory a pair ahead
+TWO_SPIN_STAGE = 16 * 1024
+# the most dynamic shared memory one block can use on Hopper (227 KB)
 _BLOCK_SMEM = 232448
-_PAIR_SMEM = 233472 // 2 - 1024
-# blocks that fill the H100's 132 SMs with a small last wave
-_TWO_SPIN_BLOCKS = 32 * 132
+# the H100's L2
+_L2_BYTES = 50 * 1024 * 1024
+# the widest grid whose beta source columns fit int16
+_INT16_COLS = 32767
+
+
+class TwoSpinTables(NamedTuple):
+    """gather_two_spin's compact tables on the card: each sign and parity
+    pair packed into one int8 code, (sign + 1) | (parity + 1) << 2, and
+    the beta source columns in int16 where Nb <= 32767 (3 bytes per beta
+    entry, where the dense tables take 6).  The beta rows are padded to a
+    multiple of 16 columns (source 0, sign 0), so that each pair's row
+    starts on a 16-byte boundary, where the kernel copies it into shared
+    memory in 16-byte pieces."""
+    srcA: torch.Tensor   # (n2, Na) int32 alpha source row
+    codeA: torch.Tensor  # (n2, Na) int8 code of (sgnA, tA)
+    srcB: torch.Tensor   # (n2, Nbp) int16 (int32 past 32767) source column
+    codeB: torch.Tensor  # (n2, Nbp) int8 code of (sgnB, tB)
+
+
+def _code(sign, parity):
+    for nm, v in (("sign", sign), ("parity", parity)):
+        if not bool(((v == 0) | (v == 1) | (v == -1)).all()):
+            raise ValueError(f"gather_two_spin: the card's kernel takes "
+                             f"{nm} values +-1 or 0")
+    return ((sign.to(torch.int8) + 1)
+            | ((parity.to(torch.int8) + 1) << 2)).contiguous()
+
+
+def _pad_cols(a, width, value):
+    out = a.new_full((a.shape[0], width), value)
+    out[:, :a.shape[1]] = a
+    return out
+
+
+def two_spin_tables(srcA, sgnA, tB, srcB, sgnB, tA):
+    """The ``TwoSpinTables`` of the dense tables (signs and parities +-1 or
+    0 in any dtype; ValueError otherwise), on their device."""
+    Nb = srcB.shape[1]
+    Nbp = -(-Nb // 16) * 16
+    wide = torch.int32 if Nb > _INT16_COLS else torch.int16
+    return TwoSpinTables(
+        srcA.to(torch.int32).contiguous(), _code(sgnA, tA),
+        _pad_cols(srcB.to(wide), Nbp, 0),
+        _pad_cols(_code(sgnB, tB), Nbp, 1))
+
+
+def _decode(code):
+    return (code & 3).to(torch.int8) - 1, ((code >> 2) & 3).to(torch.int8) - 1
+
+
+def two_spin_walk(x, tables, r0, r1):
+    """gather_two_spin as the card's kernel reads its compact tables, in
+    plain PyTorch: the codes decoded to signs and parities, each element
+    (x_alpha * sgnA) * tB + (x_beta * sgnB) * tA; the wrapper's CPU path
+    and the reference of the tables' layout."""
+    Nb = x.shape[-1]
+    sgnA, tA = _decode(tables.codeA)
+    sgnB, tB = _decode(tables.codeB[:, :Nb])
+    return gather_two_spin_plain(x, tables.srcA.long(), sgnA, tB,
+                                 tables.srcB[:, :Nb].long(), sgnB, tA, r0,
+                                 r1)
+
+
+class TwoSpinBytes(NamedTuple):
+    bound: int             # Phi once, each row of x it needs once, the
+                           # compact tables once
+    reread: Optional[int]  # the bound plus every further read of an alpha
+                           # source row; None where x fits half the L2
+
+
+def two_spin_in_l2(B, Na, Nb, itemsize):
+    """True where all of x (B states of an (Na, Nb) grid) fits half the
+    L2, so re-reading a row of x is an L2 read."""
+    return B * Na * Nb * itemsize <= _L2_BYTES // 2
+
+
+def two_spin_bytes(x, tables, r0, r1):
+    """Bytes gather_two_spin must move for grid rows [r0, r1) of x (...,
+    Na, Nb) with its compact ``tables``: the bound, Phi written once, each
+    row of x that it reads read once (the valid alpha source rows of the
+    window and the window's own rows, for the beta half) and the tables it
+    reads once (the window's alpha source and code, 5 bytes an entry, and
+    the padded beta rows, the source column's bytes plus one code byte an
+    entry); and, where x does not fit half the L2, the re-read floor: the
+    bound plus every valid alpha entry's source row read again past its
+    first read, which a kernel reading each entry's row from memory must
+    move (where x fits, the re-reads are L2 reads and there is no such
+    floor: None)."""
+    Na, Nb = x.shape[-2:]
+    B = x.numel() // (Na * Nb)
+    n2, Nbp = tables.srcB.shape
+    row = Nb * x.element_size()
+    valid = _decode(tables.codeA[:, r0:r1])[0] != 0
+    src = tables.srcA[:, r0:r1][valid].long()
+    rows = torch.cat([src, torch.arange(r0, r1, device=src.device)])
+    alpha = tables.srcA.element_size() + tables.codeA.element_size()
+    beta = tables.srcB.element_size() + tables.codeB.element_size()
+    bound = (B * n2 * (r1 - r0) * row + B * int(torch.unique(rows).numel())
+             * row + n2 * ((r1 - r0) * alpha + Nbp * beta))
+    if two_spin_in_l2(B, Na, Nb, x.element_size()):
+        return TwoSpinBytes(bound, None)
+    again = int(src.numel()) - int(torch.unique(src).numel())
+    return TwoSpinBytes(bound, bound + B * again * row)
 
 
 class TwoSpinPlan(NamedTuple):
-    vec: int      # elements per load and store along j (16 bytes, or 1)
-    rows: int     # grid rows per block (1 or 2; staged in shared memory)
+    vec: int      # elements per load and store along j (16, 8 or 4 bytes)
     threads: int  # threads per block, a whole number of warps
     pairs: int    # pairs per block
+    staged: int   # 1: each warp copies its beta table columns into shared
+                  # memory a pair ahead; 0: the tables are read in memory
+    line: int     # bytes of the line each row's stores start on
 
 
-def two_spin_unroll(vec, rows):
-    """Column vectors one thread of gather_two_spin takes per step (the
-    kernel's two_spin_unroll): 8 elements of each staged row in flight."""
-    return max(1, 8 // (vec * rows))
+def two_spin_unroll(vec, itemsize):
+    """Column slots one lane of gather_two_spin takes per step (the
+    kernel's two_spin_unroll): 64 bytes of the row in flight."""
+    return max(1, 64 // (vec * itemsize))
 
 
-def plan_two_spin(B, R, Nb, n2, itemsize, aligned=True):
-    """gather_two_spin's launch plan.  A block stages ``rows`` (2, or 1
-    where two blocks of two rows would not share an SM's shared memory:
-    one f64 row is 103 KB at (16e,16o)) grid rows of x in shared memory;
-    its threads, at most TWO_SPIN_BLOCK, take ``two_spin_unroll`` column
-    vectors per step; the pairs are split over blocks until the grid has
-    ~32 blocks per SM.  (Swept on an H100 with
-    scripts/sweep_two_spin.py: whole blocks of 512 threads beat even
-    rounds of fewer, and splitting the pairs finer shortens the last
-    wave.)  16-byte vectors where every row starts on a 16-byte boundary
-    (``aligned`` pointers, Nb a multiple of the vector), else scalars.
-    Raises ValueError when one row of x does not fit a block's shared
-    memory (Nb above 29,056 in f64)."""
-    row = Nb * itemsize
-    if row > _BLOCK_SMEM:
-        raise ValueError(f"gather_two_spin: a row of {Nb} elements "
-                         f"({row} bytes) does not fit a block's "
-                         f"{_BLOCK_SMEM} bytes of shared memory")
+def two_spin_smem(Nb, n2, itemsize, plan, idx_bytes=2):
+    """Dynamic shared memory of one gather_two_spin block: the row, its
+    alpha entries for its pairs and, staged, two buffers of each warp's
+    table columns (the kernel's two_spin_smem)."""
+    line = plan.line // itemsize
+    slots = Nb // plan.vec + line // plan.vec
+    step = two_spin_unroll(plan.vec, itemsize)
+    rounds = -(-slots // (step * plan.threads))
+    width = -(-(32 * step * rounds * plan.vec + line + 16) // 16) * 16
+    tables = (2 * width * (plan.threads // 32) * (idx_bytes + 1)
+              if plan.staged else 0)
+    return (-(-Nb * itemsize // 16) * 16
+            + -(-4 * min(plan.pairs, n2) // 16) * 16 + tables)
+
+
+def two_spin_threads(slots, step):
+    """Threads that cover ``slots`` column slots, ``step`` a thread, in
+    the fewest rounds of at most TWO_SPIN_BLOCK threads, each round
+    equally full."""
+    rounds = -(-slots // (step * TWO_SPIN_BLOCK))
+    return _warps(-(-slots // (step * rounds)))
+
+
+def plan_two_spin(B, Na, R, Nb, n2, itemsize, align=16):
+    """gather_two_spin's launch plan for B states of an (Na, Nb) grid, R
+    rows a launch.  A block stages one row (state, grid row) of x; its
+    threads cover the row's column slots (``two_spin_unroll`` a lane, the
+    row's stores from a 32-byte sector where rows are whole sectors, else
+    a 128-byte line) in equal rounds of at most TWO_SPIN_BLOCK; it takes 5
+    pairs where all of x fits half the L2 (staging a row is then an L2
+    read, and more blocks keep the SMs busy), else 40 (its staged row is
+    then 2.5% of what it writes); in f32, where a pair's beta tables pass
+    TWO_SPIN_STAGE bytes ((16e,16o)), its warps copy their columns of them
+    into shared memory a pair ahead (an f32 row has twice the columns of
+    an f64 row per byte written, so its tables are twice the share of the
+    traffic) where the block still fits its shared memory, else the
+    threads read them in memory.  Loads and stores are 16 bytes wide
+    where Nb and the pointers' ``align`` (bytes) allow, else 8 (f32 at
+    (16e,16o): Nb = 12870 is even, no multiple of 4) or one element.
+    (Swept on an H100 with scripts/sweep_two_spin.py over threads,
+    pairs, staging and lines at the (10e,10o) to (16e,16o) shapes:
+    within 2% of the best plan at each.)  Raises ValueError when one row
+    does not fit a block's shared memory (Nb above 29,036 in f64 at n2 =
+    256, 58,072 in f32)."""
     vec = 16 // itemsize
-    if not aligned or Nb % vec:
-        vec = 1
-    rows = TWO_SPIN_ROWS if (R >= TWO_SPIN_ROWS and TWO_SPIN_ROWS * row
-                             <= _PAIR_SMEM) else 1
-    step = two_spin_unroll(vec, rows)
-    threads = min(TWO_SPIN_BLOCK, _warps(-(-max(1, Nb // vec) // step)))
-    blocks = B * -(-R // rows)
-    splits = max(1, min(n2, -(-_TWO_SPIN_BLOCKS // max(blocks, 1))))
-    return TwoSpinPlan(vec, rows, threads, max(1, -(-n2 // splits)))
+    while vec > 1 and (Nb % vec or align % (vec * itemsize)):
+        vec //= 2
+    idx = 4 if Nb > _INT16_COLS else 2
+    line = 32 if Nb * itemsize % 32 == 0 else TWO_SPIN_LINE
+    slots = Nb // vec + line // (vec * itemsize)
+    threads = two_spin_threads(slots, two_spin_unroll(vec, itemsize))
+    pairs = min(n2, 5 if two_spin_in_l2(B, Na, Nb, itemsize) else 40)
+    Nbp = -(-Nb // 16) * 16
+    staged = int(itemsize == 4 and Nbp * (idx + 1) > TWO_SPIN_STAGE)
+    plan = TwoSpinPlan(vec, threads, pairs, staged, line)
+    if two_spin_smem(Nb, n2, itemsize, plan, idx) > _BLOCK_SMEM:
+        plan = plan._replace(staged=0)   # the row alone, where it fits
+    if two_spin_smem(Nb, n2, itemsize, plan, idx) > _BLOCK_SMEM:
+        raise ValueError(f"gather_two_spin: a row of {Nb} elements "
+                         f"({Nb * itemsize} bytes) and its tables do not "
+                         f"fit a block's {_BLOCK_SMEM} bytes of shared "
+                         f"memory")
+    return plan
 
 
 # ---- wrappers --------------------------------------------------------------
@@ -440,34 +580,35 @@ def gather_rows_scaled(x, src, s, t):
     return out
 
 
-def _check_two_spin(x, srcA, sgnA, tB, srcB, sgnB, tA):
-    """Validate gather_two_spin's operands on the card (x (..., Na, Nb) in
-    f64 or f32, int32 src, int8 sign tables of matching shapes, one
-    device, contiguous); returns (B, Na, Nb)."""
+def _check_two_spin(x, tables):
+    """Validate gather_two_spin's operands on the card: x (..., Na, Nb) in
+    f64 or f32 and the compact tables of its grid (``TwoSpinTables``: the
+    beta ones padded to 16 columns, int16 sources up to 32,767 columns),
+    each contiguous, on x's device, starting on 16 bytes; returns (B, Na,
+    Nb, n2)."""
     name = "gather_two_spin"
     if x.dtype not in _SUFFIX:
         raise TypeError(f"{name}: dtype {x.dtype} is not float64/float32")
     if x.dim() < 2:
         raise ValueError(f"{name}: x needs at least 2 dims")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x is not contiguous")
     Na, Nb = x.shape[-2:]
-    n2 = srcA.shape[0]
-    tabs = (("srcA", srcA, torch.int32, Na), ("sgnA", sgnA, torch.int8, Na),
-            ("tB", tB, torch.int8, Nb), ("srcB", srcB, torch.int32, Nb),
-            ("sgnB", sgnB, torch.int8, Nb), ("tA", tA, torch.int8, Na))
-    for nm, v, dt, width in tabs:
+    n2 = tables.srcA.shape[0]
+    Nbp = -(-Nb // 16) * 16
+    wide = torch.int32 if Nb > _INT16_COLS else torch.int16
+    for nm, dt, width in (("srcA", torch.int32, Na), ("codeA", torch.int8, Na),
+                          ("srcB", wide, Nbp), ("codeB", torch.int8, Nbp)):
+        v = getattr(tables, nm)
         if v.dtype != dt:
-            raise TypeError(f"{name}: {nm} must be {dt} on the card, got "
+            raise TypeError(f"{name}: table {nm} must be {dt}, got "
                             f"{v.dtype}")
-        if v.shape != (n2, width):
-            raise ValueError(f"{name}: {nm} shape {tuple(v.shape)} != "
-                             f"{(n2, width)}")
-    for nm, v in (("x", x),) + tuple((nm, v) for nm, v, _, _ in tabs):
-        if v.device != x.device:
-            raise ValueError(f"{name}: {nm} is on {v.device}, x on "
-                             f"{x.device}")
-        if not v.is_contiguous():
-            raise ValueError(f"{name}: {nm} is not contiguous")
-    return x.numel() // max(1, Na * Nb), Na, Nb
+        if (v.shape != (n2, width) or v.device != x.device
+                or not v.is_contiguous() or v.data_ptr() % 16):
+            raise ValueError(f"{name}: table {nm} {tuple(v.shape)} on "
+                             f"{v.device} must be a contiguous {(n2, width)} "
+                             f"tensor on {x.device}, on 16 bytes")
+    return x.numel() // max(1, Na * Nb), Na, Nb, n2
 
 
 def _check_window(x, r0, r1):
@@ -476,7 +617,16 @@ def _check_window(x, r0, r1):
                          f"inside the {x.shape[-2]} grid rows")
 
 
-def gather_two_spin(x, srcA, sgnA, tB, srcB, sgnB, tA, r0, r1, plan=None):
+def _align(*tensors):
+    """The largest power of two, at most 16, dividing every address."""
+    a = 16
+    for v in tensors:
+        while v.data_ptr() % a:
+            a //= 2
+    return a
+
+
+def gather_two_spin(x, tables, r0, r1, plan=None):
     """Both spin halves of Phi = E_pq x over grid rows [r0, r1):
 
         out[..., k, m, j] = (x[..., srcA[k, r0+m], j] * sgnA[k, r0+m])
@@ -484,27 +634,25 @@ def gather_two_spin(x, srcA, sgnA, tB, srcB, sgnB, tA, r0, r1, plan=None):
                           + (x[..., r0+m, srcB[k, j]] * sgnB[k, j])
                             * tA[k, r0+m]
 
-    x (..., Na, Nb); srcA, sgnA, tA (n2, Na); srcB, sgnB, tB (n2, Nb)
-    -> (..., n2, r1 - r0, Nb).  Invalid entries carry src = 0, sign 0.
-    CPU tensors take the plain version (any sign dtype); CUDA tensors the
-    kernel, which takes int32 src and the int8 sign tables of
-    ``GridMaps`` and equals the plain version as values.  ``plan`` (a
-    ``TwoSpinPlan``) replaces ``plan_two_spin``'s, for sweeps."""
+    x (..., Na, Nb); ``tables`` the grid's ``TwoSpinTables``
+    (``GridMaps.two_spin_tables()``, built once per maps) -> (..., n2,
+    r1 - r0, Nb).  Invalid entries carry src = 0, sign 0.  CPU tensors
+    take the tables' plain walk (``two_spin_walk``); CUDA tensors the
+    kernel, which equals it as values.  ``plan`` (a ``TwoSpinPlan``)
+    replaces ``plan_two_spin``'s, for sweeps."""
     _check_window(x, r0, r1)
     if not _on_card("gather_two_spin", x):
-        return gather_two_spin_plain(x, srcA, sgnA, tB, srcB, sgnB, tA, r0,
-                                     r1)
-    B, Na, Nb = _check_two_spin(x, srcA, sgnA, tB, srcB, sgnB, tA)
-    n2, R = srcA.shape[0], r1 - r0
+        return two_spin_walk(x, tables, r0, r1)
+    B, Na, Nb, n2 = _check_two_spin(x, tables)
+    R = r1 - r0
     out = torch.empty(x.shape[:-2] + (n2, R, Nb), dtype=x.dtype,
                       device=x.device)
     if plan is None:
-        plan = plan_two_spin(B, R, Nb, n2, x.element_size(),
-                             all(v.data_ptr() % 16 == 0
-                                 for v in (x, srcB, sgnB, tB)))
+        plan = plan_two_spin(B, Na, R, Nb, n2, x.element_size(), _align(x))
     _launch("gather_two_spin", x.dtype,
-            *_ptrs(x, srcA, sgnA, tB, srcB, sgnB, tA, out), B, n2, Na, Nb,
-            r0, R, *plan, _stream(x))
+            *_ptrs(x, tables.srcA, tables.codeA, tables.srcB, tables.codeB,
+                   out), B, n2, Na, Nb, tables.srcB.shape[1], r0, R,
+            tables.srcB.element_size(), *plan, _stream(x))
     return out
 
 

@@ -110,9 +110,10 @@ prints its seconds:
    hosted route's kernels at its chunk shapes against their plain
    versions (a slab of pairs at a time), timed beside their bounds: both
    halves of a Phi chunk through gather_rows_scaled, then gather_two_spin
-   on the chunk (f64, against the composite in turns; f32 on the ragged
-   last window), the column form on the chunk's Y (and its add mode into
-   a window of an accumulator, the same bits as acc + the result), and the
+   on the chunk (f64, against the composite in turns, beside its bound
+   and its re-read floor; f32 on the ragged last window), the column form
+   on the chunk's Y (and its add mode into a window of an accumulator,
+   the same bits as acc + the result), and the
    scatter on it (f64 and f32, the middle and the ragged last window, the
    same bits on two launches) beside index_add_ of its contributions;
    then E(0) within 1e-8 Ha of the RHF energy, one grad_hess at the
@@ -126,7 +127,11 @@ prints its seconds:
    Gram form as in the JAX package (its (15, D) f32 stack is 9.9 GB, under
    the 11e9-byte budget): one f32 gather_two_spin launch over a (15, Na,
    Nb) stack at the cross sweep's chunk shape (a middle and the ragged
-   last window) equal to plain and timed beside its bound, then one NR
+   last window) and one on a single f32 state at the mixed hosted pass's
+   row chunk (990 rows), each equal to plain and timed beside its bound
+   and its re-read floor (grid_kernels.two_spin_bytes), and the pass's f32
+   column form and scatter at that chunk against their plain versions,
+   timed beside their bounds and index_add_, then one NR
    iteration from theta0: |grad| within 1e-4 relative of 5.379e-02, the
    energy below E(theta0) and within 5e-5 Ha of -8.3671002296, with the
    step length, the iteration's time, peak memory and launches;
@@ -753,21 +758,20 @@ def epq_compare(torch, gk, grid, gm, Yg, label, tol):
           f"bitwise={'yes' if err == 0 else 'no'}")
 
 
-def two_spin_bytes(x, gm, r0, r1):
-    """Bytes gather_two_spin must move for grid rows [r0, r1): Phi written
-    once, each row of x that it reads read once (the valid alpha source
-    rows of the window and the window's own rows, for the beta half), the
-    alpha tables' window and the beta tables once (int32 src and two int8
-    sign tables per entry)."""
-    import torch
-
-    B = x.numel() // (gm.Na * gm.Nb)
-    out = B * gm.n2 * (r1 - r0) * gm.Nb * x.element_size()
-    srcA = gm.srcA[:, r0:r1]
-    rows = torch.cat([srcA[gm.sgnA[:, r0:r1] != 0].long(),
-                      torch.arange(r0, r1, device=srcA.device)])
-    read = B * int(torch.unique(rows).numel()) * gm.Nb * x.element_size()
-    return out + read + gm.n2 * ((r1 - r0) + gm.Nb) * 6
+def two_spin_share(gk, ms, x, gm, r0, r1):
+    """gather_two_spin's bound and, where x does not fit half the L2, its
+    re-read floor for grid rows [r0, r1) of x
+    (grid_kernels.two_spin_bytes), with their shares of ``ms``; returns
+    (the printed text, the bound in ms)."""
+    nb = gk.two_spin_bytes(x, gm.two_spin_tables(), r0, r1)
+    b = bound_ms(nb.bound)
+    text = (f"bound={b:.4f} ms share={100 * b / ms:5.1f}% "
+            f"({nb.bound / 1e9:.3f} GB), ")
+    if nb.reread is None:
+        return text + "no re-read floor (x fits half the L2)", b
+    f = bound_ms(nb.reread)
+    return (text + f"re-read floor={f:.4f} ms share={100 * f / ms:5.1f}% "
+            f"({nb.reread / 1e9:.3f} GB)"), b
 
 
 def two_spin_composite(gk, grid, x, gm, r0, r1):
@@ -798,10 +802,15 @@ def two_spin_check(torch, gk, grid, x, gm, r0, r1, label, stats,
     its plain version (``step`` pairs at a time) and against the composite
     it replaced (two gather_rows_scaled launches, the transposed copy and
     add), equal as values; with ``timed``, the kernel and the composite in
-    turns (composite, kernel, kernel, composite), the plain version and
-    the bound.  Returns the timings (or None)."""
+    turns (composite, kernel, kernel, composite), the plain version, the
+    bound and the re-read floor.  Returns the timings (or None)."""
     tabs = gm.phi_tables(x)
-    out = gk.gather_two_spin(x, *tabs, r0, r1)
+    compact = gm.two_spin_tables()
+
+    def kernel():
+        return gk.gather_two_spin(x, compact, r0, r1)
+
+    out = kernel()
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), f"gather_two_spin {label}: "
           "non-finite")
@@ -829,21 +838,21 @@ def two_spin_check(torch, gk, grid, x, gm, r0, r1, label, stats,
         print(f"  gather_two_spin {label:28s} equal to plain{same}")
         return None
     c1 = time_ms(lambda: two_spin_composite(gk, grid, x, gm, r0, r1), torch)
-    k1 = time_ms(lambda: gk.gather_two_spin(x, *tabs, r0, r1), torch)
-    k2 = time_ms(lambda: gk.gather_two_spin(x, *tabs, r0, r1), torch)
+    k1 = time_ms(kernel, torch)
+    k2 = time_ms(kernel, torch)
     c2 = time_ms(lambda: two_spin_composite(gk, grid, x, gm, r0, r1), torch)
     pms = time_ms(lambda: list(_two_spin_plain(gk, x, tabs, r0, r1, step)),
                   torch, reps=2 if step else 10, rounds=3 if step else 5)
     ms = 0.5 * (k1 + k2)
-    nbytes = two_spin_bytes(x, gm, r0, r1)
-    plan = gk.plan_two_spin(x.numel() // (gm.Na * gm.Nb), r1 - r0, gm.Nb,
-                            gm.n2, x.element_size())
+    shares, bms = two_spin_share(gk, ms, x, gm, r0, r1)
+    plan = gk.plan_two_spin(x.numel() // (gm.Na * gm.Nb), gm.Na, r1 - r0,
+                            gm.Nb, gm.n2, x.element_size())
     print(f"  gather_two_spin {label:28s} equal to plain{same}; kernel "
           f"{k1:.4f}, {k2:.4f} ms  composite {c1:.4f}, {c2:.4f} ms  "
           f"kernel/composite {(k1 + k2) / (c1 + c2):.3f}  plain {pms:.4f} ms"
-          f"{f' ({step} pairs at a time)' if step else ''}  "
-          f"{_share(ms, nbytes)} ({nbytes / 1e9:.3f} GB)  plan {tuple(plan)}")
-    return {"ms": ms, "plain_ms": pms, "bound_ms": bound_ms(nbytes),
+          f"{f' ({step} pairs at a time)' if step else ''}  {shares}  "
+          f"plan {tuple(plan)}")
+    return {"ms": ms, "plain_ms": pms, "bound_ms": bms,
             "composite_ms": 0.5 * (c1 + c2)}
 
 
@@ -1792,44 +1801,110 @@ def sector14_mixed_phase(torch, P, gk, mol, pqc, energies64):
     return launches
 
 
-def gram_stack_check(torch, gk, gm, B, rows):
-    """One f32 gather_two_spin launch over a (B, Na, Nb) stack at the
-    (16e,16o) Gram route's chunk shape (``rows`` grid rows: a middle and
-    the ragged last window) against its plain version a slab of pairs at
-    a time, equal as values, timed beside its bound."""
+def gram_stack_check(torch, gk, gm, B, rows, pass_rows):
+    """The f32 gather_two_spin launches of the (16e,16o) mixed iteration,
+    each against its plain version a slab of pairs at a time, equal as
+    values, and timed beside its bound and re-read floor: one over a (B,
+    Na, Nb) stack at the Gram route's cross-sweep chunk (``rows`` grid
+    rows: a middle and the ragged last window), and one on a single state
+    at the hosted pass's chunk (``pass_rows``, the middle window)."""
     gen = torch.Generator(device=gm.device).manual_seed(1616)
     S = torch.randn((B, gm.Na, gm.Nb), generator=gen, dtype=torch.float32,
                     device=gm.device)
-    tabs = gm.phi_tables(S)
     chunks = [(r0, min(gm.Na, r0 + rows)) for r0 in range(0, gm.Na, rows)]
-    for r0, r1 in (chunks[len(chunks) // 2], chunks[-1]):
-        out = gk.gather_two_spin(S, *tabs, r0, r1)
+    mid = (gm.Na - pass_rows) // 2
+    for x, (r0, r1) in ((S, chunks[len(chunks) // 2]), (S, chunks[-1]),
+                        (S[0], (mid, mid + pass_rows))):
+        tabs = gm.phi_tables(x)
+        compact = gm.two_spin_tables()
+
+        def kernel():
+            return gk.gather_two_spin(x, compact, r0, r1)
+
+        out = kernel()
         torch.cuda.synchronize()
-        for k0, ref in _two_spin_plain(gk, S, tabs, r0, r1, 16):
-            check(torch.equal(out[:, k0:k0 + ref.shape[1]], ref),
-                  f"gather_two_spin over {B} f32 states [{r0}, {r1}): not "
-                  "equal to plain")
+        for k0, ref in _two_spin_plain(gk, x, tabs, r0, r1, 16):
+            check(torch.equal(out[..., k0:k0 + ref.shape[-3], :, :], ref),
+                  f"gather_two_spin over {tuple(x.shape)} f32 [{r0}, {r1}): "
+                  "not equal to plain")
             del ref
-        nbytes = two_spin_bytes(S, gm, r0, r1)
         del out
-        ms = time_ms(lambda: gk.gather_two_spin(S, *tabs, r0, r1), torch,
-                     reps=3, rounds=3)
-        print(f"  gather_two_spin 16e stack ({B}, {gm.Na}, {gm.Nb}) f32 rows"
-              f" [{r0}, {r1}): equal to plain; kernel {ms:.4f} ms "
-              f"{_share(ms, nbytes)} ({nbytes / 1e9:.3f} GB)")
+        ms = time_ms(kernel, torch, reps=3, rounds=3)
+        shares, _ = two_spin_share(gk, ms, x, gm, r0, r1)
+        what = (f"stack {tuple(x.shape)}" if x.dim() == 3
+                else "hosted pass chunk")
+        print(f"  gather_two_spin 16e {what} f32 rows [{r0}, {r1}): equal to "
+              f"plain; kernel {ms:.4f} ms {shares}")
     del S
     torch.cuda.empty_cache()
 
 
-def sector16_mixed_phase(torch, gk, P, mol, pqc):
+def mixed_pass_kernels(torch, gk, gh, grid, gm, rows, step=28):
+    """The f32 column form and scatter of the (16e,16o) mixed hosted pass
+    at its row chunk (``rows`` grid rows, the middle window) against their
+    plain versions (a slab of ``step`` pairs at a time; 1e-5 relative, and
+    scatter_check's 1e-6 of max |out|), timed beside their bounds (the
+    column form also beside its 32- and 128-byte floors), with index_add_
+    of the scatter's contributions."""
+    Na, Nb, n2 = gm.Na, gm.Nb, gm.n2
+    r0 = (Na - rows) // 2
+    r1 = r0 + rows
+    f32 = torch.float32
+    gen = torch.Generator(device=gm.device).manual_seed(1617)
+    like = torch.zeros((), dtype=f32, device=gm.device)
+    srcA, sgnA, tB, srcB, sgnB, _ = gm.tables(like)
+    tA_k = grid._row_tables(gm, like, r0, r1)[2]
+    Y = torch.randn((n2, rows, Nb), generator=gen, dtype=f32,
+                    device=gm.device)
+    args = (Y, srcB, sgnB, tA_k)
+    out = cols_kernel(gk, *args)
+    err = scale = 0.0
+    for k0 in range(0, n2, step):
+        ref = gk.gather_reduce_cols_plain(*(a[k0:k0 + step] for a in args))
+        if k0 == 0:
+            total = ref
+        else:
+            total += ref
+        del ref
+    err = float((out - total).abs().max())
+    scale = float(total.abs().max())
+    del out, total
+    check(err <= 1e-5 * scale, f"gather_reduce_cols 16e f32 pass: relative "
+          f"error {err / scale:.3e}")
+    ms = time_ms(lambda: cols_kernel(gk, *args), torch)
+    nbytes = reduce_bytes(*args, True)
+    print(f"  gather_reduce_cols 16e f32 pass Y {tuple(Y.shape)} "
+          f"rel={err / scale:.3e} kernel={ms:.4f} ms {_share(ms, nbytes)}"
+          f"{floor_share(ms, *args[:3])}")
+    acc = torch.randn((Na, Nb), generator=gen, dtype=f32, device=gm.device)
+    err, rel = scatter_check(torch, gk, gh, gm, Y, acc, r0, "16e f32 pass",
+                             step)
+    dst, dsg = gh._inverse_tables(gm, Y)
+    sargs = (acc, Y, srcA, sgnA, tB, dst, dsg, r0)
+    nbytes = scatter_bytes(Y, srcA, sgnA, tB, r0)
+    ms = time_ms(lambda: gk.scatter_rows(*sargs), torch)
+    contrib = (Y * dsg[:, r0:r1, None] * tB[:, None, :]).reshape(-1, Nb)
+    idx = dst[:, r0:r1].reshape(-1)
+    lms = time_ms(lambda: acc.index_add_(0, idx, contrib), torch, reps=2,
+                  rounds=3)
+    print(f"  scatter_rows 16e f32 pass Y {tuple(Y.shape)} window [{r0}, "
+          f"{r1}) rel={rel:.3e} kernel={ms:.4f} ms index_add_ of the "
+          f"contributions={lms:.4f} ms {_share(ms, nbytes)} "
+          f"({nbytes / 1e9:.3f} GB)")
+    del Y, acc, contrib, sargs, args
+    torch.cuda.empty_cache()
+
+
+def sector16_mixed_phase(torch, gk, gh, grid, P, mol, pqc):
     """The (16e,16o) H16 chain in precision="mixed": the hosted route's
     Gram form (the (15, D) f32 stack fits the 11e9-byte budget, as in the
-    JAX package); one f32 stack launch of gather_two_spin at its chunk
-    shape against plain; then one grad_hess at theta0 and one
-    damped-Newton update from it, with |grad| within 1e-4 relative of the
-    JAX package's 5.379e-02, E(1) below E(theta0) and within 5e-5 Ha of
-    its mixed iteration 1; the step length, the iteration's time, peak
-    memory and launches.  Returns the launches of the iteration."""
+    JAX package); the f32 gather_two_spin launches of the iteration's
+    shapes against plain (gram_stack_check) and the pass's column form
+    and scatter (mixed_pass_kernels); then one grad_hess at theta0 and
+    one damped-Newton update from it, with |grad| within 1e-4 relative
+    of the JAX package's 5.379e-02, E(1) below E(theta0) and within 5e-5
+    Ha of its mixed iteration 1; the step length, the iteration's time,
+    peak memory and launches.  Returns the launches of the iteration."""
     from auto_oo_tpu_torch.utils.newton_raphson import newton_step_pure
 
     nt = pqc.theta_shape
@@ -1844,7 +1919,10 @@ def sector16_mixed_phase(torch, gk, P, mol, pqc):
     check(core["route"] == "hosted" and core["hosted_form"] == "gram",
           f"(16e,16o) mixed: {core['route']} {core['hosted_form']}, "
           "expected the hosted route's Gram form")
-    gram_stack_check(torch, gk, pqc.sector_maps, nt + 1, core["cross_rows"])
+    gram_stack_check(torch, gk, pqc.sector_maps, nt + 1, core["cross_rows"],
+                     core["plan_lp"].row_chunk)
+    mixed_pass_kernels(torch, gk, gh, grid, pqc.sector_maps,
+                       core["plan_lp"].row_chunk)
     theta0 = 0.02 * torch.arange(nt, dtype=torch.float64, device=pqc.device)
     args = oo._mol_args
     torch.cuda.empty_cache()
@@ -2524,7 +2602,7 @@ def main():
         torch.cuda.empty_cache()
         paths["16e16o_mixed"] = phase(
             "(16e,16o) sector, mixed precision (Gram form)",
-            sector16_mixed_phase, torch, gk, P, mol16, pqc16)
+            sector16_mixed_phase, torch, gk, gh, grid, P, mol16, pqc16)
         torch.cuda.empty_cache()
         paths.update(phase(
             "(16e,16o) gradient-only pipeline, mixed", gradient16_phase,

@@ -274,7 +274,7 @@ def _check_two_spin(xg, maps, r0, r1):
     on the same operands, equal as values (torch.equal; +-0 aside)."""
     tabs = maps.phi_tables(xg)
     before = dict(gk.LAUNCHES)
-    out = gk.gather_two_spin(xg, *tabs, r0, r1)
+    out = gk.gather_two_spin(xg, maps.two_spin_tables(), r0, r1)
     torch.cuda.synchronize()
     assert gk.LAUNCHES["gather_two_spin"] == before["gather_two_spin"] + 1
     ref = gk.gather_two_spin_plain(xg, tabs[0].long(), *tabs[1:3],
@@ -334,6 +334,66 @@ def test_cuda_two_spin_matches_plain(cuda_device, dtype):
     xs.copy_(_rand((pm.Na, pm.Nb), 73))
     assert xs.data_ptr() % 16 != 0
     _check_two_spin(xs, pm, 0, pm.Na)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_two_spin_plans_and_shapes(cuda_device, dtype):
+    """gather_two_spin on every plan class against its plain version,
+    equal as values: 32 to 1024 threads (one to several rounds of slots a
+    warp), 1 to n2 pairs per block, the beta tables staged by the warps or
+    read in memory, stores from 32- to 128-byte lines, on the (10e,10o)
+    maps with B = 3 (a middle window, a window ending at Na, R = 1) and
+    B = 15 in f32 (a ragged last window), and the (12e,12o) maps (several
+    rounds of slots a warp); Nb = 10, 17 and 20 (no multiple
+    of the vector; scalar, 8- and 16-byte loads); an x 8 bytes off a
+    16-byte boundary."""
+    pm = grid.build_grid_maps(10, 10, device=cuda_device)
+    x = _rand((3, pm.Na, pm.Nb), 76).to(cuda_device, dtype)
+    tabs, compact = pm.phi_tables(x), pm.two_spin_tables()
+    for r0, r1 in ((100, 137), (215, 252), (40, 41)):
+        ref = gk.gather_two_spin_plain(x, tabs[0].long(), *tabs[1:3],
+                                       tabs[3].long(), *tabs[4:], r0, r1)
+        assert torch.equal(gk.gather_two_spin(x, compact, r0, r1), ref)
+        base = gk.plan_two_spin(3, pm.Na, r1 - r0, pm.Nb, pm.n2,
+                                x.element_size())
+        for threads, pairs, staged, line in (
+                (32, 1, 0, 128), (64, 3, 1, 32), (256, pm.n2, 1, 128),
+                (1024, 7, 1, 64), (96, 9, 0, 32)):
+            plan = base._replace(threads=threads, pairs=pairs,
+                                 staged=staged, line=line)
+            out = gk.gather_two_spin(x, compact, r0, r1, plan=plan)
+            assert torch.equal(out, ref), plan
+    if dtype == torch.float32:
+        S = _rand((15, pm.Na, pm.Nb), 77).to(cuda_device, dtype)
+        for r0, r1 in ((0, 14), (238, 252)):
+            _check_two_spin(S, pm, r0, r1)
+    # (12e,12o): several rounds of slots a warp, each warp's own table
+    # columns staged, the last warps partly idle
+    pm12 = grid.build_grid_maps(12, 12, device=cuda_device)
+    x12 = _rand((pm12.Na, pm12.Nb), 79).to(cuda_device, dtype)
+    tabs12 = pm12.phi_tables(x12)
+    ref = gk.gather_two_spin_plain(x12, tabs12[0].long(), *tabs12[1:3],
+                                   tabs12[3].long(), *tabs12[4:], 300, 340)
+    base = gk.plan_two_spin(1, pm12.Na, 40, pm12.Nb, pm12.n2,
+                            x12.element_size())
+    for threads, pairs, staged, line in ((32, 5, 1, 32), (64, 20, 1, 128),
+                                         (96, 144, 0, 32), (160, 9, 1, 64)):
+        plan = base._replace(threads=threads, pairs=pairs, staged=staged,
+                             line=line)
+        assert torch.equal(gk.gather_two_spin(
+            x12, pm12.two_spin_tables(), 300, 340, plan=plan), ref), plan
+    for na, nb, n2 in ((9, 10, 12), (13, 17, 5), (10, 20, 70)):
+        maps = _random_port_maps(na, nb, n2, nb, cuda_device)
+        xr = _rand((2, na, nb), 78).to(cuda_device, dtype)
+        for r0, r1 in ((0, na), (na // 3, na), (3, 4)):
+            _check_two_spin(xr, maps, r0, r1)
+    buf = torch.empty(3 * pm.dim + 2, dtype=dtype, device=cuda_device)
+    xs = buf[16 // x.element_size() // 2:][:3 * pm.dim].view(3, pm.Na,
+                                                            pm.Nb)
+    xs.copy_(x)
+    assert xs.data_ptr() % 16 == 8
+    _check_two_spin(xs, pm, 100, 137)
 
 
 @pytest.mark.cuda
