@@ -13,7 +13,12 @@ full space (``sector=False``, the default: a flat gate program and
 element gathers in plain PyTorch) and on the sector string grid
 (``sector=True``) up to (16e,16o), where its
 grid-gather kernels are CUDA on the card (ops/grid_kernels.py,
-csrc/grid_gather.cu).  The row-gather mechanism probes
+csrc/grid_gather.cu).  The Berry-phase workflow (``BerryPhaseLoop``: tracking around a
+geometry loop, the Thouless state transfer on the card), the noisy
+optimizer (``Noisy_OO_pqc``), the spin diagnostics
+(``Parameterized_circuit.s2_expectation``), ``utils.observe.Monitor``
+and ``utils.checkpoint`` run as in the JAX package.  The row-gather
+mechanism probes
 (ops/gather_mechanisms.py, csrc/gather_mechanisms.cu) run from their own
 entry point,
 ``python -m auto_oo_tpu_torch.scripts.experiment_gather_mechanisms``.
@@ -36,7 +41,8 @@ from .ops.transforms import (
 from .ops.linalg import expm
 from .simulator.ansatze import gatefabric_circuit, uccd_circuit
 from .simulator.circuit import Parameterized_circuit, dirac_notation
-from .models import OO_energy, OO_pqc, mo_ao_to_mo_oao
+from .models import (BerryPhaseLoop, Noisy_OO_pqc, OO_energy, OO_pqc,
+                     fermionic_cas_hamiltonian, mo_ao_to_mo_oao, s2, sz)
 
 __all__ = [
     "Moldata", "Moldata_pyscf", "ao_to_oao",
@@ -46,5 +52,7 @@ __all__ = [
     "int1e_transform", "int2e_transform",
     "molecular_hamiltonian_coefficients", "expm",
     "Parameterized_circuit", "OO_energy", "OO_pqc", "mo_ao_to_mo_oao",
+    "Noisy_OO_pqc", "BerryPhaseLoop", "s2", "sz",
+    "fermionic_cas_hamiltonian",
     "uccd_circuit", "gatefabric_circuit", "dirac_notation",
 ]

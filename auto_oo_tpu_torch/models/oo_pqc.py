@@ -17,9 +17,10 @@ block:
   RDMs built from J and the Phi gram.
 
 ``full_optimization`` runs damped-Newton iterations from a host loop: one
-``grad_hess``, then the augmented eigh solve, an Armijo line search with
-one scalar sync per trial, and the fold of kappa into the OAO
-coefficients.
+``grad_hess``, then the augmented solve (eigh, or with
+``newton_method="iterative"`` the eigh-free ``ops/linalg.
+newton_dir_iterative``), an Armijo line search with one scalar sync per
+trial, and the fold of kappa into the OAO coefficients.
 
 A full-space circuit (``sector=False``) takes the "flat" route: the same
 ``grad_hess`` on the flat gate program and the flat E_pq maps, in the
@@ -168,12 +169,14 @@ class _Parts:
 
 
 def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
-                   precision="f64", hosted_form=None):
+                   precision="f64", hosted_form=None, newton_method=None):
     """Geometry-independent functional core for one problem spec: the
     molecule arrays (int1e_ao, int2e_ao, oao_coeff, nuc) are arguments of
     every function, so one core serves every geometry.  ``hosted_form``
     ("gram" or "per_tangent") forces the hosted route's form; by default
-    it follows the JAX package's rule (``grid_hosted.gram_fits``)."""
+    it follows the JAX package's rule (``grid_hosted.gram_fits``).
+    ``newton_method`` is the Newton solve of ``newton_update``
+    (utils/newton_raphson.newton_step_pure)."""
     route = _route(pqc, streamed=stream_plan is not None)
     params_idx = tuple(int(i) for i in params_idx)
     params_idx_dev = torch.as_tensor(np.asarray(params_idx, dtype=np.int64),
@@ -566,7 +569,8 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
         new_flat, lowest, t, e_t = damped_newton_step_pure(
             objective, flat0, grad, hess, alpha=alpha, beta=beta, mu=mu,
             rho=rho, lambda_min=lambda_min, e0=e0,
-            min_rel_slack=_HOSTED_MIXED_SLACK if mixed and hosted else 0.0)
+            min_rel_slack=_HOSTED_MIXED_SLACK if mixed and hosted else 0.0,
+            method=newton_method)
         new_theta = new_flat[:nt]
         new_kappa = new_flat[nt:]
         # e_t IS the energy at (new_theta, new_oao): folding kappa into
@@ -604,7 +608,11 @@ class OO_pqc(OO_energy):
     streamed or hosted, its sizes come from the free device memory at
     construction.  ``hosted_form`` ("gram" or "per_tangent") forces the
     hosted route's form (a ValueError on any other route); by default
-    it is the JAX package's choice (``_core["hosted_form"]``)."""
+    it is the JAX package's choice (``_core["hosted_form"]``).
+    ``newton_method`` is "eigh" or "iterative"
+    (ops/linalg.newton_dir_iterative); None is "eigh" at every size,
+    where the JAX package's None takes the iterative solve on a TPU from
+    n = 128."""
 
     def __init__(self, pqc, mol, ncas, nelecas, oao_mo_coeff=None,
                  freeze_active=False, interface=None, newton_method=None,
@@ -615,9 +623,9 @@ class OO_pqc(OO_energy):
         if hosted_form not in (None,) + _HOSTED_FORMS:
             raise ValueError(f"hosted_form must be one of {_HOSTED_FORMS}"
                              f", got {hosted_form!r}")
-        if newton_method not in (None, "eigh"):
-            raise NotImplementedError(
-                "the port solves the Newton step by eigh only")
+        if newton_method not in (None, "eigh", "iterative"):
+            raise ValueError("newton_method must be None, 'eigh' or "
+                             f"'iterative', got {newton_method!r}")
         super().__init__(mol, ncas, nelecas, oao_mo_coeff=oao_mo_coeff,
                          freeze_active=freeze_active, device=pqc.device)
         self.pqc = pqc
@@ -625,7 +633,7 @@ class OO_pqc(OO_energy):
         self.precision = precision
         self._core = _build_nr_core(pqc, self.nao, self._occ, self._act,
                                     self.params_idx, stream_plan, precision,
-                                    hosted_form)
+                                    hosted_form, newton_method)
         self._mol_args = (self.int1e_ao, self.int2e_ao, self.oao_coeff,
                           self.nuc)
 

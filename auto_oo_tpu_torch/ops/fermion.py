@@ -163,6 +163,11 @@ def s2_sparse(ncas):
     return sp @ sp.conj().T + szm @ szm - szm
 
 
+def sz_sparse(ncas):
+    """S_z as a sparse diagonal matrix over the full space."""
+    return sparse.diags(sz_diag(ncas))
+
+
 def sector_basis(ncas, nelec):
     """Determinant indices of the (n_alpha, n_beta) sector, ascending.
 

@@ -29,6 +29,13 @@ f64) the callers stream it over grid A-rows (``phi_rows``,
 ``stream_plan``): the alpha half gathers rows of the whole x with
 row-sliced tables, the beta half gathers inside the chunk's rows (one
 ``gather_two_spin`` launch per chunk).
+
+S^- = sum_p a^dag_{p,beta} a_{p,alpha} factorizes over the spin strings
+as E_pq does (``sminus_grid_maps``): per orbital a row gather, a column
+gather and a rank-1 sign, so <S^2> = ||S^- psi||^2 + Sz^2 - Sz runs on
+the grid state with O(ncas (Na' + Nb')) tables (``s2_expectation_grid``).
+These gathers are plain indexing, as they are XLA gathers in the JAX
+package.
 """
 
 import copy
@@ -664,3 +671,96 @@ def rdms_chunked(psi, gm, ncas, chunk):
                      else phi_all(psi, pair_slice(gm, lo2, hi2)))
             corr[lo:hi, lo2:hi2] = phi_a @ phi_b.T
     return assemble_rdms(gamma, corr, ncas)
+
+
+class SMinusGridMaps(NamedTuple):
+    """Per-orbital string-factorized maps of S^-: sector (na, nb) ->
+    (na-1, nb+1), on one device.  Target-indexed: for target grid cell
+    (i', j') and orbital p the source cell is (srcAm[p, i'], srcBp[p, j'])
+    with sign fA[p, i'] * fB[p, j'] (0 marks an invalid transfer)."""
+
+    srcAm: torch.Tensor  # (ncas, Na_t) int64 alpha source rank
+    fA: torch.Tensor     # (ncas, Na_t) int8 alpha sign factor
+    srcBp: torch.Tensor  # (ncas, Nb_t) int64 beta source rank
+    fB: torch.Tensor     # (ncas, Nb_t) int8 beta sign factor
+
+
+def sminus_grid_maps(ncas, nelecas, up_then_down=False, device=None):
+    """SMinusGridMaps of the (na, nb) sector on ``device``, or None when
+    S^- is the zero map (na = 0 or nb = ncas).
+
+    The Jordan-Wigner sign of a^dag_{p beta} a_{p alpha} splits into an
+    alpha-string factor, parity_below(A, P_alpha) * parity_below(A',
+    P_beta) with A = A' + p, and a beta-string factor, parity_below(B,
+    P_alpha) * parity_below(B, P_beta) with B' = B + p."""
+    na, nb = _nelec_split(nelecas)
+    if na - 1 < 0 or nb + 1 > ncas:
+        return None
+    nm = 2 * ncas
+    A = spin_strings(ncas, na, 0, up_then_down)
+    At = spin_strings(ncas, na - 1, 0, up_then_down)
+    B = spin_strings(ncas, nb, 1, up_then_down)
+    Bt = spin_strings(ncas, nb + 1, 1, up_then_down)
+    srcAm = np.zeros((ncas, At.size), dtype=np.int64)
+    fA = np.zeros((ncas, At.size), dtype=np.int8)
+    srcBp = np.zeros((ncas, Bt.size), dtype=np.int64)
+    fB = np.zeros((ncas, Bt.size), dtype=np.int8)
+    for p in range(ncas):
+        Pa = fermion.mode_of(p, 0, ncas, up_then_down)
+        Pb = fermion.mode_of(p, 1, ncas, up_then_down)
+        bita = 1 << (nm - 1 - Pa)
+        bitb = 1 << (nm - 1 - Pb)
+        # alpha: the target string A' lacks p, the source is A' + p
+        validA = (At & bita) == 0
+        srcA_full = np.where(validA, At | bita, A[0])
+        pos = np.minimum(np.searchsorted(A, srcA_full), A.size - 1)
+        validA &= A[pos] == srcA_full
+        sA = (fermion._parity_below(srcA_full, Pa, nm)
+              * fermion._parity_below(At, Pb, nm))
+        srcAm[p] = np.where(validA, pos, 0)
+        fA[p] = np.where(validA, sA, 0)
+        # beta: the target string B' holds p, the source is B' - p
+        validB = (Bt & bitb) != 0
+        srcB_full = np.where(validB, Bt ^ bitb, B[0])
+        posB = np.minimum(np.searchsorted(B, srcB_full), B.size - 1)
+        validB &= B[posB] == srcB_full
+        sB = (fermion._parity_below(srcB_full, Pa, nm)
+              * fermion._parity_below(srcB_full, Pb, nm))
+        srcBp[p] = np.where(validB, posB, 0)
+        fB[p] = np.where(validB, sB, 0)
+    device = get_device(device)
+    return SMinusGridMaps(*(torch.as_tensor(a, device=device)
+                            for a in (srcAm, fA, srcBp, fB)))
+
+
+def sminus_apply_grid(psi_grid, sm):
+    """v = S^- psi on the grid: psi_grid (..., Na, Nb) -> (..., Na', Nb').
+    Per orbital one row gather, one column gather and the rank-1 sign
+    applied in place (a row scale, then a column scale), accumulated into
+    one target-grid buffer: the peak is that buffer plus one gathered
+    rows block and one target block."""
+    dt = psi_grid.dtype
+    ncas, Na_t = sm.srcAm.shape
+    acc = psi_grid.new_zeros(psi_grid.shape[:-2] + (Na_t, sm.srcBp.shape[1]))
+    for p in range(ncas):
+        cell = psi_grid.index_select(-2, sm.srcAm[p]).index_select(
+            -1, sm.srcBp[p])
+        cell.mul_(sm.fA[p].to(dt)[:, None]).mul_(sm.fB[p].to(dt))
+        acc.add_(cell)
+        del cell
+    return acc
+
+
+def s2_expectation_grid(psi, gm, sm, nelecas):
+    """<S^2> of a grid-sector state, ||S^- psi||^2 + Sz^2 - Sz.  A 1-D
+    ``psi`` is in canonical (sorted) order and is converted here; a 2-D
+    (Na, Nb) one is the grid state itself (no D-sized permutation).  The
+    sum of squares is one float64 reduction."""
+    na, nb = _nelec_split(nelecas)
+    sz = 0.5 * (na - nb)
+    if sm is None:
+        return torch.tensor(sz * sz - sz, dtype=torch.float64)
+    if psi.dim() == 1:
+        psi = to_grid(psi, gm).reshape(gm.Na, gm.Nb)
+    v = sminus_apply_grid(psi, sm).reshape(-1)
+    return torch.linalg.vecdot(v, v).real + sz * sz - sz

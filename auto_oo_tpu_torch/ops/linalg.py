@@ -1,10 +1,19 @@
 """Dense linear algebra of the optimizer: the matrix exponential of the
-orbital rotation and the symmetric eigendecomposition of the Newton step.
+orbital rotation, the symmetric eigendecomposition of the Newton step and
+the iterative damped-Newton direction.
 
 Port of auto_oo_tpu/ops/linalg.py without its TPU workarounds (scalar f64
-trig guards, the Taylor expm, the Jacobi eigh and the iterative Newton
-direction): on the card and the CPU alike, PyTorch's own routines are
-exact in float64.
+trig guards, the Taylor expm, the Jacobi eigh): on the card and the CPU
+alike, PyTorch's own routines are exact in float64.  ``eigh``
+symmetrizes its input, as the JAX package's CPU eigh
+(``jnp.linalg.eigh``, ``symmetrize_input=True``) does, where
+``torch.linalg.eigh`` alone would read only the lower triangle.
+
+``newton_dir_iterative`` is the JAX package's eigh-free Newton direction
+(Lanczos, Newton-Schulz inverse, inverse-Lanczos refinement) with its
+descent/residual guard; the guard's ``lax.cond`` is a host branch on one
+scalar here, and ``ITERATIVE_FALLBACKS`` counts the solves that fell back
+to eigh.
 
 ``gram_last`` is the contraction over a state axis that the mixed
 precision mode (``OO_pqc(precision="mixed")``) runs in float32.
@@ -28,8 +37,159 @@ def expm(A):
 
 
 def eigh(A):
-    """(eigenvalues ascending, eigenvectors) of a symmetric matrix."""
-    return torch.linalg.eigh(A)
+    """(eigenvalues ascending, eigenvectors) of (A + A^T) / 2: a symmetric
+    A unchanged to the bit, a non-symmetric one (the noisy Hessian's cc
+    block) solved as the JAX package's eigh solves it."""
+    return torch.linalg.eigh(0.5 * (A + A.T))
+
+
+# the seed of the Lanczos start vector; the JAX package draws its start
+# from jax.random.PRNGKey(7), a stream the port cannot reproduce without
+# JAX, so the port draws a normal vector from a torch.Generator seeded
+# with the same number (on the CPU, so every device gets the same vector)
+_LANCZOS_SEED = 7
+
+_NS_ITERS = 100
+
+# solves of newton_dir_iterative whose guard fell back to eigh
+ITERATIVE_FALLBACKS = 0
+
+
+def lanczos_lowest(A, k=64):
+    """Lowest eigenvalue of symmetric A by k-step Lanczos with full
+    reorthogonalization, from a seeded pseudo-random start (a structured
+    start can be near-orthogonal to the extremal eigenvector).
+
+    The start differs from the JAX package's draw (see ``_LANCZOS_SEED``):
+    for n <= k the Krylov space is the whole space and both agree to
+    rounding; above that both converge the extremal Ritz value to ~1e-10
+    on a separated spectrum.  On breakdown (a new Lanczos vector of norm
+    below 1e-13, as in the JAX package: the Krylov space is invariant) the
+    iterations after it are dropped: the eigenvalues come from T's
+    leading block of the steps before, read with one host sync.  The JAX
+    package parks those iterations' diagonal at +1e30 instead and solves
+    the whole T, whose mixed magnitudes an eigensolver need not resolve:
+    on an H100 that returned a Ritz value far below the spectrum (ROADMAP
+    queue 3)."""
+    n = A.shape[0]
+    k = min(k, n)
+    gen = torch.Generator().manual_seed(_LANCZOS_SEED)
+    v0 = torch.randn(n, generator=gen, dtype=A.dtype).to(A.device)
+    V = A.new_zeros((k + 1, n))
+    V[0] = v0 / torch.sqrt(v0 @ v0)
+    alpha = A.new_zeros(k)
+    beta = A.new_zeros(k)
+    dead = torch.zeros((), dtype=torch.bool, device=A.device)
+    live = torch.zeros((), dtype=torch.int64, device=A.device)
+    for j in range(k):
+        v = V[j]
+        w = A @ v
+        a = v @ w
+        w = w - a * v
+        if j > 0:
+            w = w - beta[j - 1] * V[j - 1]
+        # full reorthogonalization (rows > j are zero)
+        w = w - V.T @ (V @ w)
+        b = torch.sqrt(w @ w)
+        live = live + (~dead).long()
+        dead = dead | (b < 1e-13)
+        alpha[j] = a
+        beta[j] = torch.where(dead, torch.zeros_like(b), b)
+        V[j + 1] = torch.where(dead, torch.zeros_like(w),
+                               w / torch.clamp(b, min=1e-300))
+    m = int(live)
+    T = (torch.diag(alpha[:m]) + torch.diag(beta[:m - 1], 1)
+         + torch.diag(beta[:m - 1], -1))
+    return torch.linalg.eigvalsh(T)[0]
+
+
+def symmetric_inverse_ns(A, iters=_NS_ITERS, with_residual=False):
+    """Inverse of a nonsingular symmetric A by Newton-Schulz iteration
+    from X0 = A / r^2 (r the largest row 1-norm): X0 A = A^2 / r^2 is
+    positive semidefinite with spectrum in (0, 1], so the error squares
+    each step for any symmetric nonsingular A, indefinite included.
+    ``with_residual=True`` also returns ||I - X A||_F / sqrt(n), which
+    exposes an unconverged inverse (cond(A) beyond ~2^(iters/2 - 3))."""
+    n = A.shape[0]
+    r = A.abs().sum(dim=1).max()
+    X = A / (r * r)
+    eye2 = 2.0 * torch.eye(n, dtype=A.dtype, device=A.device)
+    for _ in range(iters):
+        X = X @ (eye2 - A @ X)
+    if not with_residual:
+        return X
+    R = 0.5 * eye2 - X @ A
+    return X, torch.sqrt((R * R).sum() / n)
+
+
+def _power_max(X, iters=24):
+    """Largest eigenvalue of a positive-definite X by power iteration from
+    the uniform start."""
+    n = X.shape[0]
+    v = X.new_full((n,), 1.0 / float(n) ** 0.5)
+    for _ in range(iters):
+        w = X @ v
+        v = w / torch.sqrt(w @ w)
+    return v @ (X @ v)
+
+
+def eigh_direction(gradient, H, mu=1e-6, rho=1.1, lambda_min=1e-6,
+                   aug=True):
+    """(dp, lowest) of the exact eigh solve, dp = -H^{-1} g with the
+    canonical augmentation H += (mu + rho |l0|) I where the lowest
+    eigenvalue l0 < lambda_min."""
+    w, V = eigh(H)
+    lowest = w[0]
+    shift = (torch.where(lowest < lambda_min, mu + rho * lowest.abs(),
+                         torch.zeros_like(lowest))
+             if aug else torch.zeros_like(lowest))
+    return -(V @ ((V.T @ gradient) / (w + shift))), lowest
+
+
+def newton_dir_iterative(gradient, hessian, mu=1e-6, rho=1.1,
+                         lambda_min=1e-6, aug=True, lanczos_k=64,
+                         ns_iters=_NS_ITERS):
+    """Damped-Newton direction without an eigendecomposition (the JAX
+    package's ``newton_dir_iterative``): (A) a coarse lowest eigenvalue by
+    Lanczos sets a probe shift below the spectrum; (B) Lanczos on the
+    Newton-Schulz inverse of the shifted H refines the lowest eigenvalue
+    (inversion separates a clustered small end); (C) the canonical
+    augmentation at that eigenvalue, one more Newton-Schulz inverse and
+    one step of iterative refinement.  Returns (dp, lowest).
+
+    Guard: if the relative residual ||Haug dp + g|| exceeds 1e-6 ||g||
+    or g.dp is not a descent (up to 1e-12 |g| |dp|), the direction and
+    eigenvalue come from the exact eigh solve instead (one host sync per
+    call decides; ``ITERATIVE_FALLBACKS`` counts the fallbacks)."""
+    global ITERATIVE_FALLBACKS
+    H = hessian
+    n = H.shape[0]
+    eye = torch.eye(n, dtype=H.dtype, device=H.device)
+    # A: the 2x margin puts -sigma_probe below the whole spectrum even if
+    # the coarse estimate undershoots |lambda_min| by up to ~3x
+    lam_c = lanczos_lowest(H, k=lanczos_k)
+    sigma_probe = mu + 2.0 * rho * torch.clamp(lam_c, max=0.0).abs()
+    Xp = symmetric_inverse_ns(H + sigma_probe * eye, iters=ns_iters)
+    # B: lambda_0 = 1 / lambda_max((H + sigma)^-1) - sigma
+    refined = 1.0 / (-lanczos_lowest(-Xp, k=min(48, n))) - sigma_probe
+    lowest = torch.minimum(refined, lam_c)
+    shift = (torch.where(lowest < lambda_min, mu + rho * lowest.abs(),
+                         torch.zeros_like(lowest))
+             if aug else torch.zeros_like(lowest))
+    # C: the final solve at the canonical shift
+    Haug = H + shift * eye
+    X = symmetric_inverse_ns(Haug, iters=ns_iters)
+    dp = -(X @ gradient)
+    dp = dp + X @ (-gradient - Haug @ dp)
+    gnorm = torch.sqrt(gradient @ gradient)
+    dpnorm = torch.sqrt(dp @ dp)
+    rnorm = torch.sqrt(((Haug @ dp + gradient) ** 2).sum())
+    ok = ((rnorm <= 1e-6 * gnorm + 1e-300)
+          & ((gradient @ dp) <= 1e-12 * gnorm * dpnorm))
+    if bool(ok):
+        return dp, lowest
+    ITERATIVE_FALLBACKS += 1
+    return eigh_direction(gradient, H, mu, rho, lambda_min, aug)
 
 
 def gram_last(A, B):

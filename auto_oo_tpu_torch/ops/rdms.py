@@ -24,7 +24,13 @@ a float64 gram is one ``torch.matmul``, and a float32 one (the mixed
 precision mode) is ``linalg.gram_last``'s, summed in float64 pieces.
 States are real (the built-in ansatze and gate programs are orthogonal
 circuits on a real start).
+
+``s2_matrix`` / ``sz_matrix`` are the dense spin operators of the full
+space (the JAX package's, reference utils/active_space.py:243-253): 4^ncas
+squared entries, for the full-space circuits of a few orbitals only.
 """
+
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -139,3 +145,21 @@ def rdms_from_state(psi, ncas, maps, grid_order=False, plan=None):
             plan = plan or stream_plan(maps, 1, psi.element_size())
             return rdms_rows(psi, maps, ncas, plan.row_chunk)
     return rdms_from_gram(apply_epq_all(psi, ncas, maps), psi, ncas)
+
+
+@lru_cache(maxsize=None)
+def _spin_matrix(kind, ncas, device):
+    op = fermion.s2_sparse(ncas) if kind == "s2" else fermion.sz_sparse(
+        ncas)
+    return torch.as_tensor(op.toarray(), dtype=torch.float64, device=device)
+
+
+def s2_matrix(ncas, device=None):
+    """Dense S^2 over the 2^(2 ncas) space, on ``device`` (built once per
+    (ncas, device))."""
+    return _spin_matrix("s2", ncas, get_device(device))
+
+
+def sz_matrix(ncas, device=None):
+    """Dense S_z over the 2^(2 ncas) space, on ``device``."""
+    return _spin_matrix("sz", ncas, get_device(device))

@@ -9,10 +9,13 @@ from theta0 = 0.02 * arange(n_theta).  One f64 state is 94 MB and one
 (n2, D) Phi would be 18.5 GB, so ``OO_pqc`` takes the streamed route
 (Phi streamed over grid rows, ops/grid.py).  Runs on the card only.
 
-Stages (argv 2, comma-separated, default "state,rdms,energy,grad,adam"),
-each printing its seconds, with the argv scheme of demo_16e16o:
+Stages (argv 2, comma-separated, default
+"state,rdms,s2,energy,grad,adam"), each printing its seconds, with the
+argv scheme of demo_16e16o:
   state   circuit state build and its norm
   rdms    restricted RDMs, tr gamma and the sum rule (to 1e-8)
+  s2      <S^2> at theta0 on the grid, |<S^2>| < 1e-8 (the JAX demo's
+          check), with its peak device memory
   energy  E(theta0), and E(0) against the RHF energy (to 1e-6)
   grad    energy + full gradient at theta0 (``energy_and_gradient``:
           one H-apply, one adjoint reverse sweep, the RDMs), twice; its
@@ -20,8 +23,7 @@ each printing its seconds, with the argv scheme of demo_16e16o:
   adam    3 Adam steps of ``gradient_optimization`` from init_zeros
           (learning rate 0.05, no orbital relaxation), which must descend
 
-The JAX demo's s2 stage raises NotImplementedError (ROADMAP queue 1 item
-7).  The flat gate program is never built.
+The flat gate program is never built.
 """
 
 import sys
@@ -33,7 +35,7 @@ from auto_oo_tpu_torch.scripts.demo_16e16o import (
     _synced, adam_stage, check_stages, grad_stage, state_stages)
 
 GEOMETRY = "; ".join(f"H 0 0 {0.9 * i:.2f}" for i in range(14))
-_STAGES = ("state", "rdms", "energy", "grad", "adam")
+_STAGES = ("state", "rdms", "s2", "energy", "grad", "adam")
 
 
 def main(argv=None):

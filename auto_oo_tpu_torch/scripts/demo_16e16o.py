@@ -12,11 +12,14 @@ f64, its Gram form in mixed precision (the (n_theta + 1, D) stack is
 19.9 GB in f64, 9.9 GB in f32), as in the JAX package.  Runs on the card
 only.
 
-Stages (argv 2, comma-separated, default "state,rdms,energy"), each
-printing its seconds:
+Stages (argv 2, comma-separated, default "state,rdms,s2,energy", the
+JAX demo's), each printing its seconds:
   state     circuit state build and its norm
   rdms      restricted RDMs (Phi streamed over grid rows), tr gamma and
             the sum rule
+  s2        <S^2> at theta0 through ``Parameterized_circuit.
+            s2_expectation`` (the string-factorized S^- on the grid
+            state), |<S^2>| < 1e-8, with its peak device memory
   energy    E(theta0), and E(0) against the RHF energy, through
             ``OO_pqc.energy_from_parameters`` (one hosted RDM pass each)
   grad      energy + full gradient at theta0 through
@@ -32,9 +35,6 @@ printing its seconds:
   nr        3 second-order damped-Newton iterations from theta0 through
             the hosted route (``OO_pqc._nr_iteration``), f64
   nrmixed   the same through ``precision="mixed"``
-
-The JAX demo's s2 stage raises NotImplementedError, naming the ROADMAP
-queue 1 item that brings it (item 7).
 """
 
 import sys
@@ -46,11 +46,10 @@ import auto_oo_tpu_torch as P
 
 GEOMETRY = "; ".join(f"H 0 0 {0.9 * i:.2f}" for i in range(16))
 STEP = (1e-4, 0.5, 1e-6, 1.1, 1e-6)   # alpha, beta, mu, rho, lambda_min
-_REFUSED = {"s2": 7}
 _GRAD_STAGES = {"grad": "f64", "gradmixed": "mixed"}
 _ADAM_STAGES = {"adam": ("f64", 2), "adammixed": ("mixed", 3)}
 _NR_STAGES = {"nr": "f64", "nrmixed": "mixed"}
-_STAGES = (("state", "rdms", "energy") + tuple(_GRAD_STAGES)
+_STAGES = (("state", "rdms", "s2", "energy") + tuple(_GRAD_STAGES)
            + tuple(_ADAM_STAGES) + tuple(_NR_STAGES))
 
 
@@ -113,11 +112,34 @@ def adam_stage(pqc, mol, ncas, nelecas, precision, steps):
     return oo, energy_l
 
 
+def s2_stage(pqc, theta):
+    """The s2 stage: <S^2> at ``theta`` (the grid S^- maps built on first
+    use), which must be below 1e-8 in magnitude: the np_fabric circuit
+    keeps the singlet.  Prints its seconds and, on the card, the peak
+    device memory of the call above what was allocated before it; returns
+    (<S^2>, seconds, that peak in bytes or None)."""
+    cuda = pqc.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(pqc.device)
+        resident = torch.cuda.memory_allocated(pqc.device)
+        torch.cuda.reset_peak_memory_stats(pqc.device)
+    s2, sec = _synced(lambda: float(pqc.s2_expectation(theta)))
+    peak = (torch.cuda.max_memory_allocated(pqc.device) - resident if cuda
+            else None)
+    shown = "" if peak is None else (f", peak {peak / 1e9:.3f} GB above "
+                                     f"the {resident / 1e9:.3f} GB before")
+    print(f"<S^2> = {s2:.2e} ({sec:.2f} s incl. grid S^- map build"
+          f"{shown})", flush=True)
+    assert abs(s2) < 1e-8, s2
+    return s2, sec, peak
+
+
 def state_stages(pqc, mol, ncas, nelecas, theta, stages):
-    """The state, rdms and energy stages of ``stages``: the norm of the
-    state at ``theta``, tr gamma and the partial-trace sum rule (to
-    1e-8), and E(theta) and E(0) through ``OO_pqc.energy_from_parameters``
-    with E(0), the HF determinant, equal to the RHF energy to 1e-6."""
+    """The state, rdms, s2 and energy stages of ``stages``: the norm of
+    the state at ``theta``, tr gamma and the partial-trace sum rule (to
+    1e-8), <S^2> (``s2_stage``), and E(theta) and E(0) through
+    ``OO_pqc.energy_from_parameters`` with E(0), the HF determinant,
+    equal to the RHF energy to 1e-6."""
     if "state" in stages:
         psi, sec = _synced(lambda: pqc.state(theta))
         nrm = float(psi @ psi)
@@ -132,6 +154,8 @@ def state_stages(pqc, mol, ncas, nelecas, theta, stages):
         print(f"RDMs: {sec:.2f} s  tr gamma = {tr:.10f}  sum-rule err = "
               f"{sum_err:.1e}", flush=True)
         assert abs(tr - nelecas) < 1e-8 and sum_err < 1e-8
+    if "s2" in stages:
+        s2_stage(pqc, theta)
     if "energy" in stages:
         oo, sec = _synced(lambda: P.OO_pqc(pqc, mol, ncas, nelecas,
                                            freeze_active=True))
@@ -149,13 +173,9 @@ def state_stages(pqc, mol, ncas, nelecas, theta, stages):
 
 
 def check_stages(stages, known=_STAGES):
-    """Refuse the stages this port does not run yet, naming their ROADMAP
-    item, and those not in ``known``, before any card is looked for."""
+    """Refuse the stages not in ``known`` before any card is looked
+    for."""
     for st in stages:
-        if st in _REFUSED:
-            raise NotImplementedError(
-                f"stage {st!r} comes in a later PR of the port (ROADMAP "
-                f"queue 1 item {_REFUSED[st]})")
         if st not in known:
             raise ValueError(f"unknown stage {st!r}")
 
@@ -187,7 +207,8 @@ def nr_stage(pqc, mol, ncas, nelecas, theta, precision, iterations=3):
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     n_layers = int(argv[0]) if argv else 1
-    stages = (argv[1] if len(argv) > 1 else "state,rdms,energy").split(",")
+    stages = (argv[1] if len(argv) > 1 else "state,rdms,s2,energy").split(
+        ",")
     check_stages(stages)
     if not torch.cuda.is_available():
         print("demo_16e16o: needs an NVIDIA GPU", file=sys.stderr)

@@ -13,6 +13,10 @@ routes, as in the JAX package:
   is projected onto the sector (simulator/sector.py) and factorized onto
   the grid (grid_program.factorize_program).
 
+``s2_expectation`` / ``sz_value`` are the spin diagnostics: on the grid
+through the string-factorized S^- (ops/grid.sminus_grid_maps) straight
+from the grid-order state, in the full space through the dense S^2.
+
 ``ansatz`` may be a built-in name or a prebuilt GateProgram.  The
 statevector is REAL float64: every such circuit is orthogonal and acts
 on a real initial state.  Callable (custom, possibly complex) ansatze,
@@ -287,6 +291,45 @@ class Parameterized_circuit:
                 f"state has dim {state.shape[-1]}, but this circuit works "
                 f"over {where} (dim {self.state_dim})")
         return _rdms.rdms_from_state(state, self.ncas, self.epq_maps)
+
+    # -- spin diagnostics -------------------------------------------------
+
+    def _s2maps(self):
+        """The grid S^- maps of the sector (built on first use; None where
+        S^- is the zero map)."""
+        if not hasattr(self, "_sector_s2maps"):
+            self._sector_s2maps = _grid.sminus_grid_maps(
+                self.ncas, self.nelecas, device=self.device)
+        return self._sector_s2maps
+
+    def s2_expectation(self, theta):
+        """<psi(theta)|S^2|psi(theta)>, the spin-purity diagnostic
+        (reference utils/active_space.py:243-253 via a dense matrix).  On a
+        sector: ||S^- psi||^2 + Sz^2 - Sz from the grid-order state, with
+        no D-sized permutation and no 4^ncas operator; in the full space:
+        the dense S^2 quadratic form."""
+        theta = self._as_theta(theta)
+        if self.sector:
+            maps = self.sector_maps
+            return _grid.s2_expectation_grid(
+                self._state_impl_grid(theta).reshape(maps.Na, maps.Nb),
+                maps, self._s2maps(), self.nelecas)
+        return self.s2_expectation_of_state(self._state_impl(theta))
+
+    def s2_expectation_of_state(self, state):
+        """<S^2> of an explicit canonical-order state: over the sector basis
+        when sector=True, else over the full 4^ncas space."""
+        state = torch.as_tensor(state, device=self.device)
+        if self.sector:
+            return _grid.s2_expectation_grid(state, self.sector_maps,
+                                             self._s2maps(), self.nelecas)
+        s2 = _rdms.s2_matrix(self.ncas, self.device).to(state.dtype)
+        return torch.linalg.vecdot(state, s2 @ state).real
+
+    def sz_value(self):
+        """Exact S_z of the simulated sector, (n_a - n_b)/2."""
+        na, nb = _grid._nelec_split(self.nelecas)
+        return 0.5 * (na - nb)
 
     # -- misc -------------------------------------------------------------
 

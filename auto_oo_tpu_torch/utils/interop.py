@@ -4,7 +4,8 @@
 a ``GridMaps``' tables, a ``GateProgram``'s host tables — as numpy
 arrays (or anything ``np.asarray`` accepts, which includes jax arrays
 without importing jax here) and returns the port's tensors or objects,
-so both packages can start from the same state.
+so both packages can start from the same state.  ``berry_loop_from_jax``
+carries a JAX ``BerryPhaseLoop``'s trajectory into a port loop.
 """
 
 from collections.abc import Mapping
@@ -70,3 +71,27 @@ def from_jax(arrays, device=None, dtype=torch.float64):
                             device=device, dtype=dtype)
         return {k: _tensor(v, device, dtype) for k, v in arrays.items()}
     return _tensor(arrays, device, dtype)
+
+
+def berry_loop_from_jax(jloop, pqc):
+    """A port ``BerryPhaseLoop`` over a JAX loop's geometries and problem,
+    on ``pqc`` (the port's circuit of the same ansatz), holding the JAX
+    loop's trajectory at every point: theta and oao_mo_coeff as tensors
+    on ``pqc.device``, the energies, lowest Hessian eigenvalues, CASSCF
+    energies and active indices as they are.  Its ``states`` and
+    ``overlaps`` then run the port on the JAX package's (theta, oao)."""
+    from ..models.berry import BerryPhaseLoop
+
+    loop = BerryPhaseLoop(jloop.geometries, jloop.basis, jloop.ncas,
+                          jloop.nelecas, pqc,
+                          freeze_active=jloop.freeze_active,
+                          newton_method=jloop.newton_method)
+    loop.theta_l = [from_jax(np.array(t), pqc.device)
+                    for t in jloop.theta_l]
+    loop.oao_mo_coeff_l = [from_jax(np.array(c), pqc.device)
+                           for c in jloop.oao_mo_coeff_l]
+    loop.energy_l = [float(e) for e in jloop.energy_l]
+    loop.hess_eig_l = [float(e) for e in jloop.hess_eig_l]
+    loop.casscf_energy_l = list(jloop.casscf_energy_l)
+    loop.act_idx = np.asarray(jloop.act_idx)
+    return loop

@@ -1,5 +1,15 @@
 """Miscellaneous utilities (reference utils/miscellaneous.py parity)."""
 
+import numpy as np
+import torch
+
+
+def to_numpy(x):
+    """A host numpy array of a tensor (any device) or array-like."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
 
 def get_formal_geo(alpha, phi):
     """Formaldimine Z-matrix, the canonical test molecule

@@ -181,7 +181,42 @@ prints its seconds:
    to 4 digits) and 2 Adam steps from init_zeros (dE within 1e-5 Ha of
    the JAX package's -2.57e-3); after its mixed iteration, the same in
    mixed (|grad| within 1e-4 relative of the JAX package's 5.378922e-02;
-   3 steps descending to 1e-5, E(0) = RHF to 1e-4).
+   3 steps descending to 1e-5, E(0) = RHF to 1e-4);
+14. (a) the Berry-phase workflow, the reference tutorial's loop:
+   BerryPhaseLoop around the formaldimine conical intersection (origin
+   (130, 89.9) deg, radius 10 deg), (2e,2o) np_fabric L=1 in the full
+   space, 21 points, run(conv_tol=1e-10, track_steps=12,
+   track_tol=1e-10), built with no device=: every point's energy and
+   lowest Hessian eigenvalue and every overlap (the Thouless transfer on
+   the card) within 1e-8 of the CPU JAX anchors, the Berry phase within
+   1e-8 of JAX's and within 0.05 of +-pi, no grid kernel launched; each
+   loop phase prints s per point, its NR iterations with their mean
+   seconds, s per overlaps() and per transfer_state;
+15. (b) the same loop in sector mode, 11 points: the same anchors' checks
+   and the fused route's three kernels launched by the run;
+16. (c) the (6e,6o) sector arc (np_fabric L=2, three geometries 0.25 deg
+   apart): finite energies, overlaps real and above 0.97 (the JAX
+   test's contract: the JAX package's own run from theta = 1e-13 leaves
+   its unperturbed one by 1.4e-4 Ha), printed beside both JAX runs; the
+   fused kernels launched;
+17. (d) newton_method="iterative": the 6-point (2e,2o) loop on both
+   solvers, each within 1e-8 of its CPU JAX anchors, energies within
+   1e-8 of each other and lowest Hessian eigenvalues within 2e-2
+   relative; newton_dir_iterative on seeded symmetric indefinite H at
+   n = 128 and 362 against the eigh direction (lowest within 1e-9, dp
+   within 1e-7 relative), both solvers' times and the guard's
+   fallbacks printed;
+18. (e) S^2 at scale: after phase 8, the (14e,14o) demo's s2 stage at
+   theta0 (|<S^2>| < 1e-8) and a seeded random state's grid <S^2>
+   against the flat cross-sector tables within 1e-10; after phase 13,
+   a seeded random (10e,10o) sector state's grid <S^2> against the
+   host's scipy S^2 restricted to the sector within 1e-10 and the
+   (16e,16o) demo's s2 stage at theta0; each with seconds and peak
+   device memory;
+19. (f) Noisy_OO_pqc on (2e,2o) np_fabric L=1: variance 0 equals
+   full_optimization within 1e-12, variance 1e-10 reaches CASSCF within
+   1e-4, and one seed twice gives the same trajectory on the card's
+   generator.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
 its main path's run, which is the (16e,16o) iteration of phase 10 for
@@ -192,7 +227,8 @@ since gather_two_spin, and every route phase checks that), with each
 path's launches under "launches_by_path" (0 on the flat paths; the mixed
 paths' f32 launches under "10e10o_mixed", "14e14o_mixed" and
 "16e16o_mixed"; the gradient-only pipeline's under "*_grad*", one
-energy_and_gradient, and "*_adam*", a whole Adam run); max abs error
+energy_and_gradient, and "*_adam*", a whole Adam run; the Berry loops'
+under "berry_*", a whole loop's run); max abs error
 against the
 plain version over every comparison; kernel and plain times and the
 bound at the (16e,16o) f64 chunk shapes for the hosted route's kernels
@@ -361,6 +397,82 @@ ANCHORS_8E8O = [-92.72082866088444, -92.72961785304307, -92.73840872357711]
 # iterations 1-12 are held to it, and the rest are printed beside it
 HELD_6E6O = 12
 E_CASSCF_6E6O = -92.80039255291021
+# the Berry-phase workflow (BerryPhaseLoop around the formaldimine
+# conical intersection, loop origin (130, 89.9) deg, radius 10 deg): CPU JAX
+# energies, lowest Hessian eigenvalues and overlaps (their imaginary parts
+# are 0) of each loop point and its Berry phase
+# (PYTHONPATH=. JAX_PLATFORMS=cpu python scripts/full_space_anchors.py
+# berry_2e2o berry_2e2o_sector berry_6e6o_sector berry_2e2o_iterative, the
+# JAX package of commit a7899a1).  (2e,2o) np_fabric L=1, 21 points in the
+# full space and 11 in sector mode, run(conv_tol=1e-10, track_steps=12,
+# track_tol=1e-10): every number held to 1e-8.
+BERRY_PHASE_2E2O = 3.141592653589793
+BERRY_2E2O_E = [-92.7460274949789, -92.74662641379699, -92.74788853927173,
+    -92.74984867606385, -92.75236773765307, -92.75491104466575,
+    -92.75683144832725, -92.75784323525257, -92.75811630887158,
+    -92.7580899614661, -92.75812854323136, -92.75822512164939,
+    -92.75800578921697, -92.75702922491564, -92.75512630241805,
+    -92.75257899370209, -92.75002649853126, -92.74801336784941,
+    -92.74669784353226, -92.74605053929204, -92.74602749497895]
+BERRY_2E2O_EIG = [0.029872808280386957, 0.027935451407869905,
+    0.02440008718310475, 0.021057116093127853, 0.02145702813326973,
+    0.025338400663136258, 0.029493017411168217, 0.032458599535690164,
+    0.03410395800317955, 0.03479513185828776, 0.03486038311428854,
+    0.034295953166190586, 0.03276632672102658, 0.029903636015061213,
+    0.025841078927181533, 0.022000624454500264, 0.021439685110409577,
+    0.02454962481116443, 0.027978558463809575, 0.029881670454537594,
+    0.02987292384668172]
+BERRY_2E2O_OVERLAP = [0.9891188053938871, 0.9839753831890736,
+    0.9747944871027614, 0.9705747259140594, 0.9789025545335472,
+    0.9858108667493914, 0.9879021490845219, 0.9874950537261764,
+    0.9863466793950039, 0.9858035305494349, 0.9864406125943265,
+    0.9876573459296848, 0.988135008314454, 0.9862286971882369,
+    0.9798642826208769, 0.9720178458002355, 0.9754175004835253,
+    0.9840498200513075, 0.9891083780246919, 0.990608171885586,
+    -1.0000000000000027]
+BERRY_2E2O_SECTOR_E = [-92.74602749497889, -92.74788853927171,
+    -92.75236773765305, -92.75683144832729, -92.7581163088716,
+    -92.75812854323145, -92.75800578921704, -92.75512630241808,
+    -92.7500264985312, -92.74669784353219, -92.74602749497888]
+BERRY_2E2O_SECTOR_EIG = [0.02987280828035408, 0.02440001261900618,
+    0.021451541891604, 0.0294945713031463, 0.034103951394520125,
+    0.0348604545716888, 0.032766745823226535, 0.025840969076204617,
+    0.021439674364119688, 0.02797854217484576, 0.02987813584081496]
+BERRY_2E2O_SECTOR_OVERLAP = [0.9474099637526119, 0.8941212841940925,
+    0.9316084581735018, 0.9516002059714107, 0.9453691897610424,
+    0.9491269579615293, 0.94965190716631, 0.906994407383057,
+    0.9215539513539353, 0.9598964095177582, -1.0]
+# the (6e,6o) sector arc (np_fabric L=2, get_formal_geo(140 + 0.25 k,
+# 80 + 0.25 k), k = 0-2; run(conv_tol=1e-9, max_iterations=30,
+# track_steps=6, track_tol=1e-9)): the JAX package's own run from
+# theta = 1e-13 (--perturb 1e-13) leaves this one by 1.4e-4 Ha at point 0
+# (its 30 iterations end before convergence, at a negative lowest Hessian
+# eigenvalue) and its overlaps by 7.2e-3, so the port is held to the JAX
+# test's contract (tests/test_berry.py:191-195: overlaps real, above 0.97)
+# and its energies are printed beside both runs
+BERRY_6E6O_E = [-92.77093983051361, -92.77189036009138, -92.77175319588298]
+BERRY_6E6O_OVERLAP = [0.9969059095496771, 0.999756615043637,
+    0.9971098424254423]
+BERRY_6E6O_PERTURBED_E = [-92.77079945085833, -92.7718926263457,
+    -92.77176930763295]
+BERRY_6E6O_PERTURBED_OVERLAP = [0.9897470002675715, 0.9997269171575556,
+    0.9918067552422292]
+# the 6-point (2e,2o) loop (track_steps=8) on newton_method="eigh" and
+# "iterative" (tests/test_berry.py:196-222): each run's energies held to
+# its CPU JAX anchor to 1e-8, the two solvers' energies to each other to
+# 1e-8 and their lowest Hessian eigenvalues to 2e-2 relative (the
+# iterative solver's contract on clustered spectra)
+BERRY_ITER_EIGH_E = [-92.7460274949789, -92.75236773765309, -92.7581163088716,
+    -92.75800578921697, -92.75002649853123, -92.74602749497889]
+BERRY_ITER_EIGH_EIG = [0.029872808280386957, 0.021453495243711176,
+    0.03410396301519038, 0.03276634230965717, 0.02143967860013974,
+    0.029872920192852537]
+BERRY_ITER_ITERATIVE_E = [-92.74602749497893, -92.75236773765309,
+    -92.75811630887155, -92.75800578921704, -92.75002649853124,
+    -92.74602749497889]
+BERRY_ITER_ITERATIVE_EIG = [0.029872808280356485, 0.021453495243713823,
+    0.03410396301518555, 0.0327663423096675, 0.021439678600148813,
+    0.029872920192851017]
 TOL_ENERGY = 1e-8
 # published HBM rate of one H100 SXM at its 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -2492,6 +2604,354 @@ def adam_2e2o_phase(torch, P, gk):
     return launches
 
 
+def _loop_geometries(get_formal_geo, points):
+    """The tutorial's loop around the formaldimine conical intersection:
+    origin (130, 89.9) deg, radius 10 deg, ``points`` geometries with the
+    first and last equal."""
+    ts = np.linspace(0, 1, points)
+    return [get_formal_geo(130 + 10 * np.cos(2 * np.pi * t + np.pi / 20),
+                           89.9 + 10 * np.sin(2 * np.pi * t + np.pi / 20))
+            for t in ts]
+
+
+@contextlib.contextmanager
+def _nr_timer(torch, P):
+    """Counts the OO_pqc._nr_iteration calls inside the block and their
+    seconds on the host clock (each call ended in a synchronize):
+    yields a dict {"calls", "seconds"}."""
+    stats = {"calls": 0, "seconds": 0.0}
+    original = P.OO_pqc._nr_iteration
+
+    def timed(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(self, *args)
+        torch.cuda.synchronize()
+        stats["calls"] += 1
+        stats["seconds"] += time.perf_counter() - t0
+        return out
+
+    P.OO_pqc._nr_iteration = timed
+    try:
+        yield stats
+    finally:
+        P.OO_pqc._nr_iteration = original
+
+
+def _synced_s(torch, fn):
+    """(fn(), its seconds on the host clock, ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def berry_loop_run(torch, P, gk, label, geos, ncas, kw, run_kw,
+                   newton_method=None):
+    """One BerryPhaseLoop on the port's default device (no device=):
+    prints s per point, the NR iterations of the run with their mean
+    seconds, s per overlaps() and per transfer_state (median of 5 at
+    point 0 -> 1).  Returns (loop, overlaps, launches of the run)."""
+    from auto_oo_tpu_torch.models import berry
+    from auto_oo_tpu_torch.models.oo_pqc import _route
+
+    pqc = P.Parameterized_circuit(ncas, ncas, **kw)
+    check(pqc.init_zeros().device.type == "cuda",
+          f"default device is {pqc.init_zeros().device}, not the card")
+    loop = P.BerryPhaseLoop(geos, "sto-3g", ncas, ncas, pqc,
+                            newton_method=newton_method)
+    gk.reset_launches()
+    with _nr_timer(torch, P) as nr:
+        _, sec = _synced_s(torch, lambda: loop.run(**run_kw))
+    launches = dict(gk.LAUNCHES)
+    ov, ov_s = _synced_s(torch, loop.overlaps)
+    states = loop.states()
+    dets = pqc.sector_basis if pqc.sector else None
+    mo = (loop.oao_mo_coeff_l[0].T @ loop.oao_mo_coeff_l[1]).cpu().numpy()
+    times = [_synced_s(torch, lambda: berry.transfer_state(
+        states[0], mo, loop.act_idx, ncas, dets=dets))[1] for _ in range(6)]
+    print(f"  {label}: {len(geos)} points in {sec:.2f} s "
+          f"({sec / len(geos):.4f} s per point; {nr['calls']} NR "
+          f"iterations, {nr['seconds'] / max(1, nr['calls']):.4f} s each; "
+          f"route {_route(pqc)}); "
+          f"overlaps() {ov_s:.4f} s, transfer_state "
+          f"{statistics.median(times[1:]):.5f} s (D = {pqc.state_dim})")
+    return loop, ov, launches
+
+
+def _held(label, got, ref, tol):
+    got, ref = np.asarray(got), np.asarray(ref)
+    check(got.shape == ref.shape, f"{label}: {got.shape} vs {ref.shape}")
+    err = float(np.max(np.abs(got - ref)))
+    print(f"    {label}: max |port - JAX-CPU| {err:.3e} (limit {tol:g})")
+    check(err <= tol, f"{label} off its JAX anchors by {err}")
+    return err
+
+
+def berry_full_phase(torch, P, gk):
+    """Phase a: the tutorial loop, (2e,2o) np_fabric L=1 in the full space,
+    21 points, run(conv_tol=1e-10, track_steps=12, track_tol=1e-10):
+    every energy, lowest Hessian eigenvalue and overlap within 1e-8 of
+    the CPU JAX anchors, the Berry phase within 1e-8 of JAX's and of +-pi
+    within 0.05; the flat route launches no grid kernel."""
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    loop, ov, launches = berry_loop_run(
+        torch, P, gk, "(2e,2o) full space", _loop_geometries(
+            get_formal_geo, 21), 2, dict(ansatz="np_fabric", n_layers=1),
+        dict(conv_tol=1e-10, track_steps=12, track_tol=1e-10))
+    _held("energies", loop.energy_l, BERRY_2E2O_E, TOL_ENERGY)
+    _held("lowest Hessian eigenvalues", loop.hess_eig_l, BERRY_2E2O_EIG,
+          TOL_ENERGY)
+    _held("overlaps", ov.real, BERRY_2E2O_OVERLAP, TOL_ENERGY)
+    check(float(np.max(np.abs(ov.imag))) < 1e-10, "complex overlaps")
+    phase = loop.berry_phase()
+    print(f"    Berry phase {phase:+.15f} (JAX-CPU {BERRY_PHASE_2E2O:+.15f})")
+    check(abs(phase - BERRY_PHASE_2E2O) <= TOL_ENERGY,
+          f"Berry phase {phase} off JAX's {BERRY_PHASE_2E2O}")
+    check(abs(abs(phase) - np.pi) < 0.05, f"Berry phase {phase} is not +-pi")
+    check_no_kernels(launches, "the full-space Berry loop")
+    return launches
+
+
+def berry_sector_phase(torch, P, gk):
+    """Phase b: the same loop in sector mode, 11 points: the fused route's
+    three kernels launched by the run, every number within 1e-8 of the
+    CPU JAX anchors, the Berry phase +-pi."""
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    loop, ov, launches = berry_loop_run(
+        torch, P, gk, "(2e,2o) sector", _loop_geometries(get_formal_geo, 11),
+        2, dict(ansatz="np_fabric", n_layers=1, sector=True),
+        dict(conv_tol=1e-10, track_steps=12, track_tol=1e-10))
+    _held("energies", loop.energy_l, BERRY_2E2O_SECTOR_E, TOL_ENERGY)
+    _held("lowest Hessian eigenvalues", loop.hess_eig_l,
+          BERRY_2E2O_SECTOR_EIG, TOL_ENERGY)
+    _held("overlaps", ov.real, BERRY_2E2O_SECTOR_OVERLAP, TOL_ENERGY)
+    phase = loop.berry_phase()
+    print(f"    Berry phase {phase:+.15f}; launches {launches}")
+    check(abs(phase - BERRY_PHASE_2E2O) <= TOL_ENERGY,
+          f"sector Berry phase {phase}")
+    check_route_kernels(launches, FUSED_KERNELS, "the sector Berry loop")
+    return launches
+
+
+def berry_6e6o_phase(torch, P, gk):
+    """Phase c: the (6e,6o) sector arc (np_fabric L=2, D = 400, three
+    geometries 0.25 deg apart), built with no device=: finite energies,
+    overlaps real and above 0.97 (the JAX test's contract: JAX's own run
+    from theta = 1e-13 leaves its unperturbed one by 1.4e-4 Ha), printed
+    beside both JAX runs; the fused route's kernels launched."""
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    geos = [get_formal_geo(140 + 0.25 * k, 80 + 0.25 * k) for k in range(3)]
+    loop, ov, launches = berry_loop_run(
+        torch, P, gk, "(6e,6o) sector arc", geos, 6,
+        dict(ansatz="np_fabric", n_layers=2, sector=True),
+        dict(conv_tol=1e-9, max_iterations=30, track_steps=6,
+             track_tol=1e-9))
+    for i, e in enumerate(loop.energy_l):
+        print(f"    point {i}: E = {e:.14f}  JAX-CPU {BERRY_6E6O_E[i]:.14f} "
+              f"(diff {e - BERRY_6E6O_E[i]:+.2e}), from 1e-13 "
+              f"{BERRY_6E6O_PERTURBED_E[i]:.14f}; overlap {ov[i].real:.10f}"
+              f" (JAX {BERRY_6E6O_OVERLAP[i]:.10f}, from 1e-13 "
+              f"{BERRY_6E6O_PERTURBED_OVERLAP[i]:.10f})")
+    check(len(loop.energy_l) == 3 and np.all(np.isfinite(loop.energy_l)),
+          f"(6e,6o) arc energies {loop.energy_l}")
+    check(bool(np.all(ov.real > 0.97)), f"(6e,6o) arc overlaps {ov}")
+    check(float(np.max(np.abs(ov.imag))) < 1e-10, "complex overlaps")
+    check_route_kernels(launches, FUSED_KERNELS, "the (6e,6o) Berry arc")
+    return launches
+
+
+def _solver_case(torch, n, seed, dev):
+    """A seeded symmetric indefinite H (one eigenvalue -0.5 below a
+    spectrum 0.1-2) and gradient on the card."""
+    rng = np.random.default_rng(seed)
+    Q = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    w = np.concatenate([[-0.5], np.linspace(0.1, 2.0, n - 1)])
+    return (torch.as_tensor(Q @ np.diag(w) @ Q.T, device=dev),
+            torch.as_tensor(rng.standard_normal(n), device=dev), w[0])
+
+
+def iterative_phase(torch, P, gk, dev):
+    """Phase d: newton_method="iterative".  The 6-point (2e,2o) loop
+    (track_steps=8) on both solvers: each within 1e-8 of its CPU JAX
+    anchors, the two within 1e-8 in energy and 2e-2 relative in lowest
+    Hessian eigenvalue; newton_dir_iterative on seeded symmetric
+    indefinite H at n = 128 and 362 against the eigh direction (lowest
+    within 1e-9, dp within 1e-7 relative), each solver's time (median of
+    5 after a warm-up) and the guard's fallbacks printed."""
+    from auto_oo_tpu_torch.ops import linalg
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    geos = _loop_geometries(get_formal_geo, 6)
+    runs = {}
+    fallbacks0 = linalg.ITERATIVE_FALLBACKS
+    for method, e_ref, eig_ref in (
+            ("eigh", BERRY_ITER_EIGH_E, BERRY_ITER_EIGH_EIG),
+            ("iterative", BERRY_ITER_ITERATIVE_E,
+             BERRY_ITER_ITERATIVE_EIG)):
+        loop, _, _ = berry_loop_run(
+            torch, P, gk, f"(2e,2o) loop, newton_method={method!r}", geos, 2,
+            dict(ansatz="np_fabric", n_layers=1),
+            dict(conv_tol=1e-10, track_steps=8, track_tol=1e-10), method)
+        _held(f"{method} energies", loop.energy_l, e_ref, TOL_ENERGY)
+        _held(f"{method} lowest Hessian eigenvalues", loop.hess_eig_l,
+              eig_ref, TOL_ENERGY)
+        runs[method] = (np.asarray(loop.energy_l), np.asarray(loop.hess_eig_l))
+    (en_e, eig_e), (en_i, eig_i) = runs["eigh"], runs["iterative"]
+    rel = float(np.max(np.abs(eig_i - eig_e)
+                       / np.maximum(np.abs(eig_e), 1e-3)))
+    print(f"    iterative vs eigh: energies {np.max(np.abs(en_i - en_e)):.3e},"
+          f" lowest eigenvalues {rel:.3e} relative; guard fallbacks in the "
+          f"loop: {linalg.ITERATIVE_FALLBACKS - fallbacks0}")
+    check(float(np.max(np.abs(en_i - en_e))) <= TOL_ENERGY,
+          "iterative and eigh loops part")
+    check(rel < 2e-2, f"iterative hess_eig off eigh's by {rel}")
+    for n in (128, 362):
+        H, g, w0 = _solver_case(torch, n, n, dev)
+        before = linalg.ITERATIVE_FALLBACKS
+        dp, low = linalg.newton_dir_iterative(g, H)
+        dp_e, low_e = linalg.eigh_direction(g, H)
+        fell = linalg.ITERATIVE_FALLBACKS - before
+        err = float((dp - dp_e).norm() / dp_e.norm())
+        t_it = statistics.median(
+            _synced_s(torch, lambda: linalg.newton_dir_iterative(g, H))[1]
+            for _ in range(5))
+        t_eh = statistics.median(
+            _synced_s(torch, lambda: linalg.eigh_direction(g, H))[1]
+            for _ in range(5))
+        print(f"    n = {n}: iterative {t_it * 1e3:.2f} ms, eigh "
+              f"{t_eh * 1e3:.2f} ms; lowest {float(low):+.12f} (eigh "
+              f"{float(low_e):+.12f}, exact {w0:+.1f}), dp {err:.2e} "
+              f"relative; fallbacks {fell}")
+        check(abs(float(low) - float(low_e)) < 1e-9,
+              f"n = {n}: iterative lowest {float(low)} vs {float(low_e)}")
+        check(err < 1e-7, f"n = {n}: iterative dp off eigh's by {err}")
+        check(fell == 0, f"n = {n}: the guard fell back on a healthy H")
+
+
+def s2_14e14o_phase(torch, P, grid, pqc):
+    """Phase e, (14e,14o): the demo's s2 stage at theta0 = 0.02 *
+    arange(n_theta) (|<S^2>| < 1e-8) and the grid S^- alone on its state,
+    then a seeded normalized random
+    state: the grid S^- against the flat cross-sector tables
+    (simulator/sector.sector_sminus_maps) within 1e-10, with seconds and
+    peak memory of each."""
+    from auto_oo_tpu_torch.scripts.demo_16e16o import s2_stage
+    from auto_oo_tpu_torch.simulator import sector
+
+    theta = 0.02 * torch.arange(pqc.theta_shape, dtype=torch.float64,
+                                device=pqc.device)
+    s2_stage(pqc, theta)
+    sminus_alone(torch, grid, pqc, theta)
+    gen = torch.Generator(device=pqc.device).manual_seed(14)
+    x = torch.randn(pqc.state_dim, generator=gen, dtype=torch.float64,
+                    device=pqc.device)
+    x /= x.norm()
+    torch.cuda.reset_peak_memory_stats()
+    s2_grid, sec_grid = _synced_s(torch, lambda: float(
+        grid.s2_expectation_grid(x, pqc.sector_maps, pqc._s2maps(), 14)))
+    peak_grid = torch.cuda.max_memory_allocated()
+    maps, sec_build = _synced_s(
+        torch, lambda: sector.sector_sminus_maps(14, 14, device=pqc.device))
+    torch.cuda.reset_peak_memory_stats()
+    s2_flat, sec_flat = _synced_s(torch, lambda: float(
+        sector.s2_expectation_sector(x, maps, 14)))
+    peak_flat = torch.cuda.max_memory_allocated()
+    del maps
+    print(f"  (14e,14o) random state: <S^2> grid {s2_grid:.14f} "
+          f"({sec_grid:.3f} s, peak {peak_grid / 1e9:.3f} GB), flat tables {s2_flat:.14f} "
+          f"({sec_flat:.3f} s, peak {peak_flat / 1e9:.3f} GB; tables built "
+          f"on the host in {sec_build:.1f} s), diff {s2_grid - s2_flat:+.2e}")
+    check(abs(s2_grid - s2_flat) < 1e-10,
+          f"(14e,14o) grid <S^2> {s2_grid} vs flat {s2_flat}")
+
+
+def s2_scale_phase(torch, P, grid, pqc16):
+    """Phase e, (10e,10o) and (16e,16o): a seeded normalized random state
+    on the (10e,10o) sector, its grid <S^2> against the host's S^2
+    (fermion.s2_sparse, scipy) restricted to the sector basis, within
+    1e-10; then the (16e,16o) demo's s2 stage at theta0 (|<S^2>| < 1e-8)
+    and the grid S^- alone on its state, with seconds and peak memory."""
+    from auto_oo_tpu_torch.ops import fermion
+    from auto_oo_tpu_torch.scripts.demo_16e16o import s2_stage
+
+    basis = fermion.sector_basis(10, 10)
+    S2 = fermion.s2_sparse(10).tocsr()[basis][:, basis]
+    v = np.random.default_rng(10).standard_normal(len(basis))
+    v /= np.linalg.norm(v)
+    host = float(v @ (S2 @ v))
+    gm = grid.build_grid_maps(10, 10)
+    s2, sec = _synced_s(torch, lambda: float(grid.s2_expectation_grid(
+        torch.as_tensor(v, device=gm.device), gm,
+        grid.sminus_grid_maps(10, 10), 10)))
+    print(f"  (10e,10o) random state: <S^2> grid {s2:.14f} ({sec:.3f} s), "
+          f"host scipy {host:.14f}, diff {s2 - host:+.2e}")
+    check(abs(s2 - host) < 1e-10, f"(10e,10o) <S^2> {s2} vs host {host}")
+    theta = 0.02 * torch.arange(pqc16.theta_shape, dtype=torch.float64,
+                                device=pqc16.device)
+    s2_stage(pqc16, theta)
+    sminus_alone(torch, grid, pqc16, theta)
+
+
+def sminus_alone(torch, grid, pqc, theta):
+    """<S^2> from a state already built (the grid S^- alone): seconds
+    (median of 3) and peak device memory above the state."""
+    maps = pqc.sector_maps
+    psi = pqc._state_impl_grid(theta).reshape(maps.Na, maps.Nb)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [_synced_s(torch, lambda: float(grid.s2_expectation_grid(
+        psi, maps, pqc._s2maps(), pqc.nelecas))) for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated() - resident
+    print(f"  grid S^- alone ({pqc.ncas}e,{pqc.ncas}o): <S^2> = "
+          f"{runs[0][0]:.2e}, {statistics.median(r[1] for r in runs):.4f} s,"
+          f" peak {peak / 1e9:.3f} GB above the state "
+          f"({psi.numel() * 8 / 1e9:.3f} GB)")
+
+
+def noisy_phase(torch, P):
+    """Phase f: Noisy_OO_pqc on (2e,2o) np_fabric L=1 in the full space:
+    variance 0 equals full_optimization within 1e-12; variance 1e-10
+    reaches CASSCF within 1e-4; one seed twice gives the same
+    trajectory on the card's generator."""
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
+    pqc = P.Parameterized_circuit(2, 2, ansatz="np_fabric", n_layers=1)
+
+    def noisy(seed=7):
+        return P.Noisy_OO_pqc(pqc, mol, 2, 2, freeze_active=True, seed=seed)
+
+    check(noisy().generator.device.type == "cuda", "generator off the card")
+    zero = noisy().full_noisy_optimization(pqc.init_zeros(), 0.0)[0]
+    exact = P.OO_pqc(pqc, mol, 2, 2, freeze_active=True).full_optimization(
+        pqc.init_zeros())[0]
+    err = float(np.max(np.abs(np.array(zero) - np.array(exact)))) if len(
+        zero) == len(exact) else float("inf")
+    print(f"  variance 0: {len(zero)} iterations, max |noisy - exact| "
+          f"{err:.2e}")
+    check(err <= 1e-12, f"variance-0 noisy run off exact by {err}")
+    (small, _, _, _, _), sec = _synced_s(
+        torch, lambda: noisy().full_noisy_optimization(
+            pqc.init_zeros(), 1e-10, max_iterations=25, conv_tol=1e-9))
+    print(f"  variance 1e-10: {len(small)} iterations in {sec:.2f} s, E = "
+          f"{small[-1]:.12f}, CASSCF {E_CASSCF_2E2O:.12f}, diff "
+          f"{small[-1] - E_CASSCF_2E2O:+.2e}")
+    check(abs(small[-1] - E_CASSCF_2E2O) < 1e-4,
+          f"variance 1e-10 ends at {small[-1]}")
+    runs = [noisy(3).full_noisy_optimization(
+        pqc.init_zeros(), 1e-6, max_iterations=6, conv_tol=0.0)[0]
+        for _ in range(2)]
+    print(f"  variance 1e-6, seed 3 twice: {runs[0][-1]:.14f}, "
+          f"{runs[1][-1]:.14f}")
+    check(runs[0] == runs[1], "the same seed gave two trajectories")
+
+
 def main():
     import torch
 
@@ -2557,6 +3017,9 @@ def main():
                            oo14))
         del oo14, theta14
         torch.cuda.empty_cache()
+        phase("(14e,14o) S^2: the demo's s2 stage, grid S^- against the "
+              "flat tables", s2_14e14o_phase, torch, P, grid, pqc14)
+        torch.cuda.empty_cache()
         paths["14e14o_mixed"] = phase(
             "(14e,14o) sector, mixed precision", sector14_mixed_phase,
             torch, P, gk, mol14, pqc14, energies14)
@@ -2571,6 +3034,17 @@ def main():
         paths["full_2e2o_adam"] = phase(
             "(2e,2o) full space, Adam with orbital relaxations",
             adam_2e2o_phase, torch, P, gk)
+        paths["berry_2e2o"] = phase(
+            "Berry loop, (2e,2o) full space, 21 points", berry_full_phase,
+            torch, P, gk)
+        paths["berry_2e2o_sector"] = phase(
+            "Berry loop, (2e,2o) sector, 11 points", berry_sector_phase,
+            torch, P, gk)
+        paths["berry_6e6o_sector"] = phase(
+            "Berry arc, (6e,6o) sector", berry_6e6o_phase, torch, P, gk)
+        phase("newton_method='iterative'", iterative_phase, torch, P, gk,
+              dev)
+        phase("Noisy_OO_pqc, (2e,2o)", noisy_phase, torch, P)
         paths["full_3e3o"] = phase(
             "(3e,3o) doublet, full space", flat_phase, torch, P, gk,
             "(3e,3o) doublet", 3, (2, 1),
@@ -2610,6 +3084,9 @@ def main():
                                        freeze_active=True,
                                        precision="mixed"),
             None, None, "mixed", mol16.hf.e_tot))
+        torch.cuda.empty_cache()
+        phase("S^2 at scale: (10e,10o) random state against the host, the "
+              "(16e,16o) s2 stage", s2_scale_phase, torch, P, grid, pqc16)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -29,10 +29,29 @@ relaxation every ``orbital_every`` steps):
                      False, 60 steps, learning_rate=0.1, orbital_every=5
                      (tests/test_oo_pqc.py:189-203), with the CASSCF energy
 
+and the Berry-phase cells (``BerryPhaseLoop`` around the formaldimine
+conical intersection, loop origin (130, 89.9) and radius 10 deg,
+tests/test_berry.py:87-222; ``--perturb`` offsets theta_init):
+
+  berry_2e2o            np_fabric L=1 in the full space, 21 points,
+                        run(conv_tol=1e-10, track_steps=12,
+                        track_tol=1e-10) (the tutorial's loop)
+  berry_2e2o_sector     the same in sector mode, 11 points
+  berry_6e6o_sector     np_fabric L=2, sector=True, the 3-point arc
+                        get_formal_geo(140 + 0.25 k, 80 + 0.25 k),
+                        run(conv_tol=1e-9, max_iterations=30,
+                        track_steps=6, track_tol=1e-9)
+  berry_2e2o_iterative  the full-space loop at 6 points, track_steps=8,
+                        on newton_method="eigh" and "iterative"
+  berry_2e2o_5          the full-space loop at 5 points, track_steps=4
+                        (the CPU parity test's loop)
+
 Each cell prints one JSON line: the energy after every iteration (for
 the Adam cells, the energy at every step before its update), the lowest
 Hessian eigenvalues (Newton cells), n_theta, n_kappa, D and, for the
-cells run to convergence, the CASSCF energy of the active space.
+cells run to convergence, the CASSCF energy of the active space; a
+Berry cell prints per method its energies, lowest Hessian eigenvalues,
+overlaps (real and imaginary parts) and Berry phase.
 ``--perturb EPS`` starts from theta = EPS instead of 0 (for every
 entry), which shows how far a trajectory amplifies a difference in its
 last bits.
@@ -46,7 +65,10 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 
 import auto_oo_tpu as aoo  # noqa: E402
+import numpy as np  # noqa: E402
+
 from auto_oo_tpu.models import OO_pqc, Parameterized_circuit  # noqa: E402
+from auto_oo_tpu.models.berry import BerryPhaseLoop  # noqa: E402
 
 CELLS = {
     "2e2o_fabric": dict(ncas=2, ne=2, kw=dict(ansatz="np_fabric",
@@ -75,8 +97,67 @@ CELLS = {
                       adam=dict(steps=60, lr=0.1, every=5), casscf=True),
 }
 
+_BERRY_RUN = dict(conv_tol=1e-10, track_steps=12, track_tol=1e-10)
+BERRY_CELLS = {
+    "berry_2e2o": dict(ncas=2, points=21, kw=dict(ansatz="np_fabric",
+                                                  n_layers=1),
+                       run=_BERRY_RUN),
+    "berry_2e2o_sector": dict(ncas=2, points=11,
+                              kw=dict(ansatz="np_fabric", n_layers=1,
+                                      sector=True), run=_BERRY_RUN),
+    "berry_6e6o_sector": dict(ncas=6, arc=3, kw=dict(ansatz="np_fabric",
+                                                     n_layers=2,
+                                                     sector=True),
+                              run=dict(conv_tol=1e-9, max_iterations=30,
+                                       track_steps=6, track_tol=1e-9)),
+    "berry_2e2o_iterative": dict(ncas=2, points=6,
+                                 kw=dict(ansatz="np_fabric", n_layers=1),
+                                 run=dict(conv_tol=1e-10, track_steps=8,
+                                          track_tol=1e-10),
+                                 methods=("eigh", "iterative")),
+    "berry_2e2o_5": dict(ncas=2, points=5, kw=dict(ansatz="np_fabric",
+                                                   n_layers=1),
+                         run=dict(conv_tol=1e-10, track_steps=4,
+                                  track_tol=1e-10)),
+}
+
+
+def loop_geometries(points):
+    """The loop of origin (130, 89.9) deg and radius 10 deg around the
+    formaldimine conical intersection, ``points`` geometries with the
+    first and last equal (tests/test_berry.py:107-111)."""
+    ts = np.linspace(0, 1, points)
+    return [aoo.get_formal_geo(
+        130 + 10 * np.cos(2 * np.pi * t + np.pi / 20),
+        89.9 + 10 * np.sin(2 * np.pi * t + np.pi / 20)) for t in ts]
+
+
+def run_berry(name, perturb=0.0):
+    c = BERRY_CELLS[name]
+    ncas = c["ncas"]
+    geos = (loop_geometries(c["points"]) if "points" in c else
+            [aoo.get_formal_geo(140 + 0.25 * k, 80 + 0.25 * k)
+             for k in range(c["arc"])])
+    pqc = Parameterized_circuit(ncas, ncas, **c["kw"])
+    out = dict(cell=name, perturb=perturb, n_theta=int(pqc.theta_shape),
+               D=int(pqc.state_dim))
+    for method in c.get("methods", (None,)):
+        loop = BerryPhaseLoop(geos, "sto-3g", ncas, ncas, pqc,
+                              freeze_active=True, newton_method=method)
+        loop.run(theta_init=pqc.init_zeros() + perturb, **c["run"])
+        ov = loop.overlaps()
+        out[method or "default"] = dict(
+            energies=[float(e) for e in loop.energy_l],
+            lowest_hess_eig=[float(e) for e in loop.hess_eig_l],
+            overlaps_real=[float(o) for o in ov.real],
+            overlaps_imag=[float(o) for o in ov.imag],
+            berry_phase=loop.berry_phase())
+    return out
+
 
 def run(name, perturb=0.0):
+    if name in BERRY_CELLS:
+        return run_berry(name, perturb)
     c = CELLS[name]
     mol = aoo.Moldata(aoo.get_formal_geo(140, 80), "sto-3g",
                       **c.get("mol", {}))
@@ -108,7 +189,7 @@ def main(argv):
         i = argv.index("--perturb")
         perturb = float(argv[i + 1])
         argv = argv[:i] + argv[i + 2:]
-    for name in argv or list(CELLS):
+    for name in argv or list(CELLS) + list(BERRY_CELLS):
         print(json.dumps(run(name, perturb)), flush=True)
 
 

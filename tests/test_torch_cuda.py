@@ -14,9 +14,12 @@ fused Newton core on the card against the CPU, one f32 launch of
 ``gather_two_spin`` over a stack of 15 states, the Gram form of the
 hosted core against the per-tangent one), the gradient-only pipeline
 (the hosted ``energy_and_gradient`` and a (2e,2o) ``gradient_optimization``
-on the card against the CPU), and failed builds and launches that
-raise.  This file imports neither jax nor the
-JAX package, so it also runs where jax is not installed;
+on the card against the CPU), the Berry workflow (the Thouless transfer
+and a sector loop, launching the fused kernels), the grid S^-, the
+iterative Newton solver and the noisy optimizer's CUDA generator on the
+card against the CPU, and failed builds and launches that raise.  This
+file imports neither jax nor the JAX package, so it also runs where jax
+is not installed;
 tests/conftest.py imports jax, so run it on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -938,3 +941,112 @@ def test_cuda_refused_cluster_size_raises(cuda_device):
     out = gm.gather_b(x, src, s)
     torch.cuda.synchronize()
     assert torch.equal(out, gm.gather_rows_plain(x, src, s))
+
+
+@pytest.mark.cuda
+def test_cuda_berry_transfer_and_sector_loop(cuda_device):
+    """The Thouless transfer on the card equals the CPU's to 1e-13 (full
+    space and sector basis), and a 4-point (2e,2o) sector Berry loop on
+    the card launches the fused route's kernels and gives the CPU loop's
+    energies to 1e-10 and its Berry phase."""
+    from auto_oo_tpu_torch.models import berry
+
+    rng = np.random.default_rng(3)
+    M = np.linalg.qr(rng.standard_normal((3, 3)))[0] + 0.03 * \
+        rng.standard_normal((3, 3))
+    act = np.arange(3)
+    psi = torch.as_tensor(rng.standard_normal(64))
+    basis = P.Parameterized_circuit(3, 4, ansatz="ucc", sector=True,
+                                    device="cpu").sector_basis
+    for state, dets in ((psi, None), (psi[: len(basis)], basis)):
+        on_card = berry.transfer_state(state.to(cuda_device), M.T, act, 3,
+                                       dets=dets)
+        assert on_card.device.type == "cuda"
+        np.testing.assert_allclose(
+            on_card.cpu(), berry.transfer_state(state, M.T, act, 3,
+                                                dets=dets),
+            rtol=0, atol=1e-13)
+    ts = np.linspace(0, 1, 4)
+    geos = [P.get_formal_geo(130 + 10 * np.cos(2 * np.pi * t + np.pi / 20),
+                             89.9 + 10 * np.sin(2 * np.pi * t + np.pi / 20))
+            for t in ts]
+    loops = []
+    for dev in ("cpu", cuda_device):
+        pqc = P.Parameterized_circuit(2, 2, ansatz="np_fabric", n_layers=1,
+                                      sector=True, device=dev)
+        before = dict(gk.LAUNCHES)
+        loops.append(P.BerryPhaseLoop(geos, "sto-3g", 2, 2, pqc).run(
+            track_steps=4, track_tol=1e-10))
+    for name in FUSED_KERNELS:
+        assert gk.LAUNCHES[name] > before[name], name
+    np.testing.assert_allclose(loops[1].energy_l, loops[0].energy_l,
+                               rtol=0, atol=1e-10)
+    assert abs(loops[1].berry_phase() - loops[0].berry_phase()) < 1e-10
+
+
+@pytest.mark.cuda
+def test_cuda_s2_grid_matches_cpu(cuda_device):
+    """The grid S^- and <S^2> on the card equal the CPU's (a random
+    open-shell (4e,4o) state and a (5e,5o) circuit state) to 1e-13, and
+    equal the flat cross-sector tables' value."""
+    from auto_oo_tpu_torch.simulator import sector
+
+    for ncas, nelec in ((4, (3, 1)), (5, 5)):
+        vals = []
+        for dev in ("cpu", cuda_device):
+            gm = grid.build_grid_maps(ncas, nelec, device=dev)
+            sm = grid.sminus_grid_maps(ncas, nelec, device=dev)
+            x = _rand(gm.dim, 4).to(dev)
+            x = x / x.norm()
+            vals.append(float(grid.s2_expectation_grid(x, gm, sm, nelec)))
+            vals.append(float(sector.s2_expectation_sector(
+                x, sector.sector_sminus_maps(ncas, nelec, device=dev),
+                nelec)))
+        assert max(vals) - min(vals) < 1e-13, vals
+    pqcs = [P.Parameterized_circuit(5, 5, ansatz="np_fabric", n_layers=2,
+                                    sector=True, device=dev)
+            for dev in ("cpu", cuda_device)]
+    theta = 0.3 * _rand(pqcs[0].theta_shape, 6)
+    a, b = (float(p.s2_expectation(theta)) for p in pqcs)
+    assert abs(a - b) < 1e-13
+
+
+@pytest.mark.cuda
+def test_cuda_iterative_solver_and_noisy(cuda_device):
+    """newton_dir_iterative on the card equals the CPU's (the same seeded
+    Lanczos start on both) to 1e-10, and falls back to eigh on the card
+    where the CPU does; a Noisy_OO_pqc on the card draws from a CUDA
+    generator: the same seed gives the same trajectory, and variance 0
+    equals full_optimization."""
+    from auto_oo_tpu_torch.ops import linalg
+
+    rng = np.random.default_rng(8)
+    indefinite = np.concatenate([[-0.5], np.linspace(0.1, 2, 129)])
+    for n, w, kw in ((130, indefinite, {}),
+                     (64, np.logspace(-4, 0, 64),
+                      dict(ns_iters=20, aug=False))):
+        Q = np.linalg.qr(rng.standard_normal((n, n)))[0]
+        H = torch.as_tensor(Q @ np.diag(w) @ Q.T)
+        g = torch.as_tensor(rng.standard_normal(n))
+        before = linalg.ITERATIVE_FALLBACKS
+        dp_c, low_c = linalg.newton_dir_iterative(g, H, **kw)
+        mid = linalg.ITERATIVE_FALLBACKS
+        dp_g, low_g = linalg.newton_dir_iterative(g.to(cuda_device),
+                                                  H.to(cuda_device), **kw)
+        assert linalg.ITERATIVE_FALLBACKS - mid == mid - before
+        assert abs(float(low_g) - float(low_c)) < 1e-10
+        assert float((dp_g.cpu() - dp_c).norm()) <= 1e-10 * float(
+            dp_c.norm())
+    mol = P.Moldata(P.get_formal_geo(140, 80), "sto-3g")
+    pqc = P.Parameterized_circuit(2, 2, ansatz="np_fabric", n_layers=1,
+                                  device=cuda_device)
+    runs = [P.Noisy_OO_pqc(pqc, mol, 2, 2, freeze_active=True, seed=5)
+            .full_noisy_optimization(pqc.init_zeros(), 1e-8,
+                                     max_iterations=4, conv_tol=0.0)[0]
+            for _ in range(2)]
+    assert runs[0] == runs[1]
+    zero = P.Noisy_OO_pqc(pqc, mol, 2, 2, freeze_active=True)
+    exact = P.OO_pqc(pqc, mol, 2, 2, freeze_active=True)
+    np.testing.assert_allclose(
+        zero.full_noisy_optimization(pqc.init_zeros(), 0.0)[0],
+        exact.full_optimization(pqc.init_zeros())[0], rtol=0, atol=1e-12)

@@ -394,12 +394,14 @@ def test_demo_gradient_stages_on_hosted_route(precision, monkeypatch,
 
 
 def test_demo_14e14o_refuses_s2_only():
-    """The (14e,14o) demo's s2 stage names ROADMAP queue 1 item 7 before
-    any card is looked for; an unknown stage is a ValueError, and every
-    other stage is accepted (without a card the demo then returns 2)."""
-    with pytest.raises(NotImplementedError, match="item 7"):
-        demo_14e14o.main(["1", "state,s2"])
+    """The (14e,14o) demo runs the JAX demo's s2 stage: every stage,
+    s2 among them and in its default list, is accepted (without a card
+    the demo then returns 2), and an unknown stage is a ValueError before
+    any card is looked for."""
+    assert "s2" in demo_14e14o._STAGES
     with pytest.raises(ValueError, match="unknown stage"):
         demo_14e14o.main(["1", "nope"])
     if not torch.cuda.is_available():
-        assert demo_14e14o.main(["1", "state,rdms,energy,grad,adam"]) == 2
+        assert demo_14e14o.main(["1", "state,s2"]) == 2
+        assert demo_14e14o.main(["1", "state,rdms,s2,energy,grad,adam"]) \
+            == 2

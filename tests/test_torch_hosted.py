@@ -236,17 +236,19 @@ def test_forced_hosted_grad_hess_matches_jax(name, monkeypatch):
 
 
 def test_demo_refuses_unported_stages():
-    """The (16e,16o) demo names the ROADMAP item of the one stage it does
-    not run, before it looks for a card: s2 (item 7, S^2 on the grid);
-    an unknown stage is a ValueError, and every other stage of the JAX
-    demo is accepted (without a card the demo then returns 2)."""
-    with pytest.raises(NotImplementedError, match="item 7"):
-        demo_16e16o.main(["1", "state,s2"])
+    """The (16e,16o) demo refuses only stages it does not know, before it
+    looks for a card: every stage of the JAX demo is accepted, s2 (S^2 on
+    the grid) among them (without a card the demo then returns 2), and an
+    unknown stage is a ValueError."""
     with pytest.raises(ValueError, match="unknown stage"):
         demo_16e16o.main(["1", "nope"])
+    with pytest.raises(ValueError, match="unknown stage"):
+        demo_16e16o.main(["1", "state,s2,nope"])
     if not torch.cuda.is_available():
+        assert demo_16e16o.main(["1", "state,s2"]) == 2
+        assert demo_16e16o.main([]) == 2
         assert demo_16e16o.main(
-            ["1", "state,rdms,energy,grad,gradmixed,adam,adammixed,nr,"
+            ["1", "state,rdms,s2,energy,grad,gradmixed,adam,adammixed,nr,"
                   "nrmixed"]) == 2
 
 

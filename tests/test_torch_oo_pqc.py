@@ -297,16 +297,22 @@ def test_import_without_jax():
     package."""
     code = ("import sys; sys.modules['jax'] = None\n"
             "import auto_oo_tpu_torch as P\n"
-            "from auto_oo_tpu_torch.ops import grid_kernels, rdms\n"
-            "from auto_oo_tpu_torch.utils import interop\n"
+            "from auto_oo_tpu_torch.ops import grid_kernels, linalg, rdms\n"
+            "from auto_oo_tpu_torch.utils import (checkpoint, interop, "
+            "observe)\n"
+            "from auto_oo_tpu_torch.models import berry, noisy_oo_pqc\n"
+            "from auto_oo_tpu_torch.simulator import sector\n"
+            "from auto_oo_tpu_torch.scripts import (demo_14e14o, "
+            "lanczos_parking, tutorial_berry_phase)\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and (m.split('.')[0] in ('jax', 'auto_oo_tpu'))]\n"
             "assert not bad, bad\n"
-            "print(P.OO_pqc.__name__)\n")
+            "print(P.OO_pqc.__name__, P.BerryPhaseLoop.__name__, "
+            "P.Noisy_OO_pqc.__name__)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "OO_pqc"
+    assert res.stdout.strip() == "OO_pqc BerryPhaseLoop Noisy_OO_pqc"
 
 
 def test_config_device_and_precision(monkeypatch):
