@@ -24,9 +24,14 @@ trial, and the fold of kappa into the OAO coefficients.
 
 A full-space circuit (``sector=False``) takes the "flat" route: the same
 ``grad_hess`` on the flat gate program and the flat E_pq maps, in the
-canonical basis order.  It holds one (n^2, D) Phi, as the JAX package's
-flat route does (33.5 MB at (8e,8o)).  A sector circuit runs on the
-string grid, by the rules below.
+canonical basis order.  It holds one (n^2, D) Phi, as the JAX
+package's flat route does (33.5 MB at (8e,8o)).  A callable ansatz (real
+or complex) and an up-then-down circuit take it too: the circuit's
+sweeps then come from ``torch.func`` over the callable
+(simulator/custom.py), its maps are the up-then-down ones, and every
+inner product conjugates its bra side and takes the real part, as in the
+JAX core (auto_oo_tpu/models/oo_pqc.py:233-237, 262-272, 323-361).  A
+sector circuit runs on the string grid, by the rules below.
 
 Above D = 2^19 the JAX package splits the same math into its staged
 pipeline, only so that one XLA program does not spill; ``grad_hess`` here
@@ -194,11 +199,14 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
     # route is chosen on the f64 itemsize in both modes, as in the JAX
     # package (oo_pqc.py:937-943)
     mixed = precision == "mixed"
-    lp_dtype = torch.float32 if mixed else torch.float64
     lp_size = 4 if mixed else 8
 
     def lp(x):
-        return x.to(lp_dtype)
+        """The low-precision copy: float32 (complex64) in mixed mode, as
+        the JAX package's _lowp (oo_pqc.py:60-73); x itself in f64."""
+        if not mixed:
+            return x
+        return x.to(torch.complex64 if x.is_complex() else torch.float32)
 
     if hosted_form is not None and not hosted:
         raise ValueError(f"hosted_form={hosted_form!r} on the {route} "
@@ -285,7 +293,7 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
 
     def trdm_blocks(dgamma, dgram):
         """(dgamma, dGamma) of a batch of tangents from the flat transition
-        grams (the pair order of grid.transition_rdms_rows)."""
+        grams (the pair order of grid.transition_rdms_rows); f64."""
         dgamma = dgamma.reshape(-1, ncas, ncas)
         dcorr = dgram.reshape(-1, ncas, ncas, ncas, ncas)
         delta = torch.eye(ncas, dtype=dgamma.dtype, device=dgamma.device)
@@ -298,7 +306,9 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
         product rule on the Phi gram of psi; on the streamed route (no
         phi) one tangent at a time through grid.transition_rdms_rows (the
         JAX package's _row_streamed).  The grams run in the operands'
-        dtype (f32 in mixed mode); the blocks are f64."""
+        dtype (f32 in mixed mode); the blocks are f64.  A complex state's
+        bra sides are conjugated and the real parts taken
+        (auto_oo_tpu/models/oo_pqc.py:331-345)."""
         if phi is None:
             rows = [_grid.transition_rdms_rows(psi, Ji, maps, ncas,
                                                plan_lp.row_chunk)
@@ -307,10 +317,11 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
             dgram = torch.stack([r[1] for r in rows])
         else:
             phiJ = _rdms.apply_epq_all(Jc, ncas, maps)   # (c, n^2, D)
-            # d corr[a,b] = <dphi_a|phi_b> + <phi_a|dphi_b>
-            A = gram_last(phiJ, phi)
+            # d corr[a,b] = Re <dphi_a|phi_b> + Re <phi_a|dphi_b>
+            A = gram_last(phiJ.conj(), phi).real
             dgram = A + A.transpose(1, 2)
-            dgamma = gram_last(phiJ, psi) + gram_last(phi, Jc).T
+            dgamma = (gram_last(phiJ, psi.conj()).real
+                      + gram_last(phi, Jc.conj()).real.T)
         return trdm_blocks(dgamma, dgram)
 
     def coefficients(oao, int1e_ao, int2e_ao, oao_coeff, nuc):
@@ -359,13 +370,13 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
         return like.new_zeros(()).expand(like.shape)
 
     def energy_grad(theta, psi, Hpsi, c0):
-        """e0 = c0 + <psi, H psi> and grad_c = d/d theta <psi(theta), 2 H
-        psi> by one reverse sweep in f64 (the JAX package's _grad_c_vjp:
-        pair_row with v = 0 and no delta cotangent), never an autograd
-        tape over the gate program; an f32 H psi (mixed) joins the f64
-        state as f64."""
+        """e0 = c0 + Re<psi, H psi> and grad_c = d/d theta Re<2 H psi,
+        psi(theta)> by one reverse sweep in f64 (the JAX package's
+        _grad_c_vjp: pair_row with v = 0 and no delta cotangent), never an
+        autograd tape over the gate program; an f32 H psi (mixed) joins the
+        f64 state as f64."""
         Hpsi64 = Hpsi.to(psi.dtype)
-        e0 = c0 + psi @ Hpsi64
+        e0 = c0 + (psi.conj() @ Hpsi64).real
         grad_c = pqc._pair_row_grid(theta, torch.zeros_like(theta),
                                     2.0 * Hpsi64, zero_state(psi), psi,
                                     zero_state(psi))
@@ -471,12 +482,16 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
         """Energy, full gradient, full (theta+kappa) Hessian.
 
         With H the fixed active-space Hamiltonian and J = d psi/d theta:
-          grad_c   = 2 J (H psi)
-          hess_cc  = 2 J (H J^T) + hess_theta <w, psi(theta)>,  w = 2 H psi
+          grad_c   = 2 Re J^* (H psi)
+          hess_cc  = 2 Re J^* (H J^T) + hess_theta Re<w, psi(theta)>,
+                     w = 2 H psi
           hess_oc  = analytic-gradient linear map applied to the
                      transition RDMs d(gamma, Gamma)/d theta_i
         Every state here is in the maps' order: GRID order (ops/grid.py)
-        on a sector, canonical in the full space."""
+        on a sector, canonical in the full space.  Every inner product
+        conjugates its bra side and takes the real part, so a complex
+        state (a callable ansatz's) is exact; both are no-ops on the real
+        states of the gate programs."""
         h1, g2, c0, c1eff, c2 = coefficients(oao, int1e_ao, int2e_ao,
                                              oao_coeff, nuc)
         if hosted:
@@ -487,9 +502,9 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
             psi, J = pqc._state_and_jacobian_grid(theta)   # (D,), (nt, D)
         with parts("H psi"):
             Hpsi = _ham.ham_apply(c1eff, c2, psi, ncas, maps, plan)
-        e0 = c0 + psi @ Hpsi
+        e0 = c0 + (psi.conj() @ Hpsi).real
         w = 2.0 * Hpsi
-        grad_c = J @ w
+        grad_c = (J.conj() @ w).real
         # mixed: from here on the Hessian-only work runs on f32 copies
         # (the JAX package's lp(J), lowered tables and f32 theta)
         J = lp(J)
@@ -501,7 +516,7 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
         with parts("circuit-Hessian sweep"):
             term2 = pqc._state_hessian_dot_grid(lp(theta), lp(w), lp(psi),
                                                 J)
-        hess_cc = 2.0 * gram_last(J, HJ) + term2
+        hess_cc = 2.0 * gram_last(J.conj(), HJ).real + term2
         del HJ
 
         with parts("RDMs of psi"):

@@ -16,11 +16,12 @@ Conventions (identical to the reference):
   — both orderings of reference utils/active_space.py:29-57;
 * basis index is big-endian in qubit/mode order: mode 0 is the most
   significant bit (OpenFermion/PennyLane statevector convention);
-* E_pq = sum_sigma a^dag_{p sigma} a_{q sigma} (restricted).
+* E_pq = sum_sigma a^dag_{p sigma} a_{q sigma} (restricted); unrestricted
+  operators use raw spin-orbital (mode) indices directly
+  (reference active_space.py:52-55, 84-85).
 
-The port keeps what its host layer (moldata/fci.py, the grid maps and
-the grid gate builders) calls; the unrestricted operator builders come
-with the unrestricted routes.
+``reorder_unrestricted_rdms`` works on torch tensors (or arrays), on the
+RDMs' own device; everything else here is numpy on the host.
 """
 
 import numpy as np
@@ -112,6 +113,60 @@ def epq_gather(ncas, up_then_down=False):
     return src, sign
 
 
+def annihilation_transfer(R, nm):
+    """Gather map for a_R: for each output index i (with mode R empty),
+    (a_R psi)[i] = sign[i] * psi[src[i]]; sign 0 where invalid."""
+    D = 1 << nm
+    idx = np.arange(D, dtype=np.int64)
+    bitR = 1 << (nm - 1 - R)
+    valid = (idx & bitR) == 0
+    src = np.where(valid, idx | bitR, 0)
+    sr = _parity_below(src, R, nm)
+    sign = np.where(valid, sr.astype(np.float64), 0.0)
+    return src, sign
+
+
+def pair_annihilation_gather(ncas):
+    """Gather maps for all W_rs = a_r a_s over spin-orbital (mode)
+    indices: (a_r a_s psi)[i] = sign[r,s,i] * psi[src[r,s,i]], shapes
+    (nm, nm, D) int32 / int8 (the JAX package keeps float64 signs; the
+    values are -1, 0, +1 either way).
+
+    Used for unrestricted 2-RDMs: <a^dag_p a^dag_q a_r a_s> =
+    <W_qp psi | W_rs psi> (reference pqc.py:43-66 built the ncas^4
+    unrestricted e_pqrs as sparse operators; here one gather and one gram
+    cover all elements)."""
+    nm = n_modes(ncas)
+    D = 1 << nm
+    src = np.zeros((nm, nm, D), dtype=np.int32)
+    sign = np.zeros((nm, nm, D), dtype=np.int8)
+    for r in range(nm):
+        s_r, g_r = annihilation_transfer(r, nm)
+        for s in range(nm):
+            if r == s:
+                continue  # a_r a_r = 0
+            s_s, g_s = annihilation_transfer(s, nm)
+            # compose: (a_r a_s psi)[i] = g_r[i] * (a_s psi)[s_r[i]]
+            #        = g_r[i] * g_s[s_r[i]] * psi[s_s[s_r[i]]]
+            src[r, s] = s_s[s_r]
+            sign[r, s] = g_r * g_s[s_r]
+    return src, sign
+
+
+def single_mode_gather(ncas):
+    """Gather maps of every unrestricted a^dag_p a_q over spin-orbital
+    (mode) indices, shapes (nm, nm, D) int32 / int8:
+    (a^dag_p a_q psi)[i] = sign[p,q,i] * psi[src[p,q,i]]."""
+    nm = n_modes(ncas)
+    D = 1 << nm
+    src = np.zeros((nm, nm, D), dtype=np.int32)
+    sign = np.zeros((nm, nm, D), dtype=np.int8)
+    for p in range(nm):
+        for q in range(nm):
+            src[p, q], sign[p, q] = single_mode_transfer(p, q, nm)
+    return src, sign
+
+
 def single_mode_transfer_sparse(P, Q, nm):
     """a^dag_P a_Q as a scipy CSR matrix over the full space."""
     src, sign = single_mode_transfer(P, Q, nm)
@@ -131,6 +186,44 @@ def epq_sparse(p, q, ncas, up_then_down=False):
             + single_mode_transfer_sparse(
                 mode_of(p, 1, ncas, up_then_down),
                 mode_of(q, 1, ncas, up_then_down), nm))
+
+
+def epqrs_sparse(p, q, r, s, ncas, up_then_down=False):
+    """Restricted chemist-ordered e_pqrs = E_pq E_rs - delta_qr E_ps."""
+    op = (epq_sparse(p, q, ncas, up_then_down)
+          @ epq_sparse(r, s, ncas, up_then_down))
+    if q == r:
+        op = op - epq_sparse(p, s, ncas, up_then_down)
+    return op
+
+
+def apq_sparse(p, q, ncas):
+    """Unrestricted a^dag_p a_q (spin-orbital indices) as a sparse matrix
+    (reference active_space.py:52-55)."""
+    return single_mode_transfer_sparse(p, q, n_modes(ncas))
+
+
+def apqrs_sparse(p, q, r, s, ncas):
+    """Unrestricted a^dag_p a^dag_q a_r a_s (reference
+    active_space.py:84-85)."""
+    nm = n_modes(ncas)
+    D = 1 << nm
+    if p == q or r == s:
+        return sparse.csr_matrix((D, D))
+
+    def _pair(a, b):
+        # a_a a_b as a sparse matrix
+        s_a, g_a = annihilation_transfer(a, nm)
+        s_b, g_b = annihilation_transfer(b, nm)
+        rows = np.arange(D)
+        src = s_b[s_a]
+        sign = g_a * g_b[s_a]
+        mask = sign != 0.0
+        return sparse.csr_matrix(
+            (sign[mask], (rows[mask], src[mask])), shape=(D, D))
+
+    # a^dag_p a^dag_q a_r a_s = (a_q a_p)^dag (a_r a_s)
+    return _pair(q, p).T @ _pair(r, s)
 
 
 def s_plus_sparse(ncas):
@@ -200,6 +293,33 @@ def sector_basis(ncas, nelec):
 def project_sector(op, basis):
     """Restrict a full-space sparse operator to a sector basis."""
     return op[np.ix_(basis, basis)]
+
+
+def reorder_unrestricted_rdms(gamma, Gamma, ncas, to_up_then_down=True):
+    """Exact mode permutation of spin-resolved RDMs between the two JW
+    orderings (interleaved 2p+sigma <-> up-then-down p+sigma*ncas), as
+    torch tensors on the RDMs' device.
+
+    The orderings differ only by a relabeling of the 2*ncas spin modes,
+    so converting extracted RDMs is exact and O(nm^4): the route to
+    up-then-down RDMs of a sector circuit, whose basis convention is
+    fixed interleaved (simulator/circuit.py).  ``to_up_then_down=False``
+    applies the inverse permutation."""
+    import torch
+
+    nm = 2 * ncas
+    # perm[m_target] = m_source: the target ordering's mode m maps to the
+    # source ordering's mode of the same (p, sigma)
+    if to_up_then_down:
+        perm = [mode_of(m % ncas, m // ncas, ncas, False) for m in range(nm)]
+    else:
+        perm = [mode_of(m // 2, m % 2, ncas, True) for m in range(nm)]
+    gamma = torch.as_tensor(gamma)
+    Gamma = torch.as_tensor(Gamma)
+    perm = torch.as_tensor(perm, device=gamma.device)
+    gamma = gamma[perm][:, perm]
+    Gamma = Gamma[perm][:, perm][:, :, perm][:, :, :, perm]
+    return gamma, Gamma
 
 
 def hf_bitstring(ncas, nelec):

@@ -30,6 +30,15 @@ f64) the callers stream it over grid A-rows (``phi_rows``,
 row-sliced tables, the beta half gathers inside the chunk's rows (one
 ``gather_two_spin`` launch per chunk).
 
+One spin component of Phi (``phi_all(x, gm, spin=0 or 1)``, the
+spin-resolved RDMs' one-particle part) runs ``gather_rows_scaled``: the
+alpha half on the grid state, the beta half on one contiguous transposed
+copy of it, whose result stays in that transposed layout (index
+j * Na + i; ``transpose_grid`` gives the bra in the same order), so no
+(n2, D) Phi is ever transposed.  A complex state runs each kernel on its
+real and imaginary parts (contiguous copies): the maps' coefficients are
+real, so E(Re x + i Im x) = E Re x + i E Im x.
+
 S^- = sum_p a^dag_{p,beta} a_{p,alpha} factorizes over the spin strings
 as E_pq does (``sminus_grid_maps``): per orbital a row gather, a column
 gather and a rank-1 sign, so <S^2> = ||S^- psi||^2 + Sz^2 - Sz runs on
@@ -47,7 +56,8 @@ import torch
 
 from ..config import get_device
 from . import fermion
-from .grid_kernels import (gather_reduce, gather_reduce_cols, gather_two_spin,
+from .grid_kernels import (gather_reduce, gather_reduce_cols,
+                           gather_rows_scaled, gather_two_spin,
                            reduce_cols_lists, two_spin_tables)
 from .linalg import gram_last
 
@@ -362,20 +372,33 @@ def pair_slice(gm, lo, hi):
         torch.arange(lo, hi, device=gm.device)))
 
 
+def _real_parts(fn, x):
+    """fn(x) for a real x; for a complex x, fn of its contiguous real and
+    imaginary parts, recombined (every grid op is linear with real
+    coefficients)."""
+    if not x.is_complex():
+        return fn(x)
+    return torch.complex(fn(x.real.contiguous()), fn(x.imag.contiguous()))
+
+
 def _phi_impl(x, gm):
-    xg = x.reshape(x.shape[:-1] + (gm.Na, gm.Nb))
-    phi = gather_two_spin(xg, gm.two_spin_tables(), 0, gm.Na)
-    return phi.reshape(x.shape[:-1] + (gm.n2, gm.dim))
+    def phi(v):
+        vg = v.reshape(v.shape[:-1] + (gm.Na, gm.Nb))
+        return gather_two_spin(vg, gm.two_spin_tables(), 0, gm.Na)
+    return _real_parts(phi, x).reshape(x.shape[:-1] + (gm.n2, gm.dim))
 
 
 def _epq_impl(Y, gm):
-    srcA, sgnA, tB, srcB, sgnB, tA = gm.tables(Y)
-    Yg = Y.reshape(Y.shape[:-1] + (gm.Na, gm.Nb))
-    out = gather_reduce(Yg, srcA, sgnA, tB)
-    # the beta half gathers inside the rows of Yg (no transposed copy) and
-    # adds into out
-    gather_reduce_cols(Yg, srcB, sgnB, tA, out=out, lists=gm.col_lists())
-    return out.reshape(Y.shape[:-2] + (gm.dim,))
+    def epq(V):
+        srcA, sgnA, tB, srcB, sgnB, tA = gm.tables(V)
+        Vg = V.reshape(V.shape[:-1] + (gm.Na, gm.Nb))
+        out = gather_reduce(Vg, srcA, sgnA, tB)
+        # the beta half gathers inside the rows of Vg (no transposed copy)
+        # and adds into out
+        gather_reduce_cols(Vg, srcB, sgnB, tA, out=out,
+                           lists=gm.col_lists())
+        return out
+    return _real_parts(epq, Y).reshape(Y.shape[:-2] + (gm.dim,))
 
 
 class _Phi(torch.autograd.Function):
@@ -407,11 +430,39 @@ class _EpqSum(torch.autograd.Function):
         return _Phi.apply(g, ctx.gm.transposed()), None
 
 
-def phi_all(x, gm):
+def phi_all(x, gm, spin=None):
     """Phi[..., pq, :] = E_pq x for all pairs of the maps; x and the
     result are GRID-ordered flat vectors ((..., Ds) -> (..., n2, Ds)).
-    One ``gather_two_spin`` builds both spin halves."""
-    return _Phi.apply(x, gm)
+    One ``gather_two_spin`` builds both spin halves (two for a complex x,
+    its real and imaginary parts).
+
+    ``spin`` 0 or 1 gives one spin component E_pq^sigma x through
+    ``gather_rows_scaled`` (no VJP): spin 0 in grid order, spin 1 in the
+    TRANSPOSED grid order (index j * Na + i), from a contiguous
+    transposed copy of x; contract it with ``transpose_grid`` of the
+    bra."""
+    if spin is None:
+        return _Phi.apply(x, gm)
+    if spin not in (0, 1):
+        raise ValueError(f"spin must be None, 0 or 1, got {spin!r}")
+
+    def one_spin(v):
+        srcA, sgnA, tB, srcB, sgnB, tA = gm.tables(v)
+        vg = v.reshape(v.shape[:-1] + (gm.Na, gm.Nb))
+        if spin == 0:
+            return gather_rows_scaled(vg.contiguous(), srcA, sgnA, tB)
+        return gather_rows_scaled(vg.transpose(-1, -2).contiguous(), srcB,
+                                  sgnB, tA)
+    return _real_parts(one_spin, x).reshape(x.shape[:-1]
+                                            + (gm.n2, gm.dim))
+
+
+def transpose_grid(x, gm):
+    """A GRID-ordered x (..., Ds) in the transposed grid order (index
+    j * Na + i), the order of ``phi_all(x, gm, spin=1)``."""
+    lead = x.shape[:-1]
+    return x.reshape(lead + (gm.Na, gm.Nb)).transpose(-1, -2).reshape(
+        lead + (gm.dim,))
 
 
 def epq_sum(Y, gm):
@@ -505,8 +556,10 @@ def _phi_chunk(xg, gm, r0, r1):
     [r0, r1), from the whole contiguous grid xg (..., Na, Nb).  Both spin
     parts are row-local in their output: alpha gathers rows of the whole
     x, beta gathers inside the chunk's own rows; one ``gather_two_spin``
-    makes each element of Phi once, with no transposed copy."""
-    return gather_two_spin(xg, gm.two_spin_tables(), r0, r1)
+    makes each element of Phi once, with no transposed copy (two for a
+    complex xg, its real and imaginary parts)."""
+    return _real_parts(
+        lambda v: gather_two_spin(v, gm.two_spin_tables(), r0, r1), xg)
 
 
 class _PhiRows(torch.autograd.Function):
@@ -590,19 +643,20 @@ def ham_apply_rows(c1eff_flat, C2, x, gm, row_chunk, pair_block=None):
 
 
 def rdms_rows(psi, gm, ncas, row_chunk):
-    """(gamma, Gamma) of a real GRID-ordered state with Phi streamed over
-    grid A-rows: each chunk of Phi is made once and consumed by the
-    (n2, L) x (L, n2) gram; one pass over Phi, one chunk live.  The
-    accumulators are f64 whatever the state's dtype (the JAX package's
-    hosted RDMs; an f32 state's grams are ``gram_last``'s)."""
+    """(gamma, Gamma) of a real or complex GRID-ordered state with Phi
+    streamed over grid A-rows: each chunk of Phi is made once and
+    consumed by the (n2, L) x (L, n2) gram; one pass over Phi, one chunk
+    live.  The accumulators are f64 whatever the state's dtype (the JAX
+    package's hosted RDMs; an f32 state's grams are ``gram_last``'s); a
+    complex state's bra side is conjugated and the real part taken."""
     n2 = gm.n2
     psig = psi.contiguous().reshape(gm.Na, gm.Nb)
     gamma = psi.new_zeros(n2, dtype=torch.float64)
     corr = psi.new_zeros((n2, n2), dtype=torch.float64)
     for r0, r1 in _row_chunks(gm.Na, row_chunk):
         phi_c = _phi_chunk(psig, gm, r0, r1).reshape(n2, -1)
-        gamma += gram_last(phi_c, psig[r0:r1].reshape(-1))
-        corr += gram_last(phi_c, phi_c)
+        gamma += gram_last(phi_c, psig[r0:r1].reshape(-1).conj()).real
+        corr += gram_last(phi_c.conj(), phi_c).real
         del phi_c
     return assemble_rdms(gamma, corr, ncas)
 

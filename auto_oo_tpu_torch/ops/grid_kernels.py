@@ -6,8 +6,10 @@ Port of auto_oo_tpu/ops/pallas_grid.py (``gather_rows_scaled`` and
 one kernel, the beta half gathered inside the grid's rows where the TPU
 wrappers run ``gather_rows_scaled`` on a transposed copy and add the
 result back transposed (pallas_grid.py:259-262, :354-357); it builds Phi
-on every route of the port, and ``gather_rows_scaled`` stays as the 1:1
-port that the row-gather probes time; ``gather_reduce_cols``: the column
+on every route of the port, and ``gather_rows_scaled``, the 1:1 port,
+builds one spin component of Phi for the spin-resolved RDMs
+(ops/grid.phi_all(spin=...)) and is the production variant the row-gather
+probes time; ``gather_reduce_cols``: the column
 form of ``gather_reduce``, which reads the beta half of ``epq_sum`` in the
 grid's natural layout where the TPU wrapper first made a transposed copy
 of Y (pallas_grid.py:270), walking lists of the maps' valid entries

@@ -13,6 +13,9 @@ e_pqrs = E_pq E_rs - delta_qr E_ps.  On the string grid (GridMaps) Phi
 is the gather_two_spin kernel and the reduction the gather_reduce
 kernels; in the full space (FlatMaps) both are element gathers in plain
 PyTorch (ops/rdms.py), as the JAX package's flat branch is plain XLA.
+The maps carry the mode ordering (``rdms.build_flat_maps(ncas,
+up_then_down)``).  chi may be complex: the coefficients are cast to its
+dtype, and on the grid each kernel runs on its real and imaginary parts.
 """
 
 import torch
@@ -55,6 +58,7 @@ def ham_apply(c1eff, c2, chi, ncas, maps, plan=None):
 
 
 def energy_quadratic(c0, c1, c2, psi, ncas, maps):
-    """E = c0 + <psi|H|psi> through the apply (equals
+    """E = c0 + Re<psi|H|psi> through the apply (equals
     transforms.energy_from_rdms on the RDMs of psi)."""
-    return c0 + psi @ ham_apply(c1_effective(c1, c2), c2, psi, ncas, maps)
+    return c0 + (psi.conj() @ ham_apply(c1_effective(c1, c2), c2, psi,
+                                        ncas, maps)).real

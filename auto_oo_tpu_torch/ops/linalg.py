@@ -194,26 +194,30 @@ def newton_dir_iterative(gradient, hessian, mu=1e-6, rho=1.1,
 
 def gram_last(A, B):
     """A @ B^T, or A @ B for a vector B, over the last axis (the state
-    axis): A (..., M, K), B (N, K) or (K,).  Float64 operands take one
-    matmul.  Float32 ones are multiplied in float32 over pieces of at
-    least ``_F32_TERMS`` terms (more where the M x N partial sums of all
-    pieces would pass ``_F32_PARTIALS`` elements), and the pieces' sums
-    are added in float64: the result is float64, the products and the
-    sums inside a piece float32."""
+    axis): A (..., M, K), B (N, K) or (K,), no conjugation (the caller
+    conjugates the bra side, as the JAX package's ``gram_last(conj(a),
+    b)`` calls do).  Float64 and complex128 operands take one matmul.
+    Float32 and complex64 ones are multiplied in their own precision over
+    pieces of at least ``_F32_TERMS`` terms (more where the M x N partial
+    sums of all pieces would pass ``_F32_PARTIALS`` elements), and the
+    pieces' sums are added in float64 (complex128): the result is
+    float64 (complex128), the products and the sums inside a piece
+    single precision."""
     vec = B.dim() == 1
-    if A.dtype == torch.float64:
+    if A.dtype in (torch.float64, torch.complex128):
         return A @ (B if vec else B.T)
+    acc = torch.complex128 if A.is_complex() else torch.float64
     Bm = B[None] if vec else B
     K = A.shape[-1]
     A2 = A.reshape(-1, K)
     M, N = A2.shape[0], Bm.shape[0]
     piece = max(_F32_TERMS, -(-K // max(1, _F32_PARTIALS // (M * N))))
     m = K // piece
-    out = A2.new_zeros((M, N), dtype=torch.float64)
+    out = A2.new_zeros((M, N), dtype=acc)
     if m:
         Ap = A2[:, :m * piece].reshape(M, m, piece).transpose(0, 1)
         Bp = Bm[:, :m * piece].reshape(N, m, piece).permute(1, 2, 0)
-        out += torch.bmm(Ap, Bp).sum(0, dtype=torch.float64)
+        out += torch.bmm(Ap, Bp).sum(0, dtype=acc)
     if m * piece < K:
         out += A2[:, m * piece:] @ Bm[:, m * piece:].T
     out = out.reshape(A.shape[:-1] + (N,))

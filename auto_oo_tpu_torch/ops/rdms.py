@@ -22,8 +22,19 @@ The JAX package's ``gram_last`` / ``small_matmul_free_last`` sliced the
 large state axis only to bound the TPU's f64-emulation temporaries; here
 a float64 gram is one ``torch.matmul``, and a float32 one (the mixed
 precision mode) is ``linalg.gram_last``'s, summed in float64 pieces.
-States are real (the built-in ansatze and gate programs are orthogonal
-circuits on a real start).
+States may be complex (a callable ansatz's, or a state handed to
+``get_rdms_from_state``): every inner product conjugates the bra side
+and takes the real part, as in the JAX package (reference
+pqc.py:214-216); for the real states of the built-in ansatze both are
+no-ops.
+
+``rdms_from_state_unrestricted`` gives the spin-resolved RDMs over the
+2 ncas modes of a full-space state: gamma from the single-mode maps of
+every a^dag_p a_q, Gamma from one gram of the pair-annihilation vectors
+W_rs psi = a_r a_s psi (ops/fermion.pair_annihilation_gather), an
+(nm^2, D) element gather, plain PyTorch as it is plain XLA in the JAX
+package.  ``build_flat_maps(ncas, up_then_down=True)`` gives the E_pq
+maps of the up-then-down mode ordering.
 
 ``s2_matrix`` / ``sz_matrix`` are the dense spin operators of the full
 space (the JAX package's, reference utils/active_space.py:243-253): 4^ncas
@@ -71,10 +82,11 @@ class FlatMaps:
         return self.src.shape[2]
 
 
-def build_flat_maps(ncas, device=None):
-    """FlatMaps of all ncas^2 pairs over the 4^ncas space (interleaved
-    spin ordering), on ``device``."""
-    src, sign = fermion.epq_gather(ncas)            # (n, n, 2, D)
+def build_flat_maps(ncas, up_then_down=False, device=None):
+    """FlatMaps of all ncas^2 pairs over the 4^ncas space, in the
+    interleaved spin ordering or (``up_then_down``) the up-then-down one,
+    on ``device``."""
+    src, sign = fermion.epq_gather(ncas, up_then_down)   # (n, n, 2, D)
     n2, D = ncas * ncas, src.shape[-1]
     return FlatMaps(src.transpose(2, 0, 1, 3).reshape(2, n2, D),
                     sign.transpose(2, 0, 1, 3).reshape(2, n2, D),
@@ -122,17 +134,20 @@ def epq_sum_flat(Y, maps):
 def rdms_from_gram(phi, psi, ncas):
     """(gamma, Gamma) from Phi = E_pq psi and psi (one order for both);
     float64 whatever the state's dtype (a float32 state's grams are
-    ``gram_last``'s)."""
-    # corr[(q,p),(r,s)] = <E_qp psi|E_rs psi> = <psi|E_pq E_rs|psi>
-    return assemble_rdms(gram_last(phi, psi), gram_last(phi, phi), ncas)
+    ``gram_last``'s); a complex state's bra side is conjugated and the
+    real part taken."""
+    # gamma[pq] = Re <psi|E_pq psi>; corr[(q,p),(r,s)] = Re <E_qp psi|E_rs
+    # psi> = Re <psi|E_pq E_rs|psi>
+    return assemble_rdms(gram_last(phi, psi.conj()).real,
+                         gram_last(phi.conj(), phi).real, ncas)
 
 
 def rdms_from_state(psi, ncas, maps, grid_order=False, plan=None):
     """Spin-summed restricted (gamma, Gamma), chemist ordering, of a real
-    state.  Over FlatMaps psi is in the canonical full-space order.  Over
-    GridMaps psi arrives in canonical order and is converted once, unless
-    ``grid_order`` (the gram and dot are invariant under any common
-    permutation of both operands); given a ``plan`` (a grid.StreamPlan),
+    or complex state.  Over FlatMaps psi is in the canonical full-space
+    order.  Over GridMaps psi arrives in canonical order and is converted
+    once, unless ``grid_order`` (the gram and dot are invariant under any
+    common permutation of both operands); given a ``plan`` (a grid.StreamPlan),
     or where one (n^2, D) Phi does not fit its block, Phi streams over
     grid A-rows (grid.rdms_rows) in chunks of ``plan.row_chunk`` rows
     (default grid.stream_plan)."""
@@ -145,6 +160,41 @@ def rdms_from_state(psi, ncas, maps, grid_order=False, plan=None):
             plan = plan or stream_plan(maps, 1, psi.element_size())
             return rdms_rows(psi, maps, ncas, plan.row_chunk)
     return rdms_from_gram(apply_epq_all(psi, ncas, maps), psi, ncas)
+
+
+@lru_cache(maxsize=None)
+def _mode_tables(kind, ncas, device):
+    """(src, sign) of the unrestricted single-mode ("single") or
+    pair-annihilation ("pair") maps, (nm^2, D) int32 / int8 on ``device``,
+    built once per (ncas, device)."""
+    make = (fermion.single_mode_gather if kind == "single"
+            else fermion.pair_annihilation_gather)
+    src, sign = make(ncas)
+    nm2 = src.shape[0] * src.shape[1]
+    return (torch.as_tensor(src.reshape(nm2, -1), device=device),
+            torch.as_tensor(sign.reshape(nm2, -1), device=device))
+
+
+def _mode_gather(psi, kind, ncas):
+    src, sign = _mode_tables(kind, ncas, psi.device)
+    return psi.index_select(-1, src.reshape(-1)).reshape(src.shape) * sign
+
+
+def rdms_from_state_unrestricted(psi, ncas):
+    """Spin-resolved (unrestricted) RDMs of a full-space state over its
+    2 ncas modes, in the state's own mode ordering: gamma_pq =
+    <a^dag_p a_q>, Gamma_pqrs = <a^dag_p a^dag_q a_r a_s> (reference
+    pqc.py:192-218 with restricted=False), float64 for a real or complex
+    state: <a^dag_p a^dag_q a_r a_s> = <W_qp psi | W_rs psi> with W_rs =
+    a_r a_s, one gram of the (nm^2, D) gather."""
+    nm = 2 * ncas
+    W = _mode_gather(psi, "pair", ncas)                   # (nm^2, D)
+    # corr[(q,p),(r,s)] -> Gamma[p,q,r,s]
+    Gamma = gram_last(W.conj(), W).real.reshape(nm, nm, nm, nm).permute(
+        1, 0, 2, 3)
+    gamma = gram_last(_mode_gather(psi, "single", ncas),
+                      psi.conj()).real.reshape(nm, nm)
+    return gamma, Gamma
 
 
 @lru_cache(maxsize=None)

@@ -17,11 +17,27 @@ routes, as in the JAX package:
 through the string-factorized S^- (ops/grid.sminus_grid_maps) straight
 from the grid-order state, in the full space through the dense S^2.
 
-``ansatz`` may be a built-in name or a prebuilt GateProgram.  The
-statevector is REAL float64: every such circuit is orthogonal and acts
-on a real initial state.  Callable (custom, possibly complex) ansatze,
-``up_then_down`` ordering and unrestricted RDMs raise
-NotImplementedError until later slices of the port bring them.
+``ansatz`` may be a built-in name, a prebuilt GateProgram or any
+callable theta -> statevector over the full space, real or complex
+(with ``theta_shape=`` or a ``.theta_shape`` attribute; the reference's
+arbitrary-QNode capability, pqc.py:163), whose sweeps come from
+``torch.func`` over it (simulator/custom.py).  The built-in ansatze and
+gate programs give REAL float64 states (orthogonal circuits on a real
+start); a callable's state keeps its own dtype, and every RDM and inner
+product conjugates the bra side.
+
+``up_then_down=True`` (mode p = spatial p up, p + ncas = spatial p
+down) is accepted for a GateProgram or a callable in the full space:
+its E_pq maps are the up-then-down ones, and its spin-resolved RDMs come
+in that mode order.  The built-in ansatze lay out their qubits
+interleaved, and sector mode fixes the interleaved convention (the two
+orderings select different determinant sets for one (n_a, n_b)): both
+combinations raise ValueError, as in the JAX package; up-then-down RDMs
+of a sector state come from ``fermion.reorder_unrestricted_rdms``.
+``get_rdms(..., restricted=False)`` / ``get_rdms_from_state(...,
+restricted=False)`` give the spin-resolved RDMs over the 2 ncas modes on
+every route (ops/rdms.rdms_from_state_unrestricted in the full space,
+simulator/sector.rdms_from_sector_state_unrestricted on the grid).
 """
 
 import numpy as np
@@ -33,6 +49,8 @@ from ..ops import grid as _grid
 from ..ops import rdms as _rdms
 from . import ansatze as A
 from . import grid_gates as _gg
+from . import sector as _sector
+from .custom import CallableSweep
 from .program import GateProgram
 
 _BUILTIN = ("ucc", "np_fabric", "kupccd")
@@ -49,24 +67,39 @@ class Parameterized_circuit:
                  k=None, up_then_down=False, sector=False,
                  theta_shape=None, device=None):
         builtin = isinstance(ansatz, str) and ansatz in _BUILTIN
-        if not builtin and not isinstance(ansatz, GateProgram):
-            if callable(ansatz):
-                raise NotImplementedError(
-                    "callable ansatze come in a later slice of the port "
-                    "(they need torch.func Jacobians); use a built-in "
-                    "ansatz or a GateProgram")
+        custom = (not builtin and not isinstance(ansatz, GateProgram)
+                  and callable(ansatz))
+        # the JAX package's constructor rules, in its order
+        # (auto_oo_tpu/simulator/circuit.py:45-70, 219-238, 90-94)
+        if up_then_down and builtin:
+            raise ValueError(
+                "built-in ansatze use interleaved ordering; up_then_down "
+                "RDMs are supported for custom states / GatePrograms")
+        if up_then_down and sector:
+            raise ValueError(
+                "sector=True fixes the interleaved JW ordering (the "
+                "sector basis convention); extract RDMs interleaved and "
+                "permute with ops.fermion.reorder_unrestricted_rdms for "
+                "up_then_down ordering")
+        if not builtin and not custom and not isinstance(ansatz,
+                                                          GateProgram):
             raise ValueError(f"unknown ansatz {ansatz!r}")
-        if up_then_down:
-            raise NotImplementedError(
-                "the port fixes the interleaved JW ordering; the "
-                "up_then_down routes come in a later slice of the port")
+        if custom:
+            if theta_shape is None:
+                theta_shape = getattr(ansatz, "theta_shape", None)
+            if theta_shape is None:
+                raise ValueError(
+                    "a callable ansatz needs theta_shape=<n_params> "
+                    "(or a .theta_shape attribute on the callable)")
+            if sector:
+                raise ValueError("sector=True needs a compiled GateProgram")
         self.ncas = ncas
         self.nelecas = nelecas
         self.n_qubits = 2 * ncas
         self.dev = dev
         self.add_singles = add_singles
         self.interface = "torch"
-        self.up_then_down = False
+        self.up_then_down = bool(up_then_down)
         self.sector = bool(sector)
         self.ansatz = ansatz
         self.device = get_device(device)
@@ -93,6 +126,8 @@ class Parameterized_circuit:
             self.d_wires = A.generalized_pair_doubles(
                 list(range(self.n_qubits)))
             self.theta_shape = self.k * len(self.d_wires)
+        elif custom:
+            self.theta_shape = int(np.prod(theta_shape))
         else:
             self.theta_shape = ansatz.n_params
 
@@ -117,7 +152,7 @@ class Parameterized_circuit:
             # on the grid the flat program is built only if asked for
             # (draw_circuit): O(n_gates * D) to build, and no route runs it
             self._program_builder = build
-        else:
+        elif not custom:
             if ansatz.device.type != self.device.type:
                 raise ValueError(f"the GateProgram's tables are on "
                                  f"{ansatz.device}, the circuit's device "
@@ -130,7 +165,6 @@ class Parameterized_circuit:
                     add_singles=add_singles, k=k, device=self.device)
             else:
                 from . import grid_program as _gp
-                from . import sector as _sector
                 if ansatz.dim == 1 << self.n_qubits:
                     self._program, self._sector_basis = \
                         _sector.project_program(ansatz, ncas, nelecas)
@@ -146,12 +180,16 @@ class Parameterized_circuit:
             self.epq_maps = self.sector_maps
             self._sweep = self.grid_program
         else:
-            if self.program.dim != 1 << self.n_qubits:
+            if custom:
+                self._sweep = CallableSweep(ansatz, 1 << self.n_qubits)
+            elif self.program.dim != 1 << self.n_qubits:
                 raise ValueError(
                     f"a full-space circuit needs a program over 4^{ncas} "
                     f"states, got dim {self.program.dim}")
-            self.epq_maps = _rdms.build_flat_maps(ncas, device=self.device)
-            self._sweep = self.program
+            else:
+                self._sweep = self.program
+            self.epq_maps = _rdms.build_flat_maps(ncas, self.up_then_down,
+                                                  device=self.device)
         # tangent rows of the Jacobian: full program parameter of each
         # entry of theta (np_fabric drops its redundant parameters)
         self._tangent_params = (self.params_idx if ansatz == "np_fabric"
@@ -164,9 +202,10 @@ class Parameterized_circuit:
     def program(self):
         """The flat GateProgram: the full-space circuit, or in sector mode
         the sector-rank one (built on first use for a built-in ansatz,
-        whose grid program serves every route)."""
-        if self._program is None:
+        whose grid program serves every route); None for a callable."""
+        if self._program is None and self._program_builder is not None:
             self._program = self._program_builder()
+            self._program_builder = None
         return self._program
 
     @property
@@ -246,9 +285,9 @@ class Parameterized_circuit:
         return psi
 
     def state(self, theta):
-        """|psi(theta)> as a real float64 vector: dim 4^ncas in the full
-        space, or over ``self.sector_basis`` (canonical ascending-
-        determinant order) when sector=True."""
+        """|psi(theta)>: dim 4^ncas in the full space, or over
+        ``self.sector_basis`` (canonical ascending-determinant order) when
+        sector=True; real float64, or a callable's own dtype."""
         return self._state_impl(self._as_theta(theta))
 
     def state_complex(self, theta):
@@ -270,19 +309,38 @@ class Parameterized_circuit:
         return _rdms.rdms_from_state(psi, self.ncas, self.epq_maps,
                                      grid_order=True)
 
+    def _umaps(self):
+        """The sector's cross-sector pair-annihilation maps for the
+        spin-resolved RDMs (simulator/sector.py), built on first use."""
+        if not hasattr(self, "_sector_umaps"):
+            self._sector_umaps = _sector.sector_pair_annihilation_maps(
+                self.ncas, self.nelecas, device=self.device)
+        return self._sector_umaps
+
+    def _rdms_unrestricted(self, psi):
+        """Spin-resolved RDMs of a canonical-order state."""
+        if self.sector:
+            return _sector.rdms_from_sector_state_unrestricted(
+                psi, self.sector_maps, self._umaps(), self.ncas)
+        return _rdms.rdms_from_state_unrestricted(psi, self.ncas)
+
     def get_rdms(self, theta, restricted=True):
+        """(gamma, Gamma) at theta: spin-summed restricted RDMs, or with
+        ``restricted=False`` the spin-resolved ones over 2 ncas modes
+        (gamma_pq = <a^dag_p a_q>, Gamma_pqrs = <a^dag_p a^dag_q a_r
+        a_s>)."""
         if not restricted:
-            raise NotImplementedError(
-                "unrestricted RDMs come in a later slice of the port")
+            return self._rdms_unrestricted(
+                self._state_impl(self._as_theta(theta)))
         return self._rdms_impl(self._as_theta(theta))
 
     def get_rdms_from_state(self, state, restricted=True):
         """gamma_pq = <E_pq>, Gamma_pqrs = <e_pqrs> (reference
-        pqc.py:192-218) of a canonical-order state: over the full 4^ncas
-        space, or over the sector basis when sector=True."""
-        if not restricted:
-            raise NotImplementedError(
-                "unrestricted RDMs come in a later slice of the port")
+        pqc.py:192-218) of a canonical-order state, real or complex (the
+        bra side is conjugated and the real part taken): over the full
+        4^ncas space, or over the sector basis when sector=True.
+        ``restricted=False`` gives the spin-resolved RDMs over 2 ncas
+        modes (reference pqc.py:192-218 with restricted=False)."""
         state = torch.as_tensor(state, device=self.device)
         if state.shape[-1] != self.state_dim:
             where = ("the (n_alpha, n_beta) sector basis" if self.sector
@@ -290,6 +348,8 @@ class Parameterized_circuit:
             raise ValueError(
                 f"state has dim {state.shape[-1]}, but this circuit works "
                 f"over {where} (dim {self.state_dim})")
+        if not restricted:
+            return self._rdms_unrestricted(state)
         return _rdms.rdms_from_state(state, self.ncas, self.epq_maps)
 
     # -- spin diagnostics -------------------------------------------------
@@ -339,6 +399,8 @@ class Parameterized_circuit:
         gate, multi-wire gates joined by box connectors.  Falls back to a
         flat gate table when the program carries no display metadata."""
         prog = self.program
+        if prog is None:
+            return "<custom state function>"
         full = self._expand_theta(self._as_theta(theta)).cpu().numpy()
         meta = prog.gate_meta
         header = (f"GateProgram: {prog.half.shape[0]} pair-rotation gates, "

@@ -216,15 +216,45 @@ prints its seconds:
 19. (f) Noisy_OO_pqc on (2e,2o) np_fabric L=1: variance 0 equals
    full_optimization within 1e-12, variance 1e-10 reaches CASSCF within
    1e-4, and one seed twice gives the same trajectory on the card's
-   generator.
+   generator;
+20. spin-resolved RDMs on the sector grid, after phase 10: formaldimine
+   (10e,10o) np_fabric L=2 and (12e,12o) np_fabric L=1, sector=True, at
+   theta = 0.07 * arange + 0.1: gather_rows_scaled on both halves of the
+   one-spin Phi (the alpha half on the grid state, the beta half on its
+   transposed copy) against its plain version on the card (1e-15
+   relative), timed beside its bound; the cross-sector pair maps built on
+   the card (seconds, GB); one get_rdms(restricted=False), which must
+   launch gather_rows_scaled twice and no other kernel, its spin sums
+   equal to the restricted RDMs within 1e-12; a complex state (a seeded
+   per-determinant phase) through get_rdms_from_state, restricted
+   (gather_two_spin twice: real and imaginary parts) and spin-resolved
+   (gather_rows_scaled four times), its spin sums equal to its restricted
+   RDMs within 1e-12; psi e^(0.7i) equal to psi's RDMs within 1e-12; at
+   (10e,10o) the CPU JAX anchors' functionals (||gamma||_F, ||Gamma||_F,
+   sum(M * Gamma)) of the real and the phased state within 1e-10;
+21. spin-resolved RDMs in the full space, (8e,8o) np_fabric L=2 at the
+   same theta: the CPU JAX anchor's functionals within 1e-10, spin sums
+   within 1e-12 of the restricted RDMs, no grid kernel;
+22. user-defined states in the full space: the prebuilt (6e,6o)
+   np_fabric L=2 GateProgram read up_then_down=True, 3 NR iterations; the
+   JAX test's complex (2e,2o) ansatz (UCCD times an occupation-dependent
+   phase) by full_optimization to CASSCF within 1e-7; the same
+   construction on the (6e,6o) program, 3 NR iterations from a seeded
+   theta; a real callable wrapping the built-in (6e,6o) program, 3 NR
+   iterations, timed beside the built-in circuit's sweeps; each energy
+   within 1e-8 Ha of CPU JAX, s/NR-iter printed; the callables' J,
+   circuit-Hessian term and rows come from torch.func on the card.
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
 its main path's run, which is the (16e,16o) iteration of phase 10 for
 the hosted route's kernels (gather_two_spin among them), phase 8's
-(14e,14o) iterations for the row form of gather_reduce, and phase 4 for
-the probes and gather_rows_scaled (its variant L; no route launches it
-since gather_two_spin, and every route phase checks that), with each
-path's launches under "launches_by_path" (0 on the flat paths; the mixed
+(14e,14o) iterations for the row form of gather_reduce, phase 4 for the
+probes, and phase 20's (12e,12o) get_rdms(restricted=False) for
+gather_rows_scaled (the spin-resolved sector route; no restricted route
+launches it since gather_two_spin, and every route phase checks that),
+with each path's launches under "launches_by_path" (phase 20's under
+"*_unrestricted", "*_complex" and "*_unrestricted_complex"; the probes'
+variant L under "probes"; 0 on the flat paths; the mixed
 paths' f32 launches under "10e10o_mixed", "14e14o_mixed" and
 "16e16o_mixed"; the gradient-only pipeline's under "*_grad*", one
 energy_and_gradient, and "*_adam*", a whole Adam run; the Berry loops'
@@ -233,7 +263,8 @@ against the
 plain version over every comparison; kernel and plain times and the
 bound at the (16e,16o) f64 chunk shapes for the hosted route's kernels
 (gather_two_spin on the chunk and gather_rows_scaled on its alpha half;
-the column form and the scatter on the chunk's Y), at the (14e,14o)
+the column form and the scatter on the chunk's Y), at the (12e,12o)
+one-spin Phi's alpha half for gather_rows_scaled, at the (14e,14o)
 streamed shape for the row form and at the probes' ncas = 12 f64 shape;
 library_ms is the time of index_add_ of the scatter's contributions,
 and null for the others, which no single PyTorch call computes); the
@@ -364,7 +395,7 @@ STEP = dict(alpha=1e-4, beta=0.5, mu=1e-6, rho=1.1, lambda_min=1e-6)
 # the grid kernels each route launches (the hosted route adds its alpha
 # half with scatter_rows where the others run the row form); every route
 # builds Phi with gather_two_spin, and only the probes' entry point
-# launches gather_rows_scaled
+# launches gather_rows_scaled besides the spin-resolved RDMs
 FUSED_KERNELS = ("gather_two_spin", "gather_reduce", "gather_reduce_cols")
 HOSTED_KERNELS = ("gather_two_spin", "gather_reduce_cols", "scatter_rows")
 E_CASSCF_2E2O = -92.74923230445957
@@ -473,6 +504,42 @@ BERRY_ITER_ITERATIVE_E = [-92.74602749497893, -92.75236773765309,
 BERRY_ITER_ITERATIVE_EIG = [0.029872808280356485, 0.021453495243713823,
     0.03410396301518555, 0.0327663423096675, 0.021439678600148813,
     0.029872920192851017]
+# the user-defined states (scripts/full_space_anchors.py 10e10o_unrestricted
+# 8e8o_unrestricted 6e6o_utd 6e6o_complex 6e6o_callable, CPU JAX of commit
+# 9ec90ac).  RDM cells: the state at theta = 0.07 * arange + 0.1, and
+# (10e,10o) that state times a per-determinant phase exp(i phi), phi from
+# numpy's default_rng(10).uniform(0, 2 pi) in canonical order; each RDM
+# pair as (||gamma||_F, ||Gamma||_F, sum(M * Gamma)), M standard normal
+# from default_rng(14) in Gamma's shape, held to 1e-10.  (12e,12o) has no
+# CPU JAX anchor (a full-size run on a shared CPU): it is held to its own
+# restricted RDMs through the spin sums, to the phase invariance and to
+# its complex state's spin sums, each to 1e-12
+RDM_ANCHORS = {
+    "10e10o": {"unrestricted": [3.0326264871114974, 12.421691739810006,
+                                11.034830066958754],
+               "phased_restricted": [4.188503268701189, 17.907045240102978,
+                                     9.757184533747925],
+               "phased_unrestricted": [2.9830890651289046,
+                                       11.955641429983835,
+                                       11.607208643575207]},
+    "8e8o": {"unrestricted": [2.6558680527439167, 9.449207803052952,
+                              0.3991157827345679]},
+}
+TOL_RDM_ANCHOR = 1e-10
+TOL_SPIN_SUM = 1e-12
+# 3 NR iterations: the prebuilt (6e,6o) np_fabric L=2 program read
+# up_then_down=True from init_zeros; the JAX test's complex construction
+# on it (psi(theta[:16]) exp(i theta[16] n_0)) from theta0 = 0.1 *
+# default_rng(6).standard_normal(17); a real callable wrapping the
+# built-in program from init_zeros, whose JAX anchor is ANCHORS_6E6O[:3]
+# to the last digit
+ANCHORS_6E6O_UTD = [-91.65213123340516, -91.67450124881832,
+                    -91.68654414164386]
+ANCHORS_6E6O_COMPLEX = [-92.69605638258138, -92.70554994398806,
+                        -92.73732758538263]
+# the complex (2e,2o) ansatz to CASSCF (tests/test_custom_complex.py:121's
+# bound)
+TOL_COMPLEX_CASSCF = 1e-7
 TOL_ENERGY = 1e-8
 # published HBM rate of one H100 SXM at its 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -2952,6 +3019,322 @@ def noisy_phase(torch, P):
     check(runs[0] == runs[1], "the same seed gave two trajectories")
 
 
+def rdm_functionals(gamma, Gamma, seed=14):
+    """(||gamma||_F, ||Gamma||_F, sum(M * Gamma)), M standard normal from
+    numpy's default_rng(seed) in Gamma's shape (full_space_anchors.py's
+    functionals)."""
+    g, G = gamma.double().cpu().numpy(), Gamma.double().cpu().numpy()
+    M = np.random.default_rng(seed).standard_normal(G.shape)
+    return [float(np.linalg.norm(g)), float(np.linalg.norm(G)),
+            float(np.sum(M * G))]
+
+
+def _hold_functionals(label, got, ref):
+    diffs = [a - b for a, b in zip(got, ref)]
+    print(f"  {label}: functionals {got} JAX-CPU {ref} diffs "
+          f"{[f'{d:+.2e}' for d in diffs]}")
+    check(all(abs(d) <= TOL_RDM_ANCHOR for d in diffs),
+          f"{label}: functionals {got} != JAX-CPU {ref}")
+
+
+def _spin_sums(gu, Gu, n):
+    """The restricted (gamma, Gamma) of spin-resolved ones (interleaved
+    modes): gamma_pq = sum_s gu[2p+s, 2q+s], Gamma_pqrs = sum_{s,t}
+    Gu[(p,s), (r,t), (s,t), (q,s)]."""
+    import torch
+
+    g = gu[0::2, 0::2] + gu[1::2, 1::2]
+    G = torch.zeros((n,) * 4, dtype=Gu.dtype, device=Gu.device)
+    for a in range(2):
+        for b in range(2):
+            G += Gu[a::2, b::2, b::2, a::2].permute(0, 3, 1, 2)
+    return g, G
+
+
+def _max_diff(pairs):
+    return max(float((a - b).abs().max()) for a, b in pairs)
+
+
+def _synced(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def one_spin_kernel_check(torch, gk, gm, psi_g, label, stats):
+    """gather_rows_scaled on both halves of the one-spin Phi of a grid
+    state against its plain version on the card (1e-15 relative), timed
+    beside its bound (x, tables and Phi once); returns the alpha half's
+    (ms, plain ms, bound ms)."""
+    srcA, sgnA, tB, srcB, sgnB, tA = gm.tables(psi_g)
+    xg = psi_g.reshape(gm.Na, gm.Nb)
+    res = None
+    for half, args in (("alpha", (xg.contiguous(), srcA, sgnA, tB)),
+                       ("beta", (xg.T.contiguous(), srcB, sgnB, tA))):
+        out = gk.gather_rows_scaled(*args)
+        ref = gk.gather_rows_scaled_plain(*args)
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+              f"gather_rows_scaled {label} {half}: shape or values")
+        err = float((out - ref).abs().max())
+        rel = err / max(float(ref.abs().max()), 1e-300)
+        check(rel <= 1e-15, f"gather_rows_scaled {label} {half}: relative "
+              f"error {rel:.3e}")
+        nbytes = _nbytes(*args, out)
+        del out, ref
+        ms = time_ms(lambda: gk.gather_rows_scaled(*args), torch)
+        pms = time_ms(lambda: gk.gather_rows_scaled_plain(*args), torch,
+                      reps=3, rounds=3)
+        st = stats["gather_rows_scaled"]
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        print(f"  gather_rows_scaled {label} {half:5s} x "
+              f"{tuple(args[0].shape)} src {tuple(args[1].shape)} one-spin "
+              f"Phi {nbytes / 1e6:.1f} MB moved: max_abs_err={err:.3e} "
+              f"rel={rel:.3e} kernel={ms:.4f} ms plain={pms:.4f} ms "
+              f"{_share(ms, nbytes)}")
+        if half == "alpha":
+            res = (ms, pms, bound_ms(nbytes))
+        torch.cuda.empty_cache()
+    return res
+
+
+def unrestricted_sector_phase(torch, P, gk, grid, ncas, n_layers, stats):
+    """Spin-resolved RDMs on the sector grid at full width (formaldimine
+    (ncas e, ncas o) np_fabric, theta = 0.07 * arange + 0.1; no molecule
+    needed): gather_rows_scaled on both halves of the one-spin Phi against
+    its plain version; the cross-sector pair maps built on the card; one
+    get_rdms(restricted=False) launching gather_rows_scaled twice and no
+    other kernel, its spin sums equal to get_rdms' restricted RDMs; a
+    complex state (a seeded per-determinant phase) through
+    get_rdms_from_state, restricted (gather_two_spin twice, its real and
+    imaginary parts) and spin-resolved (gather_rows_scaled four times),
+    its spin sums equal to its restricted RDMs; a global phase changes no
+    RDM; the JAX anchors' functionals where RDM_ANCHORS has them.  Returns
+    the launches of each path."""
+    from auto_oo_tpu_torch.ops import fermion
+
+    label = f"({ncas}e,{ncas}o)"
+    tag = f"{ncas}e{ncas}o"
+    t0 = time.perf_counter()
+    pqc = P.Parameterized_circuit(ncas, ncas, ansatz="np_fabric",
+                                  n_layers=n_layers, sector=True)
+    gm = pqc.sector_maps
+    theta = 0.07 * np.arange(pqc.theta_shape) + 0.1
+    psi = pqc.state(theta)
+    torch.cuda.synchronize()
+    print(f"{label} setup and state: {time.perf_counter() - t0:.2f} s "
+          f"(Na={gm.Na} Nb={gm.Nb} n2={gm.n2} D={gm.dim})")
+    res = one_spin_kernel_check(torch, gk, gm, grid.to_grid(psi, gm), tag,
+                                stats)
+    umaps, t_maps = _synced(torch, pqc._umaps)
+    sizes = ", ".join(f"{k} {tuple(v[1].shape)}" for k, v in umaps.items())
+    nbytes = sum(_nbytes(v[1], v[2]) for v in umaps.values())
+    print(f"  pair-annihilation maps built on the card (searchsorted): "
+          f"{t_maps:.3f} s; {sizes}; {nbytes / 1e9:.3f} GB")
+    paths = {}
+    gr, Gr = pqc.get_rdms(theta)
+    pqc.get_rdms(theta, restricted=False)            # warm
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gk.reset_launches()
+    (gu, Gu), t_u = _synced(torch, lambda: pqc.get_rdms(
+        theta, restricted=False))
+    paths[f"{tag}_unrestricted"] = launches = dict(gk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(launches["gather_rows_scaled"] == 2
+          and sum(launches.values()) == 2,
+          f"{label} get_rdms(restricted=False) launches {launches}")
+    gs, Gs = _spin_sums(gu, Gu, ncas)
+    d_sum = _max_diff(((gs, gr), (Gs, Gr)))
+    nm, ne = 2 * ncas, ncas
+    tr1 = float(torch.trace(gu))
+    tr2 = float(torch.einsum("pqqp->", Gu))
+    print(f"  get_rdms(restricted=False): {t_u:.4f} s, "
+          f"{gm.n2}-pair one-spin Phi x 2, peak {peak / 1e9:.3f} GB above "
+          f"the resident; launches {launches}; spin sums - restricted "
+          f"{d_sum:.2e}; tr gamma {tr1:.12f}, sum Gamma_pqqp {tr2:.12f}")
+    check(d_sum <= TOL_SPIN_SUM, f"{label} spin sums differ by {d_sum}")
+    check(abs(tr1 - ne) < 1e-10 and abs(tr2 - ne * (ne - 1)) < 1e-9,
+          f"{label} traces {tr1}, {tr2}")
+    anchors = RDM_ANCHORS.get(tag, {})
+    if anchors:
+        _hold_functionals(f"{label} spin-resolved", rdm_functionals(gu, Gu),
+                          anchors["unrestricted"])
+    # the complex state: the seeded per-determinant phase, canonical order
+    phase = np.exp(1j * np.random.default_rng(10).uniform(0, 2 * np.pi,
+                                                          gm.dim))
+    psi_c = psi * torch.as_tensor(phase, device=psi.device)
+    gk.reset_launches()
+    (grc, Grc), t_rc = _synced(torch, lambda: pqc.get_rdms_from_state(psi_c))
+    paths[f"{tag}_complex"] = lr = dict(gk.LAUNCHES)
+    check(lr["gather_two_spin"] == 2 and sum(lr.values()) == 2,
+          f"{label} complex restricted RDMs launches {lr}")
+    gk.reset_launches()
+    (guc, Guc), t_uc = _synced(torch, lambda: pqc.get_rdms_from_state(
+        psi_c, restricted=False))
+    paths[f"{tag}_unrestricted_complex"] = lu = dict(gk.LAUNCHES)
+    check(lu["gather_rows_scaled"] == 4 and sum(lu.values()) == 4,
+          f"{label} complex spin-resolved RDMs launches {lu}")
+    gsc, Gsc = _spin_sums(guc, Guc, ncas)
+    d_sum_c = _max_diff(((gsc, grc), (Gsc, Grc)))
+    print(f"  complex state: restricted {t_rc:.4f} s (launches {lr}), "
+          f"spin-resolved {t_uc:.4f} s (launches {lu}); spin sums - "
+          f"restricted {d_sum_c:.2e}")
+    check(d_sum_c <= TOL_SPIN_SUM,
+          f"{label} complex spin sums differ by {d_sum_c}")
+    if anchors:
+        _hold_functionals(f"{label} phased, restricted",
+                          rdm_functionals(grc, Grc),
+                          anchors["phased_restricted"])
+        _hold_functionals(f"{label} phased, spin-resolved",
+                          rdm_functionals(guc, Guc),
+                          anchors["phased_unrestricted"])
+    psi_g = psi * np.exp(0.7j)
+    d_phase = _max_diff((
+        *zip(pqc.get_rdms_from_state(psi_g), (gr, Gr)),
+        *zip(pqc.get_rdms_from_state(psi_g, restricted=False), (gu, Gu))))
+    print(f"  psi e^(0.7i) against psi: RDMs differ by {d_phase:.2e}")
+    check(d_phase <= TOL_SPIN_SUM,
+          f"{label} global phase moves the RDMs by {d_phase}")
+    # up-then-down RDMs of a sector state come from the mode permutation
+    gp, Gp = fermion.reorder_unrestricted_rdms(gu, Gu, ncas)
+    gb, Gb = fermion.reorder_unrestricted_rdms(gp, Gp, ncas,
+                                               to_up_then_down=False)
+    check(torch.equal(gb, gu) and torch.equal(Gb, Gu),
+          f"{label} reorder_unrestricted_rdms round trip")
+    check(Gu.shape == (nm,) * 4, f"{label} Gamma shape {tuple(Gu.shape)}")
+    del pqc, umaps, gm
+    torch.cuda.empty_cache()
+    return paths, res
+
+
+def unrestricted_full_phase(torch, P, gk):
+    """Spin-resolved RDMs in the full space: (8e,8o) np_fabric L=2 at
+    theta = 0.07 * arange + 0.1 (D = 65,536, nm^2 = 256: a 134 MB W
+    gather), held to the JAX anchor's functionals and to the restricted
+    RDMs through the spin sums; no grid kernel."""
+    pqc = P.Parameterized_circuit(8, 8, ansatz="np_fabric", n_layers=2)
+    theta = 0.07 * np.arange(pqc.theta_shape) + 0.1
+    gr, Gr = pqc.get_rdms(theta)
+    (gu, Gu), t_first = _synced(torch, lambda: pqc.get_rdms(
+        theta, restricted=False))
+    gk.reset_launches()
+    (gu, Gu), t_u = _synced(torch, lambda: pqc.get_rdms(
+        theta, restricted=False))
+    launches = dict(gk.LAUNCHES)
+    check_no_kernels(launches, "(8e,8o) spin-resolved RDMs")
+    d_sum = _max_diff(zip(_spin_sums(gu, Gu, 8), (gr, Gr)))
+    print(f"  (8e,8o) get_rdms(restricted=False): {t_u:.4f} s ({t_first:.2f}"
+          f" s with the tables' build); spin sums - restricted "
+          f"{d_sum:.2e}")
+    check(d_sum <= TOL_SPIN_SUM, f"(8e,8o) spin sums differ by {d_sum}")
+    _hold_functionals("(8e,8o) spin-resolved", rdm_functionals(gu, Gu),
+                      RDM_ANCHORS["8e8o"]["unrestricted"])
+    return launches
+
+
+def _nr_run(torch, P, gk, label, pqc, theta0, anchors, mol):
+    """3 NR iterations from theta0 with per-iteration host-clock seconds,
+    each energy within 1e-8 Ha of ``anchors``; no grid kernel (the flat
+    route).  Returns the seconds per iteration."""
+    oo = P.OO_pqc(pqc, mol, 6, 6, freeze_active=True)
+    check(oo._core["route"] == "flat", f"{label} route {oo._core['route']}")
+    stamps = []
+
+    class Stamp:
+        def log(self, n, energy, **kw):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    gk.reset_launches()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    energies, *_ = oo.full_optimization(theta0, max_iterations=3,
+                                        monitor=Stamp(), **STEP)
+    check_no_kernels(dict(gk.LAUNCHES), label)
+    iter_s = [b - a for a, b in zip([t_start] + stamps[:-1], stamps)]
+    for i, (e, ref) in enumerate(zip(energies, anchors)):
+        print(f"  {label} iter {i + 1}: E = {e:.14f}  JAX-CPU {ref:.14f}  "
+              f"diff {e - ref:+.3e}  wall {iter_s[i]:.3f} s")
+        check(abs(e - ref) <= TOL_ENERGY,
+              f"{label} iteration {i + 1}: |{e} - {ref}| > {TOL_ENERGY}")
+    check(len(energies) == 3, f"{label}: {len(energies)} iterations")
+    return iter_s
+
+
+def user_states_phase(torch, P, gk):
+    """The user-defined states in the full space (formaldimine sto-3g,
+    freeze_active, built with no device=): the prebuilt (6e,6o) np_fabric
+    L=2 GateProgram read up_then_down=True, 3 NR iterations against CPU
+    JAX; the JAX test's complex (2e,2o) ansatz (UCCD times an
+    occupation-dependent phase) by full_optimization to CASSCF within
+    1e-7; the same construction on the (6e,6o) program, 3 NR iterations
+    against CPU JAX; a real callable wrapping the built-in (6e,6o)
+    program, 3 NR iterations against the built-in trajectory's CPU JAX
+    anchor, timed beside the built-in circuit's own sweeps in the same
+    call.  J, the circuit-Hessian term and the adjoint rows of a callable
+    come from torch.func over it on the card."""
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
+    base = P.Parameterized_circuit(6, 6, ansatz="np_fabric", n_layers=2)
+    prog, nt = base.program, base.theta_shape
+    dev = base.device
+    utd = P.Parameterized_circuit(6, 6, ansatz=prog, up_then_down=True)
+    s_utd = _nr_run(torch, P, gk, "(6e,6o) up_then_down", utd,
+                    utd.init_zeros(), ANCHORS_6E6O_UTD, mol)
+
+    def n0(ncas):
+        idx = np.arange(1 << (2 * ncas))
+        return torch.as_tensor(((idx >> (2 * ncas - 1)) & 1).astype(
+            np.float64), device=dev)
+
+    # the complex (2e,2o) ansatz to CASSCF
+    p22 = P.Parameterized_circuit(2, 2, ansatz="ucc").program
+    n22 = n0(2)
+
+    def complex_2e2o(theta):
+        return p22.apply(theta[:1]).to(torch.complex128) * torch.exp(
+            1j * theta[1] * n22)
+
+    c22 = P.Parameterized_circuit(2, 2, ansatz=complex_2e2o, theta_shape=2)
+    oo22 = P.OO_pqc(c22, mol, 2, 2)
+    (energies, *_), t22 = _synced(torch, lambda: oo22.full_optimization(
+        c22.init_zeros(), conv_tol=1e-12))
+    diff = energies[-1] - E_CASSCF_2E2O
+    print(f"  complex (2e,2o) callable: {len(energies)} iterations in "
+          f"{t22:.2f} s, E = {energies[-1]:.14f}, CASSCF "
+          f"{E_CASSCF_2E2O:.14f}, diff {diff:+.3e}; state dtype "
+          f"{c22.state(c22.init_zeros()).dtype}")
+    check(abs(diff) <= TOL_COMPLEX_CASSCF,
+          f"complex (2e,2o) misses CASSCF by {diff}")
+    n66 = n0(6)
+
+    def complex_6e6o(theta):
+        psi = prog.apply(base._expand_theta(theta[:nt]))
+        return psi.to(torch.complex128) * torch.exp(1j * theta[nt] * n66)
+
+    c66 = P.Parameterized_circuit(6, 6, ansatz=complex_6e6o,
+                                  theta_shape=nt + 1)
+    theta0 = 0.1 * np.random.default_rng(6).standard_normal(nt + 1)
+    s_complex = _nr_run(torch, P, gk, "(6e,6o) complex callable", c66,
+                        theta0, ANCHORS_6E6O_COMPLEX, mol)
+    real = P.Parameterized_circuit(
+        6, 6, ansatz=lambda th: prog.apply(base._expand_theta(th)),
+        theta_shape=nt)
+    s_real = _nr_run(torch, P, gk, "(6e,6o) real callable", real,
+                     real.init_zeros(), ANCHORS_6E6O[:3], mol)
+    s_sweep = _nr_run(torch, P, gk, "(6e,6o) built-in (sweeps)", base,
+                      base.init_zeros(), ANCHORS_6E6O[:3], mol)
+    print(f"  {card_line()}: s/NR-iter (iterations 2-3, mean) up_then_down "
+          f"{statistics.mean(s_utd[1:]):.4f}, complex callable "
+          f"{statistics.mean(s_complex[1:]):.4f}, real callable "
+          f"{statistics.mean(s_real[1:]):.4f} against the built-in "
+          f"sweeps' {statistics.mean(s_sweep[1:]):.4f}")
+
+
 def main():
     import torch
 
@@ -3087,15 +3470,33 @@ def main():
         torch.cuda.empty_cache()
         phase("S^2 at scale: (10e,10o) random state against the host, the "
               "(16e,16o) s2 stage", s2_scale_phase, torch, P, grid, pqc16)
+        del mol16, pqc16
+        torch.cuda.empty_cache()
+        for ncas, n_layers in ((10, 2), (12, 1)):
+            upaths, res = phase(
+                f"({ncas}e,{ncas}o) spin-resolved RDMs on the sector grid",
+                unrestricted_sector_phase, torch, P, gk, grid, ncas,
+                n_layers, stats)
+            paths.update(upaths)
+        # gather_rows_scaled's numbers: the (12e,12o) one-spin Phi (alpha)
+        stats["gather_rows_scaled"].update(ms=res[0], plain_ms=res[1],
+                                           bound_ms=res[2])
+        paths["8e8o_unrestricted"] = phase(
+            "(8e,8o) spin-resolved RDMs, full space",
+            unrestricted_full_phase, torch, P, gk)
+        phase("user-defined states: up_then_down and callable ansatze",
+              user_states_phase, torch, P, gk)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     print(f"all phases: {time.perf_counter() - t_all:.2f} s")
-    # each kernel's main path: the probes' entry point (the probes and
-    # gather_rows_scaled, its variant L), the hosted (16e,16o) iteration,
-    # and (14e,14o) for the row form of gather_reduce, which the hosted
-    # route does not run
-    main_path = {name: ("probes" if name in paths["probes"]
+    # each kernel's main path: the probes' entry point (the probes), the
+    # (12e,12o) spin-resolved RDMs (gather_rows_scaled), the hosted
+    # (16e,16o) iteration, and (14e,14o) for the row form of
+    # gather_reduce, which the hosted route does not run
+    main_path = {name: ("12e12o_unrestricted"
+                        if name == "gather_rows_scaled"
+                        else "probes" if name in paths["probes"]
                         else "14e14o" if name == "gather_reduce"
                         else "16e16o") for name in stats}
     print(json.dumps({"kernels": [

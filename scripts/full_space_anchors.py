@@ -46,6 +46,30 @@ tests/test_berry.py:87-222; ``--perturb`` offsets theta_init):
   berry_2e2o_5          the full-space loop at 5 points, track_steps=4
                         (the CPU parity test's loop)
 
+and the cells of the user-defined states (circuits built from a fixed
+theta or a seeded start; every RDM cell prints the scalar functionals
+||gamma||_F, ||Gamma||_F and sum(M * Gamma) of each RDM pair, M a
+standard normal array from numpy's default_rng(14) of Gamma's shape):
+
+  10e10o_unrestricted  sector=True, np_fabric L=2, theta = 0.07 * arange
+                       + 0.1: the spin-resolved RDMs of the state, and
+                       the restricted and spin-resolved RDMs of the state
+                       times a per-determinant phase exp(i phi), phi from
+                       default_rng(10).uniform(0, 2 pi) in canonical order
+  8e8o_unrestricted    the full space, np_fabric L=2, the same theta: the
+                       spin-resolved RDMs
+  6e6o_utd             the prebuilt (6e,6o) np_fabric L=2 GateProgram read
+                       up_then_down=True, 3 iterations from init_zeros
+  6e6o_complex         the JAX test's complex construction
+                       (tests/test_custom_complex.py:94-117) on the (6e,6o)
+                       np_fabric L=2 program: psi(theta[:n]) *
+                       exp(i theta[n] n_0), n_0 the occupation of mode 0,
+                       3 iterations from theta0 = 0.1 * default_rng(6)
+                       standard normal
+  6e6o_callable        a real callable wrapping the built-in (6e,6o)
+                       np_fabric L=2 program, 3 iterations from init_zeros
+                       (the 6e6o cell's first iterations)
+
 Each cell prints one JSON line: the energy after every iteration (for
 the Adam cells, the energy at every step before its update), the lowest
 Hessian eigenvalues (Newton cells), n_theta, n_kappa, D and, for the
@@ -122,6 +146,88 @@ BERRY_CELLS = {
 }
 
 
+def rdm_functionals(gamma, Gamma, seed=14):
+    """(||gamma||_F, ||Gamma||_F, sum(M * Gamma)) with M standard normal
+    from default_rng(seed) in Gamma's shape."""
+    gamma, Gamma = np.asarray(gamma), np.asarray(Gamma)
+    M = np.random.default_rng(seed).standard_normal(Gamma.shape)
+    return [float(np.linalg.norm(gamma)), float(np.linalg.norm(Gamma)),
+            float(np.sum(M * Gamma))]
+
+
+def fixed_theta(n):
+    """The fixed circuit parameters of the RDM cells."""
+    return 0.07 * np.arange(n) + 0.1
+
+
+def determinant_phase(D, seed=10):
+    """exp(i phi) per determinant, phi from default_rng(seed)."""
+    return np.exp(1j * np.random.default_rng(seed).uniform(0, 2 * np.pi, D))
+
+
+def callable_6e6o(kind):
+    """(callable, theta_shape) of the 6e6o callable cells: the built-in
+    (6e,6o) np_fabric L=2 program applied to its expanded parameters,
+    real ("real") or times exp(i theta[n] n_0) ("complex")."""
+    import jax.numpy as jnp
+
+    base = Parameterized_circuit(6, 6, ansatz="np_fabric", n_layers=2)
+    prog, nt = base.program, int(base.theta_shape)
+    if kind == "real":
+        return (lambda th: prog.apply(base._expand_theta(th))), nt
+    nm = 12
+    idx = np.arange(1 << nm)
+    nvec = jnp.asarray(((idx >> (nm - 1)) & 1).astype(np.float64))
+
+    def fn(th):
+        psi = prog.apply(base._expand_theta(th[:nt]))
+        return psi.astype(jnp.complex128) * jnp.exp(1j * th[nt] * nvec)
+    return fn, nt + 1
+
+
+def run_user_states(name):
+    import jax.numpy as jnp
+
+    if name in ("10e10o_unrestricted", "8e8o_unrestricted"):
+        ncas = 10 if name.startswith("10e") else 8
+        pqc = Parameterized_circuit(ncas, ncas, ansatz="np_fabric",
+                                    n_layers=2, sector=ncas == 10)
+        theta = jnp.asarray(fixed_theta(int(pqc.theta_shape)))
+        psi = np.asarray(pqc.state(theta))
+        out = dict(cell=name, D=int(psi.size), n_theta=int(pqc.theta_shape),
+                   unrestricted=rdm_functionals(
+                       *pqc.get_rdms_from_state(jnp.asarray(psi),
+                                                restricted=False)))
+        if ncas == 10:
+            psi_c = jnp.asarray(psi * determinant_phase(psi.size))
+            out["phased_restricted"] = rdm_functionals(
+                *pqc.get_rdms_from_state(psi_c))
+            out["phased_unrestricted"] = rdm_functionals(
+                *pqc.get_rdms_from_state(psi_c, restricted=False))
+        return out
+    mol = aoo.Moldata(aoo.get_formal_geo(140, 80), "sto-3g")
+    if name == "6e6o_utd":
+        prog = Parameterized_circuit(6, 6, ansatz="np_fabric",
+                                     n_layers=2).program
+        pqc = Parameterized_circuit(6, 6, ansatz=prog, up_then_down=True)
+        theta0 = pqc.init_zeros()
+    else:
+        fn, n = callable_6e6o("complex" if name == "6e6o_complex"
+                              else "real")
+        pqc = Parameterized_circuit(6, 6, ansatz=fn, theta_shape=n)
+        theta0 = (jnp.asarray(0.1 * np.random.default_rng(6)
+                              .standard_normal(n))
+                  if name == "6e6o_complex" else pqc.init_zeros())
+    oo = OO_pqc(pqc, mol, 6, 6, freeze_active=True)
+    energies, _, _, _, eigs = oo.full_optimization(theta0, max_iterations=3)
+    return dict(cell=name, energies=energies, lowest_hess_eig=eigs,
+                n_theta=int(pqc.theta_shape), n_kappa=int(oo.n_kappa))
+
+
+USER_STATE_CELLS = ("10e10o_unrestricted", "8e8o_unrestricted",
+                    "6e6o_utd", "6e6o_complex", "6e6o_callable")
+
+
 def loop_geometries(points):
     """The loop of origin (130, 89.9) deg and radius 10 deg around the
     formaldimine conical intersection, ``points`` geometries with the
@@ -158,6 +264,8 @@ def run_berry(name, perturb=0.0):
 def run(name, perturb=0.0):
     if name in BERRY_CELLS:
         return run_berry(name, perturb)
+    if name in USER_STATE_CELLS:
+        return run_user_states(name)
     c = CELLS[name]
     mol = aoo.Moldata(aoo.get_formal_geo(140, 80), "sto-3g",
                       **c.get("mol", {}))
@@ -189,7 +297,8 @@ def main(argv):
         i = argv.index("--perturb")
         perturb = float(argv[i + 1])
         argv = argv[:i] + argv[i + 2:]
-    for name in argv or list(CELLS) + list(BERRY_CELLS):
+    for name in argv or (list(CELLS) + list(BERRY_CELLS)
+                         + list(USER_STATE_CELLS)):
         print(json.dumps(run(name, perturb)), flush=True)
 
 

@@ -17,7 +17,11 @@ hosted core against the per-tangent one), the gradient-only pipeline
 on the card against the CPU), the Berry workflow (the Thouless transfer
 and a sector loop, launching the fused kernels), the grid S^-, the
 iterative Newton solver and the noisy optimizer's CUDA generator on the
-card against the CPU, and failed builds and launches that raise.  This
+card against the CPU, the user-defined states (one spin component of
+Phi through ``gather_rows_scaled``, complex grid states through both Phi
+kernels, spin-resolved sector RDMs and a complex callable's Newton core
+on the card against the CPU), and failed builds and launches that
+raise.  This
 file imports neither jax nor the JAX package, so it also runs where jax
 is not installed;
 tests/conftest.py imports jax, so run it on the card with
@@ -1009,6 +1013,60 @@ def test_cuda_s2_grid_matches_cpu(cuda_device):
     theta = 0.3 * _rand(pqcs[0].theta_shape, 6)
     a, b = (float(p.s2_expectation(theta)) for p in pqcs)
     assert abs(a - b) < 1e-13
+
+
+@pytest.mark.cuda
+def test_cuda_user_states_match_cpu(cuda_device):
+    """One spin component of Phi launches gather_rows_scaled once (twice
+    for a complex state, its real and imaginary parts) and a complex Phi
+    gather_two_spin twice, equal to the CPU; the spin-resolved RDMs of a
+    sector circuit and of its phased (complex) state, and a complex
+    callable's grad_hess, on the card equal the CPU's."""
+    pm_c = grid.build_grid_maps(4, (2, 1), device="cpu")
+    pm_g = grid.build_grid_maps(4, (2, 1), device=cuda_device)
+    x = _rand((2, pm_c.dim), 31) + 1j * _rand((2, pm_c.dim), 32)
+    for xs, n in ((x.real.contiguous(), 1), (x, 2)):
+        for spin in (0, 1, None):
+            name = "gather_two_spin" if spin is None else "gather_rows_scaled"
+            before = dict(gk.LAUNCHES)
+            out = grid.phi_all(xs.to(cuda_device), pm_g, spin=spin)
+            torch.cuda.synchronize()
+            assert gk.LAUNCHES[name] == before[name] + n
+            assert sum(gk.LAUNCHES.values()) == sum(before.values()) + n
+            np.testing.assert_allclose(out.cpu(),
+                                       grid.phi_all(xs, pm_c, spin=spin),
+                                       rtol=0, atol=1e-15)
+    theta = 0.07 * np.arange(P.Parameterized_circuit(
+        4, 4, ansatz="np_fabric", n_layers=1, sector=True,
+        device="cpu").theta_shape) + 0.1
+    res = []
+    for dev in ("cpu", cuda_device):
+        pqc = P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=1,
+                                      sector=True, device=dev)
+        psi = pqc.state(theta)
+        phase = torch.exp(1j * _rand(psi.shape[0], 33)).to(dev)
+        res.append([t.cpu() for t in (
+            *pqc.get_rdms(theta, restricted=False),
+            *pqc.get_rdms_from_state(psi * phase),
+            *pqc.get_rdms_from_state(psi * phase, restricted=False))])
+    for a, b in zip(*res):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-13)
+    mol = P.Moldata(P.get_formal_geo(140, 80), "sto-3g")
+    out = []
+    for dev in ("cpu", cuda_device):
+        base = P.Parameterized_circuit(2, 2, ansatz="ucc", device=dev).program
+        n0 = torch.tensor([0.0] * 8 + [1.0] * 8, dtype=torch.float64,
+                          device=dev)
+
+        def fn(th, base=base, n0=n0):
+            return base.apply(th[:1]).to(torch.complex128) * torch.exp(
+                1j * th[1] * n0)
+        pqc = P.Parameterized_circuit(2, 2, ansatz=fn, theta_shape=2,
+                                      device=dev)
+        oo = P.OO_pqc(pqc, mol, 2, 2)
+        out.append([t.cpu() for t in oo._grad_hess([0.3, 0.7])])
+    for a, b in zip(*out):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-11)
 
 
 @pytest.mark.cuda

@@ -419,8 +419,8 @@ def test_draw_circuit_and_dirac_notation_match(circuits, name):
 
 def test_flat_api_and_refusals(circuits):
     """uccd_circuit / gatefabric_circuit equal the JAX flat API; the
-    full-space OO_pqc takes the flat route; what the port does not run
-    yet raises."""
+    full-space OO_pqc takes the flat route; the constructor's rules and
+    the spin-resolved RDMs are the JAX package's."""
     theta = [0.4217]
     np.testing.assert_allclose(
         P.uccd_circuit(theta, 2, 2).numpy(),
@@ -436,12 +436,21 @@ def test_flat_api_and_refusals(circuits):
     np.testing.assert_array_equal(pqc.qnode(theta).numpy(),
                                   pqc.state(theta).numpy())
     assert pqc.grid_program is None and pqc.sector_maps is None
-    with pytest.raises(NotImplementedError, match="callable"):
-        P.Parameterized_circuit(2, 2, ansatz=lambda th: th, theta_shape=1)
-    with pytest.raises(NotImplementedError, match="up_then_down"):
-        P.Parameterized_circuit(2, 2, up_then_down=True)
-    with pytest.raises(NotImplementedError, match="unrestricted"):
-        pqc.get_rdms(theta, restricted=False)
+    # what the port once refused, as the JAX package does it: a callable
+    # constructs, up_then_down with a built-in ansatz raises its
+    # ValueError, and the spin-resolved RDMs equal its values
+    for pkg in (JPC, P.Parameterized_circuit):
+        assert pkg(2, 2, ansatz=lambda th: th, theta_shape=1).theta_shape \
+            == 1
+        with pytest.raises(ValueError, match="interleaved ordering"):
+            pkg(2, 2, up_then_down=True)
+    gj, Gj = circuits("ucc_2e2o")[0].get_rdms(jnp.asarray(theta),
+                                              restricted=False)
+    gp, Gp = pqc.get_rdms(theta, restricted=False)
+    np.testing.assert_allclose(gp.numpy(), np.asarray(gj), rtol=0,
+                               atol=1e-13)
+    np.testing.assert_allclose(Gp.numpy(), np.asarray(Gj), rtol=0,
+                               atol=1e-13)
     with pytest.raises(ValueError, match="full 4\\^2 space"):
         pqc.get_rdms_from_state(torch.zeros(6, dtype=torch.float64))
     with pytest.raises(ValueError, match="4\\^3"):

@@ -301,7 +301,8 @@ def test_import_without_jax():
             "from auto_oo_tpu_torch.utils import (checkpoint, interop, "
             "observe)\n"
             "from auto_oo_tpu_torch.models import berry, noisy_oo_pqc\n"
-            "from auto_oo_tpu_torch.simulator import sector\n"
+            "from auto_oo_tpu_torch.simulator import custom, sector\n"
+            "from auto_oo_tpu_torch.ops import spin_embed\n"
             "from auto_oo_tpu_torch.scripts import (demo_14e14o, "
             "lanczos_parking, tutorial_berry_phase)\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None "

@@ -144,15 +144,36 @@ def test_pair_gates_match(builder, kw, sector):
 
 
 def test_unported_routes_raise():
-    full = P.Parameterized_circuit(2, 2, ansatz="ucc")      # full space
-    with pytest.raises(NotImplementedError):
-        full.get_rdms(full.init_zeros(), restricted=False)
-    with pytest.raises(NotImplementedError):
-        P.Parameterized_circuit(2, 2, ansatz="ucc", sector=True,
-                                up_then_down=True)
-    with pytest.raises(NotImplementedError):
-        P.Parameterized_circuit(2, 2, ansatz=lambda th: th, sector=True,
-                                theta_shape=1)
-    pp = P.Parameterized_circuit(2, 2, ansatz="ucc", sector=True)
-    with pytest.raises(NotImplementedError):
-        pp.get_rdms(pp.init_zeros(), restricted=False)
+    """The routes the port once refused now do what the JAX package
+    does: the spin-resolved RDMs equal its values (full space and
+    sector), and up_then_down with sector=True or a callable with
+    sector=True raise its ValueErrors; the two refusals that are the JAX
+    package's own (the grid gates' up_then_down and the unrestricted CAS
+    Hamiltonian) stay NotImplementedError in both packages."""
+    from auto_oo_tpu.models import fermionic_cas_hamiltonian as jcas
+    from auto_oo_tpu.simulator import grid_gates as jgg
+    from auto_oo_tpu_torch.simulator import grid_gates as pgg
+    for sector in (False, True):
+        theta = np.array([0.37])
+        jp = JPC(2, 2, ansatz="ucc", sector=sector)
+        pp = P.Parameterized_circuit(2, 2, ansatz="ucc", sector=sector)
+        gj, Gj = jp.get_rdms(jnp.asarray(theta), restricted=False)
+        gp, Gp = pp.get_rdms(theta, restricted=False)
+        np.testing.assert_allclose(gp.numpy(), np.asarray(gj), rtol=0,
+                                   atol=1e-13)
+        np.testing.assert_allclose(Gp.numpy(), np.asarray(Gj), rtol=0,
+                                   atol=1e-13)
+    for pkg in (JPC, P.Parameterized_circuit):
+        with pytest.raises(ValueError, match="interleaved"):
+            pkg(2, 2, ansatz="ucc", sector=True, up_then_down=True)
+        with pytest.raises(ValueError, match="compiled GateProgram"):
+            pkg(2, 2, ansatz=lambda th: th, sector=True, theta_shape=1)
+    for gg in (jgg, pgg):
+        with pytest.raises(NotImplementedError, match="interleaved"):
+            gg.build_direct(2, 2, "ucc", up_then_down=True)
+    c1, c2 = np.eye(2), np.zeros((2, 2, 2, 2))
+    for cas in (jcas, P.fermionic_cas_hamiltonian):
+        with pytest.raises(NotImplementedError, match="restricted"):
+            cas(0.0, c1, c2, restricted=False)
+        with pytest.raises(NotImplementedError, match="restricted"):
+            cas(0.0, c1, c2, up_then_down=True)
