@@ -17,7 +17,10 @@ csrc/grid_gather.cu).  The Berry-phase workflow (``BerryPhaseLoop``: tracking ar
 geometry loop, the Thouless state transfer on the card), the noisy
 optimizer (``Noisy_OO_pqc``), the spin diagnostics
 (``Parameterized_circuit.s2_expectation``), ``utils.observe.Monitor``
-and ``utils.checkpoint`` run as in the JAX package.  The row-gather
+and ``utils.checkpoint`` run as in the JAX package, and so do the
+geometry batches (``parallel.GeometryBatch``,
+``BerryPhaseLoop.run_batched``) and the on-device Newton loop
+(``full_optimization(device_loop=True)``), on one card.  The row-gather
 mechanism probes
 (ops/gather_mechanisms.py, csrc/gather_mechanisms.cu) run from their own
 entry point,

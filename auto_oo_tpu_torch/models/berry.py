@@ -22,8 +22,8 @@ The scipy ``expm_multiply`` route over the 4^ncas space is kept as the
 host oracle, ``transfer_state_host``.
 
 ``BerryPhaseLoop.run`` tracks with ``OO_pqc._nr_iteration``, the port's
-one damped-Newton iteration; ``run_batched`` (all geometries in
-lockstep) needs the parallel engines and raises.
+one damped-Newton iteration; ``run_batched`` tracks every further
+geometry at once, in lockstep, through ``parallel.GeometryBatch``.
 """
 
 import numpy as np
@@ -290,13 +290,54 @@ class BerryPhaseLoop:
                 print(f"Energy at step {step}: {energy:.10f}")
         return self
 
-    def run_batched(self, *args, **kwargs):
-        """All loop geometries tracked in lockstep (the JAX package's
-        GeometryBatch): needs the parallel engines, ROADMAP queue 1
-        item 8."""
-        raise NotImplementedError(
-            "BerryPhaseLoop.run_batched needs the parallel engines "
-            "(GeometryBatch), ROADMAP queue 1 item 8; use run()")
+    def run_batched(self, theta_init=None, conv_tol=1e-10,
+                    max_iterations=50, track_steps=4, verbose=0, mesh=None):
+        """Adiabatic tracking with all loop geometries advancing together
+        (the JAX package's run_batched, auto_oo_tpu/models/berry.py:
+        303-363): a full optimization at point 0, then every further
+        geometry warm-starts from the point-0 solution and takes
+        ``track_steps`` batched damped-Newton steps in lockstep
+        (``GeometryBatch.optimize``), the geometries as lanes of one
+        batched step.  Unlike ``run`` (each geometry from its
+        predecessor, one step each), every geometry starts from point 0,
+        so a dense loop needs a few more steps per geometry, all of them
+        run at once.  ``mesh`` is GeometryBatch's (not None raises
+        NotImplementedError)."""
+        from ..parallel.sharding import GeometryBatch
+
+        mol0 = Moldata(self.geometries[0], self.basis)
+        oo0 = self._oo(mol0)
+        self.act_idx = oo0.act_idx
+        theta0 = (self.pqc.init_zeros() if theta_init is None
+                  else torch.as_tensor(theta_init, dtype=DTYPE,
+                                       device=self.pqc.device))
+        energy_l, theta_l, _, oao_l, hess_eig_l = oo0.full_optimization(
+            theta0, max_iterations=max_iterations, conv_tol=conv_tol,
+            verbose=verbose, **self.newton_kwargs)
+        theta, oao = theta_l[-1], oao_l[-1]
+        self.theta_l = [theta]
+        self.oao_mo_coeff_l = [oao]
+        self.energy_l = [energy_l[-1]]
+        self.hess_eig_l = [hess_eig_l[-1]]
+        self.casscf_energy_l = []
+        self._casscf(mol0)
+
+        mols = [Moldata(g, self.basis) for g in self.geometries[1:]]
+        batch = GeometryBatch(mols, self.ncas, self.nelecas, self.pqc,
+                              mesh=mesh, freeze_active=self.freeze_active)
+        hist, thetas, oaos, lowests = batch.optimize(
+            theta, oao_mo0=oao, n_steps=max(1, int(track_steps)))
+        energies, lowest_l = hist[-1].tolist(), lowests.tolist()
+        for i, mol in enumerate(mols):
+            self.theta_l.append(thetas[i])
+            self.oao_mo_coeff_l.append(oaos[i])
+            self.energy_l.append(energies[i])
+            self.hess_eig_l.append(lowest_l[i])
+            self._casscf(mol)
+        if verbose:
+            print("batched tracking energies:",
+                  [f"{e:.8f}" for e in self.energy_l[1:]])
+        return self
 
     def states(self):
         """Circuit statevectors along the loop, in canonical order

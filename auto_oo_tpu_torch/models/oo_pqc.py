@@ -20,7 +20,24 @@ block:
 ``grad_hess``, then the augmented solve (eigh, or with
 ``newton_method="iterative"`` the eigh-free ``ops/linalg.
 newton_dir_iterative``), an Armijo line search with one scalar sync per
-trial, and the fold of kappa into the OAO coefficients.
+trial, and the fold of kappa into the OAO coefficients.  With
+``device_loop=True`` (the JAX package's ``full_opt_loop``) the same
+iterations run with no host read in their body: all lmax Armijo trials
+in one batched energy call, the first accepted one picked on the
+device, the convergence flag read once every ``_CHECK_EVERY``
+iterations, the trajectory in device buffers fetched once.
+
+The core has batched forms (``energy_batch``, ``grad_hess_batch``,
+``newton_update_batch``, ``nr_iteration_batch``) over a leading lane
+axis, on the routes of the JAX GeometryBatch program ("flat", "fused",
+"staged"): the geometries of ``parallel.GeometryBatch``, the trials of
+a line search, the one run of a device loop.  Every lane has its own
+integrals, OAO coefficients and parameters; one sweep carries all lanes,
+the grid kernels take several lanes in one launch, and the contractions
+over the state axis and the orbital algebra run per lane on one lane's
+shapes.  The f64 ``grad_hess`` on these routes is ``grad_hess_batch``
+of one lane, so a lane's step is the sequential one up to the batch
+sizes of the sweeps and the folded launches.
 
 A full-space circuit (``sector=False``) takes the "flat" route: the same
 ``grad_hess`` on the flat gate program and the flat E_pq maps, in the
@@ -68,8 +85,7 @@ the passes over Phi run on the float32 state, so e0 and the gradient
 carry float32-level error there, and the Armijo comparison takes the
 JAX package's hosted-mixed slack.  Float32 matmuls run at full float32
 precision (config.py); the sums over the state axis are
-``linalg.gram_last``'s.  A later PR of the port brings
-``device_loop=True``, which raises NotImplementedError here.
+``linalg.gram_last``'s.
 
 The gradient-only pipeline (``energy_and_gradient``,
 ``gradient_optimization``) is the JAX package's first-order OO-VQE for
@@ -96,7 +112,10 @@ from ..ops import rdms as _rdms
 from ..ops import transforms as _tr
 from ..ops.linalg import expm, gram_last
 from ..utils import optim as _optim
-from ..utils.newton_raphson import damped_newton_step_pure
+from ..utils.misc import index_tensor
+from ..utils.newton_raphson import (backtracking_batched,
+                                    damped_newton_step_pure,
+                                    newton_step_pure)
 from .oo_energy import OO_energy
 
 # from this sector dimension on the JAX package runs its staged pipeline
@@ -113,6 +132,19 @@ _CHUNK_ELEMENTS = 1 << 25
 _HOSTED_RESIDENT_VECTORS = 10
 
 _PRECISIONS = ("f64", "mixed")
+
+# the routes with a geometry batch (the JAX GeometryBatch program's); on
+# the streamed and hosted routes one Phi already exceeds its block per
+# geometry
+_BATCH_ROUTES = ("flat", "fused", "staged")
+
+# the trials of one Armijo search (the JAX package's lmax)
+_LMAX = 20
+
+# the device loop reads its convergence flag once every this many
+# iterations; the iterations run past convergence inside a window repeat
+# the converged one and are thrown away
+_CHECK_EVERY = 4
 _HOSTED_FORMS = ("gram", "per_tangent")
 
 # the Armijo slack of the hosted mixed route, relative to max(1, |e0|):
@@ -255,6 +287,10 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
                   f"{n2} pairs{lp_rows}{budget}", flush=True)
 
     def k2m(kappa):
+        if kappa.dim() > 1:
+            total = kappa.new_zeros(kappa.shape[:-1] + (tril_size,))
+            total = total.index_copy(-1, params_idx_dev, kappa)
+            return _kappa.vector_to_skew_symmetric(total, nao)
         total = torch.zeros(tril_size, dtype=kappa.dtype,
                             device=kappa.device)
         total = total.index_put((params_idx_dev,), kappa)
@@ -262,13 +298,13 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
 
     # the energy needs integrals with ALL indices in occ+act, so the
     # 4-index transform runs with the (nao, ns) sub-coefficients
-    sub = np.asarray(tuple(occ) + tuple(act), dtype=np.int64)
+    sub = index_tensor(tuple(occ) + tuple(act), pqc.device)
     occ_rel = tuple(range(len(occ)))
-    act_rel = tuple(range(len(occ), len(sub)))
+    act_rel = tuple(range(len(occ), len(occ) + len(act)))
 
     def energy(theta, kappa, oao, int1e_ao, int2e_ao, oao_coeff, nuc):
         mo = oao_coeff @ oao @ expm(-k2m(kappa))
-        mo_sub = mo[:, sub]
+        mo_sub = mo.index_select(-1, sub)
         h1 = _tr.int1e_transform(int1e_ao, mo_sub)
         g2 = _tr.int2e_transform(int2e_ao, mo_sub)
         c0, c1, c2 = _tr.molecular_hamiltonian_coefficients(
@@ -283,6 +319,13 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
             one_rdm, two_rdm = _rdms.rdms_from_state(
                 psi, ncas, maps, grid_order=True, plan=plan)
         return _tr.energy_from_rdms(c0, c1, c2, one_rdm, two_rdm)
+
+    def _grid_or_flat_sum(Y):
+        """sum_pq E_pq Y[..., pq, :] over the route's maps (``ham_apply``'s
+        reduction)."""
+        if isinstance(maps, _rdms.FlatMaps):
+            return _rdms.epq_sum_flat(Y, maps)
+        return _grid.epq_sum(Y, maps)
 
     def pack_grad(h1, g2, g1, G2):
         """Packed analytic orbital gradient; batch dims of the RDMs are
@@ -301,12 +344,13 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
                   - torch.einsum("qr,ips->ipqrs", delta, dgamma))
         return dgamma, dGamma
 
-    def transition_rdms(phi, psi, Jc):
+    def transition_rdms(phi, psi, Jc, phiJ=None):
         """d(gamma, Gamma)/d theta_i for a chunk of tangents Jc, by the
         product rule on the Phi gram of psi; on the streamed route (no
         phi) one tangent at a time through grid.transition_rdms_rows (the
         JAX package's _row_streamed).  The grams run in the operands'
-        dtype (f32 in mixed mode); the blocks are f64.  A complex state's
+        dtype (f32 in mixed mode); the blocks are f64.  ``phiJ``, the Phi
+        of Jc, is built here unless given.  A complex state's
         bra sides are conjugated and the real parts taken
         (auto_oo_tpu/models/oo_pqc.py:331-345)."""
         if phi is None:
@@ -316,7 +360,8 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
             dgamma = torch.stack([r[0] for r in rows])
             dgram = torch.stack([r[1] for r in rows])
         else:
-            phiJ = _rdms.apply_epq_all(Jc, ncas, maps)   # (c, n^2, D)
+            if phiJ is None:
+                phiJ = _rdms.apply_epq_all(Jc, ncas, maps)   # (c, n^2, D)
             # d corr[a,b] = Re <dphi_a|phi_b> + Re <phi_a|dphi_b>
             A = gram_last(phiJ.conj(), phi).real
             dgram = A + A.transpose(1, 2)
@@ -491,7 +536,16 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
         on a sector, canonical in the full space.  Every inner product
         conjugates its bra side and takes the real part, so a complex
         state (a callable ansatz's) is exact; both are no-ops on the real
-        states of the gate programs."""
+        states of the gate programs.
+
+        In float64 on the flat, fused and staged routes this is
+        ``grad_hess_batch`` of one lane; the body below runs the streamed
+        route and mixed precision, the hosted route its own forms."""
+        if route in _BATCH_ROUTES and not mixed:
+            e0, grad, hess = grad_hess_batch(
+                theta[None], oao[None], int1e_ao[None], int2e_ao[None],
+                oao_coeff[None], (nuc,))
+            return e0[0], grad[0], hess[0]
         h1, g2, c0, c1eff, c2 = coefficients(oao, int1e_ao, int2e_ao,
                                              oao_coeff, nuc)
         if hosted:
@@ -602,9 +656,216 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
                              e0, grad, hess, alpha, beta, mu, rho,
                              lambda_min)
 
+    # -- the batched core: a leading lane axis (the geometries of a
+    # GeometryBatch, the trials of a line search, the one run of a device
+    # loop), on the routes of the JAX GeometryBatch program.  Every lane
+    # has its own integrals, OAO coefficients and parameters.  One sweep
+    # carries every lane, and the Phi builds and E_pq reductions of several
+    # lanes fold into one launch of the grid kernels (within the tangent
+    # chunks' budget); every contraction over the state axis and the
+    # orbital algebra run per lane on one lane's shapes, so that a lane's
+    # Newton step is the one-lane (sequential) one: the card's GEMMs sum
+    # in an order that depends on their shapes
+
+    def batch_route():
+        if route not in _BATCH_ROUTES:
+            raise ValueError(
+                f"the {route} route has no geometry batch: one (n^2, D) "
+                f"Phi already exceeds its block per geometry (D = {D}); "
+                f"the batched core runs on the {', '.join(_BATCH_ROUTES)} "
+                "routes")
+
+    def rotations(kappas):
+        """expm(-kappa) of a stack (L, n_kappa): (L, nao, nao)."""
+        return expm(-k2m(kappas))
+
+    def folds(n_rows):
+        """[lo, hi) row ranges of the folded kernel launches over n_rows
+        states: as many as one (rows, n^2, D) Phi within the tangent
+        chunks' budget holds (one at least)."""
+        per = max(1, _CHUNK_ELEMENTS // max(1, n2 * D))
+        return [(lo, min(n_rows, lo + per)) for lo in range(0, n_rows, per)]
+
+    def energy_rot(thetas, R, oaos, int1e_ao, int2e_ao, oao_coeff, nuc):
+        """E of L lanes (the JAX GeometryBatch's energy_one, vmapped) with
+        their orbital rotations R (L, nao, nao) = expm(-kappa) given; the
+        RDMs of the f64 state, as ``energy`` takes them on these
+        routes."""
+        batch_route()
+        mo = oao_coeff @ oaos @ R
+        mo_sub = mo.index_select(-1, sub)
+        h1 = _tr.int1e_transform(int1e_ao, mo_sub)
+        g2 = _tr.int2e_transform(int2e_ao, mo_sub)
+        c0, c1, c2 = _tr.molecular_hamiltonian_coefficients(
+            nuc, h1, g2, occ_rel, act_rel)
+        psi = pqc._state_impl_grid(thetas)
+        rdms = []
+        for lo, hi in folds(psi.shape[0]):
+            phi = _rdms.apply_epq_all(psi[lo:hi], ncas, maps)
+            rdms += [_rdms.rdms_from_gram(phi[i], psi[lo + i], ncas)
+                     for i in range(hi - lo)]
+        return _tr.energy_from_rdms(c0, c1, c2,
+                                    torch.stack([r[0] for r in rdms]),
+                                    torch.stack([r[1] for r in rdms]))
+
+    def energy_batch(thetas, kappas, oaos, int1e_ao, int2e_ao, oao_coeff,
+                     nuc):
+        """E(theta_i, kappa_i) of every lane: (L,)."""
+        return energy_rot(thetas, rotations(kappas), oaos, int1e_ao,
+                          int2e_ao, oao_coeff, nuc)
+
+    def ham_y(c1eff, c2, x, phi):
+        """``ham_apply``'s Y = C2 Phi + c1eff x of a (rows, D) x whose
+        (rows, n^2, D) Phi is given (a slice of a folded build): the
+        matmul of ``ham_apply`` on the same shapes, the c1eff term added
+        in place, so that Y is the one (rows, n^2, D) buffer it
+        allocates."""
+        Y = torch.matmul(c2.reshape(n2, n2).to(x.dtype), phi)
+        return Y.addcmul_(c1eff.reshape(n2).to(x.dtype)[None, :, None],
+                          x[:, None])
+
+    def stack_rows(Ys):
+        return Ys[0] if len(Ys) == 1 else torch.cat(Ys)
+
+    def grad_hess_batch(thetas, oaos, int1e_ao, int2e_ao, oao_coeff, nuc):
+        """``grad_hess`` of B lanes at once, f64: (e0 (B,), grad (B, n),
+        hess (B, n, n)); ``nuc`` is any length-B sequence.  One forward
+        sweep gives every lane's (psi, J) and one reverse sweep every
+        circuit-Hessian term; psi's Phi and the H-applies of psi and of
+        the tangent chunks (per lane, of at most ``_CHUNK_ELEMENTS`` Phi
+        elements) fold several lanes into one kernel launch, psi's Phi
+        serves its H-apply and its RDMs, and each tangent chunk's Phi its
+        H-apply and its transition RDMs."""
+        batch_route()
+        if mixed:
+            raise ValueError("the batched core runs in f64 (the JAX "
+                             "GeometryBatch program's precision)")
+        B = thetas.shape[0]
+        coefs = [coefficients(oaos[b], int1e_ao[b], int2e_ao[b],
+                              oao_coeff[b], nuc[b]) for b in range(B)]
+        with parts("state + J sweep"):
+            # (B, D), (B, nt, D)
+            psi, J = pqc._state_and_jacobian_grid(thetas)
+        chunk = max(1, min(nt, _CHUNK_ELEMENTS // max(1, n2 * D)))
+        # (lane, first, last tangent) of the tangent chunks, lane by lane;
+        # consecutive chunks are consecutive rows of the flat (B nt, D) J
+        units = [(b, t0, min(nt, t0 + chunk)) for b in range(B)
+                 for t0 in range(0, nt, chunk)]
+        per = max(1, _CHUNK_ELEMENTS // max(1, chunk * n2 * D))
+        Jf = J.reshape(B * nt, D)
+        Hpsi = torch.empty_like(psi)
+        HJf = torch.empty_like(Jf)
+        rdms, trdms = [None] * B, [[] for _ in range(B)]
+        with parts("Phi folds (H psi, H J, RDMs, transition RDMs)"):
+            for lo, hi in folds(B):
+                phi = _rdms.apply_epq_all(psi[lo:hi], ncas, maps)
+                Y = stack_rows([ham_y(coefs[b][3], coefs[b][4],
+                                      psi[b][None], phi[b - lo:b - lo + 1])
+                                for b in range(lo, hi)])
+                Hpsi[lo:hi] = _grid_or_flat_sum(Y)
+                del Y
+                for b in range(lo, hi):
+                    rdms[b] = _rdms.rdms_from_gram(phi[b - lo], psi[b], ncas)
+                # these lanes' tangent chunks, whole chunks per folded
+                # launch; each chunk's Phi serves its transition RDMs and
+                # its H-apply, and goes (with its Y) before the next build:
+                # psi's Phi, one chunk's Phi and its Y at most
+                mine = [u for u in units if lo <= u[0] < hi]
+                for u0 in range(0, len(mine), per):
+                    group = mine[u0:u0 + per]
+                    r0 = group[0][0] * nt + group[0][1]
+                    r1 = group[-1][0] * nt + group[-1][2]
+                    phiJ = _rdms.apply_epq_all(Jf[r0:r1], ncas, maps)
+                    Ys = []
+                    for b, t0, t1 in group:
+                        Jc = J[b, t0:t1]
+                        pj = phiJ[b * nt + t0 - r0:b * nt + t1 - r0]
+                        if n_kappa:
+                            trdms[b].append(transition_rdms(
+                                phi[b - lo], psi[b], Jc, phiJ=pj))
+                        Ys.append(ham_y(coefs[b][3], coefs[b][4], Jc, pj))
+                    del phiJ, pj
+                    Y = stack_rows(Ys)
+                    del Ys
+                    HJf[r0:r1] = _grid_or_flat_sum(Y)
+                    del Y
+                del phi
+        HJ = HJf.reshape(B, nt, D)
+        w = 2.0 * Hpsi
+        with parts("circuit-Hessian sweep"):
+            term2 = pqc._state_hessian_dot_grid(thetas, w, psi, J)
+        e0s, grads, hesses = [], [], []
+        with parts("Fock blocks"):
+            for b in range(B):
+                h1, g2, c0 = coefs[b][:3]
+                e0s.append(c0 + (psi[b].conj() @ Hpsi[b]).real)
+                grad_c = (J[b].conj() @ w[b]).real
+                hess_cc = (2.0 * gram_last(J[b].conj(), HJ[b]).real
+                           + term2[b])
+                grad, hess = assemble(h1, g2, *rdms[b], grad_c, hess_cc,
+                                      trdms[b])
+                grads.append(grad)
+                hesses.append(hess)
+        return torch.stack(e0s), torch.stack(grads), torch.stack(hesses)
+
+    def solve_batch(grad, hess, mu, rho, lambda_min):
+        """The Newton solve of every lane without a host read of the
+        port's own (a library solver's checks aside): eigh on the stack,
+        or the iterative solve lane by lane in its sync-free form."""
+        if newton_method == "iterative":
+            out = [newton_step_pure(g_, h_, mu=mu, rho=rho,
+                                    lambda_min=lambda_min,
+                                    method="iterative", sync_free=True)
+                   for g_, h_ in zip(grad, hess)]
+            return (torch.stack([o[0] for o in out]),
+                    torch.stack([o[1] for o in out]))
+        return newton_step_pure(grad, hess, mu=mu, rho=rho,
+                                lambda_min=lambda_min, method="eigh")
+
+    def newton_update_batch(thetas, oaos, int1e_ao, int2e_ao, oao_coeff,
+                            nuc, e0, grad, hess, alpha, beta, mu, rho,
+                            lambda_min, rounds=None):
+        """``newton_update`` of B lanes: the solve, the Armijo search of
+        ``utils.newton_raphson.backtracking_batched`` (each round one
+        ``energy_rot`` call over the lanes' trials; ``rounds`` None is one
+        round of lmax trials and no host read), and the fold of each
+        lane's kappa into its OAO coefficients by the rotation its
+        accepted trial's energy used (the identity where the search was
+        exhausted).  Returns (thetas, kappas, oaos, energies, lowest)."""
+        batch_route()
+        dp, lowest = solve_batch(grad, hess, mu, rho, lambda_min)
+        flat0 = torch.cat([thetas, thetas.new_zeros((thetas.shape[0],
+                                                     n_kappa))], dim=-1)
+
+        def trial_energy(lanes, trials):
+            R = rotations(trials[:, nt:])
+            return energy_rot(trials[:, :nt], R, oaos[lanes],
+                              int1e_ao[lanes], int2e_ao[lanes],
+                              oao_coeff[lanes], nuc[lanes]), R
+
+        new_flat, _t, e_t, ok, R = backtracking_batched(
+            trial_energy, flat0, dp, grad, e0, alpha=alpha, beta=beta,
+            lmax=_LMAX, rounds=rounds)
+        eye = torch.eye(nao, dtype=oaos.dtype, device=oaos.device)
+        new_oao = oaos @ torch.where(ok[:, None, None], R, eye)
+        return new_flat[:, :nt], new_flat[:, nt:], new_oao, e_t, lowest
+
+    def nr_iteration_batch(thetas, oaos, int1e_ao, int2e_ao, oao_coeff, nuc,
+                           alpha, beta, mu, rho, lambda_min, rounds=None):
+        """One damped-Newton iteration of every lane: ``grad_hess_batch``,
+        then ``newton_update_batch``."""
+        e0, grad, hess = grad_hess_batch(thetas, oaos, int1e_ao, int2e_ao,
+                                         oao_coeff, nuc)
+        return newton_update_batch(thetas, oaos, int1e_ao, int2e_ao,
+                                   oao_coeff, nuc, e0, grad, hess, alpha,
+                                   beta, mu, rho, lambda_min, rounds)
+
     return {"energy": energy, "grad_hess": grad_hess,
             "energy_gradient_staged": energy_gradient_staged,
             "newton_update": newton_update, "nr_iteration": nr_iteration,
+            "energy_batch": energy_batch, "grad_hess_batch": grad_hess_batch,
+            "newton_update_batch": newton_update_batch,
+            "nr_iteration_batch": nr_iteration_batch,
             "route": route, "hosted_form": form, "precision": precision,
             "plan": plan, "plan_lp": plan_lp, "cross_rows": cross_rows,
             "parts": parts}
@@ -669,6 +930,13 @@ class OO_pqc(OO_energy):
     def _grad_hess(self, theta):
         return self._core["grad_hess"](self._theta(theta),
                                        self.oao_mo_coeff, *self._mol_args)
+
+    def _lane_args(self):
+        """The molecule arrays with a leading lane axis of 1 (the batched
+        core's arguments for this one geometry)."""
+        int1e, int2e, oao_coeff, nuc = self._mol_args
+        return (int1e[None], int2e[None], oao_coeff[None],
+                torch.tensor([nuc], dtype=int1e.dtype, device=self.device))
 
     def _nr_iteration(self, theta, oao, alpha, beta, mu, rho, lambda_min):
         return self._core["nr_iteration"](theta, oao, *self._mol_args,
@@ -804,11 +1072,19 @@ class OO_pqc(OO_energy):
         Returns (energy_l, theta_l, kappa_l, oao_mo_coeff_l, hess_eig_l)
         and leaves the final OAO coefficients in ``self.oao_mo_coeff``.
         ``monitor.log(iteration, energy, lowest_hess_eig=...)`` is called
-        after every iteration."""
-        if device_loop:
-            raise NotImplementedError(
-                "device_loop=True comes in a later PR of the port")
+        after every iteration.
+
+        ``device_loop=True`` is the JAX package's one-program run
+        (auto_oo_tpu/models/oo_pqc.py:1124-1174, 1497-1530): the same
+        iterations, with no host read in an iteration's body (see
+        ``_full_optimization_device``); ``monitor`` and ``verbose`` output
+        comes after the run.  At D >= 2^19 (the JAX package's staged
+        pipeline, host-driven by design) it raises ValueError."""
         theta = self._theta(theta_init)
+        if device_loop:
+            return self._full_optimization_device(
+                theta, max_iterations, conv_tol, verbose, flush, alpha, beta,
+                mu, rho, lambda_min, monitor)
         if verbose:
             energy_init = float(self.energy_from_parameters(theta))
             print(f"iter = 000, energy = {energy_init:.12f}", flush=flush)
@@ -835,4 +1111,87 @@ class OO_pqc(OO_energy):
                     print("optimization finished.")
                     print("E_fin =", energy_l[-1])
                 break
+        return energy_l, theta_l, kappa_l, oao_mo_coeff_l, hess_eig_l
+
+    def _full_optimization_device(self, theta, max_iterations, conv_tol,
+                                  verbose, flush, alpha, beta, mu, rho,
+                                  lambda_min, monitor):
+        """The device loop of ``full_optimization``.  Each iteration runs
+        ``grad_hess``, the solve (eigh, or the iterative solve in its
+        sync-free form) and one Armijo round of all lmax trials in one
+        batched energy call with the first accepted trial picked on the
+        device (``newton_update_batch`` on one lane), and writes its
+        energy, lowest eigenvalue, theta, kappa and OAO matrix into
+        preallocated device buffers.  The convergence test of the host
+        loop (iteration n, 0-based, is the last if n > 1 and |e_n -
+        e_{n-1}| < conv_tol) runs on the device: a flag the host reads
+        once every ``_CHECK_EVERY`` iterations; iterations after the
+        flag is set repeat the converged one and are thrown away.  The
+        trajectory is fetched once, after the loop.  The only host waits
+        inside an iteration are those of library calls (the info checks
+        of ``torch.linalg.eigh`` / ``eigvalsh``, ``matrix_exp``'s read of
+        its squaring counts; PERF.md counts them)."""
+        core = self._core
+        D = self.pqc.state_dim
+        if D >= _STAGED_MIN_D:
+            raise ValueError(
+                f"device_loop=True is unavailable for the staged large-D "
+                f"pipeline (D = {D} >= 2^19, host-driven by design in the "
+                f"JAX package); use the default host loop")
+        if core["route"] not in _BATCH_ROUTES:
+            raise ValueError(
+                f"device_loop=True runs on the {', '.join(_BATCH_ROUTES)} "
+                f"routes, not the {core['route']} one")
+        n_max = int(max_iterations)
+        oao = self.oao_mo_coeff
+        nt, nk = self._nt, self.n_kappa
+        kw = dict(dtype=oao.dtype, device=oao.device)
+        e_buf = torch.zeros(n_max, **kw)
+        l_buf = torch.zeros(n_max, **kw)
+        t_buf = torch.zeros((n_max, nt), **kw)
+        k_buf = torch.zeros((n_max, nk), **kw)
+        o_buf = torch.zeros((n_max,) + tuple(oao.shape), **kw)
+        done = torch.zeros((), dtype=torch.bool, device=oao.device)
+        n_done = torch.zeros((), dtype=torch.int64, device=oao.device)
+        lanes = self._lane_args()
+        e_prev = None
+        for n in range(n_max):
+            e0, grad, hess = core["grad_hess"](theta, oao, *self._mol_args)
+            th2, kap, oa2, e_t, low = (x[0] for x in core[
+                "newton_update_batch"](theta[None], oao[None], *lanes,
+                                       e0[None], grad[None], hess[None],
+                                       alpha, beta, mu, rho, lambda_min))
+            live = ~done
+            e_buf[n], l_buf[n], t_buf[n], k_buf[n], o_buf[n] = (
+                e_t, low, th2, kap, oa2)
+            theta = torch.where(live, th2, theta)
+            oao = torch.where(live, oa2, oao)
+            n_done = n_done + live.long()
+            if n > 1:
+                done = done | (live & ((e_t - e_prev).abs() < conv_tol))
+            e_prev = e_t if e_prev is None else torch.where(live, e_t,
+                                                            e_prev)
+            if (n + 1) % _CHECK_EVERY == 0 and n + 1 < n_max and bool(done):
+                break
+        # the one fetch of the run's scalars
+        head = torch.cat([torch.stack([n_done.to(e_buf.dtype),
+                                       done.to(e_buf.dtype)]), e_buf,
+                          l_buf]).tolist()
+        n, converged = int(head[0]), bool(head[1])
+        energy_l = head[2:2 + n]
+        hess_eig_l = head[2 + n_max:2 + n_max + n]
+        theta_l = [t_buf[i] for i in range(n)]
+        kappa_l = [k_buf[i] for i in range(n)]
+        oao_mo_coeff_l = [o_buf[i] for i in range(n)]
+        if n:
+            self.oao_mo_coeff = oao_mo_coeff_l[-1]
+        for i in range(n):
+            if monitor is not None:
+                monitor.log(i + 1, energy_l[i], lowest_hess_eig=hess_eig_l[i])
+            if verbose:
+                print(f"iter = {i + 1:03}, energy = {energy_l[i]:.12f}",
+                      flush=flush)
+        if verbose and converged:
+            print("optimization finished.")
+            print("E_fin =", energy_l[-1])
         return energy_l, theta_l, kappa_l, oao_mo_coeff_l, hess_eig_l

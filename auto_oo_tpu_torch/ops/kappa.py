@@ -6,6 +6,14 @@ Port of auto_oo_tpu/ops/kappa.py (reference oo_energy.py:63-118).
 import numpy as np
 import torch
 
+from ..utils.misc import index_tensor
+
+
+def _tril(size, device):
+    """(rows, cols) of np.tril_indices(size, k=-1) on ``device``."""
+    rows, cols = np.tril_indices(size, k=-1)
+    return index_tensor(rows, device), index_tensor(cols, device)
+
 
 def vector_to_skew_symmetric(vector, size=None):
     """Map a packed lower-triangle vector to a skew-symmetric matrix.
@@ -15,9 +23,15 @@ def vector_to_skew_symmetric(vector, size=None):
     [[0,-1,-2,-4],[1,0,-3,-5],[2,3,0,-6],[4,5,6,0]].
     """
     if size is None:
-        size = int(np.sqrt(8 * vector.shape[0] + 1) + 1) // 2
-    rows, cols = (torch.as_tensor(ix, device=vector.device)
-                  for ix in np.tril_indices(size, k=-1))
+        size = int(np.sqrt(8 * vector.shape[-1] + 1) + 1) // 2
+    rows, cols = _tril(size, vector.device)
+    if vector.dim() > 1:
+        # leading batch dims (one vector per geometry or trial): the
+        # same two writes on the flattened last two axes
+        flat = vector.new_zeros(vector.shape[:-1] + (size * size,))
+        flat = flat.index_copy(-1, rows * size + cols, vector).index_copy(
+            -1, cols * size + rows, -vector)
+        return flat.reshape(vector.shape[:-1] + (size, size))
     # out of place, so torch.func transforms (grad, hessian) trace it
     mat = torch.zeros((size, size), dtype=vector.dtype, device=vector.device)
     return mat.index_put((rows, cols), vector).index_put((cols, rows),
@@ -27,8 +41,7 @@ def vector_to_skew_symmetric(vector, size=None):
 def skew_symmetric_to_vector(kappa_matrix):
     """Inverse of vector_to_skew_symmetric (lower triangle, tril order);
     leading batch dims are kept."""
-    size = kappa_matrix.shape[-1]
-    rows, cols = np.tril_indices(size, k=-1)
+    rows, cols = _tril(kappa_matrix.shape[-1], kappa_matrix.device)
     return kappa_matrix[..., rows, cols]
 
 

@@ -4,20 +4,30 @@ the iterative damped-Newton direction.
 
 Port of auto_oo_tpu/ops/linalg.py without its TPU workarounds (scalar f64
 trig guards, the Taylor expm, the Jacobi eigh): on the card and the CPU
-alike, PyTorch's own routines are exact in float64.  ``eigh``
+alike, PyTorch's own routines are exact in float64 (``expm`` takes
+``matrix_exp``'s stacked path, see there).  ``eigh``
 symmetrizes its input, as the JAX package's CPU eigh
 (``jnp.linalg.eigh``, ``symmetrize_input=True``) does, where
 ``torch.linalg.eigh`` alone would read only the lower triangle.
+
+``eigh`` and ``eigh_direction`` take a stack of matrices (one per
+geometry of a batch) as well as one.
 
 ``newton_dir_iterative`` is the JAX package's eigh-free Newton direction
 (Lanczos, Newton-Schulz inverse, inverse-Lanczos refinement) with its
 descent/residual guard; the guard's ``lax.cond`` is a host branch on one
 scalar here, and ``ITERATIVE_FALLBACKS`` counts the solves that fell back
-to eigh.
+to eigh.  With ``sync_free=True`` (the device loop of
+``OO_pqc.full_optimization``) the port's own code reads nothing on the
+host: the guard selects between the iterative and the eigh direction on
+the device, so eigh runs every time (those fallbacks are not counted)
+and the solve costs more than eigh alone.
 
 ``gram_last`` is the contraction over a state axis that the mixed
 precision mode (``OO_pqc(precision="mixed")``) runs in float32.
 """
+
+from functools import lru_cache
 
 import torch
 
@@ -32,15 +42,26 @@ _F32_PARTIALS = 1 << 24
 
 
 def expm(A):
-    """Matrix exponential."""
+    """Matrix exponential of one matrix or a stack (..., n, n).
+
+    ``torch.linalg.matrix_exp`` picks a Taylor degree from the norm of a
+    single matrix, and that path was off by 1.8e-11 (orthogonality
+    6e-13) for a skew matrix of 1-norm 0.034, a first-iteration orbital
+    rotation of the (10e,10o) slice, on an H100 and on the CPU alike;
+    a stack takes its degree-18 scaling-and-squaring path, within 4e-16
+    of scipy's expm there.  So one matrix goes through it as a stack of
+    two, and a lane of a batch gets the same bits as a sequential call."""
+    if A.dim() == 2:
+        return torch.linalg.matrix_exp(A.expand((2,) + tuple(A.shape)))[0]
     return torch.linalg.matrix_exp(A)
 
 
 def eigh(A):
-    """(eigenvalues ascending, eigenvectors) of (A + A^T) / 2: a symmetric
-    A unchanged to the bit, a non-symmetric one (the noisy Hessian's cc
-    block) solved as the JAX package's eigh solves it."""
-    return torch.linalg.eigh(0.5 * (A + A.T))
+    """(eigenvalues ascending, eigenvectors) of (A + A^T) / 2, for one
+    matrix or a stack (..., n, n): a symmetric A unchanged to the bit, a
+    non-symmetric one (the noisy Hessian's cc block) solved as the JAX
+    package's eigh solves it."""
+    return torch.linalg.eigh(0.5 * (A + A.mT))
 
 
 # the seed of the Lanczos start vector; the JAX package draws its start
@@ -55,26 +76,35 @@ _NS_ITERS = 100
 ITERATIVE_FALLBACKS = 0
 
 
+@lru_cache(maxsize=None)
+def _lanczos_start(n, dtype, device):
+    """The Lanczos start vector of size n, drawn on the CPU and uploaded
+    once per (n, dtype, device)."""
+    gen = torch.Generator().manual_seed(_LANCZOS_SEED)
+    return torch.randn(n, generator=gen, dtype=dtype).to(device)
+
+
 def lanczos_lowest(A, k=64):
     """Lowest eigenvalue of symmetric A by k-step Lanczos with full
     reorthogonalization, from a seeded pseudo-random start (a structured
-    start can be near-orthogonal to the extremal eigenvector).
+    start can be near-orthogonal to the extremal eigenvector).  Nothing
+    is read on the host.
 
     The start differs from the JAX package's draw (see ``_LANCZOS_SEED``):
     for n <= k the Krylov space is the whole space and both agree to
     rounding; above that both converge the extremal Ritz value to ~1e-10
     on a separated spectrum.  On breakdown (a new Lanczos vector of norm
     below 1e-13, as in the JAX package: the Krylov space is invariant) the
-    iterations after it are dropped: the eigenvalues come from T's
-    leading block of the steps before, read with one host sync.  The JAX
-    package parks those iterations' diagonal at +1e30 instead and solves
-    the whole T, whose mixed magnitudes an eigensolver need not resolve:
-    on an H100 that returned a Ritz value far below the spectrum (ROADMAP
-    queue 3)."""
+    steps after it are dead: T keeps all k steps, the dead steps'
+    diagonal parked at 1 + the live block's Gershgorin bound (their
+    off-diagonals are exact zeros), so T is the live block beside a
+    diagonal above its spectrum, of no larger magnitude.  The JAX package
+    parks that diagonal at +1e30 instead, whose mixed magnitudes an
+    eigensolver need not resolve: on an H100 that returned a Ritz value
+    far below the spectrum (ROADMAP queue 3)."""
     n = A.shape[0]
     k = min(k, n)
-    gen = torch.Generator().manual_seed(_LANCZOS_SEED)
-    v0 = torch.randn(n, generator=gen, dtype=A.dtype).to(A.device)
+    v0 = _lanczos_start(n, A.dtype, A.device)
     V = A.new_zeros((k + 1, n))
     V[0] = v0 / torch.sqrt(v0 @ v0)
     alpha = A.new_zeros(k)
@@ -97,9 +127,13 @@ def lanczos_lowest(A, k=64):
         beta[j] = torch.where(dead, torch.zeros_like(b), b)
         V[j + 1] = torch.where(dead, torch.zeros_like(w),
                                w / torch.clamp(b, min=1e-300))
-    m = int(live)
-    T = (torch.diag(alpha[:m]) + torch.diag(beta[:m - 1], 1)
-         + torch.diag(beta[:m - 1], -1))
+    off = beta[:k - 1].abs()
+    bound = 1.0 + (alpha.abs() + torch.cat([off, off.new_zeros(1)])
+                   + torch.cat([off.new_zeros(1), off])).max()
+    steps = torch.arange(k, device=A.device)
+    diag = torch.where(steps < live, alpha, bound)
+    T = (torch.diag(diag) + torch.diag(beta[:k - 1], 1)
+         + torch.diag(beta[:k - 1], -1))
     return torch.linalg.eigvalsh(T)[0]
 
 
@@ -137,18 +171,25 @@ def eigh_direction(gradient, H, mu=1e-6, rho=1.1, lambda_min=1e-6,
                    aug=True):
     """(dp, lowest) of the exact eigh solve, dp = -H^{-1} g with the
     canonical augmentation H += (mu + rho |l0|) I where the lowest
-    eigenvalue l0 < lambda_min."""
+    eigenvalue l0 < lambda_min.  A stack of gradients (..., n) and
+    Hessians (..., n, n) gives one direction and eigenvalue per matrix.
+    The direction -V diag(1 / (w + shift)) V^T g does not depend on the
+    signs (or, within a degenerate eigenspace, the basis) that the solver
+    picks for the eigenvectors."""
     w, V = eigh(H)
-    lowest = w[0]
+    lowest = w[..., 0]
     shift = (torch.where(lowest < lambda_min, mu + rho * lowest.abs(),
                          torch.zeros_like(lowest))
              if aug else torch.zeros_like(lowest))
+    if gradient.dim() > 1:
+        coef = (V.mT @ gradient[..., None])[..., 0] / (w + shift[..., None])
+        return -(V @ coef[..., None])[..., 0], lowest
     return -(V @ ((V.T @ gradient) / (w + shift))), lowest
 
 
 def newton_dir_iterative(gradient, hessian, mu=1e-6, rho=1.1,
                          lambda_min=1e-6, aug=True, lanczos_k=64,
-                         ns_iters=_NS_ITERS):
+                         ns_iters=_NS_ITERS, sync_free=False):
     """Damped-Newton direction without an eigendecomposition (the JAX
     package's ``newton_dir_iterative``): (A) a coarse lowest eigenvalue by
     Lanczos sets a probe shift below the spectrum; (B) Lanczos on the
@@ -160,7 +201,11 @@ def newton_dir_iterative(gradient, hessian, mu=1e-6, rho=1.1,
     Guard: if the relative residual ||Haug dp + g|| exceeds 1e-6 ||g||
     or g.dp is not a descent (up to 1e-12 |g| |dp|), the direction and
     eigenvalue come from the exact eigh solve instead (one host sync per
-    call decides; ``ITERATIVE_FALLBACKS`` counts the fallbacks)."""
+    call decides; ``ITERATIVE_FALLBACKS`` counts the fallbacks).  With
+    ``sync_free=True`` nothing is read on the host: the guard is a
+    ``torch.where`` over both directions, so the eigh solve runs on every
+    call (the cost of a device-side choice without a device-side branch)
+    and its uses are not counted."""
     global ITERATIVE_FALLBACKS
     H = hessian
     n = H.shape[0]
@@ -186,6 +231,9 @@ def newton_dir_iterative(gradient, hessian, mu=1e-6, rho=1.1,
     rnorm = torch.sqrt(((Haug @ dp + gradient) ** 2).sum())
     ok = ((rnorm <= 1e-6 * gnorm + 1e-300)
           & ((gradient @ dp) <= 1e-12 * gnorm * dpnorm))
+    if sync_free:
+        dp_e, low_e = eigh_direction(gradient, H, mu, rho, lambda_min, aug)
+        return torch.where(ok, dp, dp_e), torch.where(ok, lowest, low_e)
     if bool(ok):
         return dp, lowest
     ITERATIVE_FALLBACKS += 1

@@ -1,5 +1,6 @@
 """The Lanczos breakdown on the card: T with its dead steps parked at
-+1e30 (the JAX package's form) against the port's truncated T.
++1e30 (the JAX package's form) against the port's, parked at 1 + the
+live block's Gershgorin bound.
 
     python -m auto_oo_tpu_torch.scripts.lanczos_parking [--device cpu]
 
@@ -82,7 +83,7 @@ def main(argv=None):
     print(f"  parked T, eigvalsh on {H.device}: "
           f"{float(torch.linalg.eigvalsh(T)[0]):+.15e}; on the CPU: "
           f"{float(torch.linalg.eigvalsh(T.cpu())[0]):+.15e}")
-    print(f"  lanczos_lowest (dead steps dropped): "
+    print(f"  lanczos_lowest (dead steps parked at the Gershgorin bound): "
           f"{float(linalg.lanczos_lowest(H)):+.15e}; newton_dir_iterative "
           f"lowest {float(low):+.15e}")
     return 0

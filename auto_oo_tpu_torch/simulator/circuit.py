@@ -231,9 +231,13 @@ class Parameterized_circuit:
 
     def _expand_theta(self, theta):
         """theta -> the program's full parameter vector (a differentiable
-        scatter; np_fabric's redundant parameters stay 0)."""
+        scatter; np_fabric's redundant parameters stay 0); a (B, n) stack
+        gives (B, n_full)."""
         if self.ansatz == "np_fabric":
             nfull = int(np.prod(self.full_theta_shape))
+            if theta.dim() > 1:
+                full = theta.new_zeros(theta.shape[:-1] + (nfull,))
+                return full.index_copy(-1, self._tangent_params_dev, theta)
             full = torch.zeros(nfull, dtype=theta.dtype, device=theta.device)
             return full.index_put((self._tangent_params_dev,), theta)
         return theta

@@ -20,6 +20,11 @@ the callable, as the JAX core's ``jax.jacfwd`` / ``jax.grad`` over
   i.e. grad Re<a, psi> plus the Hessian of Re<b, psi> applied to v
   (forward over reverse).
 
+``apply``, ``apply_with_jacobian`` and ``hessian_dot`` also take a stack
+of parameter vectors (B, n), one per geometry of a batch or line-search
+trial, as the gate programs' sweeps do: the callable runs once per lane
+and the results are stacked.
+
 Every inner product conjugates the bra side (a, b, w) and takes the real
 part, so a complex state's derivatives are those of the real energy
 Re<psi|H|psi>.  A callable that calls the port's own ``GateProgram.apply``
@@ -35,6 +40,19 @@ def _dot_re(x, w):
     return (x * w.conj()).real.sum()
 
 
+def _per_lane(fn, theta, *args):
+    """fn(theta, *args) for one theta; for a stack theta (B, n), fn of
+    each lane (with the lane's row of every arg) with the outputs stacked
+    (a tuple output stacked element by element)."""
+    if theta.dim() == 1:
+        return fn(theta, *args)
+    outs = [fn(theta[b], *(a[b] for a in args))
+            for b in range(theta.shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
 class CallableSweep:
     """The sweeps of ``OO_pqc``'s core over a callable ``fn`` of a real
     parameter vector, returning a (dim,) state."""
@@ -45,7 +63,7 @@ class CallableSweep:
 
     def apply(self, theta):
         """|psi(theta)> = fn(theta)."""
-        return self.fn(theta)
+        return _per_lane(self.fn, theta)
 
     def _real_view(self, theta):
         psi = self.fn(theta)
@@ -54,6 +72,9 @@ class CallableSweep:
     def apply_with_jacobian(self, theta, params_idx):
         """(psi, J): J[i] = d psi / d theta[params_idx[i]], shape
         (len(params_idx), dim), in psi's dtype."""
+        if theta.dim() > 1:
+            return _per_lane(lambda t: self.apply_with_jacobian(
+                t, params_idx), theta)
         Jr, psi = torch.func.jacfwd(self._real_view, has_aux=True)(theta)
         # (dim, n) real, or (dim, 2, n) for the real view of a complex psi
         J = Jr.movedim(-1, 0)
@@ -66,6 +87,9 @@ class CallableSweep:
     def hessian_dot(self, theta, w, psi, J, params_idx):
         """H[i, j] = d^2 Re<w, psi(theta)> / d theta_i d theta_j over the
         tangents ``params_idx`` (psi and J are not needed)."""
+        if theta.dim() > 1:
+            return _per_lane(lambda t, wl: self.hessian_dot(
+                t, wl, None, None, params_idx), theta, w)
         H = torch.func.jacfwd(torch.func.grad(
             lambda t: _dot_re(self.fn(t), w)))(theta)
         idx = torch.as_tensor(params_idx, dtype=torch.int64,

@@ -34,6 +34,12 @@ against each program's block operations:
 The gate step is functional (out-of-place ``index_copy`` /
 ``index_add``), so ``apply`` is differentiable by autograd and
 torch.func.
+
+``apply``, ``apply_with_jacobian`` and ``hessian_dot`` also take a stack
+of parameter vectors theta (B, n_params), one per geometry of a batch or
+per line-search trial: each gate's (cos, sin) is then a (B,) column
+broadcast over that lane's state (B, ...) or tangent batch (B, nt, ...),
+and every output gains the leading axis B.
 """
 
 import numpy as np
@@ -61,14 +67,32 @@ class _SweepProgram:
         self._param_dev = torch.as_tensor(self._param, device=self.device)
         self._axes = tuple(range(-len(self._shape), 0))
 
-    def initial_state(self, dtype=torch.float64):
-        psi = torch.zeros(self.dim, dtype=dtype, device=self.device)
-        psi[self.init_idx] = 1.0
+    def initial_state(self, dtype=torch.float64, lanes=()):
+        psi = torch.zeros(tuple(lanes) + (self.dim,), dtype=dtype,
+                          device=self.device)
+        # fill_ of a view: item assignment would upload the scalar from
+        # the host, which waits for the card
+        psi[..., self.init_idx].fill_(1.0)
         return psi
 
     def _trig(self, theta):
-        angles = self._half_dev.to(theta.dtype) * theta[self._param_dev]
+        """(cos, sin) of every swept gate's half angle: (n_gates,) for one
+        theta, (n_gates, B, 1, ..., 1) for a stack of B (the trailing ones
+        broadcast over a lane's state; ``_lane_cs`` adds one for a tangent
+        axis)."""
+        angles = self._half_dev.to(theta.dtype) * theta[..., self._param_dev]
+        if theta.dim() > 1:
+            angles = angles.T.reshape(angles.shape[::-1]
+                                      + (1,) * len(self._shape))
         return torch.cos(angles), torch.sin(angles)
+
+    @staticmethod
+    def _lane_cs(c, s):
+        """Per-lane (cos, sin) columns for a tangent batch (B, nt, ...)
+        of a stack (a scalar pair for one theta is returned as it is)."""
+        if c.dim() == 0:
+            return c, s
+        return c[:, None], s[:, None]
 
     def _tangent_of_gate(self, params_idx):
         """Per gate: the tangent row of its parameter, or -1 when the
@@ -94,39 +118,46 @@ class _SweepProgram:
 
     def apply(self, theta, psi=None):
         """|psi(theta)> as a flat (dim,) vector; theta holds the
-        ``n_params`` full parameters."""
+        ``n_params`` full parameters (a (B, n_params) stack gives (B,
+        dim))."""
+        lanes = theta.shape[:-1]
         if psi is None:
-            psi = self.initial_state(theta.dtype)
+            psi = self.initial_state(theta.dtype, lanes)
         if not self._half:
             return psi
         cos_t, sin_t = self._trig(theta)
         sgn = self._signs(psi.dtype)
-        Psi = psi.reshape(self._shape)
+        Psi = psi.reshape(lanes + self._shape)
         for gi in range(len(self._half)):
             Psi = self._gate_step(Psi, gi, cos_t[gi], sin_t[gi], sgn[gi])
-        return Psi.reshape(-1)
+        return Psi.reshape(lanes + (-1,))
 
     def apply_with_jacobian(self, theta, params_idx):
         """(psi, J): the state and its Jacobian J[i] =
-        d psi / d theta[params_idx[i]], shape (len(params_idx), dim)."""
+        d psi / d theta[params_idx[i]], shape (len(params_idx), dim); for
+        a (B, n_params) stack, (B, dim) and (B, len(params_idx), dim)."""
         nt = len(params_idx)
-        psi = self.initial_state(theta.dtype)
-        Psi = psi.reshape(self._shape)
-        Delta = torch.zeros((nt,) + self._shape, dtype=psi.dtype,
+        lanes = theta.shape[:-1]
+        # the tangent axis of Delta, after the lane axis of a stack
+        tx = (slice(None),) * len(lanes)
+        psi = self.initial_state(theta.dtype, lanes)
+        Psi = psi.reshape(lanes + self._shape)
+        Delta = torch.zeros(lanes + (nt,) + self._shape, dtype=psi.dtype,
                             device=psi.device)
         if not self._half:
-            return psi, Delta.reshape(nt, -1)
+            return psi, Delta.reshape(lanes + (nt, -1))
         cos_t, sin_t = self._trig(theta)
         sgn = self._signs(psi.dtype)
         tang = self._tangent_of_gate(params_idx)
         for gi in range(len(self._half)):
             c, s, ti = cos_t[gi], sin_t[gi], int(tang[gi])
             if ti >= 0:
-                Delta[ti] = self._g_add(Delta[ti], Psi, gi,
-                                        self._half[gi], sgn[gi])
-            Delta = self._gate_step(Delta, gi, c, s, sgn[gi])
+                Delta[tx + (ti,)] = self._g_add(Delta[tx + (ti,)], Psi, gi,
+                                                self._half[gi], sgn[gi])
+            Delta = self._gate_step(Delta, gi, *self._lane_cs(c, s),
+                                    sgn[gi])
             Psi = self._gate_step(Psi, gi, c, s, sgn[gi])
-        return Psi.reshape(-1), Delta.reshape(nt, -1)
+        return Psi.reshape(lanes + (-1,)), Delta.reshape(lanes + (nt, -1))
 
     def _pair_coefs(self, v):
         """Per gate: da = half * v[param] on the device, and on the host
@@ -209,37 +240,50 @@ class _SweepProgram:
     def hessian_dot(self, theta, w, psi, J, params_idx):
         """H[i, j] = d^2 <w, psi(theta)> / d theta_i d theta_j over the
         tangents ``params_idx``, given psi and J = apply_with_jacobian
-        at the same theta and a real w in the program's order."""
+        at the same theta and a real w in the program's order; a stack of
+        B (theta, w, psi, J) gives (B, nt, nt)."""
         nt = len(params_idx)
-        out = torch.zeros((nt, nt), dtype=psi.dtype, device=psi.device)
+        lanes = theta.shape[:-1]
+        tx = (slice(None),) * len(lanes)
+        out = torch.zeros(lanes + (nt, nt), dtype=psi.dtype,
+                          device=psi.device)
         if not self._half:
             return out
         cos_t, sin_t = self._trig(theta)
         sgn = self._signs(psi.dtype)
         tang = self._tangent_of_gate(params_idx)
-        Psi = psi.reshape(self._shape)
-        Delta = J.reshape((nt,) + self._shape)
-        CtD = w.reshape(self._shape)
+        Psi = psi.reshape(lanes + self._shape)
+        Delta = J.reshape(lanes + (nt,) + self._shape)
+        CtD = w.reshape(lanes + self._shape)
         CtP = torch.zeros_like(Delta)
+
+        def tb(X):
+            # a lane's state against its tangent batch
+            return X[:, None] if lanes else X
+
         for gi in reversed(range(len(self._half))):
             c, s, ti = cos_t[gi], sin_t[gi], int(tang[gi])
+            ct, st = self._lane_cs(c, s)
             h = self._half[gi]
             sg = sgn[gi]
             if ti >= 0:
                 # d/d theta_p at POST-gate states: both outputs respond
                 # with their own G-image (G commutes with R)
-                out[:, ti] += h * (self._g_dot(CtP, Psi, gi, sg)
-                                   + self._g_dot(CtD, Delta, gi, sg))
+                out[tx + (slice(None), ti)] += h * (
+                    self._g_dot(CtP, tb(Psi), gi, sg)
+                    + self._g_dot(tb(CtD), Delta, gi, sg))
             # rebuild the pre-gate pair by the inverse rotation
             Psi = self._gate_step(Psi, gi, c, -s, sg)
-            Delta = self._gate_step(Delta, gi, c, -s, sg)
+            Delta = self._gate_step(Delta, gi, ct, -st, sg)
             if ti >= 0:
-                Delta[ti] = self._g_add(Delta[ti], Psi, gi, -h, sg)
+                Delta[tx + (ti,)] = self._g_add(Delta[tx + (ti,)], Psi, gi,
+                                                -h, sg)
             # transport the cotangents: J^T = [[R^T, -da G R^T], [0, R^T]]
-            CtP = self._gate_step(CtP, gi, c, -s, sg)
+            CtP = self._gate_step(CtP, gi, ct, -st, sg)
             CtD = self._gate_step(CtD, gi, c, -s, sg)
             if ti >= 0:
-                CtP[ti] = self._g_add(CtP[ti], CtD, gi, -h, sg)
+                CtP[tx + (ti,)] = self._g_add(CtP[tx + (ti,)], CtD, gi, -h,
+                                              sg)
         return out
 
 

@@ -1,7 +1,23 @@
 """Miscellaneous utilities (reference utils/miscellaneous.py parity)."""
 
+from functools import lru_cache
+
 import numpy as np
 import torch
+
+
+@lru_cache(maxsize=None)
+def _index_tensor(values, device):
+    return torch.tensor(values, dtype=torch.int64, device=device)
+
+
+def index_tensor(values, device):
+    """The host indices ``values`` (1-D) as an int64 tensor on ``device``,
+    made once per (values, device): indexing a card tensor with a numpy
+    array uploads it at every call, and PyTorch's upload from pageable
+    memory waits for the card (a synchronization)."""
+    return _index_tensor(tuple(int(v) for v in np.asarray(values).ravel()),
+                         torch.device(device))
 
 
 def to_numpy(x):

@@ -244,6 +244,34 @@ prints its seconds:
    iterations, timed beside the built-in circuit's sweeps; each energy
    within 1e-8 Ha of CPU JAX, s/NR-iter printed; the callables' J,
    circuit-Hessian term and rows come from torch.func on the card.
+23. (a) GeometryBatch.newton_steps at full width: (10e,10o) sector
+   np_fabric L=2, freeze_active, 8 points of the tutorial's loop from
+   init_zeros in one batched step: equal to 8 sequential _nr_iteration
+   calls (energy, theta and OAO 1e-12, lowest eigenvalue 1e-9) and to
+   CPU JAX at points 0 and 4 (1e-10); the fused route's three kernels
+   launched with more than one geometry in their batch (launches per
+   batched step under "batch_10e10o"); the batched Newton direction and
+   lowest eigenvalue equal to the per-lane solves (1e-12) on the step's
+   Hessians and on a random 32 x 32 stack; s per batched step against 8
+   sequential iterations, the device busy share and the host syncs of a
+   step (torch.cuda.set_sync_debug_mode("warn"), by the port's line);
+24. (b) BerryPhaseLoop.run_batched (track_steps=12) on the tutorial's
+   loop, 21 points in the full space and 11 in sector mode: energies and
+   lowest eigenvalues within 1e-8 of CPU JAX run_batched, the Berry phase
+   +-pi; the sector loop launches the fused kernels at n2 = 4; s per
+   point against run();
+25. (c) full_optimization(device_loop=True) against the host loop on the
+   card: (2e,2o) np_fabric L=1, full space, to CASSCF (eigh and
+   newton_method="iterative"), (6e,6o) 12 iterations, (10e,10o) sector 4
+   iterations at conv_tol=0 (launches per device-loop iteration under
+   "device_loop_10e10o"): the same iteration count, energies 1e-11,
+   theta, kappa, OAO and lowest eigenvalues 1e-9, the anchors to 1e-8;
+   each loop's wall time and host syncs by the port's line (fewer in the
+   device loop); phase 6 checks that (12e,12o) 6-31G (D = 853,776)
+   raises the staged ValueError;
+26. (d) GeometryBatch.optimize_device_loop against optimize, (2e,2o) at
+   two geometries: 8 steps at conv_tol=0 equal (1e-11, 1e-9), and with
+   conv_tol=1e-10 it stops before 20 steps at each CASSCF (1e-8).
 
 The line before the last is {"kernels": [...]} (per kernel: launches in
 its main path's run, which is the (16e,16o) iteration of phase 10 for
@@ -258,7 +286,10 @@ variant L under "probes"; 0 on the flat paths; the mixed
 paths' f32 launches under "10e10o_mixed", "14e14o_mixed" and
 "16e16o_mixed"; the gradient-only pipeline's under "*_grad*", one
 energy_and_gradient, and "*_adam*", a whole Adam run; the Berry loops'
-under "berry_*", a whole loop's run); max abs error
+under "berry_*", a whole loop's run; one batched step of 8 (10e,10o)
+geometries under "batch_10e10o", the sector run_batched under
+"run_batched_2e2o_sector", 4 device-loop iterations at (10e,10o) under
+"device_loop_10e10o"); max abs error
 against the
 plain version over every comparison; kernel and plain times and the
 bound at the (16e,16o) f64 chunk shapes for the hosted route's kernels
@@ -273,12 +304,14 @@ Without a CUDA device the script exits non-zero before printing any
 result.
 """
 
+import collections
 import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -504,6 +537,51 @@ BERRY_ITER_ITERATIVE_E = [-92.74602749497893, -92.75236773765309,
 BERRY_ITER_ITERATIVE_EIG = [0.029872808280356485, 0.021453495243713823,
     0.03410396301518555, 0.0327663423096675, 0.021439678600148813,
     0.029872920192851017]
+# the geometry batches and the device loop (scripts/full_space_anchors.py
+# batch_10e10o batched_2e2o batched_2e2o_sector, CPU JAX of commit
+# 64f1078): one damped-Newton iteration from init_zeros at points 0 and 4
+# of the tutorial's loop at 9 points, (10e,10o) sector np_fabric L=2,
+# freeze_active (the JAX package's per-geometry _nr_iteration_jit, which
+# its GeometryBatch step equals): (energy, lowest Hessian eigenvalue,
+# |theta|), held to 1e-10; and run_batched(track_steps=12) on the loop at
+# 21 points (full space) and 11 (sector), (2e,2o) np_fabric L=1:
+# energies and lowest Hessian eigenvalues, held to 1e-8
+BATCH_10E10O = {
+    0: (-92.69362068664566, -0.07409815127610266,
+        0.9246933697481987),
+    4: (-92.67862979968457, -0.06469207587108043,
+        0.7663060403202787),
+}
+BATCHED_2E2O_E = [-92.7460274949789, -92.74662641379697, -92.74788853927166,
+    -92.74984867606382, -92.75236773765307, -92.75491104466576,
+    -92.75683144832733, -92.75784323525266, -92.7581163088716,
+    -92.75808996146618, -92.75812854323144, -92.75822512164945,
+    -92.758005789217, -92.75702922491563, -92.75512630241802,
+    -92.75257899370199, -92.75002649853116, -92.74801336784932,
+    -92.74669784353216, -92.74605053929201, -92.74602749497892]
+BATCHED_2E2O_EIG = [0.029872808280386957, 0.027935439202164854,
+    0.02440001093478927, 0.021056497165021313, 0.021453028635691124,
+    0.025336029580807818, 0.029492734700352744, 0.03245855587480353,
+    0.03410394772578015, 0.03479512961875965, 0.03486038260637878,
+    0.03429595312379342, 0.032766326673201056, 0.02990363358474838,
+    0.025841062402896218, 0.022000547216393395, 0.021439672354066006,
+    0.024549548131161295, 0.02797854397456618, 0.029881667939201065,
+    0.029872920676393862]
+BATCHED_2E2O_SECTOR_E = [-92.74602749497889, -92.74788853927173,
+    -92.75236773765309, -92.75683144832739, -92.7581163088716,
+    -92.75812854323144, -92.75800578921702, -92.75512630241802,
+    -92.7500264985312, -92.74669784353222, -92.74602749497892]
+BATCHED_2E2O_SECTOR_EIG = [0.02987280828035408, 0.02440001093476864,
+    0.021453028635699683, 0.029492734700362976, 0.03410394772578278,
+    0.03486038260638778, 0.03276632667320287, 0.025841062402897932,
+    0.02143967235406292, 0.027978543974565385, 0.029872920676415716]
+# a batched step equals the sequential one (tests/test_parallel.py:78-98)
+TOL_BATCH = 1e-12
+TOL_BATCH_EIG = 1e-9
+TOL_BATCH_ANCHOR = 1e-10
+# the device loops against the host loops (tests/test_oo_pqc.py:206-240)
+TOL_LOOP_E = 1e-11
+TOL_LOOP_PARAMS = 1e-9
 # the user-defined states (scripts/full_space_anchors.py 10e10o_unrestricted
 # 8e8o_unrestricted 6e6o_utd 6e6o_complex 6e6o_callable, CPU JAX of commit
 # 9ec90ac).  RDM cells: the state at theta = 0.07 * arange + 0.1, and
@@ -1257,6 +1335,14 @@ def sector12_phase(torch, P, gk, dev):
         check(abs(e - ref) <= TOL_ENERGY,
               f"(12e,12o) iteration {i + 1}: |{e} - {ref}| > {TOL_ENERGY}")
     check_route_kernels(launches, FUSED_KERNELS, "the (12e,12o) run")
+    # the device loop refuses the staged sizes, as the JAX package does
+    try:
+        oo.full_optimization(theta0, device_loop=True)
+    except ValueError as exc:
+        check("staged" in str(exc), f"(12e,12o) device_loop refusal: {exc}")
+        print(f"  device_loop=True refused: {exc}")
+    else:
+        check(False, "(12e,12o) device_loop=True ran")
     psi = pqc.state(thetas[-1])
     torch.cuda.synchronize()
     check(psi.shape == (pqc.state_dim,), f"state shape {tuple(psi.shape)}")
@@ -3335,6 +3421,401 @@ def user_states_phase(torch, P, gk):
           f"sweeps' {statistics.mean(s_sweep[1:]):.4f}")
 
 
+class _SyncCount:
+    """Counts the host synchronizations PyTorch reports inside a block
+    under torch.cuda.set_sync_debug_mode("warn"), each by the innermost
+    line of the port (auto_oo_tpu_torch/...) on the Python stack that
+    made it: ``counts`` maps "file:line (function)" to its count."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.counts = collections.Counter()
+
+    def __enter__(self):
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = self._record
+        self.torch.cuda.synchronize()
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def _record(self, message, category, filename, lineno, file=None,
+                line=None):
+        if "synchroniz" not in str(message):
+            return
+        frame = sys._getframe(1)
+        where = "outside the port"
+        while frame is not None:
+            fn = frame.f_code.co_filename
+            if "auto_oo_tpu_torch" in fn:
+                where = (f"{fn[fn.rindex('auto_oo_tpu_torch'):]}:"
+                         f"{frame.f_lineno} ({frame.f_code.co_name})")
+                break
+            frame = frame.f_back
+        self.counts[where] += 1
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+        return False
+
+    @property
+    def total(self):
+        return sum(self.counts.values())
+
+    def show(self, label, per=None, top=8):
+        unit = f", {self.total / per:.1f} per iteration" if per else ""
+        print(f"    {label}: {self.total} host synchronizations{unit}")
+        for where, n in self.counts.most_common(top):
+            print(f"      {n:5d}  {where}")
+
+
+def _spy_kernel_batches(grid, shapes):
+    """Wrap the grid module's three fused-route kernels so that each call
+    appends (kernel, leading batch dims of its input) to ``shapes``;
+    returns a function that restores them."""
+    saved = {}
+    for name, lead in (("gather_two_spin", 2), ("gather_reduce", 3),
+                       ("gather_reduce_cols", 3)):
+        fn = getattr(grid, name)
+        saved[name] = fn
+
+        def spy(x, *args, _fn=fn, _name=name, _lead=lead, **kw):
+            shapes.append((_name, tuple(x.shape[:-_lead])))
+            return _fn(x, *args, **kw)
+
+        setattr(grid, name, spy)
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(grid, name, fn)
+    return restore
+
+
+def _max_abs(a, b):
+    return float((a - b).abs().max())
+
+
+def batch10_phase(torch, P, gk, grid):
+    """Phase 23 (a): GeometryBatch.newton_steps at full width, (10e,10o)
+    sector np_fabric L=2, freeze_active, B = 8 points of the tutorial's
+    loop (the first 8 of 9), from init_zeros: equal to 8 sequential
+    _nr_iteration calls (energy, theta and OAO 1e-12, lowest eigenvalue
+    1e-9) and to the CPU JAX anchors of points 0 and 4 (1e-10); the
+    fused route's three kernels launched with the geometry axis in their
+    batch; the batched Newton direction and lowest eigenvalue equal to
+    the per-lane solves (1e-12), on the step's Hessians and on a random
+    stack of 32 x 32 matrices; s per batched step against 8 sequential
+    iterations, the device busy share of a step and its host syncs.
+    Returns the launches of one batched step."""
+    from auto_oo_tpu_torch.ops import linalg
+    from auto_oo_tpu_torch.parallel import GeometryBatch
+    from auto_oo_tpu_torch.scripts.profile_14e14o import device_profile
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    geos = _loop_geometries(get_formal_geo, 9)[:8]
+    t0 = time.perf_counter()
+    pqc = P.Parameterized_circuit(10, 10, ansatz="np_fabric", n_layers=2,
+                                  sector=True)
+    batch = GeometryBatch([P.Moldata(g, "sto-3g") for g in geos], 10, 10,
+                          pqc)
+    B = len(geos)
+    theta0 = pqc.init_zeros()
+    oaos = torch.stack([oo.oao_mo_coeff for oo in batch.oo_list])
+    torch.cuda.synchronize()
+    print(f"  setup of {B} geometries: {time.perf_counter() - t0:.2f} s "
+          f"(D = {pqc.state_dim}, n_theta = {pqc.theta_shape}, n_kappa = "
+          f"{batch.oo0.n_kappa}, route {batch._core['route']})")
+    def step():
+        return batch.newton_steps(theta0, oaos)
+
+    step()
+    shapes = []
+    restore = _spy_kernel_batches(grid, shapes)
+    gk.reset_launches()
+    try:
+        (nth, nka, noao, es, lows), step_s = _synced_s(torch, step)
+    finally:
+        restore()
+    launches = dict(gk.LAUNCHES)
+    check_route_kernels(launches, FUSED_KERNELS, "the batched step")
+    for name in FUSED_KERNELS:
+        most = max((s[0] for k, s in shapes if k == name and s), default=1)
+        print(f"    {name}: {launches[name]} launches, largest leading "
+              f"batch {most}")
+        check(most > 1, f"{name} never carried more than one geometry")
+    seq_s = []
+    oo = batch.oo_list[0]
+    oo._nr_iteration(theta0, oo.oao_mo_coeff, *STEP.values())
+    errs = dict(energy=0.0, theta=0.0, oao=0.0, eig=0.0)
+    for i, oo in enumerate(batch.oo_list):
+        ref, sec = _synced_s(torch, lambda oo=oo: oo._nr_iteration(
+            theta0, oo.oao_mo_coeff, *STEP.values()))
+        seq_s.append(sec)
+        errs["energy"] = max(errs["energy"], abs(float(ref[3] - es[i])))
+        errs["theta"] = max(errs["theta"], _max_abs(ref[0], nth[i]))
+        errs["oao"] = max(errs["oao"], _max_abs(ref[2], noao[i]))
+        errs["eig"] = max(errs["eig"], abs(float(ref[4] - lows[i])))
+    print(f"    batched vs sequential: {errs}")
+    for k in ("energy", "theta", "oao"):
+        check(errs[k] <= TOL_BATCH, f"batched {k} off sequential by "
+              f"{errs[k]}")
+    check(errs["eig"] <= TOL_BATCH_EIG,
+          f"batched lowest eigenvalue off sequential by {errs['eig']}")
+    for lane, (e_ref, eig_ref, norm_ref) in BATCH_10E10O.items():
+        got = (float(es[lane]), float(lows[lane]), float(nth[lane].norm()))
+        err = max(abs(a - b) for a, b in zip(got, (e_ref, eig_ref,
+                                                   norm_ref)))
+        print(f"    lane {lane}: E {got[0]:.14f} (JAX-CPU {e_ref:.14f}), "
+              f"lowest eig {got[1]:+.12e}, |theta| {got[2]:.12f}; max "
+              f"|port - JAX| {err:.3e}")
+        check(err <= TOL_BATCH_ANCHOR, f"lane {lane} off its anchor by "
+              f"{err}")
+    # the batched solve on the card (a batched Jacobi solver may serve
+    # small stacked matrices) against the per-lane solves
+    e0, grad, hess = batch._core["grad_hess_batch"](
+        nth, noao, batch.int1e, batch.int2e, batch.oao_c, batch.nuc)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    Hr = torch.randn((B, 32, 32), generator=gen, dtype=torch.float64,
+                     device="cuda")
+    gr = torch.randn((B, 32), generator=gen, dtype=torch.float64,
+                     device="cuda")
+    for label, g_, H_ in (("the step's Hessians", grad, hess),
+                          ("random 32 x 32", gr, Hr + Hr.mT)):
+        dp, low = linalg.eigh_direction(g_, H_)
+        e_dp = max(_max_abs(dp[b], linalg.eigh_direction(g_[b], H_[b])[0])
+                   for b in range(B))
+        e_low = max(abs(float(low[b] - linalg.eigh_direction(
+            g_[b], H_[b])[1])) for b in range(B))
+        print(f"    batched eigh_direction ({label}, n = "
+              f"{H_.shape[-1]}): dp {e_dp:.3e}, lowest {e_low:.3e} from "
+              f"the per-lane solves")
+        check(max(e_dp, e_low) <= TOL_BATCH,
+              f"batched Newton solve ({label}) off per-lane by "
+              f"{max(e_dp, e_low)}")
+    with _SyncCount(torch) as syncs:
+        step()
+    busy = device_profile(step, step_s, top=6)
+    med = statistics.median(seq_s)
+    shown = "not measured" if busy is None else f"{100 * busy:.1f}%"
+    print(f"  one batched step of {B} geometries {step_s:.4f} s; {B} "
+          f"sequential iterations {sum(seq_s):.4f} s ({med:.4f} s each, "
+          f"median); launches {launches}; busy {shown}")
+    syncs.show("one batched step")
+    return launches
+
+
+def _time_loop(torch, label, runs):
+    """Print the per-point seconds of each (name, fn) in ``runs`` (each
+    fn returns (loop, points)) and return their results."""
+    out = {}
+    for name, fn in runs:
+        (loop, points), sec = _synced_s(torch, fn)
+        out[name] = (loop, sec)
+        print(f"    {label} {name}: {points} points in {sec:.3f} s, "
+              f"{sec / points:.4f} s per point")
+    return out
+
+
+def run_batched_phase(torch, P, gk):
+    """Phase 24 (b): BerryPhaseLoop.run_batched on the tutorial's loop,
+    (2e,2o) np_fabric L=1, track_steps=12: 21 points in the full space,
+    energies and lowest eigenvalues within 1e-8 of CPU JAX run_batched
+    and the Berry phase +-pi within 0.05 (and JAX's within 1e-8); 11
+    points in sector mode, the same checks, the fused route's kernels
+    launched at n2 = 4; s per point against run() in the same phase.
+    Returns the launches of the sector loop's run_batched."""
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    launches = {}
+    for label, points, kw, e_ref, eig_ref in (
+            ("full space", 21, {}, BATCHED_2E2O_E, BATCHED_2E2O_EIG),
+            ("sector", 11, dict(sector=True), BATCHED_2E2O_SECTOR_E,
+             BATCHED_2E2O_SECTOR_EIG)):
+        geos = _loop_geometries(get_formal_geo, points)
+        pqc = P.Parameterized_circuit(2, 2, ansatz="np_fabric", n_layers=1,
+                                      **kw)
+
+        def batched():
+            loop = P.BerryPhaseLoop(geos, "sto-3g", 2, 2, pqc)
+            return loop.run_batched(conv_tol=1e-10, track_steps=12), points
+
+        def sequential():
+            loop = P.BerryPhaseLoop(geos, "sto-3g", 2, 2, pqc)
+            return loop.run(conv_tol=1e-10, track_steps=12,
+                            track_tol=1e-10), points
+
+        gk.reset_launches()
+        res = _time_loop(torch, f"(2e,2o) {label}",
+                         [("run_batched", batched)])
+        launches = dict(gk.LAUNCHES)
+        res.update(_time_loop(torch, f"(2e,2o) {label}",
+                              [("run", sequential)]))
+        loop = res["run_batched"][0]
+        _held(f"{label} run_batched energies", loop.energy_l, e_ref,
+              TOL_ENERGY)
+        _held(f"{label} run_batched lowest Hessian eigenvalues",
+              loop.hess_eig_l, eig_ref, TOL_ENERGY)
+        phase = loop.berry_phase()
+        print(f"    Berry phase {phase:+.15f}")
+        check(abs(abs(phase) - np.pi) < 0.05, f"Berry phase {phase}")
+        check(abs(phase - BERRY_PHASE_2E2O) <= TOL_ENERGY,
+              f"{label} Berry phase {phase}")
+        if kw:
+            check_route_kernels(launches, FUSED_KERNELS,
+                                "the sector run_batched")
+        else:
+            check_no_kernels(launches, "the full-space run_batched")
+    return launches
+
+
+def _loop_pair(torch, P, label, pqc, mol, ncas, run_kw, held=None,
+               anchors=None, method=None):
+    """full_optimization on the host loop and the device loop (fresh
+    OO_pqc each), timed, then once more each under the sync counter.
+    The device loop must equal the host loop: the same iteration count,
+    energies 1e-11, theta, kappa, OAO matrices and lowest eigenvalues
+    1e-9 (the first ``held`` iterations only, where given), and the final
+    OAO matrix left in oao_mo_coeff; energies within 1e-8 of
+    ``anchors`` where given.  Returns the device loop's result."""
+    def build():
+        return P.OO_pqc(pqc, mol, ncas, ncas, freeze_active=True,
+                        newton_method=method)
+
+    def run(oo, device_loop):
+        return oo, oo.full_optimization(pqc.init_zeros(),
+                                        device_loop=device_loop, **run_kw)
+
+    run(build(), True)
+    oo_h, oo_d = build(), build()
+    (oo_h, host), host_s = _synced_s(torch, lambda: run(oo_h, False))
+    (oo_d, dev), dev_s = _synced_s(torch, lambda: run(oo_d, True))
+    n = len(host[0]) if held is None else min(held, len(host[0]))
+    check(len(dev[0]) == len(host[0]),
+          f"{label}: {len(dev[0])} device-loop iterations, host "
+          f"{len(host[0])}")
+    e_err = max(abs(a - b) for a, b in zip(dev[0][:n], host[0][:n]))
+    eig_err = max(abs(a - b) for a, b in zip(dev[4][:n], host[4][:n]))
+    p_err = max(_max_abs(a, b) for k in (1, 2, 3)
+                for a, b in zip(dev[k][:n], host[k][:n]))
+    print(f"    {label}: {len(dev[0])} iterations; device loop vs host "
+          f"loop over {n}: energies {e_err:.3e}, theta/kappa/OAO "
+          f"{p_err:.3e}, lowest eigenvalues {eig_err:.3e}; host loop "
+          f"{host_s:.3f} s ({host_s / len(host[0]):.4f} s/iter), device "
+          f"loop {dev_s:.3f} s ({dev_s / len(dev[0]):.4f} s/iter)")
+    check(e_err <= TOL_LOOP_E, f"{label}: energies part by {e_err}")
+    check(max(p_err, eig_err) <= TOL_LOOP_PARAMS,
+          f"{label}: parameters part by {max(p_err, eig_err)}")
+    check(torch.equal(oo_d.oao_mo_coeff, dev[3][-1]),
+          f"{label}: oao_mo_coeff is not the last OAO matrix")
+    if anchors is not None:
+        _held(f"{label} device-loop energies", dev[0][:n], anchors[:n],
+              TOL_ENERGY)
+    oo_h, oo_d = build(), build()
+    with _SyncCount(torch) as s_h:
+        run(oo_h, False)
+    with _SyncCount(torch) as s_d:
+        run(oo_d, True)
+    s_h.show(f"{label} host loop", per=len(host[0]), top=4)
+    s_d.show(f"{label} device loop", per=len(dev[0]))
+    check(s_d.total < s_h.total, f"{label}: the device loop synchronized "
+          f"{s_d.total} times, the host loop {s_h.total}")
+    return dev, dict(host_s=host_s, dev_s=dev_s, host_syncs=s_h.total,
+                     dev_syncs=s_d.total, iterations=len(dev[0]))
+
+
+def device_loop_phase(torch, P, gk):
+    """Phase 25 (c): full_optimization(device_loop=True) against the host
+    loop on the card (_loop_pair): (2e,2o) np_fabric L=1 in the full
+    space, freeze_active, to CASSCF within 1e-8, on eigh and on
+    newton_method="iterative"; (6e,6o) np_fabric L=2 in the full space,
+    12 iterations, held to the CPU JAX anchors (the trajectory amplifies
+    its last bits tenfold per iteration after that); (10e,10o) sector
+    np_fabric L=2, 4 iterations at conv_tol=0, held to its anchors.
+    (The (12e,12o) staged refusal is checked in phase 6.)  Returns the
+    (10e,10o) device loop's kernel launches."""
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
+    pqc2 = P.Parameterized_circuit(2, 2, ansatz="np_fabric", n_layers=1)
+    for method in ("eigh", "iterative"):
+        dev, _ = _loop_pair(torch, P, f"(2e,2o) {method}", pqc2, mol, 2, {},
+                            method=method)
+        diff = dev[0][-1] - E_CASSCF_2E2O
+        print(f"      to CASSCF: {diff:+.3e}")
+        check(abs(diff) <= TOL_ENERGY, f"(2e,2o) {method} device loop "
+              f"misses CASSCF by {diff}")
+    pqc6 = P.Parameterized_circuit(6, 6, ansatz="np_fabric", n_layers=2)
+    _loop_pair(torch, P, "(6e,6o) full space", pqc6, mol, 6,
+               dict(max_iterations=HELD_6E6O), anchors=ANCHORS_6E6O)
+    pqc10 = P.Parameterized_circuit(10, 10, ansatz="np_fabric", n_layers=2,
+                                    sector=True)
+    gk.reset_launches()
+    oo = P.OO_pqc(pqc10, mol, 10, 10, freeze_active=True)
+    oo.full_optimization(pqc10.init_zeros(), max_iterations=4, conv_tol=0.0,
+                         device_loop=True)
+    launches = dict(gk.LAUNCHES)
+    check_route_kernels(launches, FUSED_KERNELS, "the (10e,10o) device loop")
+    print(f"    (10e,10o) device loop, 4 iterations: launches {launches} "
+          f"({ {k: v / 4 for k, v in launches.items() if v} } per "
+          f"iteration)")
+    _loop_pair(torch, P, "(10e,10o) sector", pqc10, mol, 10,
+               dict(max_iterations=4, conv_tol=0.0), anchors=ANCHORS_10E10O)
+    return launches
+
+
+def batch_loop_phase(torch, P):
+    """Phase 26 (d): GeometryBatch.optimize_device_loop against optimize,
+    (2e,2o) np_fabric L=1, geometries (140, 80) and (135, 85): 8 steps at
+    conv_tol=0 equal (energies 1e-11, theta, OAO and lowest eigenvalues
+    1e-9); with conv_tol=1e-10 it stops before 20 steps, within 1e-8 of
+    each geometry's CASSCF; times and host syncs of both drivers."""
+    from auto_oo_tpu_torch.parallel import GeometryBatch
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    mols = [P.Moldata(get_formal_geo(a, p), "sto-3g")
+            for a, p in ((140, 80), (135, 85))]
+    pqc = P.Parameterized_circuit(2, 2, ansatz="np_fabric", n_layers=1)
+    batch = GeometryBatch(mols, 2, 2, pqc)
+    theta0 = pqc.init_zeros()
+    batch.optimize(theta0, n_steps=1)
+    (hist_h, th_h, oao_h, low_h), host_s = _synced_s(
+        torch, lambda: batch.optimize(theta0, n_steps=8))
+    (hist_d, th_d, oao_d, low_d), dev_s = _synced_s(
+        torch, lambda: batch.optimize_device_loop(theta0, max_steps=8,
+                                                  conv_tol=0.0))
+    check(tuple(hist_d.shape) == (8, 2), f"device loop ran "
+          f"{tuple(hist_d.shape)} steps")
+    e_err = _max_abs(hist_d, torch.stack(hist_h))
+    p_err = max(_max_abs(th_d, th_h), _max_abs(oao_d, oao_h),
+                _max_abs(low_d, low_h))
+    print(f"    8 steps: optimize_device_loop vs optimize: energies "
+          f"{e_err:.3e}, theta/OAO/eigenvalues {p_err:.3e}; optimize "
+          f"{host_s:.3f} s, optimize_device_loop {dev_s:.3f} s")
+    check(e_err <= TOL_LOOP_E, f"batched device loop energies part by "
+          f"{e_err}")
+    check(p_err <= TOL_LOOP_PARAMS, f"batched device loop parameters part "
+          f"by {p_err}")
+    (hist_c, *_), conv_s = _synced_s(
+        torch, lambda: batch.optimize_device_loop(theta0, max_steps=50,
+                                                  conv_tol=1e-10))
+    steps = hist_c.shape[0]
+    print(f"    conv_tol=1e-10: stopped after {steps} steps, {conv_s:.3f} s")
+    check(3 <= steps < 20, f"batched device loop took {steps} steps")
+    for i, mol in enumerate(mols):
+        mol.run_casscf(2, 2)
+        diff = float(hist_c[-1, i]) - mol.casscf.e_tot
+        check(abs(diff) <= TOL_ENERGY, f"geometry {i} misses CASSCF by "
+              f"{diff}")
+    with _SyncCount(torch) as s_h:
+        batch.optimize(theta0, n_steps=8)
+    with _SyncCount(torch) as s_d:
+        batch.optimize_device_loop(theta0, max_steps=8, conv_tol=0.0)
+    s_h.show("optimize, 8 steps", per=8, top=4)
+    s_d.show("optimize_device_loop, 8 steps", per=8)
+
+
 def main():
     import torch
 
@@ -3486,6 +3967,18 @@ def main():
             unrestricted_full_phase, torch, P, gk)
         phase("user-defined states: up_then_down and callable ansatze",
               user_states_phase, torch, P, gk)
+        torch.cuda.empty_cache()
+        paths["batch_10e10o"] = phase(
+            "GeometryBatch.newton_steps, (10e,10o) sector, 8 geometries",
+            batch10_phase, torch, P, gk, grid)
+        paths["run_batched_2e2o_sector"] = phase(
+            "BerryPhaseLoop.run_batched, (2e,2o), 21 and 11 points",
+            run_batched_phase, torch, P, gk)
+        paths["device_loop_10e10o"] = phase(
+            "full_optimization(device_loop=True) against the host loop",
+            device_loop_phase, torch, P, gk)
+        phase("GeometryBatch.optimize_device_loop against optimize",
+              batch_loop_phase, torch, P)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

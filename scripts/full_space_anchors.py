@@ -70,6 +70,20 @@ standard normal array from numpy's default_rng(14) of Gamma's shape):
                        np_fabric L=2 program, 3 iterations from init_zeros
                        (the 6e6o cell's first iterations)
 
+and the cells of the geometry batches (``GeometryBatch``, the dp axis, and
+``BerryPhaseLoop.run_batched``), on the tutorial's loop:
+
+  batch_10e10o          sector=True, np_fabric L=2 (the 10e10o_mixed
+                        cell's circuit in f64), the first 8 of 9 loop
+                        points: one damped-Newton iteration from
+                        init_zeros at points 0 and 4, each its own
+                        ``OO_pqc._nr_iteration_jit`` (the batched step's
+                        lanes 0 and 4): energy, lowest Hessian eigenvalue
+                        and |theta|
+  batched_2e2o          np_fabric L=1 in the full space, 21 points,
+                        run_batched(track_steps=12)
+  batched_2e2o_sector   the same in sector mode, 11 points
+
 Each cell prints one JSON line: the energy after every iteration (for
 the Adam cells, the energy at every step before its update), the lowest
 Hessian eigenvalues (Newton cells), n_theta, n_kappa, D and, for the
@@ -261,7 +275,48 @@ def run_berry(name, perturb=0.0):
     return out
 
 
+BATCH_CELLS = {
+    "batch_10e10o": dict(ncas=10, points=9, lanes=(0, 4),
+                         kw=dict(ansatz="np_fabric", n_layers=2,
+                                 sector=True)),
+    "batched_2e2o": dict(ncas=2, points=21,
+                         kw=dict(ansatz="np_fabric", n_layers=1)),
+    "batched_2e2o_sector": dict(ncas=2, points=11,
+                                kw=dict(ansatz="np_fabric", n_layers=1,
+                                        sector=True)),
+}
+
+
+def run_batch(name, perturb=0.0):
+    c = BATCH_CELLS[name]
+    ncas = c["ncas"]
+    geos = loop_geometries(c["points"])
+    pqc = Parameterized_circuit(ncas, ncas, **c["kw"])
+    out = dict(cell=name, perturb=perturb, n_theta=int(pqc.theta_shape),
+               D=int(pqc.state_dim))
+    if "lanes" in c:
+        for lane in c["lanes"]:
+            mol = aoo.Moldata(geos[lane], "sto-3g")
+            oo = OO_pqc(pqc, mol, ncas, ncas, freeze_active=True)
+            theta, _, _, energy, lowest = oo._nr_iteration_jit(
+                pqc.init_zeros() + perturb, oo.oao_mo_coeff, 1e-4, 0.5,
+                1e-6, 1.1, 1e-6)
+            out[f"lane{lane}"] = dict(
+                energy=float(energy), lowest_hess_eig=float(lowest),
+                theta_norm=float(np.linalg.norm(np.asarray(theta))))
+        return out
+    loop = BerryPhaseLoop(geos, "sto-3g", ncas, ncas, pqc,
+                          freeze_active=True)
+    loop.run_batched(theta_init=pqc.init_zeros() + perturb, track_steps=12)
+    out.update(energies=[float(e) for e in loop.energy_l],
+               lowest_hess_eig=[float(e) for e in loop.hess_eig_l],
+               berry_phase=loop.berry_phase())
+    return out
+
+
 def run(name, perturb=0.0):
+    if name in BATCH_CELLS:
+        return run_batch(name, perturb)
     if name in BERRY_CELLS:
         return run_berry(name, perturb)
     if name in USER_STATE_CELLS:
@@ -298,7 +353,7 @@ def main(argv):
         perturb = float(argv[i + 1])
         argv = argv[:i] + argv[i + 2:]
     for name in argv or (list(CELLS) + list(BERRY_CELLS)
-                         + list(USER_STATE_CELLS)):
+                         + list(USER_STATE_CELLS) + list(BATCH_CELLS)):
         print(json.dumps(run(name, perturb)), flush=True)
 
 

@@ -13,7 +13,8 @@ and counts the trials whose lowest Ritz value misses the lowest
 eigenvalue (numpy eigvalsh) by more than 1e-6 relative to the scale.
 The JAX package parks the iterations after a breakdown at +1e30 on T's
 diagonal and solves the whole T (its Jacobi eigh on the CPU); the port
-drops them (auto_oo_tpu_torch/ops/linalg.lanczos_lowest).  Prints one
+parks them at 1 + the live block's Gershgorin bound
+(auto_oo_tpu_torch/ops/linalg.lanczos_lowest).  Prints one
 JSON line.
 """
 

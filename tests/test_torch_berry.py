@@ -264,10 +264,13 @@ def test_6e6o_sector_arc_contract():
 
 
 def test_run_batched_names_its_item():
+    """run_batched runs (tests/test_torch_batch.py); its mesh, the JAX
+    package's dp sharding across devices, names the torch.distributed
+    engines' item, ROADMAP queue 1 item 8, and falls back to nothing."""
     loop = P.BerryPhaseLoop(_loop_geos(3), "sto-3g", 2, 2,
                             P.Parameterized_circuit(2, 2))
     with pytest.raises(NotImplementedError, match="item 8"):
-        loop.run_batched()
+        loop.run_batched(mesh=object(), track_steps=1)
 
 
 def test_run_casscf_and_verbose(capsys):

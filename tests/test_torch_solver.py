@@ -114,11 +114,31 @@ def test_solver_pieces_equal_jax():
         < 1e-10
 
 
+def test_expm_small_skew_equals_scipy():
+    """``linalg.expm`` of a skew matrix of 1-norm 0.034 (the size of a
+    first-iteration (10e,10o) orbital rotation, nao = 13) is within 1e-15
+    of scipy's expm; ``torch.linalg.matrix_exp`` of the single matrix
+    misses that by two orders and more, which is why ``expm`` sends one
+    matrix through it as a stack."""
+    import scipy.linalg
+
+    rng = np.random.default_rng(5)
+    A = rng.standard_normal((13, 13))
+    A = A - A.T
+    A *= 0.034 / np.abs(A).sum(axis=0).max()
+    ref = scipy.linalg.expm(A)
+    assert np.abs(linalg.expm(torch.as_tensor(A)).numpy() - ref).max() \
+        < 1e-15
+    assert np.abs(torch.linalg.matrix_exp(torch.as_tensor(A)).numpy()
+                  - ref).max() > 1e-13
+
+
 def test_lanczos_breakdown_drops_dead_steps():
     """A Hessian with a null space (nine zero eigenvalues, as the frozen
     (2e,2o) Hessian at init_zeros has): the Krylov space is invariant
-    after 43 steps and Lanczos breaks down; the port drops the steps
-    after the breakdown and finds the lowest eigenvalue at every scale
+    after 43 steps and Lanczos breaks down; the port parks the steps
+    after the breakdown above the live block's spectrum (its Gershgorin
+    bound) and finds the lowest eigenvalue at every scale
     and under rounding-level perturbations (the JAX package's +1e30
     parking misses it in 67 of 200 such trials on its own Hessian:
     scripts/lanczos_breakdown.py)."""
