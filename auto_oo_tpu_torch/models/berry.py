@@ -301,8 +301,8 @@ class BerryPhaseLoop:
         batched step.  Unlike ``run`` (each geometry from its
         predecessor, one step each), every geometry starts from point 0,
         so a dense loop needs a few more steps per geometry, all of them
-        run at once.  ``mesh`` is GeometryBatch's (not None raises
-        NotImplementedError)."""
+        run at once.  ``mesh`` is GeometryBatch's: a DeviceMesh whose
+        "dp" ranks split the tracked geometries."""
         from ..parallel.sharding import GeometryBatch
 
         mol0 = Moldata(self.geometries[0], self.basis)

@@ -206,15 +206,33 @@ class _Parts:
 
 
 def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
-                   precision="f64", hosted_form=None, newton_method=None):
+                   precision="f64", hosted_form=None, newton_method=None,
+                   mesh=None, tangent_axis="tp", state_axis=None):
     """Geometry-independent functional core for one problem spec: the
     molecule arrays (int1e_ao, int2e_ao, oao_coeff, nuc) are arguments of
     every function, so one core serves every geometry.  ``hosted_form``
     ("gram" or "per_tangent") forces the hosted route's form; by default
     it follows the JAX package's rule (``grid_hosted.gram_fits``).
     ``newton_method`` is the Newton solve of ``newton_update``
-    (utils/newton_raphson.newton_step_pure)."""
+    (utils/newton_raphson.newton_step_pure).
+
+    With ``mesh`` (a torch DeviceMesh) ``grad_hess`` is the JAX package's
+    mesh core (auto_oo_tpu/models/oo_pqc.py:98-175, 270-300) in f64 on
+    the flat, fused and staged routes: each rank of ``tangent_axis`` takes
+    its block of the padded tangent rows (H J, transition RDMs, gradient
+    pieces), and ``state_axis``, a second axis, splits the state axis of
+    J, Phi and H J (parallel/statevector.state_shard: grid rows on a
+    sector, basis blocks in the full space).  When both name one axis the
+    tangent axis keeps it.  The gate sweeps, the Newton solve, the Armijo
+    search and the MO fold run whole on every rank; with a state axis the
+    Armijo trials' energies run state-split too (``_mesh_core``).  The
+    mesh core returns only its sharded functions."""
     route = _route(pqc, streamed=stream_plan is not None)
+    if mesh is not None and (route not in _BATCH_ROUTES
+                             or precision != "f64"):
+        raise ValueError(f"the mesh core runs in f64 on the "
+                         f"{', '.join(_BATCH_ROUTES)} routes, not "
+                         f"{precision} on the {route} route")
     params_idx = tuple(int(i) for i in params_idx)
     params_idx_dev = torch.as_tensor(np.asarray(params_idx, dtype=np.int64),
                                      device=pqc.device)
@@ -302,13 +320,19 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
     occ_rel = tuple(range(len(occ)))
     act_rel = tuple(range(len(occ), len(occ) + len(act)))
 
-    def energy(theta, kappa, oao, int1e_ao, int2e_ao, oao_coeff, nuc):
+    def sub_coefficients(kappa, oao, int1e_ao, int2e_ao, oao_coeff, nuc):
+        """(c0, c1, c2) of the active-space Hamiltonian at the MOs
+        oao_coeff @ oao @ exp(-K(kappa)), from the occ+act integrals."""
         mo = oao_coeff @ oao @ expm(-k2m(kappa))
         mo_sub = mo.index_select(-1, sub)
         h1 = _tr.int1e_transform(int1e_ao, mo_sub)
         g2 = _tr.int2e_transform(int2e_ao, mo_sub)
-        c0, c1, c2 = _tr.molecular_hamiltonian_coefficients(
-            nuc, h1, g2, occ_rel, act_rel)
+        return _tr.molecular_hamiltonian_coefficients(nuc, h1, g2, occ_rel,
+                                                      act_rel)
+
+    def energy(theta, kappa, oao, int1e_ao, int2e_ao, oao_coeff, nuc):
+        c0, c1, c2 = sub_coefficients(kappa, oao, int1e_ao, int2e_ao,
+                                      oao_coeff, nuc)
         psi = pqc._state_impl_grid(theta)
         if hosted:
             # mixed: the hosted RDM pass on the f32 state (the JAX
@@ -624,37 +648,38 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
                   else grad_c.new_zeros(0))
         return e0, torch.cat([grad_c, grad_o]), (gamma, Gamma)
 
-    def newton_update(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc, e0,
-                      grad, hess, alpha, beta, mu, rho, lambda_min):
-        """Augmented-Newton solve + Armijo line search + MO update, given
-        precomputed (e0, grad, hess)."""
+    def newton_update_on(energy_fn):
+        """``newton_update`` with the Armijo trials' energies by
+        ``energy_fn`` (``energy``'s signature)."""
 
-        def objective(flat):
-            return energy(flat[:nt], flat[nt:], oao, int1e_ao, int2e_ao,
-                          oao_coeff, nuc)
+        def newton_update(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc,
+                          e0, grad, hess, alpha, beta, mu, rho, lambda_min):
+            """Augmented-Newton solve + Armijo line search + MO update,
+            given precomputed (e0, grad, hess)."""
 
-        flat0 = torch.cat([theta, torch.zeros(n_kappa, dtype=theta.dtype,
-                                              device=theta.device)])
-        new_flat, lowest, t, e_t = damped_newton_step_pure(
-            objective, flat0, grad, hess, alpha=alpha, beta=beta, mu=mu,
-            rho=rho, lambda_min=lambda_min, e0=e0,
-            min_rel_slack=_HOSTED_MIXED_SLACK if mixed and hosted else 0.0,
-            method=newton_method)
-        new_theta = new_flat[:nt]
-        new_kappa = new_flat[nt:]
-        # e_t IS the energy at (new_theta, new_oao): folding kappa into
-        # the OAO coefficients leaves the MO matrix unchanged
-        new_oao = oao @ expm(-k2m(new_kappa))
-        return new_theta, new_kappa, new_oao, e_t, lowest
+            def objective(flat):
+                return energy_fn(flat[:nt], flat[nt:], oao, int1e_ao,
+                                 int2e_ao, oao_coeff, nuc)
 
-    def nr_iteration(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc,
-                     alpha, beta, mu, rho, lambda_min):
-        """One damped-Newton iteration: grad_hess, then newton_update."""
-        e0, grad, hess = grad_hess(theta, oao, int1e_ao, int2e_ao,
-                                   oao_coeff, nuc)
-        return newton_update(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc,
-                             e0, grad, hess, alpha, beta, mu, rho,
-                             lambda_min)
+            flat0 = torch.cat([theta, torch.zeros(
+                n_kappa, dtype=theta.dtype, device=theta.device)])
+            new_flat, lowest, t, e_t = damped_newton_step_pure(
+                objective, flat0, grad, hess, alpha=alpha, beta=beta, mu=mu,
+                rho=rho, lambda_min=lambda_min, e0=e0,
+                min_rel_slack=(_HOSTED_MIXED_SLACK if mixed and hosted
+                               else 0.0),
+                method=newton_method)
+            new_theta = new_flat[:nt]
+            new_kappa = new_flat[nt:]
+            # e_t IS the energy at (new_theta, new_oao): folding kappa
+            # into the OAO coefficients leaves the MO matrix unchanged
+            new_oao = oao @ expm(-k2m(new_kappa))
+            return new_theta, new_kappa, new_oao, e_t, lowest
+
+        return newton_update
+
+    newton_update = newton_update_on(energy)
+    nr_iteration = _nr_iteration_of(grad_hess, newton_update)
 
     # -- the batched core: a leading lane axis (the geometries of a
     # GeometryBatch, the trials of a line search, the one run of a device
@@ -860,6 +885,12 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
                                    oao_coeff, nuc, e0, grad, hess, alpha,
                                    beta, mu, rho, lambda_min, rounds)
 
+    if mesh is not None:
+        return _mesh_core(pqc, maps, mesh, tangent_axis, state_axis,
+                          coefficients, sub_coefficients, assemble,
+                          trdm_blocks, parts, n_kappa, energy,
+                          newton_update_on, route)
+
     return {"energy": energy, "grad_hess": grad_hess,
             "energy_gradient_staged": energy_gradient_staged,
             "newton_update": newton_update, "nr_iteration": nr_iteration,
@@ -869,6 +900,122 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
             "route": route, "hosted_form": form, "precision": precision,
             "plan": plan, "plan_lp": plan_lp, "cross_rows": cross_rows,
             "parts": parts}
+
+
+def _nr_iteration_of(grad_hess, newton_update):
+    """One damped-Newton iteration: ``grad_hess``, then ``newton_update``
+    (the core's ``nr_iteration`` on the given pair)."""
+
+    def nr_iteration(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc,
+                     alpha, beta, mu, rho, lambda_min):
+        e0, grad, hess = grad_hess(theta, oao, int1e_ao, int2e_ao,
+                                   oao_coeff, nuc)
+        return newton_update(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc,
+                             e0, grad, hess, alpha, beta, mu, rho,
+                             lambda_min)
+
+    return nr_iteration
+
+
+def _mesh_core(pqc, maps, mesh, tangent_axis, state_axis, coefficients,
+               sub_coefficients, assemble, trdm_blocks, parts, n_kappa,
+               energy, newton_update_on, route):
+    """The mesh core (see ``_build_nr_core``): ``grad_hess``, ``energy``,
+    ``newton_update`` and ``nr_iteration`` with the tangent rows split
+    over ``tangent_axis`` and the state axis over ``state_axis``.
+
+    ``grad_hess``, per call: the state and J by one whole sweep (every
+    rank holds both whole, so Phi and the H-apply read them directly);
+    psi's Phi block gives H psi (this rank's block, all-gathered: w = 2 H
+    psi feeds the whole reverse sweep) and psi's RDMs (grams summed over
+    the state axis); each chunk of this rank's tangent rows gives its H J
+    block, its transition grams and its gradient pieces; the circuit gram
+    <J_i, H J_j> of this rank's state block is summed over the state
+    axis; the tangent blocks (gradient, gram columns, transition grams)
+    are all-gathered over the tangent axis; the circuit-Hessian sweep and
+    the Fock blocks run whole.
+
+    ``energy``: with a state axis, c0 + <psi|H psi> with H psi by the
+    state split (one reduce_scatter) and the dot summed over the axis;
+    without one, the core's own energy, so a tangent-only step is the
+    single-device step."""
+    from ..parallel.distributed import Axis, all_gather
+    from ..parallel.statevector import state_shard
+
+    T = Axis(mesh, tangent_axis)
+    S = state_shard(maps, pqc.ncas,
+                    None if state_axis in (None, tangent_axis)
+                    else Axis(mesh, state_axis))
+    nt = int(pqc.theta_shape)
+    n2 = pqc.ncas * pqc.ncas
+    tb, (t0, t1) = T.block(nt)
+
+    def tangent_gather(x):
+        return all_gather(x.contiguous(), T)[:nt]
+
+    def grad_hess(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc):
+        h1, g2, c0, c1eff, c2 = coefficients(oao, int1e_ao, int2e_ao,
+                                             oao_coeff, nuc)
+        with parts("state + J sweep"):
+            psi, J = pqc._state_and_jacobian_grid(theta)
+        full = S.whole(psi)
+        psi_loc = S.local(psi)
+        phi = S.phi(full)                               # (n2, n_loc)
+        Hpsi = S.flat(S.gather(S.ham(c1eff, c2, full, phi)))
+        e0 = c0 + (psi.conj() @ Hpsi).real
+        w = 2.0 * Hpsi
+        gamma = S.reduce(gram_last(phi, psi_loc.conj()).real)
+        corr = S.reduce(gram_last(phi.conj(), phi).real)
+        with parts("circuit-Hessian sweep"):
+            term2 = pqc._state_hessian_dot_grid(theta, w, psi, J)
+        # this rank's tangent rows, zero rows past n_theta
+        Jb = J.new_zeros((tb,) + tuple(J.shape[1:]))
+        Jb[:max(0, min(t1, nt) - t0)] = J[t0:t1]
+        Jb_loc = S.local(Jb)
+        HJ_loc = torch.empty_like(Jb_loc)
+        dgamma = Jb_loc.new_zeros((tb, n2), dtype=torch.float64)
+        dgram = Jb_loc.new_zeros((tb, n2, n2), dtype=torch.float64)
+        chunk = max(1, min(tb, _CHUNK_ELEMENTS
+                           // max(1, n2 * Jb_loc.shape[-1])))
+        with parts("H J and transition grams"):
+            for lo in range(0, tb, chunk):
+                hi = min(tb, lo + chunk)
+                Jc = S.whole(Jb[lo:hi])
+                phiJ = S.phi(Jc)                        # (c, n2, n_loc)
+                HJ_loc[lo:hi] = S.ham(c1eff, c2, Jc, phiJ)
+                if n_kappa:
+                    A = gram_last(phiJ.conj(), phi).real
+                    dgram[lo:hi] = A + A.transpose(1, 2)
+                    dgamma[lo:hi] = (
+                        gram_last(phiJ, psi_loc.conj()).real
+                        + gram_last(phi, Jb_loc[lo:hi].conj()).real.T)
+                del Jc, phiJ
+        gc = S.reduce((Jb_loc.conj() @ S.local(w)).real)
+        # <J_i, H J_j> for every i and this rank's columns j
+        G_cols = S.reduce(gram_last(S.local(J).conj(), HJ_loc).real)
+        grad_c = tangent_gather(gc)
+        hess_cc = 2.0 * tangent_gather(G_cols.T).T + term2
+        gamma, Gamma = _grid.assemble_rdms(gamma, corr, pqc.ncas)
+        trdms = ([trdm_blocks(tangent_gather(S.reduce(dgamma)),
+                              tangent_gather(S.reduce(dgram)))]
+                 if n_kappa else [])
+        grad, hess = assemble(h1, g2, gamma, Gamma, grad_c, hess_cc, trdms)
+        return e0, grad, hess
+
+    if S.axis is not None:
+        def energy(theta, kappa, oao, int1e_ao, int2e_ao, oao_coeff, nuc):
+            c0, c1, c2 = sub_coefficients(kappa, oao, int1e_ao, int2e_ao,
+                                          oao_coeff, nuc)
+            psi = pqc._state_impl_grid(theta)
+            h_loc = S.ham(_ham.c1_effective(c1, c2), c2, S.whole(psi))
+            dot = (S.local(psi).conj() @ h_loc).real
+            return c0 + S.reduce(dot.reshape(1))[0]
+
+    newton_update = newton_update_on(energy)
+    return {"energy": energy, "grad_hess": grad_hess,
+            "newton_update": newton_update,
+            "nr_iteration": _nr_iteration_of(grad_hess, newton_update),
+            "route": route, "parts": parts}
 
 
 class OO_pqc(OO_energy):

@@ -273,6 +273,37 @@ prints its seconds:
    two geometries: 8 steps at conv_tol=0 equal (1e-11, 1e-9), and with
    conv_tol=1e-10 it stops before 20 steps at each CASSCF (1e-8).
 
+The distributed engines (auto_oo_tpu_torch.parallel) run on a one-rank
+NCCL group of this process (the card's machine has one card): two
+DeviceMeshes, (1, 1) ("tp", "row") and (1,) ("dp",), made before phase
+2; every collective is issued at one rank.  Each call prints its wall
+time, peak device memory, the collectives with the bytes of their
+inputs and its kernel launches:
+27. (a), after phase 10's gradient pipeline: row_sharded_sector_fns at
+   the (16e,16o) H16 chain from the demo's theta0 (rdms_grid, ham_apply,
+   energy_gradient): e0 and the gradient within 1e-10 of the single-card
+   hosted energy_and_gradient of the same run, the RDMs and H psi within
+   1e-12 relative of the hosted passes;
+28. (b) hosted_sharded_fns at (16e,16o) (its default row chunk): rdms
+   and ham_apply within 1e-12 relative of grid_hosted's passes;
+29. (c), after phase 6: grid2d_nr_fns on the (1, 1) (tangent, row) mesh
+   at the (12e,12o) 6-31G sector (phase 6's objects): its first nr_step
+   equal to phase 6's iteration 1 within 1e-10 Ha and to the CPU JAX
+   anchor within 1e-8;
+30. GeometryBatch on the staged route (ROADMAP queue 1 item 11): 2
+   geometries of the (12e,12o) 6-31G sector, one newton_steps, lane 0
+   within 1e-8 of the CPU JAX anchor, both lanes within 1e-10 of their
+   sequential iterations, its peak memory;
+31. (d), after phase 23: sharded_nr_step_fn at the (10e,10o) sector and
+   the (8e,8o) full space, both equal to the single card within 1e-10
+   Ha, (8e,8o) within 1e-9 of the JAX package's 8-device -92.6688074620
+   (MULTICHIP_r05.json);
+32. (e) GeometryBatch(mesh=, axis="dp") over phase 23's 8 (10e,10o)
+   geometries, equal to mesh=None within 1e-12.
+Phase 25 also runs the (10e,10o) device loop in precision="mixed"
+(item 11): the host loop's values, iteration 1 within 1e-6 of CPU JAX
+mixed and 2-4 within 1e-5.
+
 The line before the last is {"kernels": [...]} (per kernel: launches in
 its main path's run, which is the (16e,16o) iteration of phase 10 for
 the hosted route's kernels (gather_two_spin among them), phase 8's
@@ -289,7 +320,10 @@ energy_and_gradient, and "*_adam*", a whole Adam run; the Berry loops'
 under "berry_*", a whole loop's run; one batched step of 8 (10e,10o)
 geometries under "batch_10e10o", the sector run_batched under
 "run_batched_2e2o_sector", 4 device-loop iterations at (10e,10o) under
-"device_loop_10e10o"); max abs error
+"device_loop_10e10o"; the distributed engines' calls under
+"row_sharded_16e16o", "hosted_sharded_16e16o", "grid2d_12e12o",
+"tangent_sharded_10e10o" and "batch_mesh_10e10o", the staged batch
+under "batch_12e12o"); max abs error
 against the
 plain version over every comparison; kernel and plain times and the
 bound at the (16e,16o) f64 chunk shapes for the hosted route's kernels
@@ -323,6 +357,9 @@ ANCHORS_10E10O = [-92.71490202342721, -92.74063367923337,
 # CPU JAX energies of the (12e,12o) sector np_fabric L=1 path of
 # formaldimine 6-31G after NR iterations 1-3 from init_zeros (same step
 # parameters)
+# the JAX package's energy after one (8e,8o) sharded NR step on 8 devices
+# (MULTICHIP_r05.json; np_fabric L=1 from init_zeros)
+E_NR_8E8O = -92.6688074620
 ANCHORS_12E12O = [-93.87081413001067, -93.87231829137146,
                   -93.87365505167503]
 # JAX energies of the (14e,14o) H14 chain (scripts/bench_14e14o.py's
@@ -1292,7 +1329,8 @@ def slice_phase(torch, P, gk):
 
 def sector12_phase(torch, P, gk, dev):
     """3 NR iterations of the (12e,12o) sector path; returns the grid
-    kernel launches counted during them."""
+    kernel launches counted during them and (mol, pqc, oo, the initial
+    OAO matrix, the energies) for the phases that reuse them."""
     from auto_oo_tpu_torch.utils.misc import get_formal_geo
 
     t0 = time.perf_counter()
@@ -1315,6 +1353,7 @@ def sector12_phase(torch, P, gk, dev):
             stamps.append(time.perf_counter())
 
     theta0 = pqc.init_zeros()
+    oao0 = oo.oao_mo_coeff.clone()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gk.reset_launches()
@@ -1369,7 +1408,7 @@ def sector12_phase(torch, P, gk, dev):
           f"iterations {peak / 1e9:.3f} GB (max_memory_allocated); above "
           f"the resident set: J + Hessian sweeps {sweeps / 1e9:.3f} GB, "
           f"one energy {energy_peak / 1e9:.3f} GB")
-    return launches
+    return launches, (mol, pqc, oo, oao0, energies)
 
 
 @contextlib.contextmanager
@@ -1608,6 +1647,7 @@ def sector14_phase(torch, gk, pqc, oo):
             stamps.append(time.perf_counter())
 
     theta0 = pqc.init_zeros()
+    oao0 = oo.oao_mo_coeff.clone()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gk.reset_launches()
@@ -3508,7 +3548,9 @@ def batch10_phase(torch, P, gk, grid):
     the per-lane solves (1e-12), on the step's Hessians and on a random
     stack of 32 x 32 matrices; s per batched step against 8 sequential
     iterations, the device busy share of a step and its host syncs.
-    Returns the launches of one batched step."""
+    Returns the launches of one batched step and (the molecules, the
+    circuit, theta0, the OAO matrices, the step's thetas, OAO matrices,
+    energies and lowest eigenvalues) for phase 32."""
     from auto_oo_tpu_torch.ops import linalg
     from auto_oo_tpu_torch.parallel import GeometryBatch
     from auto_oo_tpu_torch.scripts.profile_14e14o import device_profile
@@ -3518,8 +3560,8 @@ def batch10_phase(torch, P, gk, grid):
     t0 = time.perf_counter()
     pqc = P.Parameterized_circuit(10, 10, ansatz="np_fabric", n_layers=2,
                                   sector=True)
-    batch = GeometryBatch([P.Moldata(g, "sto-3g") for g in geos], 10, 10,
-                          pqc)
+    mols = [P.Moldata(g, "sto-3g") for g in geos]
+    batch = GeometryBatch(mols, 10, 10, pqc)
     B = len(geos)
     theta0 = pqc.init_zeros()
     oaos = torch.stack([oo.oao_mo_coeff for oo in batch.oo_list])
@@ -3603,7 +3645,7 @@ def batch10_phase(torch, P, gk, grid):
           f"sequential iterations {sum(seq_s):.4f} s ({med:.4f} s each, "
           f"median); launches {launches}; busy {shown}")
     syncs.show("one batched step")
-    return launches
+    return launches, (mols, pqc, theta0, oaos, (nth, noao, es, lows))
 
 
 def _time_loop(torch, label, runs):
@@ -3671,17 +3713,18 @@ def run_batched_phase(torch, P, gk):
 
 
 def _loop_pair(torch, P, label, pqc, mol, ncas, run_kw, held=None,
-               anchors=None, method=None):
+               anchors=None, method=None, precision="f64", tol=None):
     """full_optimization on the host loop and the device loop (fresh
     OO_pqc each), timed, then once more each under the sync counter.
     The device loop must equal the host loop: the same iteration count,
     energies 1e-11, theta, kappa, OAO matrices and lowest eigenvalues
     1e-9 (the first ``held`` iterations only, where given), and the final
-    OAO matrix left in oao_mo_coeff; energies within 1e-8 of
-    ``anchors`` where given.  Returns the device loop's result."""
+    OAO matrix left in oao_mo_coeff; energies within 1e-8 (or ``tol``,
+    one bound per iteration) of ``anchors`` where given.  Returns the
+    device loop's result."""
     def build():
         return P.OO_pqc(pqc, mol, ncas, ncas, freeze_active=True,
-                        newton_method=method)
+                        newton_method=method, precision=precision)
 
     def run(oo, device_loop):
         return oo, oo.full_optimization(pqc.init_zeros(),
@@ -3709,9 +3752,15 @@ def _loop_pair(torch, P, label, pqc, mol, ncas, run_kw, held=None,
           f"{label}: parameters part by {max(p_err, eig_err)}")
     check(torch.equal(oo_d.oao_mo_coeff, dev[3][-1]),
           f"{label}: oao_mo_coeff is not the last OAO matrix")
-    if anchors is not None:
+    if anchors is not None and tol is None:
         _held(f"{label} device-loop energies", dev[0][:n], anchors[:n],
               TOL_ENERGY)
+    elif anchors is not None:
+        for i, (e, ref, t) in enumerate(zip(dev[0], anchors, tol)):
+            print(f"      iteration {i + 1}: {e:.14f}, CPU JAX {ref:.14f}, "
+                  f"diff {e - ref:+.3e} (bound {t:.0e})")
+            check(abs(e - ref) <= t, f"{label} iteration {i + 1} off its "
+                  f"anchor by {e - ref}")
     oo_h, oo_d = build(), build()
     with _SyncCount(torch) as s_h:
         run(oo_h, False)
@@ -3732,9 +3781,10 @@ def device_loop_phase(torch, P, gk):
     newton_method="iterative"; (6e,6o) np_fabric L=2 in the full space,
     12 iterations, held to the CPU JAX anchors (the trajectory amplifies
     its last bits tenfold per iteration after that); (10e,10o) sector
-    np_fabric L=2, 4 iterations at conv_tol=0, held to its anchors.
-    (The (12e,12o) staged refusal is checked in phase 6.)  Returns the
-    (10e,10o) device loop's kernel launches."""
+    np_fabric L=2, 4 iterations at conv_tol=0, held to its anchors, in
+    f64 and in precision="mixed" (iteration 1 within 1e-6 of CPU JAX
+    mixed, 2-4 within 1e-5).  (The (12e,12o) staged refusal is checked
+    in phase 6.)  Returns the (10e,10o) device loop's kernel launches."""
     from auto_oo_tpu_torch.utils.misc import get_formal_geo
 
     mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
@@ -3762,6 +3812,10 @@ def device_loop_phase(torch, P, gk):
           f"iteration)")
     _loop_pair(torch, P, "(10e,10o) sector", pqc10, mol, 10,
                dict(max_iterations=4, conv_tol=0.0), anchors=ANCHORS_10E10O)
+    _loop_pair(torch, P, "(10e,10o) sector, mixed", pqc10, mol, 10,
+               dict(max_iterations=4, conv_tol=0.0),
+               anchors=ANCHORS_10E10O_MIXED, precision="mixed",
+               tol=TOL_10E10O_MIXED)
     return launches
 
 
@@ -3816,6 +3870,243 @@ def batch_loop_phase(torch, P):
     s_d.show("optimize_device_loop, 8 steps", per=8)
 
 
+@contextlib.contextmanager
+def dist_measure(torch, gk, D, label, paths=None, key=None):
+    """Time a block of distributed calls on the card: its wall time (host
+    clock, synchronized), peak device memory, the collectives issued
+    with the bytes of their inputs (parallel.distributed.COLLECTIVES) and
+    the kernel launches, all counted from 0 at its start; the launches
+    are added to ``paths[key]``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    D.reset_collectives()
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = dict(gk.LAUNCHES)
+    coll = ", ".join(f"{k} {n} ({b / 1e9:.4f} GB)"
+                     for k, (n, b) in D.COLLECTIVES.items() if n)
+    print(f"    {label}: {sec:.3f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, collectives "
+          f"{coll or 'none'}; launches { {k: v for k, v in launches.items() if v} }")
+    if paths is not None:
+        acc = paths.setdefault(key, dict.fromkeys(launches, 0))
+        for k, v in launches.items():
+            acc[k] += v
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+def sharded16_phase(torch, P, gk, D, mesh, pqc, oo):
+    """Phases 27 (a) and 28 (b): the (16e,16o) H16 chain (D = 165,636,900)
+    at full width on one NCCL rank, at the demo's theta0 = 0.02 *
+    arange(14).  (a) row_sharded_sector_fns: rdms, ham_apply and
+    energy_gradient, e0 and the gradient held to the single-card hosted
+    energy_and_gradient within 1e-10, the RDMs to its RDMs and H psi to
+    grid_hosted.ham_apply_hosted within 1e-12 relative; (b)
+    hosted_sharded_fns (its default row chunk): rdms and ham_apply held
+    to grid_hosted within 1e-12 relative to max |H psi| (and max |Gamma|).
+    Returns {path: launches}."""
+    from auto_oo_tpu_torch.ops import grid, grid_hosted
+    from auto_oo_tpu_torch.ops import hamiltonian
+    from auto_oo_tpu_torch.parallel import (hosted_sharded_fns,
+                                            row_sharded_sector_fns)
+
+    gm = pqc.sector_maps
+    paths = {}
+    theta0 = 0.02 * torch.arange(pqc.theta_shape, dtype=torch.float64,
+                                 device=pqc.device)
+    c0, c1, c2 = oo.get_active_integrals(oo.mo_coeff)
+    c1e = hamiltonian.c1_effective(c1, c2)
+    psi_g = pqc._state_impl_grid(theta0)
+    e_ref, g_ref, (gamma, Gamma) = oo.energy_and_gradient(theta0)
+    h_ref = grid_hosted.ham_apply_hosted(c1e, c2, psi_g, gm)
+    key = "row_sharded_16e16o"
+    eng = row_sharded_sector_fns(pqc, mesh, axis="row")
+    with dist_measure(torch, gk, D, "(a) rdms_grid", paths, key):
+        g1, G2 = eng["rdms_grid"](psi_g)
+    psi = grid.from_grid(psi_g, gm)
+    with dist_measure(torch, gk, D, "(a) ham_apply", paths, key):
+        h = eng["ham_apply"](c1e, c2, psi)
+    del psi
+    h = grid.to_grid(h, gm)
+    with dist_measure(torch, gk, D, "(a) energy_gradient", paths, key):
+        e0, grad = eng["energy_gradient"](c0, c1e, c2, theta0)
+    errs = dict(e0=abs(float(e0 - e_ref)),
+                grad=float((grad - g_ref[:pqc.theta_shape]).abs().max()),
+                gamma=_rel(g1, gamma), Gamma=_rel(G2, Gamma),
+                ham=_rel(h, h_ref))
+    del h
+    print(f"    (a) against the single-card hosted path: "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} }")
+    check(errs["e0"] <= 1e-10 and errs["grad"] <= 1e-10,
+          f"(16e,16o) row-sharded energy_gradient off: {errs}")
+    check(max(errs["gamma"], errs["Gamma"], errs["ham"]) <= 1e-12,
+          f"(16e,16o) row-sharded RDMs or H psi off: {errs}")
+    check_route_kernels(paths[key], HOSTED_KERNELS, "the row-sharded engine")
+    torch.cuda.empty_cache()
+    key = "hosted_sharded_16e16o"
+    hs = hosted_sharded_fns(gm, mesh, axis="row")
+    print(f"    (b) hosted x row-sharded row chunk {hs['row_chunk']} of "
+          f"{gm.Na} rows; memory table {hs['memory_budget']()}")
+    xn = hs["rows"](psi_g)
+    with dist_measure(torch, gk, D, "(b) rdms", paths, key):
+        gam, cor = hs["rdms"](xn)
+    with dist_measure(torch, gk, D, "(b) ham_apply", paths, key):
+        hh = hs["ham_apply"](c1e, c2, xn)
+    del xn
+    hh = hs["gather"](hh)
+    g1h, G2h = grid.assemble_rdms(gam, cor, pqc.ncas)
+    errs = dict(gamma=_rel(g1h, gamma), Gamma=_rel(G2h, Gamma),
+                ham=_rel(hh, h_ref))
+    print(f"    (b) against the single-card hosted passes: "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} }")
+    check(max(errs.values()) <= 1e-12,
+          f"(16e,16o) hosted x row-sharded engine off: {errs}")
+    for name in ("gather_rows_scaled", "gather_reduce_cols",
+                 "scatter_rows"):
+        check(paths[key][name] > 0, f"{name} not launched by the hosted x "
+              f"row-sharded engine")
+    return paths
+
+
+def grid2d12_phase(torch, gk, D, mesh, objects):
+    """Phase 29 (c): grid2d_nr_fns on a 1 x 1 (tangent, row) NCCL mesh at
+    the (12e,12o) 6-31G sector (phase 6's objects): its first nr_step
+    from init_zeros equal to phase 6's first iteration within 1e-10 Ha
+    and to the CPU JAX anchor within 1e-8.  Returns {path: launches}."""
+    from auto_oo_tpu_torch.parallel import grid2d_nr_fns
+
+    _mol, pqc, oo, oao0, energies = objects
+    paths = {}
+    eng = grid2d_nr_fns(oo, mesh, t_axis="tp", r_axis="row")
+    with dist_measure(torch, gk, D, "(c) grid2d nr_step", paths,
+                      "grid2d_12e12o"):
+        out = eng["nr_step"](pqc.init_zeros(), oao0)
+    e = float(out[3])
+    print(f"    (c) E = {e:.14f}; phase 6 iteration 1 {energies[0]:.14f} "
+          f"(diff {e - energies[0]:+.3e}); CPU JAX {ANCHORS_12E12O[0]:.14f} "
+          f"(diff {e - ANCHORS_12E12O[0]:+.3e})")
+    check(abs(e - energies[0]) <= 1e-10, "grid2d (12e,12o) step off phase 6")
+    check(abs(e - ANCHORS_12E12O[0]) <= TOL_ENERGY,
+          "grid2d (12e,12o) step off its anchor")
+    check_route_kernels(paths["grid2d_12e12o"], HOSTED_KERNELS,
+                        "the grid2d step")
+    return paths
+
+
+def batch12_phase(torch, P, gk, objects):
+    """Phase 30: GeometryBatch on the staged route (ROADMAP queue 1 item
+    11): the (12e,12o) 6-31G sector at 2 geometries, (140, 80) (phase 6's
+    molecule) and (135, 85), one newton_steps from init_zeros: lane 0
+    within 1e-8 of the CPU JAX anchor (iteration 1 of phase 6's path;
+    the second geometry has no CPU JAX anchor, a full-size run), each
+    lane within 1e-10 of its sequential _nr_iteration; its time, peak
+    memory and launches.  Returns {path: launches}."""
+    from auto_oo_tpu_torch.parallel import GeometryBatch
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    mol, pqc, _oo, _oao0, _energies = objects
+    mols = [mol, P.Moldata(get_formal_geo(135, 85), mol.basis)]
+    batch = GeometryBatch(mols, pqc.ncas, pqc.ncas, pqc)
+    check(batch._core["route"] == "staged",
+          f"(12e,12o) batch route {batch._core['route']}")
+    theta0 = pqc.init_zeros()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    out = batch.newton_steps(theta0, None)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = dict(gk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    es = out[3].tolist()
+    seq = [float(oo._nr_iteration(theta0, oo.oao_mo_coeff,
+                                  *STEP.values())[3])
+           for oo in batch.oo_list]
+    print(f"    one batched step of 2 (12e,12o) geometries: {sec:.3f} s, "
+          f"peak device memory {peak / 1e9:.3f} GB; energies {es}; "
+          f"sequential {seq}; lane 0 - CPU JAX {es[0] - ANCHORS_12E12O[0]:+.3e}"
+          f"; launches {launches}")
+    check(abs(es[0] - ANCHORS_12E12O[0]) <= TOL_ENERGY,
+          "(12e,12o) batch lane 0 off its anchor")
+    check(max(abs(a - b) for a, b in zip(es, seq)) <= 1e-10,
+          "(12e,12o) batch off the sequential iterations")
+    check_route_kernels(launches, FUSED_KERNELS, "the (12e,12o) batch")
+    return {"batch_12e12o": launches}
+
+
+def tangent_sharded_phase(torch, P, gk, D, mesh):
+    """Phase 31 (d): sharded_nr_step_fn on one NCCL rank: the (10e,10o)
+    sector slice (np_fabric L=2, from init_zeros) and the (8e,8o) full
+    space (np_fabric L=1, tangents and state on one axis), each equal to
+    the single-card _nr_iteration within 1e-10 Ha; (10e,10o) within 1e-8
+    of its CPU JAX anchor, (8e,8o) within 1e-9 of the JAX package's
+    8-device -92.6688074620 (MULTICHIP_r05.json).  Returns {path:
+    launches}."""
+    from auto_oo_tpu_torch.parallel import sharded_nr_step_fn
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    mol = P.Moldata(get_formal_geo(140, 80), "sto-3g")
+    paths = {}
+    for label, ncas, kw, state_axis, anchor, tol in (
+            ("10e10o", 10, dict(n_layers=2, sector=True), None,
+             ANCHORS_10E10O[0], TOL_ENERGY),
+            ("8e8o", 8, dict(n_layers=1), "tp", E_NR_8E8O, 1e-9)):
+        pqc = P.Parameterized_circuit(ncas, ncas, ansatz="np_fabric", **kw)
+        oo = P.OO_pqc(pqc, mol, ncas, ncas, freeze_active=True)
+        theta0 = pqc.init_zeros()
+        ref = oo._nr_iteration(theta0, oo.oao_mo_coeff, *STEP.values())
+        step = sharded_nr_step_fn(oo, mesh, axis="tp", state_axis=state_axis)
+        key = f"tangent_sharded_{label}"
+        with dist_measure(torch, gk, D, f"(d) ({label}) sharded NR step",
+                          paths, key):
+            out = step(theta0, oo.oao_mo_coeff)
+        e = float(out[3])
+        print(f"    (d) ({label}): E = {e:.14f}, single card "
+              f"{float(ref[3]):.14f} (diff {e - float(ref[3]):+.3e}), "
+              f"anchor {anchor:.10f} (diff {e - anchor:+.3e})")
+        check(abs(e - float(ref[3])) <= 1e-10,
+              f"({label}) sharded NR step off the single card")
+        check(abs(e - anchor) <= tol, f"({label}) sharded NR step off "
+              f"its anchor by {e - anchor}")
+    check_route_kernels(paths["tangent_sharded_10e10o"], FUSED_KERNELS,
+                        "the (10e,10o) sharded step")
+    del paths["tangent_sharded_8e8o"]
+    return paths
+
+
+def batch_mesh_phase(torch, gk, D, mesh, objects):
+    """Phase 32 (e): GeometryBatch(mesh=, axis="dp") over phase 23's 8
+    (10e,10o) geometries on one NCCL rank: one newton_steps equal to the
+    batch without a mesh (energies 1e-12 Ha, theta and OAO 1e-12, lowest
+    eigenvalues 1e-9).  Returns {path: launches}."""
+    from auto_oo_tpu_torch.parallel import GeometryBatch
+
+    mols, pqc, theta0, oaos, (nth, noao, es, lows) = objects
+    batch = GeometryBatch(mols, 10, 10, pqc, mesh=mesh, axis="dp")
+    paths = {}
+    with dist_measure(torch, gk, D, "(e) GeometryBatch(mesh=) newton_steps",
+                      paths, "batch_mesh_10e10o"):
+        out = batch.newton_steps(theta0, oaos)
+    errs = dict(energy=_max_abs(out[3], es), theta=_max_abs(out[0], nth),
+                oao=_max_abs(out[2], noao), eig=_max_abs(out[4], lows))
+    print(f"    (e) against mesh=None: "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} }")
+    for k in ("energy", "theta", "oao"):
+        check(errs[k] <= TOL_BATCH, f"batch mesh {k} off by {errs[k]}")
+    check(errs["eig"] <= TOL_BATCH_EIG, f"batch mesh eig off {errs['eig']}")
+    check_route_kernels(paths["batch_mesh_10e10o"], FUSED_KERNELS,
+                        "the meshed batch")
+    return paths
+
+
 def main():
     import torch
 
@@ -3830,6 +4121,8 @@ def main():
     from auto_oo_tpu_torch.ops import gather_mechanisms as gm
     from auto_oo_tpu_torch.ops import grid_kernels as gk
     from auto_oo_tpu_torch.scripts import experiment_gather_mechanisms as exp
+    import torch.distributed as dist
+    from auto_oo_tpu_torch.parallel import distributed as D, make_mesh
 
     dev = torch.device("cuda")
     print(card_line())
@@ -3837,6 +4130,15 @@ def main():
           f"python {sys.version.split()[0]}")
     build_s = cuda_build.load_all([gk.LIBRARY, gm.LIBRARY])
     print(f"kernel build + load (both libraries): {build_s:.2f} s")
+    # the distributed engines' phases run on a one-rank NCCL group of this
+    # process (the card's machine has one card)
+    t0 = time.perf_counter()
+    mesh = make_mesh(shape=(1, 1), names=("tp", "row"), device="cuda")
+    mesh_dp = make_mesh(shape=(1,), names=("dp",), device="cuda")
+    print(f"one-rank process group: backend {dist.get_backend()}, world "
+          f"size {dist.get_world_size()}, meshes {mesh.mesh_dim_names} and "
+          f"{mesh_dp.mesh_dim_names} ({time.perf_counter() - t0:.2f} s)")
+    check(dist.get_backend() == "nccl", "the process group is not NCCL")
     t_all = time.perf_counter()
 
     def phase(name, fn, *args):
@@ -3854,8 +4156,14 @@ def main():
         paths = {"probes": phase("gather mechanism entry point",
                                  entry_point_phase, gm, gk, exp)}
         paths["10e10o"] = phase("(10e,10o) slice", slice_phase, torch, P, gk)
-        paths["12e12o"] = phase("(12e,12o) sector", sector12_phase, torch, P,
-                                gk, dev)
+        paths["12e12o"], objects12 = phase("(12e,12o) sector",
+                                           sector12_phase, torch, P, gk, dev)
+        paths.update(phase("(c) grid2d_nr_fns, (12e,12o), one NCCL rank",
+                           grid2d12_phase, torch, gk, D, mesh, objects12))
+        paths.update(phase("GeometryBatch on the staged route, (12e,12o), 2 "
+                           "geometries", batch12_phase, torch, P, gk,
+                           objects12))
+        del objects12
         torch.cuda.empty_cache()
         paths["10e10o_mixed"] = phase("(10e,10o) slice, mixed precision",
                                       mixed10_phase, torch, P, gk)
@@ -3936,6 +4244,11 @@ def main():
         paths.update(phase("(16e,16o) gradient-only pipeline, f64",
                            gradient16_phase, torch, gk, pqc16, oo16, e0_16,
                            grad16, "f64", mol16.hf.e_tot))
+        torch.cuda.empty_cache()
+        paths.update(phase("(a), (b) row-sharded and hosted x row-sharded "
+                           "engines, (16e,16o), one NCCL rank",
+                           sharded16_phase, torch, P, gk, D, mesh, pqc16,
+                           oo16))
         del oo16, grad16
         torch.cuda.empty_cache()
         paths["16e16o_mixed"] = phase(
@@ -3968,9 +4281,16 @@ def main():
         phase("user-defined states: up_then_down and callable ansatze",
               user_states_phase, torch, P, gk)
         torch.cuda.empty_cache()
-        paths["batch_10e10o"] = phase(
+        paths["batch_10e10o"], objects10 = phase(
             "GeometryBatch.newton_steps, (10e,10o) sector, 8 geometries",
             batch10_phase, torch, P, gk, grid)
+        paths.update(phase("(e) GeometryBatch(mesh=), (10e,10o), one NCCL "
+                           "rank", batch_mesh_phase, torch, gk, D, mesh_dp,
+                           objects10))
+        del objects10
+        paths.update(phase("(d) sharded_nr_step_fn, (10e,10o) sector and "
+                           "(8e,8o) full space, one NCCL rank",
+                           tangent_sharded_phase, torch, P, gk, D, mesh))
         paths["run_batched_2e2o_sector"] = phase(
             "BerryPhaseLoop.run_batched, (2e,2o), 21 and 11 points",
             run_batched_phase, torch, P, gk)
@@ -3982,6 +4302,8 @@ def main():
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        dist.destroy_process_group()
     print(f"all phases: {time.perf_counter() - t_all:.2f} s")
     # each kernel's main path: the probes' entry point (the probes), the
     # (12e,12o) spin-resolved RDMs (gather_rows_scaled), the hosted

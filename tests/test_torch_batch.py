@@ -13,8 +13,9 @@ batched gradients the JAX batch's and the port's sequential gradients to
 1e-9); ``optimize`` reaches each geometry's CASSCF within 1e-8;
 ``optimize_device_loop`` equals ``optimize`` over 8 steps and stops
 early on its own test; a 5-point loop's ``run_batched`` equals the JAX
-one to 1e-10.  The refusals: a mesh (NotImplementedError naming ROADMAP
-queue 1 item 8), the streamed and hosted routes (ValueError).
+one to 1e-10.  The refusals: a ``mesh`` that is not a DeviceMesh
+(TypeError; a real mesh runs in tests/test_torch_parallel.py), the
+streamed and hosted routes (ValueError).
 """
 
 import numpy as np
@@ -263,11 +264,12 @@ def test_orbital_algebra_batched_equals_per_lane():
 
 
 def test_refusals(monkeypatch):
-    """A mesh names the torch.distributed engines; the streamed and the
-    hosted route have no geometry batch."""
+    """A ``mesh`` must be a torch.distributed DeviceMesh (the dp ranks of
+    tests/test_torch_parallel.py); the streamed and the hosted route have
+    no geometry batch."""
     mols = [P.Moldata(g, "sto-3g") for g in GEOS[:2]]
     pqc = P.Parameterized_circuit(2, 2, ansatz="np_fabric", n_layers=1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         GeometryBatch(mols, 2, 2, pqc, mesh=object())
     sector = P.Parameterized_circuit(2, 2, ansatz="np_fabric", n_layers=1,
                                      sector=True)

@@ -264,12 +264,12 @@ def test_6e6o_sector_arc_contract():
 
 
 def test_run_batched_names_its_item():
-    """run_batched runs (tests/test_torch_batch.py); its mesh, the JAX
-    package's dp sharding across devices, names the torch.distributed
-    engines' item, ROADMAP queue 1 item 8, and falls back to nothing."""
+    """run_batched runs (tests/test_torch_batch.py), and on a DeviceMesh
+    of dp ranks (tests/test_torch_parallel.py); a ``mesh`` that is not a
+    DeviceMesh raises a TypeError that names what it must be."""
     loop = P.BerryPhaseLoop(_loop_geos(3), "sto-3g", 2, 2,
                             P.Parameterized_circuit(2, 2))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         loop.run_batched(mesh=object(), track_steps=1)
 
 

@@ -20,8 +20,11 @@ iterative Newton solver and the noisy optimizer's CUDA generator on the
 card against the CPU, the user-defined states (one spin component of
 Phi through ``gather_rows_scaled``, complex grid states through both Phi
 kernels, spin-resolved sector RDMs and a complex callable's Newton core
-on the card against the CPU), and failed builds and launches that
-raise.  This
+on the card against the CPU), the distributed engines on a one-rank
+NCCL group (the row-sharded and hosted x row-sharded engines, the
+tangent-sharded and 2-D Newton cores and ``GeometryBatch(mesh=)``
+against the single-card path, every collective issued), and failed
+builds and launches that raise.  This
 file imports neither jax nor the JAX package, so it also runs where jax
 is not installed;
 tests/conftest.py imports jax, so run it on the card with
@@ -1108,3 +1111,100 @@ def test_cuda_iterative_solver_and_noisy(cuda_device):
     np.testing.assert_allclose(
         zero.full_noisy_optimization(pqc.init_zeros(), 0.0)[0],
         exact.full_optimization(pqc.init_zeros())[0], rtol=0, atol=1e-12)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A (1, 1) DeviceMesh over a one-rank NCCL group of this process
+    (``parallel.make_mesh`` with no group set up), destroyed after the
+    module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    import torch.distributed as dist
+    from auto_oo_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(shape=(1, 1), names=("tp", "row"), device="cuda")
+    assert dist.get_backend() == "nccl"
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_nccl_grid_engines(nccl_mesh):
+    """The row-sharded and the hosted x row-sharded engines on one NCCL
+    rank against the single-card grid passes, (6e,6o) sector: RDMs and
+    H psi within 1e-12, energy + gradient within 1e-12 / 1e-10; every
+    collective of the engines issued."""
+    from auto_oo_tpu_torch.ops import hamiltonian
+    from auto_oo_tpu_torch.parallel import (hosted_sharded_fns,
+                                            row_sharded_sector_fns)
+    from auto_oo_tpu_torch.parallel import distributed as D
+
+    pqc = P.Parameterized_circuit(6, 6, ansatz="np_fabric", n_layers=2,
+                                  sector=True, device="cuda")
+    oo = P.OO_pqc(pqc, P.Moldata(P.get_formal_geo(140, 80), "sto-3g"), 6,
+                  6, freeze_active=True)
+    theta = 0.07 * torch.arange(pqc.theta_shape, dtype=torch.float64,
+                                device="cuda")
+    psi = pqc.state(theta)
+    c0, c1, c2 = oo.get_active_integrals(oo.mo_coeff)
+    c1e = hamiltonian.c1_effective(c1, c2)
+    gm = pqc.sector_maps
+    D.reset_collectives()
+    eng = row_sharded_sector_fns(pqc, nccl_mesh, axis="row")
+    g1, G2 = eng["rdms"](psi)
+    g1r, G2r = pqc.get_rdms_from_state(psi)
+    assert float((g1 - g1r).abs().max()) < 1e-12
+    assert float((G2 - G2r).abs().max()) < 1e-12
+    psi_g = grid.to_grid(psi, gm)
+    h_ref = hamiltonian.ham_apply(c1e, c2, psi_g, 6, gm)
+    h = grid.to_grid(eng["ham_apply"](c1e, c2, psi), gm)
+    assert float((h - h_ref).abs().max()) < 1e-12
+    e0, grad = eng["energy_gradient"](c0, c1e, c2, theta)
+    e_ref, g_ref, _ = oo.energy_and_gradient(theta)
+    assert abs(float(e0 - e_ref)) < 1e-12
+    assert float((grad - g_ref[:pqc.theta_shape]).abs().max()) < 1e-10
+    hs = hosted_sharded_fns(gm, nccl_mesh, axis="row", row_chunk=3)
+    xn = hs["rows"](psi_g)
+    gam, cor = hs["rdms"](xn)
+    g1h, G2h = grid.assemble_rdms(gam, cor, 6)
+    assert float((G2h - G2r).abs().max()) < 1e-12
+    hh = hs["gather"](hs["ham_apply"](c1e, c2, xn))
+    assert float((hh - h_ref).abs().max()) < 1e-12
+    assert all(calls > 0 for calls, _bytes in D.COLLECTIVES.values())
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_nccl_newton_cores(nccl_mesh):
+    """The tangent-sharded core (tangents on one axis, the state by grid
+    rows on the other), the 2-D engine and GeometryBatch(mesh=) on one
+    NCCL rank, (4e,4o) sector, against the single-card core: energy and
+    gradient 1e-12, Hessian 1e-10, NR-step energy 1e-10."""
+    from auto_oo_tpu_torch.parallel import (GeometryBatch, grid2d_nr_fns,
+                                            sharded_grad_hess_fn)
+
+    pqc = P.Parameterized_circuit(4, 4, ansatz="np_fabric", n_layers=2,
+                                  sector=True, device="cuda")
+    mols = [P.Moldata(P.get_formal_geo(a, p), "sto-3g")
+            for a, p in ((140, 80), (135, 85))]
+    oo = P.OO_pqc(pqc, mols[0], 4, 4, freeze_active=True)
+    theta = 0.05 * torch.arange(pqc.theta_shape, dtype=torch.float64,
+                                device="cuda")
+    e, g, h = oo._grad_hess(theta)
+    for gh in (sharded_grad_hess_fn(oo, nccl_mesh, axis="tp",
+                                    state_axis="row"),
+               grid2d_nr_fns(oo, nccl_mesh)["grad_hess"]):
+        e_s, g_s, h_s = gh(theta, oo.oao_mo_coeff)
+        assert abs(float(e_s - e)) < 1e-12
+        assert float((g_s - g).abs().max()) < 1e-12
+        assert float((h_s - h).abs().max()) < 1e-10
+    step = grid2d_nr_fns(oo, nccl_mesh)["nr_step"](theta, oo.oao_mo_coeff)
+    ref = oo._nr_iteration(theta, oo.oao_mo_coeff, 1e-4, 0.5, 1e-6, 1.1,
+                           1e-6)
+    assert abs(float(step[3]) - float(ref[3])) < 1e-10
+    batch = GeometryBatch(mols, 4, 4, pqc, mesh=nccl_mesh, axis="tp")
+    plain = GeometryBatch(mols, 4, 4, pqc)
+    got = batch.newton_steps(pqc.init_zeros(), None)
+    want = plain.newton_steps(pqc.init_zeros(), None)
+    assert float((got[3] - want[3]).abs().max()) < 1e-12

@@ -12,6 +12,11 @@ JAX package's device loop within 1e-10 (energies) and 1e-9; a (4e,4o)
 sector run of 4 iterations at conv_tol=0 against the host loop; the
 staged refusal (ValueError at D >= 2^19, ``_STAGED_MIN_D`` lowered as
 the JAX test lowers its threshold) and the forced streamed route's.
+In ``precision="mixed"`` (ROADMAP queue 1 item 11), 6 iterations at
+conv_tol=0 at (2e,2o) in the full space and on the sector and on the
+(4e,4o) sector: the port's device loop against the JAX package's mixed
+device loop, 1e-6 Ha at iteration 1 and 1e-5 Ha after (the f32 noise of
+a mixed trajectory), and against the port's mixed host loop, 1e-11 Ha.
 The pieces: ``backtracking_batched`` equals ``backtracking_pure`` lane
 by lane, exhausted searches included, in one round and in rounds;
 batched ``eigh_direction`` equals the per-lane solves to 1e-12;
@@ -153,6 +158,34 @@ def test_callable_ansatz_device_loop_and_batch(mol):
         assert abs(float(ref[3] - es[i])) < 1e-12
         assert float((ref[0] - nth[i]).abs().max()) < 1e-12
         assert float((ref[2] - noao[i]).abs().max()) < 1e-12
+
+
+@pytest.mark.parametrize("ncas,sector", [(2, False), (2, True),
+                                         (4, True)])
+def test_device_loop_mixed_precision(mol, ncas, sector):
+    """full_optimization(device_loop=True, precision="mixed"): 6
+    iterations against the JAX package's mixed device loop (iteration 1
+    1e-6 Ha, then 1e-5 Ha) and against the port's mixed host loop."""
+    kw = dict(ansatz="np_fabric", n_layers=1, sector=sector)
+    jpqc = JPC(ncas, ncas, **kw)
+    joo = JOO(jpqc, J.Moldata(GEO, "sto-3g"), ncas, ncas,
+              freeze_active=True, precision="mixed")
+    e_jax = joo.full_optimization(jpqc.init_zeros(), max_iterations=6,
+                                  conv_tol=0.0, device_loop=True)[0]
+    pqc = P.Parameterized_circuit(ncas, ncas, **kw)
+    runs = []
+    for device_loop in (False, True):
+        oo = P.OO_pqc(pqc, mol, ncas, ncas, freeze_active=True,
+                      precision="mixed")
+        runs.append(oo.full_optimization(pqc.init_zeros(), max_iterations=6,
+                                         conv_tol=0.0,
+                                         device_loop=device_loop)[0])
+    host, dev = runs
+    assert len(dev) == len(e_jax) == 6
+    assert abs(dev[0] - float(e_jax[0])) < 1e-6
+    np.testing.assert_allclose(dev[1:], np.asarray(e_jax[1:], dtype=float),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(dev, host, rtol=0, atol=1e-11)
 
 
 def test_device_loop_refusals(mol, monkeypatch):
