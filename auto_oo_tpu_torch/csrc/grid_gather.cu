@@ -17,18 +17,53 @@
 //
 // gather_rows_scaled: out[b, k, i, j] = (x[b, src[k, i], j] * s[k, i]) * t[k, j]
 //   Replaces auto_oo_tpu/ops/pallas_grid.py::gather_rows_scaled (Pallas
-//   body _gather_rows_kernel).  The TPU kernel existed to keep x resident
-//   in VMEM, because Mosaic has no legal row-granular HBM access.  On
-//   Hopper that problem does not exist: at every fused-path size the
-//   operand x (Ns * Nb * 8 bytes = 0.5 MB at (10e,10o)) sits in the 50 MB
-//   L2, so the gathered reads are L2 hits and the bound is the write of
-//   out (B * n2 * Na * Nb * itemsize bytes, 254 MB for B = 5 at (10e,10o)
-//   f64).  Design: one warp per output row (b, k, i); the warp reads its
-//   src/s once and its 32 lanes stride j, so the reads of the x row and
-//   of t[k] and the write of the out row are coalesced.  The product is
-//   taken as (x * s) * t, the order of the plain PyTorch version, so the
-//   f64 results agree bit for bit.
-//
+//   body _gather_rows_kernel), which kept x resident in VMEM because
+//   Mosaic has no legal row-granular HBM access.  It builds one spin
+//   component of Phi (the spin-resolved RDMs), both Phi halves of the
+//   hosted x row-sharded engine's segments and the probes' variant L.
+//   Bound: bytes.  out written once, each distinct source row of the
+//   valid (s != 0) entries read once, the tables once
+//   (grid_kernels.rows_scaled_bytes); where x exceeds half the L2 every
+//   valid entry's row read again past its first read gives the re-read
+//   floor: 5.55 ms bound and 7.09 ms floor for the (14e,14o) one-spin Phi
+//   in f64 (18.47 GB of out), 0.134 / 0.149 ms for a (16e,16o) segment's
+//   alpha half, 0.122 ms for its beta half.
+//   What bounded the first version (one warp per output row, scalar
+//   loads and stores of one element from column 0, default write-back
+//   stores; scripts/sweep_rows_scaled.py --baseline on an H100): short
+//   and odd rows.  On the segment's 14-element rows 18 of a warp's 32
+//   lanes idled and every warp stored one partial line: 0.567 ms, 22% of
+//   the bound; on the (16e,16o) chunk's beta half (rows of 495 f64, 3,960
+//   bytes) warps split sectors with their neighbours: 10.74 ms, 37%.
+//   Elsewhere it ran at 55-74%.
+//   Design.  A pair's output slab out[b, k] is Na * Nb contiguous
+//   elements; blocks take it in chunks of slots (VEC elements, 16 bytes)
+//   counted from the 128-byte line at or before its start, so each
+//   warp's store instruction covers whole lines whatever the row length,
+//   and rows of 14 elements pack 4.6 to a warp.  Stores are streaming
+//   (evict-first), so out does not push x out of the L2.  Where Nb and
+//   the pointers allow, loads are vectors of a slot too (8-byte slots
+//   for f32 rows of an even Nb); else (an odd Nb) the slot's elements are
+//   decoded and loaded one by one and stored as one vector.  Each lane
+//   reads its slots' (src, s), then starts all its x and t loads (none
+//   of x where s = 0), then stores.  Index arithmetic is 32-bit inside a
+//   slab, the row division one multiply-high by constants of Nb, the
+//   grid (pair, chunk, state) so a block divides nothing.  Block order
+//   (swept): where x exceeds half the L2 but n2 of its rows fit a
+//   quarter of it ((14e,14o), x 94 MB), the pairs of one chunk index run
+//   together, so the source rows of nearby strings stay in the L2;
+//   elsewhere each slab's chunks run together (on the (16e,16o) x of
+//   1.33 GB the other order took 10.6 against 5.6 ms).  No shared memory.
+//   The product is (x * s) * t in the plain version's order, so results
+//   equal it as values in f64 and f32 (for finite x).  On an H100 80GB
+//   HBM3 at 700 W (f64, sweep_rows_scaled.py, the first version timed
+//   in turns): (10e,10o) one-spin Phi 0.0186 ms (83%, the rate of zero_
+//   on as many bytes; was 0.0279), (12e,12o) 0.330 (90%; was 0.421),
+//   (14e,14o) 7.75 (72%, 92% of the floor; was 9.75), the (16e,16o)
+//   segment 0.168 alpha (80%; was 0.240) and 0.146 beta (84%; was
+//   0.567), the (16e,16o) chunk 5.57 alpha (73%; was 6.52) and 5.14 beta
+//   (76%; was 10.73).
+
 // gather_two_spin (both spin halves of Phi = E_pq x, grid rows [r0, r0+R)):
 //   out[b, k, m, j] = (x[b, srcA[k, r0+m], j] * sgnA[k, r0+m]) * tB[k, j]
 //                   + (x[b, r0+m, srcB[k, j]] * sgnB[k, j]) * tA[k, r0+m]
@@ -55,9 +90,9 @@
 //   What bounded the first version of this kernel (one or two staged rows
 //   a block, the dense tables read per output row, stores from column 0;
 //   timed apart on an H100 with the variants of
-//   csrc/two_spin_attribution.cu, scripts/sweep_two_spin.py
-//   --attribute): its stores.  A (16e,16o) row
-//   of Phi is 102,960 bytes in f64 (51,480 in f32), no multiple of 32, so
+//   csrc/two_spin_attribution.cu of commit dba141a): its stores.  A
+//   (16e,16o) row of Phi is 102,960 bytes in f64 (51,480 in f32), no
+//   multiple of 32, so
 //   a warp's stores from column 0 straddled 32-byte sectors that another
 //   warp finished: writing Phi's bytes alone took 6.54 ms (2.0 TB/s),
 //   the same stores started on 128-byte lines 4.20 ms.  After the stores:
@@ -196,38 +231,13 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 8;   // warps (output rows) per block
+constexpr int kRowsThreads = 512;  // gather_rows_scaled: largest block
 constexpr int kMaxThreads = 512;   // gather_reduce: largest block the plan asks
 constexpr int kUnroll = 4;         // gather_reduce: Y loads in flight per task
 constexpr int kColsThreads = 256;  // gather_reduce_cols: largest block
 constexpr int kTwoSpinThreads = 1024;  // gather_two_spin: largest block
 // the most dynamic shared memory one block can use on Hopper (227 KB)
 constexpr size_t kMaxBlockSmem = 232448;
-
-template <typename T>
-__global__ void gather_rows_scaled_kernel(const T* __restrict__ x,
-                                          const int* __restrict__ src,
-                                          const T* __restrict__ s,
-                                          const T* __restrict__ t,
-                                          T* __restrict__ out,
-                                          long long n_rows, int n2, int Ns,
-                                          int Na, int Nb) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.y;
-  if (row >= n_rows) return;
-  const int i = static_cast<int>(row % Na);
-  const long long bk = row / Na;
-  const int k = static_cast<int>(bk % n2);
-  const long long b = bk / n2;
-  const int r = __ldg(src + static_cast<long long>(k) * Na + i);
-  const T sv = __ldg(s + static_cast<long long>(k) * Na + i);
-  const T* xr = x + (b * Ns + r) * static_cast<long long>(Nb);
-  const T* tr = t + static_cast<long long>(k) * Nb;
-  T* o = out + row * static_cast<long long>(Nb);
-  for (int j = threadIdx.x; j < Nb; j += kWarp) {
-    o[j] = (__ldg(xr + j) * sv) * __ldg(tr + j);
-  }
-}
 
 // ---- gather_reduce: vectors of VEC elements along j ----------------------
 
@@ -516,6 +526,162 @@ __device__ __forceinline__ double add_rn(double a, double b) {
 }
 __device__ __forceinline__ float add_rn(float a, float b) {
   return __fadd_rn(a, b);
+}
+
+// ---- gather_rows_scaled ---------------------------------------------------
+
+// The operands of one launch: x, src, s, t, out; B, n2, Ns, Na, Nb; the
+// blocks each pair slab out[b, k] (Na * Nb contiguous elements) takes
+// (chunks); the constants of the division by Nb (e / Nb = (umulhi(e,
+// div_m) + e) >> div_l for 0 <= e < 2^31); the order of the blocks (0:
+// the slabs of one chunk index run together, 1: the chunks of one slab).
+template <typename T>
+struct RowsArgs {
+  const T* x;
+  const int* src;
+  const T* s;
+  const T* t;
+  T* out;
+  int B, n2, Ns, Na, Nb, chunks;
+  unsigned div_m;
+  int div_l, order;
+};
+
+// Block (threads): chunk c of the slab out[b, k], (blockIdx.x, y) = (k,
+// c) in order 0 and (c, k) in order 1, for y = blockIdx.y, + gridDim.y,
+// ..., and b = blockIdx.z, + gridDim.z, ...  The slots (VEC elements, one
+// store each) on out's VEC-element boundaries that hold elements of the
+// slab are counted from the 128-byte line at or before the first; chunk
+// c is slots [c * threads * U, (c + 1) * threads * U) of them, warp w
+// takes the run of 32 * U from w * 32 * U, and lane l its U slots l, l +
+// 32, ... of that run, so every store instruction of a warp covers whole
+// lines.  Elements outside the slab stay idle.  Each lane first reads
+// its slots' (src, s) entries, then starts every x and t load of its U
+// slots (no x load where s = 0: x * 0 is 0 for finite x), then takes the
+// products in the plain version's order and stores them streaming
+// (evict-first).  ELEM false: Nb is a multiple of VEC and x, t lie on
+// VEC elements, so a slot lies in one row and loads are vectors too.
+// ELEM true: a slot may straddle rows (and, at its ends, two slabs): its
+// elements are decoded and loaded one by one and stored as one vector
+// where the slot lies in the slab.  Index arithmetic is 32-bit inside a
+// slab (Na * Nb < 2^31) and the division by Nb one multiply-high.
+template <typename T, int VEC, int U, bool ELEM>
+__global__ void __launch_bounds__(kRowsThreads)
+gather_rows_scaled_kernel(const RowsArgs<T> a) {
+  constexpr int kLine = 128 / (VEC * static_cast<int>(sizeof(T)));
+  const int L = a.Na * a.Nb;  // elements of a slab
+  const int off = (threadIdx.x / kWarp) * (kWarp * U) + threadIdx.x % kWarp;
+  const int ny = a.order == 0 ? a.chunks : a.n2;
+  for (int b = blockIdx.z; b < a.B; b += gridDim.z) {
+    const T* xb = a.x + static_cast<long long>(b) * a.Ns * a.Nb;
+    for (int y = blockIdx.y; y < ny; y += gridDim.y) {
+      const int k = a.order == 0 ? static_cast<int>(blockIdx.x) : y;
+      const int c = a.order == 0 ? y : static_cast<int>(blockIdx.x);
+      const long long base = (static_cast<long long>(b) * a.n2 + k) * L;
+      const long long g0 = base / VEC;  // the slot of its first element
+      const int lead = static_cast<int>(g0 % kLine);
+      const int head = static_cast<int>(base - g0 * VEC);  // 0 unless ELEM
+      const int n_slots = (head + L + VEC - 1) / VEC;
+      const int* srck = a.src + static_cast<long long>(k) * a.Na;
+      const T* sk = a.s + static_cast<long long>(k) * a.Na;
+      const T* tk = a.t + static_cast<long long>(k) * a.Nb;
+      T* ob = a.out + g0 * VEC;
+      const int q0 = c * static_cast<int>(blockDim.x) * U + off - lead;
+      // e[u]: the slab's element index of slot u's first element
+      int e[U];
+      bool live[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int q = q0 + u * kWarp;
+        live[u] = q >= 0 && q < n_slots;
+        e[u] = q * VEC - head;
+      }
+      // (src, s) and the column of each element
+      int r[U][VEC], j[U][VEC];
+      T sv[U][VEC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e0 = e[u] > 0 ? e[u] : 0;
+        const unsigned ue = static_cast<unsigned>(e0);
+        int i = static_cast<int>((__umulhi(ue, a.div_m) + ue) >> a.div_l);
+        int jj = e0 - i * a.Nb;
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          r[u][v] = 0;
+          sv[u][v] = T(0);
+          j[u][v] = 0;
+          if (!ELEM && v > 0) continue;
+          const int el = e[u] + v;
+          if (live[u] && el >= 0 && el < L) {
+            if (el > e0) {
+              ++jj;
+              while (jj >= a.Nb) {
+                jj -= a.Nb;
+                ++i;
+              }
+            }
+            j[u][v] = jj;
+            r[u][v] = __ldg(srck + i);
+            sv[u][v] = __ldg(sk + i);
+          }
+        }
+      }
+      // vector slots: every t load first (none waits on an (src, s)
+      // entry), then every x load; element slots: t and x element by
+      // element (fewer registers live, as the sweep preferred)
+      T xv[U][VEC], tv[U][VEC];
+      if (!ELEM) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (live[u]) load_x(tk + j[u][0], tv[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!ELEM) {
+          if (live[u]) {
+            if (sv[u][0] != T(0)) {
+              load_x(xb + static_cast<long long>(r[u][0]) * a.Nb + j[u][0],
+                     xv[u]);
+            } else {
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) xv[u][v] = T(0);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            const int el = e[u] + v;
+            xv[u][v] = T(0);
+            tv[u][v] = T(0);
+            if (live[u] && el >= 0 && el < L) {
+              tv[u][v] = __ldg(tk + j[u][v]);
+              if (sv[u][v] != T(0))
+                xv[u][v] = __ldg(xb + static_cast<long long>(r[u][v]) * a.Nb +
+                                 j[u][v]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!live[u]) continue;
+        T o[VEC];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          o[v] = mul_rn(mul_rn(xv[u][v], sv[u][ELEM ? v : 0]), tv[u][v]);
+        if (!ELEM || (e[u] >= 0 && e[u] + VEC <= L)) {
+          store_cs(ob + static_cast<long long>(e[u] + head), o);
+        } else {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            const int el = e[u] + v;
+            if (el >= 0 && el < L)
+              __stcs(ob + static_cast<long long>(el + head), o[v]);
+          }
+        }
+      }
+    }
+  }
 }
 
 // column slots one lane takes per step: 64 bytes of the row in flight
@@ -859,19 +1025,92 @@ gather_reduce_cols_kernel(const ColsArgs<T> p) {
   }
 }
 
+template <typename T, int VEC, int U>
+int launch_rows(const RowsArgs<T>& a, bool elem, int threads,
+                cudaStream_t stream) {
+  const int nx = a.order == 0 ? a.n2 : a.chunks;
+  const int ny = a.order == 0 ? a.chunks : a.n2;
+  const dim3 grid(static_cast<unsigned int>(nx),
+                  static_cast<unsigned int>(ny < 65535 ? ny : 65535),
+                  static_cast<unsigned int>(a.B < 65535 ? a.B : 65535));
+  if (elem)
+    gather_rows_scaled_kernel<T, VEC, U, true>
+        <<<grid, threads, 0, stream>>>(a);
+  else
+    gather_rows_scaled_kernel<T, VEC, U, false>
+        <<<grid, threads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// unroll U in {1, 2, 4, 8}
+template <typename T, int VEC>
+int launch_rows_vec(const RowsArgs<T>& a, bool elem, int threads,
+                    int unroll, cudaStream_t stream) {
+  switch (unroll) {
+    case 1:
+      return launch_rows<T, VEC, 1>(a, elem, threads, stream);
+    case 2:
+      return launch_rows<T, VEC, 2>(a, elem, threads, stream);
+    case 4:
+      return launch_rows<T, VEC, 4>(a, elem, threads, stream);
+    case 8:
+      return launch_rows<T, VEC, 8>(a, elem, threads, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// gather_rows_scaled: vec elements a store (16, 8 or 4 bytes, out on
+// vec elements); loads of vec elements too where Nb is a multiple of vec
+// and x, t lie on vec elements, else one element at a time (ELEM)
 template <typename T>
 int launch_gather_rows_scaled(const T* x, const int* src, const T* s,
                               const T* t, T* out, long long B, int n2,
-                              int Ns, int Na, int Nb, cudaStream_t stream) {
-  const long long n_rows = B * n2 * Na;
-  if (n_rows == 0 || Nb == 0) return static_cast<int>(cudaSuccess);
-  const long long n_blocks = (n_rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  if (n_blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kWarp, kRowsPerBlock);
-  const dim3 grid(static_cast<unsigned int>(n_blocks));
-  gather_rows_scaled_kernel<T><<<grid, block, 0, stream>>>(
-      x, src, s, t, out, n_rows, n2, Ns, Na, Nb);
-  return static_cast<int>(cudaGetLastError());
+                              int Ns, int Na, int Nb, int vec, int threads,
+                              int unroll, int order, long long div_m,
+                              int div_l, cudaStream_t stream) {
+  if (B == 0 || n2 == 0 || Na == 0 || Nb == 0)
+    return static_cast<int>(cudaSuccess);
+  const long long L = static_cast<long long>(Na) * Nb;
+  const size_t width = static_cast<size_t>(vec) * sizeof(T);
+  if (B < 0 || B > 2147483647LL || n2 < 0 || Ns < 1 || Na < 0 || Nb < 0 ||
+      L > 2147483647LL - 16 || vec < 1 || width > 16 ||
+      (vec & (vec - 1)) != 0 || threads < kWarp || threads > kRowsThreads ||
+      threads % kWarp != 0 || (order != 0 && order != 1) ||
+      (order == 1 && n2 > 65535) || div_m < 0 || div_m > 4294967295LL ||
+      div_l < 0 || div_l > 31 || reinterpret_cast<size_t>(out) % width != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool elem = Nb % vec != 0 ||
+                    reinterpret_cast<size_t>(x) % width != 0 ||
+                    reinterpret_cast<size_t>(t) % width != 0;
+  const long long line = 128 / static_cast<long long>(width);
+  const long long chunk = static_cast<long long>(threads) * unroll;
+  const long long slots = (L + 2 * vec - 2) / vec;  // most slots a slab holds
+  const long long chunks = (line - 1 + slots + chunk - 1) / chunk;
+  if (chunks * chunk * vec > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RowsArgs<T> a{x,
+                      src,
+                      s,
+                      t,
+                      out,
+                      static_cast<int>(B),
+                      n2,
+                      Ns,
+                      Na,
+                      Nb,
+                      static_cast<int>(chunks),
+                      static_cast<unsigned>(div_m),
+                      div_l,
+                      order};
+  if (vec == 1)
+    return launch_rows_vec<T, 1>(a, elem, threads, unroll, stream);
+  if (vec == 2)
+    return launch_rows_vec<T, 2>(a, elem, threads, unroll, stream);
+  if constexpr (sizeof(T) == 4) {
+    if (vec == 4)
+      return launch_rows_vec<T, 4>(a, elem, threads, unroll, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, int VEC, bool kAdd>
@@ -1080,19 +1319,22 @@ int grid_gather_two_spin_f32(const float* x, const int* srcA,
 int grid_gather_rows_scaled_f64(const double* x, const int* src,
                                 const double* s, const double* t,
                                 double* out, long long B, int n2, int Ns,
-                                int Na, int Nb, void* stream) {
+                                int Na, int Nb, int vec, int threads,
+                                int unroll, int order, long long div_m,
+                                int div_l, void* stream) {
   return launch_gather_rows_scaled<double>(
-      x, src, s, t, out, B, n2, Ns, Na, Nb,
-      static_cast<cudaStream_t>(stream));
+      x, src, s, t, out, B, n2, Ns, Na, Nb, vec, threads, unroll, order,
+      div_m, div_l, static_cast<cudaStream_t>(stream));
 }
 
 int grid_gather_rows_scaled_f32(const float* x, const int* src,
                                 const float* s, const float* t, float* out,
                                 long long B, int n2, int Ns, int Na, int Nb,
-                                void* stream) {
+                                int vec, int threads, int unroll, int order,
+                                long long div_m, int div_l, void* stream) {
   return launch_gather_rows_scaled<float>(
-      x, src, s, t, out, B, n2, Ns, Na, Nb,
-      static_cast<cudaStream_t>(stream));
+      x, src, s, t, out, B, n2, Ns, Na, Nb, vec, threads, unroll, order,
+      div_m, div_l, static_cast<cudaStream_t>(stream));
 }
 
 int grid_gather_reduce_f64(const double* Y, const int* src, const double* s,

@@ -6,21 +6,22 @@ Port of auto_oo_tpu/ops/pallas_grid.py (``gather_rows_scaled`` and
 one kernel, the beta half gathered inside the grid's rows where the TPU
 wrappers run ``gather_rows_scaled`` on a transposed copy and add the
 result back transposed (pallas_grid.py:259-262, :354-357); it builds Phi
-on every route of the port, and ``gather_rows_scaled``, the 1:1 port,
-builds one spin component of Phi for the spin-resolved RDMs
-(ops/grid.phi_all(spin=...)) and is the production variant the row-gather
-probes time; ``gather_reduce_cols``: the column
-form of ``gather_reduce``, which reads the beta half of ``epq_sum`` in the
-grid's natural layout where the TPU wrapper first made a transposed copy
-of Y (pallas_grid.py:270), walking lists of the maps' valid entries
-compacted once per maps (``reduce_cols_lists``) and adding into its
-caller's output where asked; and ``scatter_rows``: the alpha half of the
-hosted H-apply (auto_oo_tpu/ops/grid_hosted.py:260-262, an XLA scatter
-there), the windowed, accumulating form of ``gather_reduce``.  The CUDA
-source is ``csrc/grid_gather.cu``; its
-header comment says what bounds each kernel on an H100 and what the
-design does about it.  The library is compiled with ``nvcc`` at first
-use (ops/cuda_build.py).
+on every route of the port, and ``gather_rows_scaled``, the TPU's row
+gather redesigned for Hopper (``plan_rows_scaled``), builds one spin
+component of Phi for the spin-resolved RDMs (ops/grid.phi_all(spin=...)),
+both Phi halves of the hosted x row-sharded engine's segments, and is
+the production variant the row-gather probes time;
+``gather_reduce_cols``: the column form of ``gather_reduce``, which
+reads the beta half of ``epq_sum`` in the grid's natural layout where
+the TPU wrapper first made a transposed copy of Y (pallas_grid.py:270),
+walking lists of the maps' valid entries compacted once per maps
+(``reduce_cols_lists``) and adding into its caller's output where asked;
+and ``scatter_rows``: the alpha half of the hosted H-apply
+(auto_oo_tpu/ops/grid_hosted.py:260-262, an XLA scatter there), the
+windowed, accumulating form of ``gather_reduce``.  The CUDA source is
+``csrc/grid_gather.cu``; its header comment says what bounds each
+kernel on an H100 and what the design does about it.  The library is
+compiled with ``nvcc`` at first use (ops/cuda_build.py).
 
 Dispatch is by the device of the operand, and nothing else: a CPU tensor
 runs the plain version beside each kernel; a CUDA tensor launches the
@@ -43,6 +44,10 @@ from .cuda_build import CSRC_DIR, I32, I64, PTR, CudaLibrary
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _ARGS = [PTR, PTR, PTR, PTR, PTR, I64, I32, I32, I32, I32]
 
+# gather_rows_scaled: x, src, s, t, out; B; n2, Ns, Na, Nb; the plan
+# (vec, threads, unroll, order); the divisor constants of Nb; the stream
+_ROWS_ARGS = _ARGS + [I32] * 4 + [I64, I32, PTR]
+
 # gather_two_spin: x, the four compact tables, out; B; n2, Na, Nb, the
 # beta tables' padded width, r0, R, the beta source columns' bytes and the
 # plan (vec, threads, pairs, staged, line); the stream
@@ -56,9 +61,10 @@ _COLS_ARGS = [PTR] * 8 + [I64] + [I32] * 9 + [PTR]
 LIBRARY = CudaLibrary(
     os.path.join(CSRC_DIR, "grid_gather.cu"),
     {**{f"grid_{kern}_{sfx}": _ARGS + extra + [PTR]
-        for kern, extra in (("gather_rows_scaled", []),
-                            ("gather_reduce", [I32, I32, I32]),
+        for kern, extra in (("gather_reduce", [I32, I32, I32]),
                             ("scatter_rows", [I32, I32, I32, I32]))
+        for sfx in _SUFFIX.values()},
+     **{f"grid_gather_rows_scaled_{sfx}": _ROWS_ARGS
         for sfx in _SUFFIX.values()},
      **{f"grid_gather_two_spin_{sfx}": _TWO_SPIN_ARGS
         for sfx in _SUFFIX.values()},
@@ -188,6 +194,147 @@ def plan_reduce(B, Na, Nb, n2, itemsize, aligned=True):
     per_list = n2 * (12 + itemsize) + (-(-n2 // 32) + 1) * 4
     rows = max(1, min(Na, REDUCE_BLOCK // per_row, _REDUCE_SMEM // per_list))
     return ReducePlan(vec, rows, _warps(rows * per_row))
+
+
+# ---- launch plan and bytes of gather_rows_scaled ---------------------------
+
+#: the most threads per block gather_rows_scaled takes (the kernel's
+#: limit), the slots a lane may keep in flight, and the bytes of the lines
+#: each warp's stores start on
+ROWS_BLOCK = 512
+ROWS_UNROLLS = (1, 2, 4, 8)
+ROWS_LINE = 128
+
+
+class RowsPlan(NamedTuple):
+    vec: int      # elements a store: 16 bytes (the kernel also takes 8, 4)
+    threads: int  # threads per block, a whole number of warps
+    unroll: int   # slots of a lane, all their loads started together
+    order: int    # 0: the pair slabs of one chunk index run together;
+                  # 1: the chunks of one slab
+
+
+def rows_elem(Nb, vec, itemsize, align=16):
+    """True where gather_rows_scaled loads x and t one element at a time
+    (its slots may straddle rows): Nb no multiple of ``vec``, or x or t
+    (their pointers' ``align``, bytes) not on ``vec`` elements; else its
+    loads are vectors of ``vec`` elements, as its stores are."""
+    return bool(Nb % vec or align % (vec * itemsize))
+
+
+def plan_rows_scaled(B, Ns, Na, Nb, n2, itemsize, align=16):
+    """gather_rows_scaled's launch plan for B states of x (Ns, Nb) and
+    maps of n2 pairs x Na rows, x and t on ``align`` bytes.  Slots of 16
+    bytes where Nb and the pointers allow vector loads of them, else of 8
+    (f32 rows of an even Nb), else 16 bytes with loads element by element
+    (``rows_elem``: an odd Nb, or x on 8 bytes); 128 threads; 32 bytes of
+    slots a lane in flight (64 with element loads); and the block order:
+    order 0 (the slabs of one chunk index run together, so the pairs at
+    one row i read their source rows from the L2 together) where x does
+    not fit half the L2 but the rows one chunk index of all slabs reads,
+    n2 rows of x, fit a quarter of it; else order 1 (each slab's chunks
+    together: its source rows are read once, in order).  The kernel
+    stages nothing in shared memory.  (Swept on an H100 with
+    scripts/sweep_rows_scaled.py over slots of 16, 8 and 4 bytes,
+    128-512 threads, unroll 1-8 and both orders at the one-spin Phi of
+    (10e,10o) to (14e,14o), the (16e,16o) chunk and segment and the
+    probes' shapes, f64 and f32: the rule's plan ran within 2.2% of the
+    best plan swept at each shape.)"""
+    vec = 16 // itemsize
+    while vec > 1 and rows_elem(Nb, vec, itemsize, align):
+        vec //= 2
+    elem = vec == 1
+    if elem:
+        vec = 16 // itemsize
+    unroll = 4 if elem else 32 // (vec * itemsize)
+    near = (not two_spin_in_l2(B, Ns, Nb, itemsize)
+            and n2 * Nb * itemsize <= _L2_BYTES // 4)
+    return RowsPlan(vec, 128, unroll, 0 if near else 1)
+
+
+def rows_divisor(d):
+    """(m, l) such that n // d == (umulhi(n, m) + n) >> l for every 0 <= n
+    < 2^31, umulhi the high 32 bits of the 64-bit product (the kernel's
+    division of a slab's element index by Nb): l = ceil(log2 d), m =
+    floor(2^32 (2^l - d) / d) + 1 < 2^32."""
+    if not 1 <= d < 1 << 31:
+        raise ValueError(f"gather_rows_scaled: a divisor of {d}")
+    l = (d - 1).bit_length()
+    return ((1 << 32) * ((1 << l) - d)) // d + 1, l
+
+
+def rows_scaled_chunks(Na, Nb, itemsize, plan):
+    """The blocks one pair slab of Na * Nb elements takes in a
+    gather_rows_scaled launch: the slots (vec elements on out's vec-element
+    boundaries) that hold its elements, counted from the line at or
+    before the first, threads * unroll slots a block (the kernel takes
+    at most 2^31 - 1 elements of slots)."""
+    line = ROWS_LINE // (plan.vec * itemsize)
+    slots = (Na * Nb + 2 * plan.vec - 2) // plan.vec
+    return -(-(line - 1 + slots) // (plan.threads * plan.unroll))
+
+
+def rows_scaled_slot_map(B, n2, Na, Nb, itemsize, plan):
+    """The kernel's map of (block, thread, slot) to output elements, in
+    numpy, for small shapes (out on a 128-byte line): returns (elements,
+    lines), the index in out of every element a slot writes (a slot
+    writes the elements of its block's slab it holds) and whether every
+    store instruction of a warp (its 32 lanes' u-th slots) starts on a
+    ``ROWS_LINE``-byte line of out."""
+    import numpy as np
+
+    vec, L = plan.vec, Na * Nb
+    line = ROWS_LINE // (vec * itemsize)
+    chunk = plan.threads * plan.unroll
+    chunks = rows_scaled_chunks(Na, Nb, itemsize, plan)
+    # every (slab, chunk) block; the order only says which run together
+    p, c = np.divmod(np.arange(B * n2 * chunks), chunks)
+    base = p * L
+    g0 = base // vec
+    tid = np.arange(plan.threads)
+    lane_off = (tid // 32) * 32 * plan.unroll + tid % 32
+    u = 32 * np.arange(plan.unroll)
+    q = (c[:, None, None] * chunk + lane_off[None, :, None] + u[None, None, :]
+         - (g0 % line)[:, None, None])
+    slot = g0[:, None, None] + q
+    n_slots = (base - g0 * vec + L + vec - 1) // vec
+    live = (q >= 0) & (q < n_slots[:, None, None])
+    el = (slot * vec)[..., None] + np.arange(vec)
+    inside = ((el >= base[:, None, None, None])
+              & (el < (base + L)[:, None, None, None]) & live[..., None])
+    return el[inside], bool((slot[:, ::32, :] % line == 0).all())
+
+
+class RowsBytes(NamedTuple):
+    bound: int             # out written once, each source row of the valid
+                           # entries read once, the tables once
+    reread: Optional[int]  # the bound plus every further read of a source
+                           # row; None where x fits half the L2
+
+
+def rows_scaled_bytes(x, src, s, t):
+    """Bytes gather_rows_scaled must move for x (..., Ns, Nb) and the
+    tables src/s (n2, Na), t (n2, Nb): the bound, out (..., n2, Na, Nb)
+    written once, each distinct source row of the valid (s != 0) entries
+    read once per state and the tables read once (src as the card's
+    int32); and, where x does not fit half the L2, the re-read floor: the
+    bound plus every valid entry's source row read again past its first
+    read, which a kernel reading each entry's row from memory must move
+    (where x fits, the re-reads are L2 reads: None).  Entries with s = 0
+    read no row of x."""
+    Ns, Nb = x.shape[-2:]
+    B = x.numel() // max(1, Ns * Nb)
+    n2, Na = src.shape
+    item = x.element_size()
+    rows = src[s != 0]
+    distinct = int(torch.unique(rows).numel())
+    row = Nb * item
+    bound = (B * n2 * Na * row + B * distinct * row
+             + n2 * Na * (4 + s.element_size())
+             + t.numel() * t.element_size())
+    if two_spin_in_l2(B, Ns, Nb, item):
+        return RowsBytes(bound, None)
+    return RowsBytes(bound, bound + B * (int(rows.numel()) - distinct) * row)
 
 
 # ---- lists and launch plan of gather_reduce_cols ---------------------------
@@ -390,7 +537,8 @@ class TwoSpinBytes(NamedTuple):
 
 def two_spin_in_l2(B, Na, Nb, itemsize):
     """True where all of x (B states of an (Na, Nb) grid) fits half the
-    L2, so re-reading a row of x is an L2 read."""
+    L2, so re-reading a row of x is an L2 read (gather_two_spin's and
+    gather_rows_scaled's x alike)."""
     return B * Na * Nb * itemsize <= _L2_BYTES // 2
 
 
@@ -565,20 +713,25 @@ def _stream(a):
     return torch.cuda.current_stream(a.device).cuda_stream
 
 
-def gather_rows_scaled(x, src, s, t):
+def gather_rows_scaled(x, src, s, t, plan=None):
     """out[..., k, i, j] = (x[..., src[k, i], j] * s[k, i]) * t[k, j].
 
     x (..., Ns, Nb); src (n2, Na) (int32 on the card); s (n2, Na);
     t (n2, Nb) -> (..., n2, Na, Nb).  Invalid entries carry src = 0,
-    s = 0.  CPU tensors take the plain version; CUDA tensors the kernel."""
+    s = 0.  CPU tensors take the plain version; CUDA tensors the kernel,
+    which equals it as values for finite x.  ``plan`` (a ``RowsPlan``)
+    replaces ``plan_rows_scaled``'s, for sweeps."""
     if not _on_card("gather_rows_scaled", x):
         return gather_rows_scaled_plain(x, src, s, t)
     B, Ns, Nb = _check("gather_rows_scaled", x, src, s, t, 2)
     n2, Na = src.shape
     out = torch.empty(x.shape[:-2] + (n2, Na, Nb), dtype=x.dtype,
                       device=x.device)
+    if plan is None:
+        plan = plan_rows_scaled(B, Ns, Na, Nb, n2, x.element_size(),
+                                _align(x, t))
     _launch("gather_rows_scaled", x.dtype, *_ptrs(x, src, s, t, out), B, n2,
-            Ns, Na, Nb, _stream(x))
+            Ns, Na, Nb, *plan, *rows_divisor(max(1, Nb)), _stream(x))
     return out
 
 

@@ -1,7 +1,7 @@
 """gather_two_spin timed at the routes' Phi shapes on the card.
 
     python -m auto_oo_tpu_torch.scripts.sweep_two_spin [--dtype f64|f32]
-        [--baseline SRC] [--attribute] [--no-plans] [ncas:rows[:B] ...]
+        [--baseline SRC] [--no-plans] [ncas:rows[:B] ...]
 
 For each shape (ncas electrons in ncas orbitals, a window of that many
 grid rows from the middle of the grid, B states gathered at once; a shape
@@ -25,14 +25,6 @@ of 132 window rows reads); then:
   with ``git archive`` into ``build/``), run with its own plan
   (``old_plan``), equal to the new kernel as values and timed against it
   in turns (baseline, new, new, baseline);
-- ``--attribute``: the timing-only variants of that earlier kernel in
-  ``csrc/two_spin_attribution.cu`` on the same plan (0 as it ran; 1 its
-  alpha reads from the staged row; 2 no beta table loads; 3 the tables
-  loaded but the beta element read without bank conflicts; 4 the
-  staging alone; 5 the stores of Phi alone; 6 those stores shifted to
-  start each row on a 128-byte line; 7 the stores of 5 as default,
-  write-back stores), each beside variant 0, and ``zero_`` of a tensor
-  of Phi's bytes;
 - unless ``--no-plans``: the wrapper's plan and its neighbours
   (``plans``: threads, pairs per block, the beta tables staged or read in
   memory, 32- or 128-byte store lines), each equal to the wrapper's as
@@ -52,17 +44,13 @@ import sys
 import torch
 
 from ..ops import grid, grid_kernels as gk
-from ..ops.cuda_build import CSRC_DIR, I32, I64, PTR, CudaLibrary
+from ..ops.cuda_build import I32, I64, PTR, CudaLibrary
 
 HBM_BYTES_PER_S = 3.35e12
 STEP = 28
 DTYPES = {"f64": torch.float64, "f32": torch.float32}
 DEFAULT_SHAPES = {"f64": ["14:1716", "16:495"], "f32": ["16:14:15", "16:990"]}
 _DENSE_ARGS = [PTR] * 8 + [I64] + [I32] * 9 + [PTR]
-VARIANTS = ("as it ran", "alpha from the staged row", "no beta tables",
-            "no bank conflicts", "staging alone", "stores alone",
-            "stores alone, each row's from a 128-byte line",
-            "stores alone, write-back")
 
 
 def time_ms(fn, reps=10, rounds=5):
@@ -100,17 +88,16 @@ def old_plan(B, R, Nb, n2, itemsize, aligned=True):
 
 
 def dense_kernel(lib, symbol):
-    """A launcher of a dense-table entry point (``variant`` None) or of an
-    attribution variant, with the earlier kernel's plan."""
-    def run(x, tabs, r0, r1, variant=None):
+    """A launcher of a dense-table entry point, with the earlier kernel's
+    plan."""
+    def run(x, tabs, r0, r1):
         n2, Na, Nb = tabs[0].shape[0], x.shape[-2], x.shape[-1]
         B = x.numel() // (Na * Nb)
         out = torch.empty(x.shape[:-2] + (n2, r1 - r0, Nb), dtype=x.dtype,
                           device=x.device)
         plan = old_plan(B, r1 - r0, Nb, n2, x.element_size(),
                         x.data_ptr() % 16 == 0)
-        head = [] if variant is None else [variant]
-        lib.launch(symbol, *head, *[v.data_ptr() for v in (x, *tabs, out)],
+        lib.launch(symbol, *[v.data_ptr() for v in (x, *tabs, out)],
                    B, n2, Na, Nb, r0, r1 - r0, *plan,
                    torch.cuda.current_stream().cuda_stream)
         return out
@@ -163,7 +150,7 @@ def alpha_working_set(gm, r0, r1, wave):
             sum(per) / len(per))
 
 
-def sweep(spec, dtype, baseline, attribution, with_plans):
+def sweep(spec, dtype, baseline, with_plans):
     ncas, rows, B = (spec.split(":") + ["", ""])[:3]
     ncas, B = int(ncas), int(B) if B else 1
     gm = grid.build_grid_maps(ncas, ncas, device="cuda")
@@ -217,26 +204,6 @@ def sweep(spec, dtype, baseline, attribution, with_plans):
               f"new {100 * bound / min(t[1:3]):.1f}%, baseline "
               f"{100 * bound / min(t[0], t[3]):.1f}% (plan "
               f"{old_plan(B, rows, Nb, n2, x.element_size())})")
-    if attribution is not None:
-        v0 = None
-        for mode, what in enumerate(VARIANTS):
-            if mode == 0:
-                out = attribution(x, tabs, r0, r1, 0)
-                torch.cuda.synchronize()
-                if not torch.equal(out, ref):
-                    raise SystemExit(f"({ncas}e,{ncas}o): variant 0 != new "
-                                     "kernel")
-                del out
-            vms = time_ms(lambda: attribution(x, tabs, r0, r1, mode))
-            v0 = vms if mode == 0 else v0
-            print(f"  earlier kernel, variant {mode} ({what}): {vms:.4f} ms"
-                  + ("" if mode == 0 else f", {v0 - vms:+.4f} ms against "
-                     "variant 0"))
-        out = torch.empty_like(ref)
-        zms = time_ms(out.zero_)
-        print(f"  zero_ of a tensor of Phi's bytes: {zms:.4f} ms "
-              f"({out.numel() * out.element_size() / zms / 1e9:.3f} TB/s)")
-        del out
     if with_plans:
         results = []
         for p in plans(base, Nb, n2, x.element_size()):
@@ -270,7 +237,6 @@ def main(argv=None):
     ap.add_argument("shapes", nargs="*")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f64")
     ap.add_argument("--baseline", default=None)
-    ap.add_argument("--attribute", action="store_true")
     ap.add_argument("--no-plans", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -280,18 +246,13 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     sfx = args.dtype
-    baseline = attribution = None
+    baseline = None
     if args.baseline:
         sym = f"grid_gather_two_spin_{sfx}"
         lib = CudaLibrary(args.baseline, {sym: _DENSE_ARGS})
         baseline = dense_kernel(lib, sym)
-    if args.attribute:
-        sym = f"two_spin_variant_{sfx}"
-        lib = CudaLibrary(f"{CSRC_DIR}/two_spin_attribution.cu",
-                          {sym: [I32] + _DENSE_ARGS})
-        attribution = dense_kernel(lib, sym)
     for spec in args.shapes or DEFAULT_SHAPES[sfx]:
-        sweep(spec, DTYPES[sfx], baseline, attribution, not args.no_plans)
+        sweep(spec, DTYPES[sfx], baseline, not args.no_plans)
     return 0
 
 

@@ -259,7 +259,10 @@ def rdms_from_sector_state_unrestricted(psi_s, epq_maps, pair_maps, ncas):
                         f"{type(epq_maps).__name__}")
     Gamma = torch.zeros((nm,) * 4, dtype=torch.float64, device=dev)
     for pairs, src, sign in pair_maps.values():
-        W = psi_s.index_select(-1, src.reshape(-1)).reshape(src.shape) * sign
+        # the sign taken in place: at (14e,14o) W of the (6, 6) sector is
+        # 392 x 3003^2 f64, 28.3 GB, and a second one would not fit a card
+        W = psi_s.index_select(-1, src.reshape(-1)).reshape(src.shape)
+        W.mul_(sign)
         C = gram_last(W.conj(), W).real        # <W_a psi|W_b psi>
         del W
         X, Y = pairs[:, 0], pairs[:, 1]

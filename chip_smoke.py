@@ -285,7 +285,11 @@ inputs and its kernel launches:
    hosted energy_and_gradient of the same run, the RDMs and H psi within
    1e-12 relative of the hosted passes;
 28. (b) hosted_sharded_fns at (16e,16o) (its default row chunk): rdms
-   and ham_apply within 1e-12 relative of grid_hosted's passes;
+   and ham_apply within 1e-12 relative of grid_hosted's passes; one
+   segment's two gather_rows_scaled launches on the engine's shapes (the
+   alpha half on the whole grid, the beta half on the segment's 14
+   transposed rows) equal to plain and timed beside their bounds, and
+   the kernel's share of the rdms pass's device time (torch.profiler);
 29. (c), after phase 6: grid2d_nr_fns on the (1, 1) (tangent, row) mesh
    at the (12e,12o) 6-31G sector (phase 6's objects): its first nr_step
    equal to phase 6's iteration 1 within 1e-10 Ha and to the CPU JAX
@@ -300,6 +304,18 @@ inputs and its kernel launches:
    (MULTICHIP_r05.json);
 32. (e) GeometryBatch(mesh=, axis="dp") over phase 23's 8 (10e,10o)
    geometries, equal to mesh=None within 1e-12.
+33. after phase 8's gradient pipeline (its Newton core freed), the
+   spin-resolved RDMs of the (14e,14o) H14 chain at phase 8's theta after
+   iteration 2: the pair maps built on the card (30.2 GB), one
+   get_rdms(restricted=False) launching gather_rows_scaled exactly twice
+   and no other kernel, its spin sums equal to the restricted streamed
+   RDMs within 1e-12 relative, gamma_alpha = gamma_beta (a singlet), its
+   wall time and peak device memory.
+The phases that time gather_rows_scaled print its first version (one
+warp per output row) at the same shape ("was", WAS_ROWS_MS, from
+scripts/sweep_rows_scaled.py --baseline) beside its time, its bound
+and, where x does not fit half the L2, its re-read floor
+(grid_kernels.rows_scaled_bytes).
 Phase 25 also runs the (10e,10o) device loop in precision="mixed"
 (item 11): the host loop's values, iteration 1 within 1e-6 of CPU JAX
 mixed and 2-4 within 1e-5.
@@ -312,7 +328,8 @@ probes, and phase 20's (12e,12o) get_rdms(restricted=False) for
 gather_rows_scaled (the spin-resolved sector route; no restricted route
 launches it since gather_two_spin, and every route phase checks that),
 with each path's launches under "launches_by_path" (phase 20's under
-"*_unrestricted", "*_complex" and "*_unrestricted_complex"; the probes'
+"*_unrestricted", "*_complex" and "*_unrestricted_complex", phase
+33's under "14e14o_unrestricted"; the probes'
 variant L under "probes"; 0 on the flat paths; the mixed
 paths' f32 launches under "10e10o_mixed", "14e14o_mixed" and
 "16e16o_mixed"; the gradient-only pipeline's under "*_grad*", one
@@ -661,6 +678,20 @@ HBM_BYTES_PER_S = 3.35e12
 # cycles of the spin kernel that holds the card while the host queues a
 # timed run (~5 ms at the H100's clocks)
 SPIN_CYCLES = 10_000_000
+# The first gather_rows_scaled (one warp per output row), the kernel the
+# present one replaced: device ms of one launch at the shapes the phases
+# time it, f64 unless marked, on an H100 80GB HBM3 at 700 W (python -m
+# auto_oo_tpu_torch.scripts.sweep_rows_scaled --baseline SRC, SRC the
+# grid_gather.cu of commit 5dc38cf; the faster of two turns), printed as
+# "was" beside the new time
+WAS_ROWS_MS = {
+    "10e10o alpha float64": 0.0279, "10e10o beta float64": 0.0279,
+    "12e12o alpha float64": 0.4208, "12e12o beta float64": 0.4205,
+    "14e alpha 1716 float64": 4.8442, "14e beta 1716 float64": 4.4789,
+    "14e alpha 1716 float32": 2.1591, "14e beta 1716 float32": 2.2589,
+    "16e alpha 495@6435 float64": 6.5032,
+    "16e beta 495@6435 float64": 10.7331,
+    "16e alpha 14@6440 float64": 0.2390, "16e beta 14@6440 float64": 0.5673}
 
 _MECH_SCRIPT = "scripts/experiment_gather_mechanisms.py"
 SOURCE = {"gather_two_spin": "auto_oo_tpu_torch/csrc/grid_gather.cu",
@@ -848,6 +879,25 @@ def epq_composite(gk, Y, gm):
 def _share(ms, nbytes):
     b = bound_ms(nbytes)
     return f"bound={b:.4f} ms share={100 * b / ms:5.1f}%"
+
+
+def rows_share(gk, ms, args):
+    """gather_rows_scaled's bound and re-read floor
+    (grid_kernels.rows_scaled_bytes) with their shares of ``ms``; returns
+    (text, bound ms)."""
+    nb = gk.rows_scaled_bytes(*args)
+    text = _share(ms, nb.bound)
+    if nb.reread is not None:
+        fl = bound_ms(nb.reread)
+        text += f" re-read floor={fl:.4f} ms ({100 * fl / ms:5.1f}%)"
+    return text, bound_ms(nb.bound)
+
+
+def was(key):
+    """The replaced kernel's time at this shape (WAS_ROWS_MS), for the
+    printed line."""
+    ms = WAS_ROWS_MS.get(key)
+    return "" if ms is None else f" (was {ms:.4f} ms)"
 
 
 def kernel_phase(torch, gk, gh, grid, dev):
@@ -1534,7 +1584,6 @@ def streamed_kernel_phase(torch, gk, grid, oo, stats):
             out = gk.gather_rows_scaled(*args)
             torch.cuda.synchronize()
             err, rel = _slab_err(out, gk.gather_rows_scaled_plain, args)
-            nbytes = _nbytes(*args, out)
             del out
             check(rel <= tol[("rows", dtype)],
                   f"gather_rows_scaled 14e {half} {tag}: relative error "
@@ -1542,14 +1591,16 @@ def streamed_kernel_phase(torch, gk, grid, oo, stats):
             ms = time_ms(lambda: gk.gather_rows_scaled(*args), torch)
             pms = time_ms(lambda: gk.gather_rows_scaled_plain(*args), torch,
                           reps=2, rounds=3)
+            share, bms = rows_share(gk, ms, args)
             print(f"  gather_rows_scaled 14e {half:5s} {tag} x "
                   f"{tuple(args[0].shape)} src {tuple(args[1].shape)} "
-                  f"max_abs_err={err:.3e} rel={rel:.3e} kernel={ms:.4f} ms "
-                  f"plain={pms:.4f} ms {_share(ms, nbytes)}")
+                  f"max_abs_err={err:.3e} rel={rel:.3e} kernel={ms:.4f} ms"
+                  f"{was(f'14e {half} {rows} {tag}')} plain={pms:.4f} ms "
+                  f"{share}")
             st = stats["gather_rows_scaled"]
             st["max_abs_err"] = max(st["max_abs_err"], err)
             if dtype == torch.float64 and half == "alpha":
-                st.update(ms=ms, plain_ms=pms, bound_ms=bound_ms(nbytes))
+                st.update(ms=ms, plain_ms=pms, bound_ms=bms)
         # both halves of the chunk in one launch
         two_spin_check(torch, gk, grid, x, gm, 0, rows,
                        f"14e [0, {rows}) {tag}", stats, step=28)
@@ -1729,6 +1780,53 @@ def hosted14_phase(torch, P, gk, gh, mol, pqc, oo, theta):
     torch.cuda.empty_cache()
 
 
+def unrestricted14_phase(torch, gk, pqc, theta):
+    """Phase 33, after phase 8's gradient pipeline with its Newton core
+    freed: the spin-resolved RDMs of the (14e,14o) H14 chain at full width
+    (D = 11,778,624) at phase 8's theta after iteration 2.  The
+    cross-sector pair maps are built on the card first (30.2 GB); one
+    get_rdms(restricted=False) must launch gather_rows_scaled exactly
+    twice (the two one-spin Phi, 18.5 GB each) and no other kernel; its
+    spin sums equal the restricted streamed RDMs of the same state within
+    1e-12 relative, and gamma_alpha equals gamma_beta (a singlet) within
+    1e-12 relative.  Prints its wall time and peak device memory; frees
+    the maps.  Returns its launches."""
+    gr, Gr = pqc.get_rdms(theta)               # restricted, streamed
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    umaps, t_maps = _synced(torch, pqc._umaps)
+    nbytes = sum(_nbytes(v[1], v[2]) for v in umaps.values())
+    sizes = ", ".join(f"{k} {tuple(v[1].shape)}" for k, v in umaps.items())
+    print(f"  pair-annihilation maps on the card: {t_maps:.3f} s, {sizes}, "
+          f"{nbytes / 1e9:.3f} GB")
+    del umaps
+    gk.reset_launches()
+    (gu, Gu), sec = _synced(torch, lambda: pqc.get_rdms(theta,
+                                                        restricted=False))
+    launches = dict(gk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    del pqc._sector_umaps
+    torch.cuda.empty_cache()
+    gs, Gs = _spin_sums(gu, Gu, pqc.ncas)
+    d_sum = max(_rel(gs, gr), _rel(Gs, Gr))
+    d_spin = _rel(gu[0::2, 0::2], gu[1::2, 1::2])
+    print(f"  get_rdms(restricted=False): {sec:.3f} s; peak device memory "
+          f"{peak / 1e9:.3f} GB (max_memory_allocated; {resident / 1e9:.3f} "
+          f"GB resident before the maps); launches "
+          f"{ {k: v for k, v in launches.items() if v} }; spin sums - "
+          f"restricted streamed {d_sum:.2e} relative; gamma_alpha - "
+          f"gamma_beta {d_spin:.2e} relative")
+    check(launches["gather_rows_scaled"] == 2
+          and sum(launches.values()) == 2,
+          f"(14e,14o) get_rdms(restricted=False) launches {launches}")
+    check(d_sum <= 1e-12, f"(14e,14o) spin sums differ by {d_sum:.2e}")
+    check(d_spin <= 1e-12, f"(14e,14o) gamma_alpha != gamma_beta: "
+          f"{d_spin:.2e}")
+    return launches
+
+
 def sector16_setup(torch, P):
     """The (16e,16o) problem on the default device; returns (mol, pqc,
     oo)."""
@@ -1822,7 +1920,6 @@ def hosted_kernel_phase(torch, gk, gh, grid, oo, stats, step=28):
         out = gk.gather_rows_scaled(*args)
         torch.cuda.synchronize()
         err, rel = _slab_err(out, gk.gather_rows_scaled_plain, args, step)
-        nbytes = _nbytes(*args, out)
         del out
         check(rel <= 1e-15, f"gather_rows_scaled 16e {half}: relative "
               f"error {rel:.3e}")
@@ -1830,14 +1927,16 @@ def hosted_kernel_phase(torch, gk, gh, grid, oo, stats, step=28):
         pms = time_ms(lambda: [gk.gather_rows_scaled_plain(
             args[0], *(a[k0:k0 + step] for a in args[1:]))
             for k0 in range(0, n2, step)], torch, reps=2, rounds=3)
+        share, bms = rows_share(gk, ms, args)
         print(f"  gather_rows_scaled 16e {half:5s} x {tuple(args[0].shape)} "
-              f"src {tuple(args[1].shape)} max_abs_err={err:.3e} "
-              f"rel={rel:.3e} kernel={ms:.4f} ms plain={pms:.4f} ms "
-              f"({step} pairs at a time) {_share(ms, nbytes)}")
+              f"src {tuple(args[1].shape)} rows [{r0}, {r1}) "
+              f"max_abs_err={err:.3e} rel={rel:.3e} kernel={ms:.4f} ms"
+              f"{was(f'16e {half} {R}@{r0} float64')} plain={pms:.4f} ms "
+              f"({step} pairs at a time) {share}")
         st = stats["gather_rows_scaled"]
         st["max_abs_err"] = max(st["max_abs_err"], err)
         if half == "alpha":
-            st.update(ms=ms, plain_ms=pms, bound_ms=bound_ms(nbytes))
+            st.update(ms=ms, plain_ms=pms, bound_ms=bms)
     del args
     torch.cuda.empty_cache()
     # both halves of the chunk in one launch, and in f32 on the ragged
@@ -3208,20 +3307,19 @@ def one_spin_kernel_check(torch, gk, gm, psi_g, label, stats):
         rel = err / max(float(ref.abs().max()), 1e-300)
         check(rel <= 1e-15, f"gather_rows_scaled {label} {half}: relative "
               f"error {rel:.3e}")
-        nbytes = _nbytes(*args, out)
         del out, ref
         ms = time_ms(lambda: gk.gather_rows_scaled(*args), torch)
         pms = time_ms(lambda: gk.gather_rows_scaled_plain(*args), torch,
                       reps=3, rounds=3)
         st = stats["gather_rows_scaled"]
         st["max_abs_err"] = max(st["max_abs_err"], err)
+        share, bms = rows_share(gk, ms, args)
         print(f"  gather_rows_scaled {label} {half:5s} x "
               f"{tuple(args[0].shape)} src {tuple(args[1].shape)} one-spin "
-              f"Phi {nbytes / 1e6:.1f} MB moved: max_abs_err={err:.3e} "
-              f"rel={rel:.3e} kernel={ms:.4f} ms plain={pms:.4f} ms "
-              f"{_share(ms, nbytes)}")
+              f"Phi: max_abs_err={err:.3e} rel={rel:.3e} kernel={ms:.4f} ms"
+              f"{was(f'{label} {half} float64')} plain={pms:.4f} ms {share}")
         if half == "alpha":
-            res = (ms, pms, bound_ms(nbytes))
+            res = (ms, pms, bms)
         torch.cuda.empty_cache()
     return res
 
@@ -3971,7 +4069,76 @@ def sharded16_phase(torch, P, gk, D, mesh, pqc, oo):
                  "scatter_rows"):
         check(paths[key][name] > 0, f"{name} not launched by the hosted x "
               f"row-sharded engine")
+    segment_rows_scaled(torch, gk, gm, psi_g, hs)
+    xn = hs["rows"](psi_g)
+    mine, total = kernel_share(torch, lambda: hs["rdms"](xn),
+                               "gather_rows_scaled")
+    del xn
+    print("    (b) rdms under torch.profiler: " + (
+        "no device time in the trace (not measured)" if total is None else
+        f"gather_rows_scaled {mine / 1e3:.1f} ms of {total / 1e3:.1f} ms "
+        f"device time ({100 * mine / total:.1f}%)"))
     return paths
+
+
+def segment_rows_scaled(torch, gk, gm, psi_g, hs):
+    """One segment of the hosted x row-sharded engine at one rank (the
+    middle one, hs["row_chunk"] grid rows): its two gather_rows_scaled
+    launches on the engine's shapes, the alpha half on the whole grid x
+    with the segment's columns of the alpha maps and the beta half on the
+    segment's transposed rows, each equal to its plain version as values
+    and timed beside its bound, then both in turns as a segment takes
+    them, beside their summed bound and per pass (every segment)."""
+    seg = hs["row_chunk"]
+    n_seg = -(-gm.Na // seg)
+    r0 = seg * (n_seg // 2)
+    r1 = min(gm.Na, r0 + seg)
+    srcA, sgnA, tB, srcB, sgnB, tA = gm.tables(psi_g)
+    xg = psi_g.reshape(gm.Na, gm.Nb)
+    halves = (("alpha", (xg, srcA[:, r0:r1].contiguous(),
+                         sgnA[:, r0:r1].contiguous(), tB)),
+              ("beta", (xg[r0:r1].T.contiguous(), srcB, sgnB,
+                        tA[:, r0:r1].contiguous())))
+    bound = 0.0
+    for half, args in halves:
+        out = gk.gather_rows_scaled(*args)
+        torch.cuda.synchronize()
+        err, _ = _slab_err(out, gk.gather_rows_scaled_plain, args)
+        check(err == 0.0, f"gather_rows_scaled segment {half}: not equal to "
+              f"its plain version ({err:.3e})")
+        del out
+        ms = time_ms(lambda: gk.gather_rows_scaled(*args), torch)
+        share, bms = rows_share(gk, ms, args)
+        bound += bms
+        print(f"    (b) segment [{r0}, {r1}) {half:5s}: x "
+              f"{tuple(args[0].shape)} src {tuple(args[1].shape)} equal to "
+              f"plain; kernel={ms:.4f} ms"
+              f"{was(f'16e {half} {seg}@{r0} float64')} {share}")
+    ms = time_ms(lambda: [gk.gather_rows_scaled(*a) for _, a in halves],
+                 torch)
+    print(f"    (b) one segment's two launches: {ms:.4f} ms against a bound "
+          f"of {bound:.4f} ms ({100 * bound / ms:.1f}%); x {n_seg} segments "
+          f"= {ms * n_seg:.1f} ms per rdms or ham_apply pass")
+
+
+def kernel_share(torch, fn, name):
+    """(device us of the kernels whose name holds ``name``, device us of
+    all kernels) in one fn() under torch.profiler; (None, None) where the
+    trace holds no device time."""
+    from auto_oo_tpu_torch.scripts.profile_14e14o import _device_us
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if "cuda" in str(getattr(e, "device_type", "")).lower()
+            and _device_us(e) > 0]
+    if not rows:
+        return None, None
+    return (sum(_device_us(e) for e in rows if name in e.key),
+            sum(_device_us(e) for e in rows))
 
 
 def grid2d12_phase(torch, gk, D, mesh, objects):
@@ -4187,7 +4354,12 @@ def main():
         paths.update(phase("(14e,14o) gradient-only pipeline, f64 and mixed",
                            gradient14_phase, torch, gk, P, mol14, pqc14,
                            oo14))
-        del oo14, theta14
+        del oo14
+        torch.cuda.empty_cache()
+        paths["14e14o_unrestricted"] = phase(
+            "(14e,14o) spin-resolved RDMs at full width",
+            unrestricted14_phase, torch, gk, pqc14, theta14)
+        del theta14
         torch.cuda.empty_cache()
         phase("(14e,14o) S^2: the demo's s2 stage, grid S^- against the "
               "flat tables", s2_14e14o_phase, torch, P, grid, pqc14)

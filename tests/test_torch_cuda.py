@@ -127,6 +127,68 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
         <= tol["reduce"]
 
 
+def _rows_case(ns, na, nb, n2, lead, seed, dtype, device, offset=0):
+    """Random gather_rows_scaled operands: non-sign s in (-2, 2), invalid
+    (src 0, s 0) entries, src reaching row ns - 1, x (lead, ns, nb) a
+    contiguous view ``offset`` elements into its storage."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, ns, size=(n2, na)).astype(np.int32)
+    src[0, 0] = ns - 1
+    s = rng.uniform(-2.0, 2.0, (n2, na))
+    invalid = rng.random((n2, na)) < 0.4
+    invalid[0, 0] = False
+    src[invalid], s[invalid] = 0, 0.0
+    shape = lead + (ns, nb)
+    buf = _rand((offset + int(np.prod(shape)),), seed + 1).to(device, dtype)
+    x = buf[offset:].view(shape)
+    return (x, torch.from_numpy(src).to(device),
+            torch.from_numpy(s).to(device, dtype),
+            _rand((n2, nb), seed + 2).to(device, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_rows_scaled_equals_plain(cuda_device, dtype):
+    """gather_rows_scaled equal to its plain version as values (torch.equal)
+    on the card, one launch a call: short rows (Nb = 3 and 14), a ragged
+    Nb (17) and an odd one (495), leading dims B = 3, an x view that does
+    not start on 16 bytes (one-element loads), non-sign s, invalid
+    entries, and an x larger than half the L2 (3432 x 3432, the (14e,14o)
+    one-spin Phi's); every plan the kernel takes at a ragged shape (16-,
+    8- and 4-byte slots, whether or not they divide Nb); a plan the
+    kernel does not take raises."""
+    cases = [(19, 23, 3, 6, (), 0), (19, 23, 14, 6, (), 0),
+             (11, 13, 17, 5, (3,), 0), (40, 37, 495, 7, (), 0),
+             (19, 23, 14, 6, (3,), 1), (19, 23, 16, 6, (), 3),
+             (3432, 3432, 3432, 4, (), 0)]
+    for seed, (ns, na, nb, n2, lead, offset) in enumerate(cases):
+        x, src, s, t = _rows_case(ns, na, nb, n2, lead, seed, dtype,
+                                  cuda_device, offset)
+        before = gk.LAUNCHES["gather_rows_scaled"]
+        out = gk.gather_rows_scaled(x, src, s, t)
+        torch.cuda.synchronize()
+        assert gk.LAUNCHES["gather_rows_scaled"] == before + 1
+        ref = gk.gather_rows_scaled_plain(x, src.long(), s, t)
+        assert out.shape == ref.shape == lead + (n2, na, nb)
+        assert torch.equal(out, ref), (ns, na, nb, lead, offset)
+        del x, out, ref
+    x, src, s, t = _rows_case(11, 13, 18, 5, (2,), 9, dtype, cuda_device)
+    ref = gk.gather_rows_scaled_plain(x, src.long(), s, t)
+    for vec in {1, 2, 16 // x.element_size()}:
+        for threads in (32, 128, 512):
+            for unroll in gk.ROWS_UNROLLS:
+                for order in (0, 1):
+                    plan = gk.RowsPlan(vec, threads, unroll, order)
+                    out = gk.gather_rows_scaled(x, src, s, t, plan=plan)
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, ref), plan
+    for bad in (gk.RowsPlan(8, 128, 4, 0), gk.RowsPlan(3, 128, 4, 0),
+                gk.RowsPlan(2, 1024, 4, 0), gk.RowsPlan(2, 128, 3, 0),
+                gk.RowsPlan(2, 128, 4, 2)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            gk.gather_rows_scaled(x, src, s, t, plan=bad)
+
+
 def _reduce_case(ns, na, nb, n2, lead, seed, dtype, device, empty=None,
                  signs=False):
     """Random gather_reduce operands of a ragged shape, with invalid

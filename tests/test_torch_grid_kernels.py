@@ -85,6 +85,145 @@ def test_gather_rows_scaled_plain_vs_pallas(dtype, lead):
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("nb", [3, 14, 495])
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_gather_rows_scaled_short_rows_vs_pallas(dtype, nb, lead):
+    """The shapes the card's kernel packs several rows a warp for: short
+    rows (Nb = 3, and 14 as the hosted x row-sharded engine's beta half
+    has them), an odd Nb (495, the (16e,16o) hosted chunk's beta half),
+    non-sign s, invalid (src 0, s 0) entries, leading batch dims."""
+    rng = np.random.default_rng(nb)
+    ns, na, n2 = 19, 23, 6
+    x = rng.standard_normal(lead + (ns, nb)).astype(dtype)
+    src = rng.integers(0, ns, size=(n2, na)).astype(np.int32)
+    s = rng.uniform(-2, 2, (n2, na)).astype(dtype)
+    invalid = rng.random((n2, na)) < 0.4
+    src[invalid], s[invalid] = 0, 0
+    t = rng.standard_normal((n2, nb)).astype(dtype)
+    ref = np.asarray(jpg.gather_rows_scaled(
+        jnp.asarray(x), jnp.asarray(src), jnp.asarray(s), jnp.asarray(t),
+        interpret=True))
+    out = gk.gather_rows_scaled(torch.from_numpy(x),
+                                torch.from_numpy(src).long(),
+                                torch.from_numpy(s), torch.from_numpy(t))
+    assert out.shape == ref.shape == lead + (n2, na, nb)
+    # two products rounded in two orders: within 4 ulp of each other
+    np.testing.assert_allclose(out.numpy(), ref,
+                               rtol=4 * np.finfo(dtype).eps, atol=0)
+    np.testing.assert_array_equal(out.numpy()[..., invalid, :], 0)
+
+
+# (B, Ns, Na, Nb, n2, itemsize, align, block order): the callers' shapes
+ROWS_SHAPES = [
+    (1, 252, 252, 252, 100, 8, 16, 1),       # (10e,10o) one-spin Phi
+    (1, 924, 924, 924, 144, 4, 16, 1),       # (12e,12o), f32
+    (1, 3432, 3432, 3432, 196, 8, 16, 0),    # (14e,14o) one-spin Phi
+    (1, 3432, 1716, 3432, 196, 4, 16, 0),    # its streamed chunk, f32
+    (1, 12870, 14, 12870, 256, 8, 16, 1),    # sharded segment, alpha
+    (1, 12870, 12870, 14, 256, 8, 16, 1),    # sharded segment, beta
+    (1, 12870, 495, 12870, 256, 4, 16, 1),   # (16e,16o) chunk, alpha, f32
+    (1, 12870, 12870, 495, 256, 8, 16, 0),   # chunk, beta: odd Nb
+    (1, 928, 928, 1024, 144, 8, 16, 1),      # probes, ncas = 12
+    (3, 11, 13, 17, 5, 4, 16, 1),            # ragged, B = 3
+    (1, 11, 13, 18, 5, 8, 8, 1),             # x not on 16 bytes
+]
+
+
+@pytest.mark.parametrize("case", ROWS_SHAPES)
+def test_plan_rows_scaled(case):
+    """gather_rows_scaled's plan at the callers' shapes: the widest slot
+    whose loads are vectors too (16 bytes, 8 for f32 rows of an even Nb),
+    else 16-byte slots with loads element by element (an odd Nb, an x on
+    8 bytes),
+    whole warps within the kernel's 512, an unroll the kernel takes, the
+    block order by where x lies (order 0 at (14e,14o) and the (16e,16o)
+    chunk's beta half, 1 where x fits half the L2 or its n2 rows pass a
+    quarter of it), the slots of a slab within the kernel's 2^31 - 1
+    elements; no shared memory is staged, so every plan is within a
+    block's 227 KB."""
+    B, Ns, Na, Nb, n2, item, align, order = case
+    p = gk.plan_rows_scaled(B, Ns, Na, Nb, n2, item, align)
+    elem = gk.rows_elem(Nb, p.vec, item, align)
+    # the widest slot with vector loads, else 16 bytes of element loads
+    widest = max(v for v in (1, 2, 4) if v * item <= 16
+                 and (v == 1 or not gk.rows_elem(Nb, v, item, align)))
+    assert p.vec == (16 // item if widest == 1 else widest)
+    assert elem == (widest == 1)
+    assert p.threads % 32 == 0 and 32 <= p.threads <= gk.ROWS_BLOCK
+    assert p.unroll in gk.ROWS_UNROLLS and p.order == order
+    chunks = gk.rows_scaled_chunks(Na, Nb, item, p)
+    assert 0 < chunks * p.threads * p.unroll * p.vec <= 2 ** 31 - 1
+    assert B * n2 <= 2 ** 31 - 1
+
+
+@pytest.mark.parametrize("B,n2,Na,Nb,item", [
+    (1, 5, 13, 17, 8), (3, 4, 7, 14, 8), (2, 3, 5, 3, 4), (1, 9, 33, 495, 8),
+    (2, 4, 6, 12, 4), (1, 2, 1, 1, 8), (1, 3, 40, 64, 8), (2, 3, 7, 5, 4)])
+def test_rows_scaled_slot_map(B, n2, Na, Nb, item):
+    """On small shapes, for every plan the kernel takes (vectors of 16, 8
+    and 4 bytes, whether or not they divide Nb; 32 to 256 threads, each
+    unroll, both orders), the kernel's slot map writes each output
+    element exactly once, and every store instruction of a warp starts on
+    a 128-byte line of out."""
+    for vec in (v for v in (1, 2, 4) if v * item <= 16):
+        for threads in (32, 64, 256):
+            for unroll in gk.ROWS_UNROLLS:
+                for order in (0, 1):
+                    plan = gk.RowsPlan(vec, threads, unroll, order)
+                    el, lines = gk.rows_scaled_slot_map(B, n2, Na, Nb,
+                                                        item, plan)
+                    assert lines, plan
+                    np.testing.assert_array_equal(
+                        np.sort(el), np.arange(B * n2 * Na * Nb))
+
+
+def test_rows_divisor():
+    """The kernel's division of a slab's element index by Nb: exact for
+    every index below 2^31 (edges and random ones) at the callers' widths
+    and at random divisors."""
+    rng = np.random.default_rng(3)
+    divisors = [1, 2, 3, 7, 14, 17, 252, 495, 924, 1024, 3432, 12870,
+                2 ** 30 + 1, 2 ** 31 - 1] + list(rng.integers(1, 2 ** 31, 200))
+    for d in map(int, divisors):
+        m, l = gk.rows_divisor(d)
+        assert 0 < m < 2 ** 32 and 0 <= l <= 31
+        n = np.concatenate([[0, 1, d - 1, d, d + 1, 2 ** 31 - 1],
+                            rng.integers(0, 2 ** 31, 500)]).astype(np.uint64)
+        n = n[n < 2 ** 31]
+        q = ((n * np.uint64(m)) >> np.uint64(32)) + n
+        np.testing.assert_array_equal(q >> np.uint64(l), n // np.uint64(d))
+    with pytest.raises(ValueError):
+        gk.rows_divisor(0)
+
+
+@pytest.mark.parametrize("ns,big", [(11, False), (3432, True)])
+def test_rows_scaled_bytes(ns, big):
+    """rows_scaled_bytes against a numpy count: out once, each distinct
+    source row of the valid entries once per state, the tables once (src
+    as int32); the re-read floor only where x passes half the L2 (x of
+    3432 x 3432 f64, 94 MB, as the (14e,14o) one-spin Phi)."""
+    rng = np.random.default_rng(ns)
+    B, n2, na, nb = (2, 5, 13, 17) if not big else (1, 3, 40, ns)
+    x = torch.zeros((B, ns, nb), dtype=torch.float64)
+    src = rng.integers(0, ns if not big else 50, size=(n2, na))
+    s = rng.standard_normal((n2, na))
+    s[rng.random((n2, na)) < 0.3] = 0
+    src[s == 0] = 0
+    t = torch.zeros((n2, nb), dtype=torch.float64)
+    got = gk.rows_scaled_bytes(x, torch.from_numpy(src),
+                               torch.from_numpy(s), t)
+    valid = src[s != 0]
+    distinct = np.unique(valid).size
+    bound = (B * n2 * na * nb * 8 + B * distinct * nb * 8
+             + n2 * na * (4 + 8) + n2 * nb * 8)
+    assert got.bound == bound
+    if big:
+        assert got.reread == bound + B * (valid.size - distinct) * nb * 8
+    else:
+        assert got.reread is None
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("lead", [(), (2, 3)])
 def test_gather_reduce_plain_vs_pallas(dtype, lead):
     rng = np.random.default_rng(8)
