@@ -25,6 +25,10 @@ mechanism probes
 (ops/gather_mechanisms.py, csrc/gather_mechanisms.cu) run from their own
 entry point,
 ``python -m auto_oo_tpu_torch.scripts.experiment_gather_mechanisms``.
+The reference's OO-VQE tutorial and the shot-noise study are
+``scripts.tutorial_oo_vqe`` and ``scripts.noise_study``, and
+``utils.flops`` counts the FLOPs of one Newton iteration against the
+H100's peaks.
 """
 
 from . import config  # noqa: F401  (TF32 off before anything runs)

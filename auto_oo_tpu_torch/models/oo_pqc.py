@@ -894,6 +894,7 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
     return {"energy": energy, "grad_hess": grad_hess,
             "energy_gradient_staged": energy_gradient_staged,
             "newton_update": newton_update, "nr_iteration": nr_iteration,
+            "newton_update_on": newton_update_on,
             "energy_batch": energy_batch, "grad_hess_batch": grad_hess_batch,
             "newton_update_batch": newton_update_batch,
             "nr_iteration_batch": nr_iteration_batch,

@@ -60,18 +60,24 @@ class FlatMaps:
             E_pq^s reads for output index i
       sign: (2, n2, D) int8, its sign (0 where E_pq^s annihilates)
 
-    so that (E_pq psi)[i] = sum_s sign[s, pq, i] * psi[src[s, pq, i]]."""
+    so that (E_pq psi)[i] = sum_s sign[s, pq, i] * psi[src[s, pq, i]].
+    ``src`` and ``sign`` are numpy arrays or tensors; a tensor already
+    on ``device`` is taken without a copy through the host."""
 
     def __init__(self, src, sign, device=None):
         self.device = get_device(device)
-        self.src = torch.as_tensor(np.asarray(src, dtype=np.int32),
-                                   device=self.device)
-        self.sign = torch.as_tensor(np.asarray(sign, dtype=np.int8),
-                                    device=self.device)
+        self.src = self._table(src, torch.int32, np.int32)
+        self.sign = self._table(sign, torch.int8, np.int8)
         # the reduction indexes the flattened (n2 * D) axis with int32
         if self.n2 * self.dim >= 1 << 31:
             raise ValueError(f"flat E_pq maps of {self.n2} pairs over "
                              f"D = {self.dim} exceed int32 indexing")
+
+    def _table(self, t, dtype, np_dtype):
+        if torch.is_tensor(t):
+            return t.to(device=self.device, dtype=dtype)
+        return torch.as_tensor(np.asarray(t, dtype=np_dtype),
+                               device=self.device)
 
     @property
     def n2(self):

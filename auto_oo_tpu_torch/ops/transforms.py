@@ -33,6 +33,14 @@ def int2e_transform(int2e_ao, mo_coeff):
     return M
 
 
+def general_4index_transform(M, C0, C1, C2, C3):
+    """Independent per-index transformation (reference oo_energy.py:21):
+    each Ck contracts the leading index of M in turn, cycling the axes."""
+    for C in (C0, C1, C2, C3):
+        M = torch.tensordot(M, C, dims=([0], [0]))
+    return M
+
+
 def _take(x, idx_by_axis):
     """x restricted to the index sets of its trailing axes (one device
     index tensor per axis, None keeps an axis whole)."""

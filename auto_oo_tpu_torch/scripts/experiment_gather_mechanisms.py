@@ -40,11 +40,10 @@ import torch
 from ..config import get_device
 from ..ops import gather_mechanisms as gm
 from ..ops import grid_kernels as gk
+from ..utils.flops import HBM_BYTES_PER_S
 
 R = 8      # rows per program step of the TPU kernels (na is padded to it)
 L = 128    # lane width (nb is padded to it)
-#: published HBM bandwidth of one H100 SXM at its 700 W limit, GB/s
-PEAK_GBS = 3350.0
 
 _DTYPES = {"f32": torch.float32, "f64": torch.float64}
 
@@ -145,7 +144,8 @@ def timed(label, gather_fn, x, src, s, cs, ref, K, bytes_out, n=6):
     gbs = gb / (kern_ms * 1e-3)
     print(f"{label:30s} {scan_ms:8.4f} ms/op (K-step)  gather "
           f"{kern_ms:8.4f} ms  {gb:.3f} GB out -> {gbs:7.1f} GB/s "
-          f"({100 * gbs / PEAK_GBS:5.1f}% of 3.35 TB/s)  relerr {err:.1e}")
+          f"({100 * gbs * 1e9 / HBM_BYTES_PER_S:5.1f}% of "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)  relerr {err:.1e}")
     return {"scan_ms": scan_ms, "ms": kern_ms, "gbs": gbs, "relerr": err}
 
 

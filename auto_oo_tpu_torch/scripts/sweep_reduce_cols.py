@@ -32,7 +32,8 @@ import torch
 
 from ..ops import grid, grid_kernels as gk
 from ..ops.cuda_build import I32, I64, PTR, CudaLibrary
-from .sweep_two_spin import HBM_BYTES_PER_S, time_ms
+from ..utils.flops import HBM_BYTES_PER_S
+from .sweep_two_spin import time_ms
 
 # (ncas, row window or None for all rows, pair block or None for all, B)
 SHAPES = {"10e": (10, None, None, 5), "12e": (12, None, None, 1),

@@ -51,9 +51,9 @@ import torch
 
 from ..ops import grid, grid_kernels as gk
 from ..ops.cuda_build import I32, I64, PTR, CudaLibrary
+from ..utils.flops import HBM_BYTES_PER_S
 from . import experiment_gather_mechanisms as exp
 
-HBM_BYTES_PER_S = 3.35e12
 STEP = 28
 DTYPES = {"f64": torch.float64, "f32": torch.float32}
 DEFAULT_SHAPES = ["10:alpha", "10:beta", "12:alpha", "12:beta", "14:alpha",

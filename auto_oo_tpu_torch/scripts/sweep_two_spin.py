@@ -45,8 +45,8 @@ import torch
 
 from ..ops import grid, grid_kernels as gk
 from ..ops.cuda_build import I32, I64, PTR, CudaLibrary
+from ..utils.flops import HBM_BYTES_PER_S
 
-HBM_BYTES_PER_S = 3.35e12
 STEP = 28
 DTYPES = {"f64": torch.float64, "f32": torch.float32}
 DEFAULT_SHAPES = {"f64": ["14:1716", "16:495"], "f32": ["16:14:15", "16:990"]}

@@ -9,6 +9,10 @@ remapped to sector ranks.  ``Parameterized_circuit(..., sector=True)``
 projects a prebuilt full-space ``GateProgram`` this way, then factorizes
 it onto the string grid (simulator/grid_program.factorize_program).
 
+``rdms_from_sector_state``: the spin-summed RDMs of a canonical-order
+sector state over the circuit's GridMaps (Phi from ``phi_all``, the
+gather_two_spin kernel on the card) or the flat sector tables.
+
 ``sector_sminus_maps`` / ``s2_expectation_sector`` are the JAX package's
 flat cross-sector S^- tables and <S^2> over the sector's canonical
 basis: O(ncas * D_target) tables, the reference the string-factorized
@@ -34,7 +38,7 @@ from ..config import get_device
 from ..ops import fermion
 from ..ops.grid import GridMaps, _nelec_split, phi_all, to_grid, transpose_grid
 from ..ops.linalg import gram_last
-from ..ops.rdms import FlatMaps
+from ..ops.rdms import FlatMaps, rdms_from_state
 from .gates import PairGate
 from .program import GateProgram
 
@@ -270,3 +274,16 @@ def rdms_from_sector_state_unrestricted(psi_s, epq_maps, pair_maps, ncas):
         # (q, p) = (X[a], Y[a]), column b is W_{rs} = (X[b], Y[b])
         Gamma[Y[:, None], X[:, None], X[None, :], Y[None, :]] = C
     return gamma, Gamma
+
+
+def rdms_from_sector_state(psi_s, maps):
+    """Spin-summed restricted (gamma, Gamma), float64, of a sector state
+    (real or complex) in canonical (sorted determinant) order, through the
+    Phi gram of ops/rdms.py: the bra side conjugated and the real part
+    taken, as in the JAX package.  ``maps`` is the circuit's GridMaps
+    (Phi by ``grid.phi_all``, the gather_two_spin kernel on the card; the
+    state goes to grid order inside), FlatMaps (``sector_epq_maps``) or
+    the JAX package's flat (src, sign) pair of (2, ncas^2, D) tables."""
+    if not isinstance(maps, (GridMaps, FlatMaps)):
+        maps = FlatMaps(*maps, device=psi_s.device)
+    return rdms_from_state(psi_s, int(round(maps.n2 ** 0.5)), maps)

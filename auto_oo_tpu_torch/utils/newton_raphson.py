@@ -37,6 +37,12 @@ from ..ops.linalg import eigh_direction, newton_dir_iterative
 _METHODS = (None, "eigh", "iterative")
 
 
+def wolfe(t, grad, dp, alpha=1e-4):
+    """Armijo decrease threshold alpha t <grad, dp> (reference
+    newton_raphson.py:12)."""
+    return alpha * t * torch.dot(grad, dp)
+
+
 def newton_step_pure(gradient, hessian, mu=1e-6, rho=1.1, lambda_min=1e-6,
                      aug=True, method=None, sync_free=False):
     """dp = -H^{-1} G with conditional augmentation H += (mu+rho|l0|) I.

@@ -311,6 +311,36 @@ inputs and its kernel launches:
    and no other kernel, its spin sums equal to the restricted streamed
    RDMs within 1e-12 relative, gamma_alpha = gamma_beta (a singlet), its
    wall time and peak device memory.
+34. after phase 30, the FLOP count (auto_oo_tpu_torch/utils/flops.py)
+   against torch.utils.flop_counter.FlopCounterMode: one f64 NR
+   iteration from init_zeros, outside any timed call, at (10e,10o) on
+   the fused route and at phase 6's (12e,12o) on the staged route; the
+   counter's matmul FLOPs (mm, bmm, addmm, baddbmm) of grad_hess and of
+   the update (its Armijo trials read from the step it took) beside the
+   count; the count must lie within FLOP_BAND (0.5x-2x) of the counter's
+   total.  Phases 5, 6, 8 and 10 print each timed NR iteration's count,
+   its achieved FLOP/s and its share of the card's 67 TFLOP/s (the f64
+   and f32 peaks are equal); the count phase's ratios are printed again
+   after the phases;
+35. after the (2e,2o) phases, the OO-VQE tutorial
+   (auto_oo_tpu_torch.scripts.tutorial_oo_vqe, examples/tutorial_oo_vqe.py)
+   at full length on the default device: formaldimine (4e,3o) np_fabric
+   L=2 by full_optimization(conv_tol=1e-10) to CASSCF within 1e-8 Ha,
+   every iteration printed beside the JAX example's CPU trajectory, then
+   300 circuit-only Adam steps on <psi|H|psi> at the RHF orbitals, the
+   last energy within 1e-8 Ha of the JAX example's (TUTORIAL_ADAM_E) and
+   printed beside CASCI; no grid kernel;
+36. the noise study (auto_oo_tpu_torch.scripts.noise_study,
+   examples/noise_study.py), cut from 5 variances x 5 seeds to 1e-8 and
+   1e-3 x 2 seeds (NOISE_VARIANCES, NOISE_SEEDS): its JSON rows, the
+   basin fraction a share of the seeds and 1 at 1e-8; its noiseless limit,
+   a variance-0 row, equal to the plain Newton run of the same 30
+   iterations; no grid kernel;
+37. after phase 20, simulator.sector.rdms_from_sector_state at (10e,10o)
+   np_fabric L=2 over the circuit's GridMaps, a real state and one with a
+   seeded per-determinant phase: gather_two_spin launched and no other
+   kernel, equal within 1e-12 to its plain version (the flat sector
+   tables, element gathers, no kernel) and to the circuit's get_rdms.
 The phases that time gather_rows_scaled print its first version (one
 warp per output row) at the same shape ("was", WAS_ROWS_MS, from
 scripts/sweep_rows_scaled.py --baseline) beside its time, its bound
@@ -337,7 +367,9 @@ energy_and_gradient, and "*_adam*", a whole Adam run; the Berry loops'
 under "berry_*", a whole loop's run; one batched step of 8 (10e,10o)
 geometries under "batch_10e10o", the sector run_batched under
 "run_batched_2e2o_sector", 4 device-loop iterations at (10e,10o) under
-"device_loop_10e10o"; the distributed engines' calls under
+"device_loop_10e10o"; phase 37's call under
+"rdms_from_sector_state_10e10o", and 0 under "tutorial_oo_vqe" and
+"noise_study"; the distributed engines' calls under
 "row_sharded_16e16o", "hosted_sharded_16e16o", "grid2d_12e12o",
 "tangent_sharded_10e10o" and "batch_mesh_10e10o", the staged batch
 under "batch_12e12o"); max abs error
@@ -673,8 +705,32 @@ ANCHORS_6E6O_COMPLEX = [-92.69605638258138, -92.70554994398806,
 # bound)
 TOL_COMPLEX_CASSCF = 1e-7
 TOL_ENERGY = 1e-8
-# published HBM rate of one H100 SXM at its 700 W limit
-HBM_BYTES_PER_S = 3.35e12
+# the OO-VQE tutorial (examples/tutorial_oo_vqe.py): formaldimine (140, 80)
+# sto-3g (4e,3o) np_fabric L=2, freeze_active, full_optimization
+# (conv_tol=1e-10) from init_zeros, then 300 circuit-only Adam steps at
+# 5e-2 on <psi|H|psi> at the RHF orbitals.  The JAX example's CPU run
+# (python examples/tutorial_oo_vqe.py --platform cpu, JAX package of
+# commit 83e22f3) printed the energies after NR iterations 1-22 (12
+# decimals; the trajectory amplifies last bits: the port on the CPU
+# leaves it by up to 9.5e-10 Ha at iteration 18, so it is printed beside
+# the port's, and the end is held to CASSCF) and the last Adam energy
+# (10 decimals), equal to CASCI of any spin, held to 1e-8
+TUTORIAL_NEWTON_E = [
+    -92.703322092633, -92.726525233319, -92.729054235118, -92.735940422369,
+    -92.748376886661, -92.748595293148, -92.749178257388, -92.749205620669,
+    -92.749220603642, -92.749245541605, -92.749262184941, -92.749295600726,
+    -92.749351775536, -92.749452797047, -92.749580508069, -92.749779594056,
+    -92.749909258366, -92.749949556349, -92.749951694599, -92.749953608450,
+    -92.749953613727, -92.749953613727]
+TUTORIAL_ADAM_E = -92.7367063372
+# the noise study (examples/noise_study.py), cut from 5 variances x 5 seeds
+# to its two ends x 2 seeds
+NOISE_VARIANCES = (1e-8, 1e-3)
+NOISE_SEEDS = range(2)
+# the FLOP count (utils/flops.py) against the matmul FLOPs that
+# torch.utils.flop_counter.FlopCounterMode sees one NR iteration run: a
+# factor 2 either way catches a units error and is never widened
+FLOP_BAND = (0.5, 2.0)
 # cycles of the spin kernel that holds the card while the host queues a
 # timed run (~5 ms at the H100's clocks)
 SPIN_CYCLES = 10_000_000
@@ -786,8 +842,60 @@ def launch_ms(fn, torch, reps=20):
 
 
 def bound_ms(nbytes):
-    """Least time to move nbytes at the H100's published HBM rate, ms."""
+    """Least time to move nbytes at the H100's published HBM rate
+    (utils/flops.py), ms."""
+    from auto_oo_tpu_torch.utils.flops import HBM_BYTES_PER_S
+
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+@contextlib.contextmanager
+def armijo_steps_taken():
+    """The step length t of every damped-Newton update run inside the
+    block: the Newton core's damped_newton_step_pure, wrapped for the
+    block and restored after it."""
+    from auto_oo_tpu_torch.models import oo_pqc as core
+
+    step_fn = core.damped_newton_step_pure
+    steps = []
+
+    def spy(*args, **kwargs):
+        out = step_fn(*args, **kwargs)
+        steps.append(out[2])
+        return out
+
+    core.damped_newton_step_pure = spy
+    try:
+        yield steps
+    finally:
+        core.damped_newton_step_pure = step_fn
+
+
+def armijo_trials(t):
+    """The trials a host Armijo search of STEP's beta ran to take step t
+    (utils/flops.armijo_trials)."""
+    from auto_oo_tpu_torch.utils.flops import armijo_trials as trials
+
+    return trials(t, STEP["beta"])
+
+
+def flop_rates(label, pqc, oo, iter_s, steps, precision="f64"):
+    """Prints per NR iteration the count of utils/flops.py (with the
+    Armijo trials of its step), the achieved FLOP/s over its wall time
+    and the share of the card's peak for ``precision``, beside the
+    card."""
+    from auto_oo_tpu_torch.utils import flops
+
+    check(len(steps) == len(iter_s),
+          f"{label}: {len(steps)} Newton steps for {len(iter_s)} times")
+    for n, (sec, t) in enumerate(zip(iter_s, steps), 1):
+        count = flops.nr_iteration_flops(pqc, oo,
+                                         n_trials=armijo_trials(t))["total"]
+        achieved, share = flops.mfu(count, sec, precision)
+        print(f"  {label} iter {n}: {count / 1e9:.3f} GFLOP "
+              f"({armijo_trials(t)} Armijo trials) in {sec:.4f} s: "
+              f"{achieved / 1e12:.3f} TFLOP/s, {100 * share:.2f}% of "
+              f"{flops.PEAKS[precision] / 1e12:.0f} TFLOP/s ({card_line()})")
 
 
 def _nbytes(*tensors):
@@ -1350,10 +1458,11 @@ def slice_phase(torch, P, gk):
     theta0 = pqc.init_zeros()
     torch.cuda.synchronize()
     gk.reset_launches()
-    t_start = time.perf_counter()
-    energies, thetas, _, oaos, eigs = oo.full_optimization(
-        theta0, max_iterations=4, alpha=1e-4, beta=0.5, mu=1e-6, rho=1.1,
-        lambda_min=1e-6, monitor=Stamp())
+    with armijo_steps_taken() as steps:
+        t_start = time.perf_counter()
+        energies, thetas, _, oaos, eigs = oo.full_optimization(
+            theta0, max_iterations=4, alpha=1e-4, beta=0.5, mu=1e-6,
+            rho=1.1, lambda_min=1e-6, monitor=Stamp())
     launches = dict(gk.LAUNCHES)
     iter_s = [b - a for a, b in zip([t_start] + stamps[:-1], stamps)]
     for i, (e, ref) in enumerate(zip(energies, ANCHORS_10E10O)):
@@ -1374,6 +1483,7 @@ def slice_phase(torch, P, gk):
     check(bool(torch.isfinite(oaos[-1]).all()), "non-finite OAO-MO")
     print(f"  launches: {launches}; median wall of iterations 2-4: "
           f"{statistics.median(iter_s[1:]):.4f} s")
+    flop_rates("(10e,10o)", pqc, oo, iter_s, steps)
     return launches
 
 
@@ -1407,10 +1517,11 @@ def sector12_phase(torch, P, gk, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gk.reset_launches()
-    t_start = time.perf_counter()
-    energies, thetas, _, oaos, eigs = oo.full_optimization(
-        theta0, max_iterations=len(ANCHORS_12E12O), alpha=1e-4, beta=0.5,
-        mu=1e-6, rho=1.1, lambda_min=1e-6, monitor=Stamp())
+    with armijo_steps_taken() as steps:
+        t_start = time.perf_counter()
+        energies, thetas, _, oaos, eigs = oo.full_optimization(
+            theta0, max_iterations=len(ANCHORS_12E12O), alpha=1e-4,
+            beta=0.5, mu=1e-6, rho=1.1, lambda_min=1e-6, monitor=Stamp())
     launches = dict(gk.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     iter_s = [b - a for a, b in zip([t_start] + stamps[:-1], stamps)]
@@ -1424,6 +1535,7 @@ def sector12_phase(torch, P, gk, dev):
         check(abs(e - ref) <= TOL_ENERGY,
               f"(12e,12o) iteration {i + 1}: |{e} - {ref}| > {TOL_ENERGY}")
     check_route_kernels(launches, FUSED_KERNELS, "the (12e,12o) run")
+    flop_rates("(12e,12o)", pqc, oo, iter_s, steps)
     # the device loop refuses the staged sizes, as the JAX package does
     try:
         oo.full_optimization(theta0, device_loop=True)
@@ -1702,10 +1814,11 @@ def sector14_phase(torch, gk, pqc, oo):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gk.reset_launches()
-    t_start = time.perf_counter()
-    energies, thetas, _, oaos, eigs = oo.full_optimization(
-        theta0, max_iterations=ITERATIONS_14E14O, alpha=1e-4, beta=0.5,
-        mu=1e-6, rho=1.1, lambda_min=1e-6, monitor=Stamp())
+    with armijo_steps_taken() as steps:
+        t_start = time.perf_counter()
+        energies, thetas, _, oaos, eigs = oo.full_optimization(
+            theta0, max_iterations=ITERATIONS_14E14O, alpha=1e-4, beta=0.5,
+            mu=1e-6, rho=1.1, lambda_min=1e-6, monitor=Stamp())
     launches = dict(gk.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     iter_s = [b - a for a, b in zip([t_start] + stamps[:-1], stamps)]
@@ -1722,6 +1835,7 @@ def sector14_phase(torch, gk, pqc, oo):
         check(abs(e - ref) <= TOL_ENERGY,
               f"(14e,14o) iteration {n}: |{e} - {ref}| > {TOL_ENERGY}")
     check_route_kernels(launches, FUSED_KERNELS, "the (14e,14o) run")
+    flop_rates("(14e,14o)", pqc, oo, iter_s, steps)
     psi = pqc.state(thetas[-1])
     torch.cuda.synchronize()
     check(psi.shape == (pqc.state_dim,), f"state shape {tuple(psi.shape)}")
@@ -2048,8 +2162,9 @@ def sector16_phase(torch, gk, mol, pqc, oo):
     e0, grad, hess = core["grad_hess"](theta0, oo.oao_mo_coeff, *args)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    new_theta, _, _, e1, _ = core["newton_update"](
-        theta0, oo.oao_mo_coeff, *args, e0, grad, hess, *STEP.values())
+    with armijo_steps_taken() as steps:
+        new_theta, _, _, e1, _ = core["newton_update"](
+            theta0, oo.oao_mo_coeff, *args, e0, grad, hess, *STEP.values())
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(gk.LAUNCHES)
@@ -2082,6 +2197,7 @@ def sector16_phase(torch, gk, mol, pqc, oo):
           "5e-5")
     check_route_kernels(launches, HOSTED_KERNELS,
                         "the (16e,16o) iteration")
+    flop_rates("(16e,16o)", pqc, oo, [t2 - t0], steps)
     psi = pqc.state(new_theta)
     torch.cuda.synchronize()
     check(psi.shape == (pqc.state_dim,), f"state shape {tuple(psi.shape)}")
@@ -2337,8 +2453,9 @@ def sector16_mixed_phase(torch, gk, gh, grid, P, mol, pqc):
     e0, grad, hess = core["grad_hess"](theta0, oo.oao_mo_coeff, *args)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    new_theta, _, _, e1, _ = core["newton_update"](
-        theta0, oo.oao_mo_coeff, *args, e0, grad, hess, *STEP.values())
+    with armijo_steps_taken() as steps:
+        new_theta, _, _, e1, _ = core["newton_update"](
+            theta0, oo.oao_mo_coeff, *args, e0, grad, hess, *STEP.values())
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(gk.LAUNCHES)
@@ -2371,6 +2488,7 @@ def sector16_mixed_phase(torch, gk, gh, grid, P, mol, pqc):
           "than 5e-5")
     check_route_kernels(launches, HOSTED_KERNELS,
                         "the (16e,16o) mixed iteration")
+    flop_rates("(16e,16o) mixed", pqc, oo, [t2 - t0], steps, "mixed")
     del oo, core, grad, hess
     torch.cuda.empty_cache()
     return launches
@@ -4274,6 +4392,219 @@ def batch_mesh_phase(torch, gk, D, mesh, objects):
     return paths
 
 
+def count_phase(torch, P, objects12):
+    """The FLOP count of one f64 NR iteration (utils/flops.py) against
+    the matmul FLOPs (mm, bmm, addmm, baddbmm) that
+    torch.utils.flop_counter.FlopCounterMode sees it run on the card,
+    from init_zeros and outside any timed call: (10e,10o) on the fused
+    route (built here) and phase 6's (12e,12o) 6-31G on the staged route
+    (from its initial OAO matrix).  grad_hess and the update (its Armijo
+    trials from the step taken) are counted apart; the total must lie
+    within FLOP_BAND of the counter's.  Prints the count's share in the
+    D-scaling terms."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from auto_oo_tpu_torch.utils import flops
+    from auto_oo_tpu_torch.utils.misc import get_formal_geo
+
+    _, pqc12, oo12, oao12, _ = objects12
+    pqc10 = P.Parameterized_circuit(10, 10, ansatz="np_fabric", n_layers=2,
+                                    sector=True)
+    oo10 = P.OO_pqc(pqc10, P.Moldata(get_formal_geo(140, 80), "sto-3g"),
+                    10, 10, freeze_active=True)
+    ratios = {}
+    for label, route, pqc, oo, oao in (
+            ("(10e,10o)", "fused", pqc10, oo10, oo10.oao_mo_coeff),
+            ("(12e,12o)", "staged", pqc12, oo12, oao12)):
+        check(oo._core["route"] == route,
+              f"{label} route {oo._core['route']}, expected {route}")
+        theta, args = pqc.init_zeros(), (oao, *oo._mol_args)
+        seen = {}
+        with armijo_steps_taken() as steps:
+            with FlopCounterMode(display=False) as counter:
+                e0, grad, hess = oo._core["grad_hess"](theta, *args)
+            seen["grad_hess"] = counter.get_total_flops()
+            ops = dict(counter.get_flop_counts()["Global"])
+            with FlopCounterMode(display=False) as counter:
+                oo._core["newton_update"](theta, *args, e0, grad, hess,
+                                          *STEP.values())
+            seen["update"] = counter.get_total_flops()
+        torch.cuda.synchronize()
+        seen["total"] = seen["grad_hess"] + seen["update"]
+        (t,) = steps
+        count = flops.nr_iteration_flops(pqc, oo, n_trials=armijo_trials(t))
+        shapes = flops._shapes(pqc, oo)
+        no_d = (flops.grad_hess_flops(shapes[0], 0, *shapes[2:])
+                + flops.update_flops(shapes[0], 0, *shapes[2:],
+                                     n_trials=armijo_trials(t)))
+        ratios[label] = {k: count[k] / seen[k] for k in seen}
+        print(f"  {label} {route}, D = {pqc.state_dim}: one NR iteration "
+              f"from init_zeros ({armijo_trials(t)} Armijo trials): count "
+              f"{count['total'] / 1e9:.3f} GFLOP "
+              f"({100 * (1 - no_d / count['total']):.2f}% in the D terms), "
+              f"FlopCounterMode "
+              f"{seen['total'] / 1e9:.3f} GFLOP; count / counter: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ratios[label].items())
+              + "; grad_hess ops: " + ", ".join(
+                  f"{op} {n / 1e9:.3f}" for op, n in ops.items()))
+        lo, hi = FLOP_BAND
+        check(lo <= ratios[label]["total"] <= hi,
+              f"{label}: count / FlopCounterMode {ratios[label]['total']} "
+              f"outside {FLOP_BAND}")
+    del oo10, pqc10
+    torch.cuda.empty_cache()
+    return ratios
+
+
+def tutorial_phase(torch, P, gk):
+    """The OO-VQE tutorial (python -m auto_oo_tpu_torch.scripts.
+    tutorial_oo_vqe, examples/tutorial_oo_vqe.py) at full length on the
+    default device: the Newton run to CASSCF within 1e-8 Ha, each of its
+    iterations within 1e-8 Ha of the JAX example's, then 300 circuit-only
+    Adam steps, the last energy within 1e-8 of the JAX example's and
+    printed beside CASCI; the full space launches no grid kernel.
+    Returns the launches."""
+    from auto_oo_tpu_torch.scripts import tutorial_oo_vqe as tut
+
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    mol, pqc, oo = tut.build()
+    check(oo.device.type == "cuda", f"tutorial on {oo.device}")
+    energies, _, _, _, eigs = tut.newton_run(oo, pqc)
+    torch.cuda.synchronize()
+    t_newton = time.perf_counter() - t0
+    check(len(energies) == len(TUTORIAL_NEWTON_E),
+          f"tutorial: {len(energies)} Newton iterations, the JAX example "
+          f"{len(TUTORIAL_NEWTON_E)}")
+    drift = max(abs(e - r) for e, r in zip(energies, TUTORIAL_NEWTON_E))
+    mol.run_casscf(tut.NCAS, tut.NELECAS)
+    diff = energies[-1] - mol.casscf.e_tot
+    print(f"  Newton: {len(energies)} iterations (JAX {len(TUTORIAL_NEWTON_E)}"
+          f") in {t_newton:.2f} s, E = {energies[-1]:.12f}, CASSCF "
+          f"{mol.casscf.e_tot:.12f}, diff {diff:+.3e}, lowest Hessian "
+          f"eigenvalue {eigs[-1]:.3e}; max |E - JAX| over the iterations "
+          f"{drift:.2e}")
+    for n, (e, ref) in enumerate(zip(energies, TUTORIAL_NEWTON_E), 1):
+        print(f"    iter {n}: E = {e:.12f}  JAX-CPU {ref:.12f}  diff "
+              f"{e - ref:+.2e}")
+    check(abs(diff) <= TOL_ENERGY, f"tutorial misses CASSCF by {diff}")
+    check(drift <= TOL_ENERGY,
+          f"tutorial Newton trajectory {drift} from the JAX example's")
+    t0 = time.perf_counter()
+    H = tut.cas_hamiltonian(mol, oo)
+    adam_e, theta = tut.adam_run(pqc, H)
+    torch.cuda.synchronize()
+    t_adam = time.perf_counter() - t0
+    mol.run_casci(tut.NCAS, tut.NELECAS, fix_singlet=0)
+    e_casci = mol.casci.e_tot
+    diff = adam_e[-1] - TUTORIAL_ADAM_E
+    print(f"  circuit-only Adam: {len(adam_e)} steps in {t_adam:.2f} s "
+          f"({1e3 * t_adam / len(adam_e):.2f} ms a step), E = "
+          f"{adam_e[-1]:.12f}, JAX-CPU {TUTORIAL_ADAM_E:.10f} (diff "
+          f"{diff:+.2e}), CASCI (any spin) {e_casci:.12f}")
+    check(len(adam_e) == 300 and bool(torch.isfinite(theta).all()),
+          "tutorial Adam run")
+    check(abs(diff) <= TOL_ENERGY,
+          f"tutorial Adam energy {adam_e[-1]} misses {TUTORIAL_ADAM_E}")
+    launches = dict(gk.LAUNCHES)
+    check_no_kernels(launches, "the tutorial")
+    return launches
+
+
+def noise_study_phase(torch, P, gk):
+    """The noise study (python -m auto_oo_tpu_torch.scripts.noise_study,
+    examples/noise_study.py), cut to NOISE_VARIANCES x NOISE_SEEDS, on
+    the default device: its rows (the JAX keys, a basin fraction that is
+    a share of the seeds; at 1e-8 every seed in the basin); its
+    noiseless limit, a variance-0 row, equal to the plain Newton run of
+    the same 30 iterations (best error within 1e-12 Ha, the iterations
+    to the basin exactly).  The full space launches no grid kernel.
+    Returns the launches."""
+    from auto_oo_tpu_torch.scripts import noise_study as ns
+
+    mol = P.Moldata(P.get_formal_geo(140, 80), "sto-3g")
+    e_ref = ns.casscf_energy(mol)
+    pqc = P.Parameterized_circuit(2, 2, ansatz="np_fabric", n_layers=1)
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    row0 = ns.study_row(pqc, mol, e_ref, 0.0, range(1))
+    plain = P.OO_pqc(pqc, mol, 2, 2, freeze_active=True).full_optimization(
+        pqc.init_zeros(), max_iterations=ns.MAX_ITER, conv_tol=0.0)[0]
+    err = np.abs(np.array(plain) - e_ref)
+    first = int(np.nonzero(err < row0["basin_tol_ha"])[0][0]) + 1
+    print(f"  noiseless limit ({time.perf_counter() - t0:.2f} s): "
+          f"{json.dumps(row0)}; plain Newton best error {err.min():.3e}, "
+          f"in the basin from iteration {first}")
+    check(len(plain) == ns.MAX_ITER, f"plain run of {len(plain)}")
+    check(abs(row0["median_best_error_ha"] - err.min()) <= 1e-12
+          and row0["median_iters_to_basin"] == first
+          and row0["fraction_in_basin"] == 1.0,
+          f"variance-0 row {row0} against the plain run")
+    for var in NOISE_VARIANCES:
+        t0 = time.perf_counter()
+        row = ns.study_row(pqc, mol, e_ref, var, NOISE_SEEDS)
+        print(f"  {json.dumps(row)} ({len(NOISE_SEEDS)} seeds, "
+              f"{time.perf_counter() - t0:.2f} s)")
+        check(set(row) == set(row0), f"row keys {sorted(row)}")
+        check(row["fraction_in_basin"] * len(NOISE_SEEDS) in range(
+            len(NOISE_SEEDS) + 1), f"basin fraction {row}")
+        check(np.isfinite(row["worst_best_error_ha"]), f"row {row}")
+        if var == NOISE_VARIANCES[0]:
+            check(row["fraction_in_basin"] == 1.0,
+                  f"variance {var}: not every seed in the basin")
+    launches = dict(gk.LAUNCHES)
+    check_no_kernels(launches, "the noise study")
+    return launches
+
+
+def rdms_sector_state_phase(torch, P, gk):
+    """simulator.sector.rdms_from_sector_state at (10e,10o) np_fabric L=2
+    (theta = 0.07 * arange + 0.1) on the card: over the circuit's GridMaps
+    it launches gather_two_spin and no other kernel, and equals its plain
+    version (the flat (2, n^2, D) sector tables, element gathers in plain
+    PyTorch, no kernel) and the circuit's own get_rdms within 1e-12; the
+    same for the state with a seeded per-determinant phase.  Returns the
+    launches of the grid call."""
+    from auto_oo_tpu_torch.simulator import sector
+
+    pqc = P.Parameterized_circuit(10, 10, ansatz="np_fabric", n_layers=2,
+                                  sector=True)
+    theta = 0.07 * np.arange(pqc.theta_shape) + 0.1
+    psi = pqc.state(theta)
+    flat, t_flat = _synced(torch, lambda: sector.sector_epq_maps(10, 10))
+    print(f"  flat sector tables: {t_flat:.2f} s, "
+          f"{_nbytes(flat.src, flat.sign) / 1e6:.1f} MB")
+    phase = np.exp(1j * np.random.default_rng(10).uniform(0, 2 * np.pi,
+                                                          psi.numel()))
+    launches = None
+    for label, state in (("real", psi), ("phased", psi * torch.as_tensor(
+            phase, device=psi.device))):
+        gk.reset_launches()
+        got, t_grid = _synced(torch, lambda: sector.rdms_from_sector_state(
+            state, pqc.sector_maps))
+        grid_launches = dict(gk.LAUNCHES)
+        gk.reset_launches()
+        plain, t_plain = _synced(torch, lambda: sector.rdms_from_sector_state(
+            state, flat))
+        check_no_kernels(gk.LAUNCHES, f"the flat tables ({label})")
+        ref = pqc.get_rdms_from_state(state)
+        d_plain = _max_diff(zip(got, plain))
+        d_ref = _max_diff(zip(got, ref))
+        print(f"  {label} state: GridMaps {t_grid:.4f} s (launches "
+              f"{grid_launches}), flat tables {t_plain:.4f} s; |grid - "
+              f"plain| {d_plain:.2e}, |grid - get_rdms| {d_ref:.2e}")
+        check(grid_launches["gather_two_spin"] > 0
+              and sum(grid_launches.values())
+              == grid_launches["gather_two_spin"],
+              f"rdms_from_sector_state launches {grid_launches}")
+        check(max(d_plain, d_ref) <= TOL_SPIN_SUM,
+              f"rdms_from_sector_state ({label}) off by "
+              f"{max(d_plain, d_ref)}")
+        launches = launches or grid_launches
+    del pqc, flat
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -4330,6 +4661,9 @@ def main():
         paths.update(phase("GeometryBatch on the staged route, (12e,12o), 2 "
                            "geometries", batch12_phase, torch, P, gk,
                            objects12))
+        flop_ratios = phase("the FLOP count against FlopCounterMode, "
+                            "(10e,10o) fused and (12e,12o) staged",
+                            count_phase, torch, P, objects12)
         del objects12
         torch.cuda.empty_cache()
         paths["10e10o_mixed"] = phase("(10e,10o) slice, mixed precision",
@@ -4378,6 +4712,12 @@ def main():
         paths["full_2e2o_adam"] = phase(
             "(2e,2o) full space, Adam with orbital relaxations",
             adam_2e2o_phase, torch, P, gk)
+        paths["tutorial_oo_vqe"] = phase(
+            "the OO-VQE tutorial, (4e,3o) full space", tutorial_phase, torch,
+            P, gk)
+        paths["noise_study"] = phase(
+            "the noise study, (2e,2o), 2 variances x 2 seeds",
+            noise_study_phase, torch, P, gk)
         paths["berry_2e2o"] = phase(
             "Berry loop, (2e,2o) full space, 21 points", berry_full_phase,
             torch, P, gk)
@@ -4447,6 +4787,9 @@ def main():
         # gather_rows_scaled's numbers: the (12e,12o) one-spin Phi (alpha)
         stats["gather_rows_scaled"].update(ms=res[0], plain_ms=res[1],
                                            bound_ms=res[2])
+        paths["rdms_from_sector_state_10e10o"] = phase(
+            "rdms_from_sector_state, (10e,10o) GridMaps against the flat "
+            "tables", rdms_sector_state_phase, torch, P, gk)
         paths["8e8o_unrestricted"] = phase(
             "(8e,8o) spin-resolved RDMs, full space",
             unrestricted_full_phase, torch, P, gk)
@@ -4477,6 +4820,7 @@ def main():
     finally:
         dist.destroy_process_group()
     print(f"all phases: {time.perf_counter() - t_all:.2f} s")
+    print("flop count / FlopCounterMode: " + json.dumps(flop_ratios))
     # each kernel's main path: the probes' entry point (the probes), the
     # (12e,12o) spin-resolved RDMs (gather_rows_scaled), the hosted
     # (16e,16o) iteration, and (14e,14o) for the row form of

@@ -298,13 +298,14 @@ def test_import_without_jax():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import auto_oo_tpu_torch as P\n"
             "from auto_oo_tpu_torch.ops import grid_kernels, linalg, rdms\n"
-            "from auto_oo_tpu_torch.utils import (checkpoint, interop, "
-            "observe)\n"
+            "from auto_oo_tpu_torch.utils import (checkpoint, flops, "
+            "interop, observe)\n"
             "from auto_oo_tpu_torch.models import berry, noisy_oo_pqc\n"
             "from auto_oo_tpu_torch.simulator import custom, sector\n"
             "from auto_oo_tpu_torch.ops import spin_embed\n"
             "from auto_oo_tpu_torch.scripts import (demo_14e14o, "
-            "lanczos_parking, tutorial_berry_phase)\n"
+            "lanczos_parking, noise_study, tutorial_berry_phase, "
+            "tutorial_oo_vqe)\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and (m.split('.')[0] in ('jax', 'auto_oo_tpu'))]\n"
             "assert not bad, bad\n"
