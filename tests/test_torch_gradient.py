@@ -44,6 +44,8 @@ from auto_oo_tpu_torch import config
 from auto_oo_tpu_torch.ops import grid, grid_hosted
 from auto_oo_tpu_torch.scripts import demo_14e14o, demo_16e16o
 from auto_oo_tpu_torch.utils import optim
+from tests.torch_jax_memos import (  # noqa: F401
+    fresh_jax_memos, fresh_jax_memos_module)
 
 GEOS = {"h4_chain": "H 0 0 0; H 0 0 1.2; H 0 0 2.4; H 0 0 3.6",
         "formaldimine": J.get_formal_geo(140, 80)}

@@ -37,6 +37,8 @@ import auto_oo_tpu_torch as P
 from auto_oo_tpu_torch import config
 from auto_oo_tpu_torch.ops import grid, grid_hosted
 from auto_oo_tpu_torch.utils.interop import from_jax
+from tests.torch_jax_memos import (  # noqa: F401
+    fresh_jax_memos, fresh_jax_memos_module)
 
 GEO = J.get_formal_geo(140, 80)
 H4 = "H 0 0 0; H 0 0 1.2; H 0 0 2.4; H 0 0 3.6"

@@ -23,8 +23,16 @@ inputs go through the JAX package's functions and the port's:
   form: tests/test_torch_gram.py);
 * the (16e,16o) demo's stages: the refused one (s2) names its ROADMAP
   item, and its nrmixed stage takes the Gram form at a small
-  forced-hosted size.
+  forced-hosted size;
+* the parity above after dead JAX maps: the JAX package memoizes
+  ``inverse_alpha_maps`` and the hosted passes' tables on the identity of
+  the maps' ``srcA`` (tests/torch_jax_memos.py), so each port test
+  module that writes those memos clears them around each test and
+  module, and the port's memos stay per maps object.
 """
+
+import gc
+import importlib
 
 import numpy as np
 import pytest
@@ -43,8 +51,14 @@ from auto_oo_tpu_torch.ops import fermion, grid, grid_hosted
 from auto_oo_tpu_torch.ops import grid_kernels as gk
 from auto_oo_tpu_torch.scripts import demo_16e16o
 from auto_oo_tpu_torch.utils.interop import from_jax
+from tests import torch_jax_memos as jax_memos
+from tests.torch_jax_memos import (  # noqa: F401
+    fresh_jax_memos, fresh_jax_memos_module)
 
 SECTORS = [(4, 4), (4, (3, 1)), (5, (3, 2))]
+# two sectors of one grid shape (Na = Nb = 10, n2 = 25): a table of the
+# one read for the other has the right shape and the wrong content
+SAME_SHAPE = [(5, (2, 2)), (5, (3, 2))]
 STEP = (1e-4, 0.5, 1e-6, 1.1, 1e-6)
 
 
@@ -124,6 +138,133 @@ def test_hosted_drivers_match_jax(ncas, nelecas):
     for a, b in zip(out, jgh.ham_and_trdms_hosted(jc1, jc2, jx, jt, jm,
                                                   ncas, **kw)):
         _close(a, b, 1e-13)
+
+
+def _inverse_np(srcA, sgnA):
+    """dst[k, m] = the row i with srcA[k, i] = m and sgnA[k, i] != 0,
+    dsg[k, m] its sign; 0 / 0 where no row reads m."""
+    srcA, sgnA = np.asarray(srcA), np.asarray(sgnA)
+    dst, dsg = np.zeros_like(srcA), np.zeros_like(sgnA)
+    for k, i in zip(*np.nonzero(sgnA)):
+        dst[k, srcA[k, i]] = i
+        dsg[k, srcA[k, i]] = sgnA[k, i]
+    return dst, dsg
+
+
+@pytest.fixture(scope="module")
+def dead_jax_maps():
+    """JAX maps left dead in the JAX package's memos, as the files before
+    this one on a worker leave them; returns each same-shape sector's
+    dead tables.
+
+    Each same-shape sector's tables are made first, as numpy arrays that
+    live to the end of the module.  Then 20 rounds of JAX maps of (4,4)
+    and (4,(3,1)) are built, used (``inverse_alpha_maps``,
+    ``rdms_hosted``; ``rdms_rows``, 0.2 s a call on the CPU, in the last
+    round) and dropped; each sector takes its own row chunk, so the
+    rounds meet no other sector's row tables (the JAX package would raise
+    on their shape).  Last, maps on each same-shape sector's tables are
+    used at row chunk 3 and dropped.  A test writes other maps into
+    those tables in place, so the new maps take the dead ones' ids for
+    certain, where CPython's allocator hands out a dead address again
+    only by chance.  Module scope puts this before the function-scoped
+    ``fresh_jax_memos``, which alone stands between the memos left here
+    and the test."""
+    tables = {s: [np.array(a) for a in jgrid.build_grid_maps(*s)]
+              for s in SAME_SHAPE}
+
+    def use(jm, nc, rc, rows):
+        x = jnp.asarray(_inputs(nc, jm.dim, 2)[0])
+        jgrid.inverse_alpha_maps(jm)
+        jgh.rdms_hosted(x, jm, nc, row_chunk=rc, seg_chunks=2)
+        if rows:
+            jgrid.rdms_rows(x, jm, nc, rc)
+
+    for n in range(20):
+        for (nc, ne), rc in (((4, 4), 2), ((4, (3, 1)), 4)):
+            use(jgrid.build_grid_maps(nc, ne), nc, rc, n == 19)
+        gc.collect()
+    for (nc, _), t in tables.items():
+        use(jgrid.GridMaps(*t), nc, 3, True)
+        gc.collect()
+    return tables
+
+
+@pytest.mark.parametrize("ncas,nelecas", SAME_SHAPE)
+def test_parity_survives_dead_jax_maps(dead_jax_maps, ncas, nelecas):
+    """The JAX package's values for fresh maps that take a dead maps' ids
+    (``dead_jax_maps``: the other same-shape sector's, whose tables have
+    the right shape and the wrong content), against the port's at this
+    file's pins: the inverse maps exactly, ``rdms_hosted`` and
+    ``ham_apply_hosted`` (row chunk 3) to 1e-13.  Only the autouse
+    fixture's clear at the test boundary keeps the dead maps' tables out;
+    without it both cases fail."""
+    tables = dead_jax_maps[next(s for s in SAME_SHAPE
+                                if s != (ncas, nelecas))]
+    for t, a in zip(tables, jgrid.build_grid_maps(ncas, nelecas)):
+        t[...] = np.asarray(a)
+    kw = dict(row_chunk=3, seg_chunks=2)
+
+    jm = jgrid.GridMaps(*tables)
+    pm = from_jax(jm)
+    jdst, jdsg = jgrid.inverse_alpha_maps(jm)
+    dst, dsg = grid.inverse_alpha_maps(pm)
+    np.testing.assert_array_equal(dst, np.asarray(jdst))
+    np.testing.assert_array_equal(dsg, np.asarray(jdsg))
+    x, _, c1, c2 = _inputs(ncas, jm.dim, 1)
+    jx, jc1, jc2 = (jnp.asarray(a) for a in (x, c1, c2))
+    px, pc1, pc2 = (torch.from_numpy(a) for a in (x, c1, c2))
+    g_j, G_j = jgh.rdms_hosted(jx, jm, ncas, **kw)
+    g_p, G_p = grid_hosted.rdms_hosted(px, pm, ncas, row_chunk=3)
+    _close(g_p, g_j, 1e-13)
+    _close(G_p, G_j, 1e-13)
+    _close(grid_hosted.ham_apply_hosted(pc1, pc2, px, pm, 3),
+           jgh.ham_apply_hosted(jc1, jc2, jx, jm, **kw), 1e-13)
+
+
+@pytest.mark.parametrize("name", jax_memos.AFFECTED)
+def test_memo_fixtures_in_affected_module(name):
+    """Every port test module that writes the JAX package's id-keyed
+    memos holds both autouse fixtures of tests/torch_jax_memos.py, so
+    none of its tests or module fixtures reads a dead maps' tables."""
+    mod = importlib.import_module(f"tests.{name}")
+    assert mod.fresh_jax_memos is jax_memos.fresh_jax_memos
+    assert mod.fresh_jax_memos_module is jax_memos.fresh_jax_memos_module
+
+
+def test_port_memos_are_per_maps():
+    """The port's memos live on each maps object: port maps of the two
+    same-shape sectors built in turn and dropped, 20 times, and each time
+    ``inverse_alpha_maps``, the hosted pass's ("inverse", ...) tables and
+    its ("rows", ...) slices equal a numpy recomputation from that
+    object's own srcA / sgnA / tA."""
+    like = torch.zeros((), dtype=torch.float64)
+    for n in range(20):
+        for ncas, nelecas in SAME_SHAPE:
+            pm = grid.build_grid_maps(ncas, nelecas)
+            own = grid.grid_tables(ncas, nelecas)
+            srcA, sgnA, tA = (a.numpy() for a in (pm.srcA, pm.sgnA, pm.tA))
+            np.testing.assert_array_equal(srcA, own["srcA"])
+            np.testing.assert_array_equal(sgnA, own["sgnA"])
+            dst, dsg = _inverse_np(srcA, sgnA)
+            x, _, c1, c2 = (torch.from_numpy(a)
+                            for a in _inputs(ncas, pm.dim, n))
+            grid_hosted.ham_apply_hosted(c1, c2, x, pm, 3)
+
+            inv = grid.inverse_alpha_maps(pm)
+            np.testing.assert_array_equal(inv[0], dst)
+            np.testing.assert_array_equal(inv[1], dsg)
+            idst, idsg = grid_hosted._inverse_tables(pm, like)
+            np.testing.assert_array_equal(idst.numpy(), dst)
+            np.testing.assert_array_equal(idsg.numpy(), dsg)
+            rows = [k for k in pm._cache if k[0] == "rows"]
+            assert len(rows) == -(-pm.Na // 3)
+            for _, r0, r1, _, _ in rows:
+                got = grid._row_tables(pm, like, r0, r1)
+                for a, b in zip(got, (srcA, sgnA, tA)):
+                    np.testing.assert_array_equal(a.numpy(), b[:, r0:r1])
+            del pm, inv, idst, idsg, got
+        gc.collect()
 
 
 @pytest.mark.parametrize("r0,r1", [(0, 3), (2, 7), (7, 10)])

@@ -47,6 +47,8 @@ from auto_oo_tpu_torch import config
 from auto_oo_tpu_torch.ops import grid, grid_hosted, hamiltonian
 from auto_oo_tpu_torch.parallel.distributed import run_ranks
 from tests.torch_parallel_workers import run_cases
+from tests.torch_jax_memos import (  # noqa: F401
+    fresh_jax_memos, fresh_jax_memos_module)
 
 RANKS = 4
 SECTORS = {"4e4o": (4, 4), "4e31": (4, (3, 1)), "6e6o": (6, 6)}
@@ -94,12 +96,18 @@ def _random_problem(ncas, nelecas, seed):
 
 @pytest.fixture(scope="module")
 def world():
-    """(inputs and JAX references per case, every rank's results)."""
+    """(inputs and JAX references per case, every rank's results).
+
+    Every JAX circuit, maps object and engine built here stays in ``keep``
+    until the fixture returns: the JAX package memoizes tables on the id
+    of a maps' ``srcA`` (tests/torch_jax_memos.py), so a maps dropped here
+    could hand its tables to the next one built."""
     jmesh = jmake_mesh(shape=(1, RANKS), names=("dp", "tp"),
                        devices=jax.devices()[:RANKS])
-    refs, cases = {}, []
+    refs, cases, keep = {}, [], []
     for key, (ncas, ne) in SECTORS.items():
         pqc, oo = _jax_sector(ncas, ne)
+        keep.append((pqc, oo))
         theta = 0.07 * jnp.arange(pqc.theta_shape, dtype=jnp.float64)
         psi = pqc.state(theta)
         c0, c1e, c2 = _coeffs(oo)
@@ -119,10 +127,12 @@ def world():
     # the sub-chunked engine against the JAX engine on 4 devices
     inputs = dict(refs["4e4o"]["inputs"], block_bytes=1024)
     pqc, _oo = _jax_sector(4, 4)
+    keep.append((pqc, _oo))
     saved = jgs._LOCAL_BLOCK_BYTES
     jgs._LOCAL_BLOCK_BYTES = 1024
     try:
         eng = jgs.row_sharded_sector_fns(pqc, jmesh, axis="tp")
+        keep.append(eng)
         psi = jnp.asarray(inputs["psi"])
         refs["chunks"] = dict(rdms=eng["rdms"](psi), ham=eng["ham_apply"](
             inputs["c1eff"], inputs["c2"], psi))
@@ -134,6 +144,7 @@ def world():
     psi_c = psi_r + 0.1j * np.roll(psi_r, 1)
     psi_c /= np.linalg.norm(psi_c)
     pqc, _oo = _jax_sector(4, 4)
+    keep.append((pqc, _oo))
     c0, c1e, c2 = (refs["4e4o"]["inputs"][k] for k in ("c0", "c1eff", "c2"))
     gm = pqc.sector_maps
     h_c = JG.from_grid(JH.ham_apply(c1e, c2, JG.to_grid(jnp.asarray(psi_c),
@@ -149,6 +160,7 @@ def world():
     for key, (ncas, ne) in SECTORS.items():
         gm, psi, c1e, c2 = _random_problem(ncas, ne, 3)
         fns = hosted_sharded_fns(gm, jrow, row_chunk=2)
+        keep.append((gm, fns))
         refs[f"hosted_{key}"] = dict(
             rdms=fns["rdms"](jnp.asarray(psi)),
             ham=fns["ham_apply"](c1e, c2, jnp.asarray(psi)),
@@ -159,6 +171,7 @@ def world():
         cases.append((f"hosted_{key}", "hosted", inputs))
     # first-order OO-VQE, single-device JAX
     pqc = JPC(4, 4, ansatz="np_fabric", n_layers=2, sector=True)
+    keep.append(pqc)
     refs["gradient_opt"] = dict(energies=JOO(pqc, _mol(), 4, 4)
                                 .gradient_optimization(
                                     pqc.init_zeros(), max_iterations=8,
@@ -169,10 +182,12 @@ def world():
     # the 2-D engine, single-device JAX on the closed shell
     for key, ne in (("4e4o", 4), ("4e31", (3, 1))):
         pqc = JPC(4, ne, ansatz="np_fabric", n_layers=2, sector=True)
+        keep.append(pqc)
         theta = 0.05 * jnp.arange(pqc.theta_shape, dtype=jnp.float64)
         refs[f"grid2d_{key}"] = dict(theta=np.asarray(theta))
         if key == "4e4o":
             oo = JOO(pqc, _mol(), 4, ne, freeze_active=True)
+            keep.append(oo)
             refs[f"grid2d_{key}"].update(
                 grad_hess=oo._grad_hess_jit(theta, oo.oao_mo_coeff),
                 energy=oo.energy_from_parameters(theta),

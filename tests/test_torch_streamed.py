@@ -37,6 +37,8 @@ import auto_oo_tpu_torch as P
 from auto_oo_tpu_torch import config
 from auto_oo_tpu_torch.ops import grid, grid_hosted, hamiltonian, rdms
 from auto_oo_tpu_torch.utils.interop import from_jax
+from tests.torch_jax_memos import (  # noqa: F401
+    fresh_jax_memos, fresh_jax_memos_module)
 
 
 @pytest.fixture(scope="module", autouse=True)
