@@ -1,0 +1,8 @@
+"""Share of the profiled stretch in which no operation ran on the device,
+in the gradient cells."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.idle_share(run, "adam")
