@@ -97,9 +97,6 @@ precisions), Adam on theta in optax's order (utils/optim.py), and every
 (``OO_energy.orbital_optimization``).
 """
 
-import contextlib
-import time
-
 import numpy as np
 import torch
 
@@ -111,6 +108,7 @@ from ..ops import kappa as _kappa
 from ..ops import rdms as _rdms
 from ..ops import transforms as _tr
 from ..ops.linalg import expm, gram_last
+from ..utils import observe as _observe
 from ..utils import optim as _optim
 from ..utils.misc import index_tensor
 from ..utils.newton_raphson import (backtracking_batched,
@@ -167,42 +165,6 @@ def _route(pqc, streamed=False):
     if streamed or _grid._pair_chunk(1, D, n2, 8) < n2:
         return "streamed"
     return "staged" if D >= _STAGED_MIN_D else "fused"
-
-
-class _Parts:
-    """Host-clock seconds and peak device memory of the parts of a
-    grad_hess, summed by label over a call, while ``enabled`` (the
-    profile scripts): each part starts and ends in a synchronize.  Off, a
-    part is a bare ``with`` block."""
-
-    def __init__(self, device):
-        self.device = device
-        self.enabled = False
-        self.seconds = {}
-        self.peaks = {}
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    @contextlib.contextmanager
-    def __call__(self, label):
-        if not self.enabled:
-            yield
-            return
-        self._sync()
-        cuda = self.device.type == "cuda"
-        if cuda:
-            torch.cuda.reset_peak_memory_stats(self.device)
-        t0 = time.perf_counter()
-        yield
-        self._sync()
-        self.seconds[label] = (self.seconds.get(label, 0.0)
-                               + time.perf_counter() - t0)
-        if cuda:
-            self.peaks[label] = max(self.peaks.get(label, 0),
-                                    torch.cuda.max_memory_allocated(
-                                        self.device))
 
 
 def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
@@ -266,7 +228,7 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
         form = hosted_form or ("gram" if _gh.gram_fits(nt, D, lp_size)
                                else "per_tangent")
     gram = form == "gram"
-    parts = _Parts(pqc.device)
+    parts = _observe.PartTimer(pqc.device)
     # plan sizes the passes over f64 states, plan_lp those over the
     # Hessian's lp states (the JAX package's f32 rows take 4-byte items,
     # oo_pqc.py:594-595); one given stream_plan sizes both
@@ -457,13 +419,13 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
         (``grid_hosted.ham_and_rdms_hosted``, the low-precision plan's row
         chunk), then ``energy_grad``.  Returns (psi, psi_p, H psi, gamma,
         Gamma, e0, grad_c)."""
-        with parts("state sweep"):
+        with parts("sim", "state sweep"):
             psi = pqc._state_impl_grid(theta)
             psi_p = lp(psi)
-        with parts("(H psi, RDMs) pass"):
+        with parts("ham", "(H psi, RDMs) pass"):
             Hpsi, gamma, Gamma = _gh.ham_and_rdms_hosted(
                 c1eff, c2, psi_p, maps, ncas, plan_lp.row_chunk)
-        with parts("gradient sweep"):
+        with parts("sim", "gradient sweep"):
             e0, grad_c = energy_grad(theta, psi, Hpsi, c0)
         return psi, psi_p, Hpsi, gamma, Gamma, e0, grad_c
 
@@ -485,9 +447,9 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
         trdms = []
         for i in range(nt):
             v = unit(th_p, i)
-            with parts("pair sweeps (J_i)"):
+            with parts("sim", "pair sweeps (J_i)"):
                 Ji = pqc._pair_state_grid(th_p, v)[1]
-            with parts("H J_i passes"):
+            with parts("ham", "H J_i passes"):
                 if n_kappa:
                     HJi, dgamma, dgram = _gh.ham_and_trdms_hosted(
                         c1eff, c2, psi_p, Ji, maps, ncas, pair_rows)
@@ -495,7 +457,7 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
                 else:
                     HJi = _gh.ham_apply_hosted(c1eff, c2, Ji, maps,
                                                plan_lp.row_chunk)
-            with parts("reverse pair sweeps (rows)"):
+            with parts("sim", "reverse pair sweeps (rows)"):
                 hess_cc[i] = 2.0 * pqc._pair_row_grid(th_p, v, HJi, Hpsi,
                                                       psi_p, Ji)
             del Ji, HJi
@@ -514,20 +476,20 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
         per tangent gives the term2 row d/d theta <J(theta) e_i, 2 H psi>
         (the JAX package's _t2_row_pair).  No tangent H-apply runs."""
         th_p = lp(theta)
-        with parts("state sweep"):
+        with parts("sim", "state sweep"):
             psi_p = lp(pqc._state_impl_grid(theta))
         S = psi_p.new_empty((nt + 1, maps.Na, maps.Nb))
         S[0] = psi_p.reshape(maps.Na, maps.Nb)
         for i in range(nt):
-            with parts("pair sweeps (J_i)"):
+            with parts("sim", "pair sweeps (J_i)"):
                 S[i + 1] = pqc._pair_state_grid(th_p, unit(th_p, i))[
                     1].reshape(maps.Na, maps.Nb)
-        with parts("cross sweep"):
+        with parts("sim", "cross sweep"):
             M1, gsmall, cross0 = _gh.cross_hosted(
                 S, c2, maps, ncas, cross_rows, tangent_grams=n_kappa > 0)
         # the stack goes before the H-apply pass allocates its chunks
         del S
-        with parts("H psi pass"):
+        with parts("ham", "H psi pass"):
             Hpsi = _gh.ham_apply_hosted(c1eff, c2, psi_p, maps,
                                         plan_lp.row_chunk)
         ham = M1 + gsmall @ c1eff.reshape(n2).to(M1.dtype)
@@ -540,7 +502,7 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
                  if n_kappa else [])
         t2 = torch.empty_like(term1)
         for i in range(nt):
-            with parts("reverse pair sweeps (rows)"):
+            with parts("sim", "reverse pair sweeps (rows)"):
                 t2[i] = 2.0 * pqc._pair_row_grid(th_p, unit(th_p, i),
                                                  zero_state(psi_p), Hpsi)
         grad, hess = assemble(h1, g2, gamma, Gamma, grad_c, term1 + t2,
@@ -576,9 +538,9 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
             return (grad_hess_gram if gram else grad_hess_hosted)(
                 theta, h1, g2, c0, c1eff, c2)
 
-        with parts("state + J sweep"):
+        with parts("sim", "state + J sweep"):
             psi, J = pqc._state_and_jacobian_grid(theta)   # (D,), (nt, D)
-        with parts("H psi"):
+        with parts("ham", "H psi"):
             Hpsi = _ham.ham_apply(c1eff, c2, psi, ncas, maps, plan)
         e0 = c0 + (psi.conj() @ Hpsi).real
         w = 2.0 * Hpsi
@@ -588,16 +550,16 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
         J = lp(J)
         chunk = max(1, min(nt, _CHUNK_ELEMENTS // max(1, n2 * D)))
         chunks = [J[lo:lo + chunk] for lo in range(0, nt, chunk)]
-        with parts(f"H J ({nt} rows)"):
+        with parts("ham", f"H J ({nt} rows)"):
             HJ = torch.cat([_ham.ham_apply(c1eff, c2, Jc, ncas, maps,
                                            plan_lp) for Jc in chunks])
-        with parts("circuit-Hessian sweep"):
+        with parts("sim", "circuit-Hessian sweep"):
             term2 = pqc._state_hessian_dot_grid(lp(theta), lp(w), lp(psi),
                                                 J)
         hess_cc = 2.0 * gram_last(J.conj(), HJ).real + term2
         del HJ
 
-        with parts("RDMs of psi"):
+        with parts("ham", "RDMs of psi"):
             if streamed:
                 # no (n^2, D) Phi: every RDM streams its own over grid rows
                 phi = None
@@ -608,7 +570,7 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
                 gamma, Gamma = _rdms.rdms_from_gram(phi, psi, ncas)
         phi_p = None if phi is None else lp(phi)
         psi_p = lp(psi)
-        with parts("transition RDMs and Fock blocks"):
+        with parts("core", "transition RDMs and Fock blocks"):
             grad, hess = assemble(h1, g2, gamma, Gamma, grad_c, hess_cc,
                                   (transition_rdms(phi_p, psi_p, Jc)
                                    for Jc in chunks))
@@ -633,15 +595,15 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
             gamma, Gamma, e0, grad_c = hosted_pass(theta, c0, c1eff,
                                                    c2)[3:]
         else:
-            with parts("state sweep"):
+            with parts("sim", "state sweep"):
                 psi = pqc._state_impl_grid(theta)
                 psi_p = lp(psi)
-            with parts("H psi"):
+            with parts("ham", "H psi"):
                 Hpsi = _ham.ham_apply(c1eff, c2, psi_p, ncas, maps, plan_lp)
-            with parts("gradient sweep"):
+            with parts("sim", "gradient sweep"):
                 e0, grad_c = energy_grad(theta, psi, Hpsi, c0)
             del Hpsi
-            with parts("RDMs"):
+            with parts("ham", "RDMs"):
                 gamma, Gamma = _rdms.rdms_from_state(
                     psi_p, ncas, maps, grid_order=True, plan=plan_lp)
         grad_o = (pack_grad(h1, g2, gamma, Gamma) if n_kappa
@@ -658,8 +620,10 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
             given precomputed (e0, grad, hess)."""
 
             def objective(flat):
-                return energy_fn(flat[:nt], flat[nt:], oao, int1e_ao,
-                                 int2e_ao, oao_coeff, nuc)
+                with _observe.span("loop", "armijo_trial"):
+                    _observe.count("evaluations")
+                    return energy_fn(flat[:nt], flat[nt:], oao, int1e_ao,
+                                     int2e_ao, oao_coeff, nuc)
 
             flat0 = torch.cat([theta, torch.zeros(
                 n_kappa, dtype=theta.dtype, device=theta.device)])
@@ -768,7 +732,7 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
         B = thetas.shape[0]
         coefs = [coefficients(oaos[b], int1e_ao[b], int2e_ao[b],
                               oao_coeff[b], nuc[b]) for b in range(B)]
-        with parts("state + J sweep"):
+        with parts("sim", "state + J sweep"):
             # (B, D), (B, nt, D)
             psi, J = pqc._state_and_jacobian_grid(thetas)
         chunk = max(1, min(nt, _CHUNK_ELEMENTS // max(1, n2 * D)))
@@ -781,7 +745,7 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
         Hpsi = torch.empty_like(psi)
         HJf = torch.empty_like(Jf)
         rdms, trdms = [None] * B, [[] for _ in range(B)]
-        with parts("Phi folds (H psi, H J, RDMs, transition RDMs)"):
+        with parts("ham", "Phi folds (H psi, H J, RDMs, transition RDMs)"):
             for lo, hi in folds(B):
                 phi = _rdms.apply_epq_all(psi[lo:hi], ncas, maps)
                 Y = stack_rows([ham_y(coefs[b][3], coefs[b][4],
@@ -817,10 +781,10 @@ def _build_nr_core(pqc, nao, occ, act, params_idx, stream_plan=None,
                 del phi
         HJ = HJf.reshape(B, nt, D)
         w = 2.0 * Hpsi
-        with parts("circuit-Hessian sweep"):
+        with parts("sim", "circuit-Hessian sweep"):
             term2 = pqc._state_hessian_dot_grid(thetas, w, psi, J)
         e0s, grads, hesses = [], [], []
-        with parts("Fock blocks"):
+        with parts("core", "Fock blocks"):
             for b in range(B):
                 h1, g2, c0 = coefs[b][:3]
                 e0s.append(c0 + (psi[b].conj() @ Hpsi[b]).real)
@@ -909,11 +873,13 @@ def _nr_iteration_of(grad_hess, newton_update):
 
     def nr_iteration(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc,
                      alpha, beta, mu, rho, lambda_min):
-        e0, grad, hess = grad_hess(theta, oao, int1e_ao, int2e_ao,
-                                   oao_coeff, nuc)
-        return newton_update(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc,
-                             e0, grad, hess, alpha, beta, mu, rho,
-                             lambda_min)
+        with _observe.span("core", "grad_hess"):
+            e0, grad, hess = grad_hess(theta, oao, int1e_ao, int2e_ao,
+                                       oao_coeff, nuc)
+        with _observe.span("loop", "newton_update"):
+            return newton_update(theta, oao, int1e_ao, int2e_ao, oao_coeff,
+                                 nuc, e0, grad, hess, alpha, beta, mu, rho,
+                                 lambda_min)
 
     return nr_iteration
 
@@ -957,7 +923,7 @@ def _mesh_core(pqc, maps, mesh, tangent_axis, state_axis, coefficients,
     def grad_hess(theta, oao, int1e_ao, int2e_ao, oao_coeff, nuc):
         h1, g2, c0, c1eff, c2 = coefficients(oao, int1e_ao, int2e_ao,
                                              oao_coeff, nuc)
-        with parts("state + J sweep"):
+        with parts("sim", "state + J sweep"):
             psi, J = pqc._state_and_jacobian_grid(theta)
         full = S.whole(psi)
         psi_loc = S.local(psi)
@@ -967,7 +933,7 @@ def _mesh_core(pqc, maps, mesh, tangent_axis, state_axis, coefficients,
         w = 2.0 * Hpsi
         gamma = S.reduce(gram_last(phi, psi_loc.conj()).real)
         corr = S.reduce(gram_last(phi.conj(), phi).real)
-        with parts("circuit-Hessian sweep"):
+        with parts("sim", "circuit-Hessian sweep"):
             term2 = pqc._state_hessian_dot_grid(theta, w, psi, J)
         # this rank's tangent rows, zero rows past n_theta
         Jb = J.new_zeros((tb,) + tuple(J.shape[1:]))
@@ -978,7 +944,7 @@ def _mesh_core(pqc, maps, mesh, tangent_axis, state_axis, coefficients,
         dgram = Jb_loc.new_zeros((tb, n2, n2), dtype=torch.float64)
         chunk = max(1, min(tb, _CHUNK_ELEMENTS
                            // max(1, n2 * Jb_loc.shape[-1])))
-        with parts("H J and transition grams"):
+        with parts("ham", "H J and transition grams"):
             for lo in range(0, tb, chunk):
                 hi = min(tb, lo + chunk)
                 Jc = S.whole(Jb[lo:hi])
@@ -1184,26 +1150,34 @@ class OO_pqc(OO_energy):
                 e, grad, rdms = self.energy_and_gradient(th)
                 return e, grad[:nt], (lambda: rdms)
         energy_l = []
+        solve = _observe.new_solve()
         for n in range(max_iterations):
-            e, grad_c, rdms_thunk = eval_fn(theta)
-            energy_l.append(float(e))
-            if monitor is not None:
-                monitor.log(n, energy_l[-1])
-            if verbose:
-                print(f"iter = {n:03}, energy = {energy_l[-1]:.12f}",
-                      flush=flush)
-            relax = (orbital_every and (n + 1) % orbital_every == 0
-                     and self.n_kappa)
-            if relax:
-                # the RDMs at the pre-update theta (the gradient's point)
-                g1, G2 = rdms_thunk()
-            updates, opt_state = opt.update(grad_c, opt_state, theta)
-            theta = _optim.apply_updates(theta, updates)
-            if relax:
-                orb_l = self.orbital_optimization(g1, G2, **orbital_kwargs)
-                if orb_l and verbose:
-                    print(f"  orbital relaxation -> {orb_l[-1]:.12f}",
+            with _observe.span("loop", "grad_step", (solve, n)):
+                e, grad_c, rdms_thunk = eval_fn(theta)
+                _observe.count("evaluations")
+                if isinstance(e, torch.Tensor):
+                    _observe.count("host_syncs")
+                energy_l.append(float(e))
+                if monitor is not None:
+                    with _observe.span("loop", "monitor"):
+                        monitor.log(n, energy_l[-1])
+                if verbose:
+                    print(f"iter = {n:03}, energy = {energy_l[-1]:.12f}",
                           flush=flush)
+                relax = (orbital_every and (n + 1) % orbital_every == 0
+                         and self.n_kappa)
+                if relax:
+                    # the RDMs at the pre-update theta (the gradient's point)
+                    g1, G2 = rdms_thunk()
+                with _observe.span("loop", "adam_update"):
+                    updates, opt_state = opt.update(grad_c, opt_state, theta)
+                    theta = _optim.apply_updates(theta, updates)
+                if relax:
+                    orb_l = self.orbital_optimization(g1, G2,
+                                                      **orbital_kwargs)
+                    if orb_l and verbose:
+                        print(f"  orbital relaxation -> {orb_l[-1]:.12f}",
+                              flush=flush)
             if (n > 2 and abs(energy_l[-1] - energy_l[-2]) < conv_tol
                     and abs(energy_l[-2] - energy_l[-3]) < conv_tol):
                 break
@@ -1239,21 +1213,26 @@ class OO_pqc(OO_energy):
 
         theta_l, kappa_l, oao_mo_coeff_l = [], [], []
         energy_l, hess_eig_l = [], []
+        solve = _observe.new_solve()
         for n in range(max_iterations):
-            theta, kappa, new_oao, energy, lowest = self._nr_iteration(
-                theta, self.oao_mo_coeff, alpha, beta, mu, rho, lambda_min)
-            self.oao_mo_coeff = new_oao
-            theta_l.append(theta)
-            kappa_l.append(kappa)
-            oao_mo_coeff_l.append(new_oao)
-            energy_l.append(float(energy))
-            hess_eig_l.append(float(lowest))
-            if monitor is not None:
-                monitor.log(n + 1, energy_l[-1],
-                            lowest_hess_eig=hess_eig_l[-1])
-            if verbose:
-                print(f"iter = {n + 1:03}, energy = {energy_l[-1]:.12f}",
-                      flush=flush)
+            with _observe.span("loop", "nr_iteration", (solve, n + 1)):
+                theta, kappa, new_oao, energy, lowest = self._nr_iteration(
+                    theta, self.oao_mo_coeff, alpha, beta, mu, rho,
+                    lambda_min)
+                self.oao_mo_coeff = new_oao
+                theta_l.append(theta)
+                kappa_l.append(kappa)
+                oao_mo_coeff_l.append(new_oao)
+                _observe.count("host_syncs")
+                energy_l.append(float(energy))
+                hess_eig_l.append(float(lowest))
+                if monitor is not None:
+                    with _observe.span("loop", "monitor"):
+                        monitor.log(n + 1, energy_l[-1],
+                                    lowest_hess_eig=hess_eig_l[-1])
+                if verbose:
+                    print(f"iter = {n + 1:03}, energy = "
+                          f"{energy_l[-1]:.12f}", flush=flush)
             if n > 1 and abs(energy_l[-1] - energy_l[-2]) < conv_tol:
                 if verbose:
                     print("optimization finished.")
@@ -1303,23 +1282,33 @@ class OO_pqc(OO_energy):
         n_done = torch.zeros((), dtype=torch.int64, device=oao.device)
         lanes = self._lane_args()
         e_prev = None
+        solve = _observe.new_solve()
         for n in range(n_max):
-            e0, grad, hess = core["grad_hess"](theta, oao, *self._mol_args)
-            th2, kap, oa2, e_t, low = (x[0] for x in core[
-                "newton_update_batch"](theta[None], oao[None], *lanes,
-                                       e0[None], grad[None], hess[None],
-                                       alpha, beta, mu, rho, lambda_min))
-            live = ~done
-            e_buf[n], l_buf[n], t_buf[n], k_buf[n], o_buf[n] = (
-                e_t, low, th2, kap, oa2)
-            theta = torch.where(live, th2, theta)
-            oao = torch.where(live, oa2, oao)
-            n_done = n_done + live.long()
-            if n > 1:
-                done = done | (live & ((e_t - e_prev).abs() < conv_tol))
-            e_prev = e_t if e_prev is None else torch.where(live, e_t,
-                                                            e_prev)
-            if (n + 1) % _CHECK_EVERY == 0 and n + 1 < n_max and bool(done):
+            with _observe.span("loop", "nr_iteration", (solve, n + 1)):
+                with _observe.span("core", "grad_hess"):
+                    e0, grad, hess = core["grad_hess"](theta, oao,
+                                                       *self._mol_args)
+                with _observe.span("loop", "newton_update"):
+                    th2, kap, oa2, e_t, low = (x[0] for x in core[
+                        "newton_update_batch"](
+                            theta[None], oao[None], *lanes, e0[None],
+                            grad[None], hess[None], alpha, beta, mu, rho,
+                            lambda_min))
+                live = ~done
+                e_buf[n], l_buf[n], t_buf[n], k_buf[n], o_buf[n] = (
+                    e_t, low, th2, kap, oa2)
+                theta = torch.where(live, th2, theta)
+                oao = torch.where(live, oa2, oao)
+                n_done = n_done + live.long()
+                if n > 1:
+                    done = done | (live & ((e_t - e_prev).abs() < conv_tol))
+                e_prev = e_t if e_prev is None else torch.where(live, e_t,
+                                                                e_prev)
+                check = (n + 1) % _CHECK_EVERY == 0 and n + 1 < n_max
+                if check:
+                    _observe.count("host_syncs")
+                    check = bool(done)
+            if check:
                 break
         # the one fetch of the run's scalars
         head = torch.cat([torch.stack([n_done.to(e_buf.dtype),

@@ -31,7 +31,8 @@ to the plain version or to the CPU.
 
 ``LAUNCHES`` counts, per kernel, the launches made through the wrappers
 (never the plain versions), so a run can show which kernels its main
-path went through.
+path went through; while spans record (utils/observe.py) each launch is
+also a ``kernel`` span named by its kernel.
 """
 
 import os
@@ -39,6 +40,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import observe as _observe
 from .cuda_build import CSRC_DIR, I32, I64, PTR, CudaLibrary
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
@@ -691,7 +693,8 @@ def _check(name, a, src, s, t, lead_ndim, t_axis=-1):
 
 
 def _launch(kern, dtype, *args):
-    LIBRARY.launch(f"grid_{kern}_{_SUFFIX[dtype]}", *args)
+    with _observe.span("kernel", kern):
+        LIBRARY.launch(f"grid_{kern}_{_SUFFIX[dtype]}", *args)
     LAUNCHES[kern] += 1
 
 

@@ -47,17 +47,14 @@ def _device_us(event):
 
 def grad_hess_parts(oo, theta, parts):
     """One grad_hess at ``theta`` with the core's part timer on: appends
-    each part's seconds (summed over tangents) to ``parts`` and prints
-    each part's peak device memory."""
+    each part's seconds (summed over tangents) to ``parts``."""
     timer = oo._core["parts"]
-    timer.seconds, timer.peaks, timer.enabled = {}, {}, True
+    timer.seconds, timer.enabled = {}, True
     try:
         oo._core["grad_hess"](theta, oo.oao_mo_coeff, *oo._mol_args)
     finally:
         timer.enabled = False
     parts.extend(timer.seconds.items())
-    print("  peak device memory by part: " + ", ".join(
-        f"{key} {peak / 1e9:.3f} GB" for key, peak in timer.peaks.items()))
 
 
 def main(argv=None):

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..config import get_device
+from ..utils import observe as _observe
 
 
 class _SweepProgram:
@@ -165,6 +166,7 @@ class _SweepProgram:
         generator terms of the others, and carries no Delta before the
         first of them (Delta is zero there)."""
         da = self._half_dev.to(v.dtype) * v[self._param_dev]
+        _observe.count("host_syncs")
         return da, (da != 0).tolist()
 
     def apply_pair(self, theta, v, psi=None):

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..ops.linalg import eigh_direction, newton_dir_iterative
+from . import observe as _observe
 
 _METHODS = (None, "eigh", "iterative")
 
@@ -74,7 +75,10 @@ def backtracking_pure(objective_flat, params_flat, dp, gradient,
     new_energy) with t and new_energy as Python floats."""
     if e0 is None:
         e0 = objective_flat(params_flat)
+    if isinstance(e0, torch.Tensor):
+        _observe.count("host_syncs")
     e0 = float(e0)
+    _observe.count("host_syncs")
     gdp = float(torch.dot(gradient, dp))
     # floating-point slack on the Armijo comparison: near convergence the
     # true decrease drops below f64 resolution of the energy (~eps |e0|),
@@ -83,7 +87,10 @@ def backtracking_pure(objective_flat, params_flat, dp, gradient,
              * max(1.0, abs(e0)))
     t = 1.0
     for _ in range(lmax):
-        e_t = float(objective_flat(params_flat + t * dp))
+        e_t = objective_flat(params_flat + t * dp)
+        if isinstance(e_t, torch.Tensor):
+            _observe.count("host_syncs")
+        e_t = float(e_t)
         if e_t <= e0 + alpha * t * gdp + slack:
             break
         t *= beta

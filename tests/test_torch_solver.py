@@ -211,7 +211,8 @@ def test_oo_pqc_iterative_equals_eigh_and_jax():
 
 def test_monitor_records_equal_jax(tmp_path):
     """full_optimization(monitor=) records equal the JAX package's for
-    the same run (every key but the wall time, energies to 1e-10); the
+    the same run (every key but the wall time, energies to 1e-10; the
+    port's records add the timestamps ``t_ns`` and ``step_s``); the
     JSONL sink holds the same records."""
     path = tmp_path / "run.jsonl"
     mon = Monitor(jsonl_path=str(path), label="port")
@@ -226,7 +227,8 @@ def test_monitor_records_equal_jax(tmp_path):
         jpqc.init_zeros(), monitor=jmon)
     assert len(mon.records) == len(jmon.records) > 2
     for rec, jrec in zip(mon.records, jmon.records):
-        assert set(rec) == set(jrec)
+        assert set(rec) - {"t_ns", "step_s"} == set(jrec)
+        assert rec["t_ns"] > 0 and rec["step_s"] > 0.0
         assert rec["iter"] == jrec["iter"] and rec["label"] == jrec["label"]
         for k in ("energy", "lowest_hess_eig"):
             assert abs(rec[k] - jrec[k]) < 1e-10
