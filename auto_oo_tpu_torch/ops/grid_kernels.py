@@ -73,7 +73,8 @@ LIBRARY = CudaLibrary(
      **{f"grid_gather_reduce_cols_{sfx}": _COLS_ARGS
         for sfx in _SUFFIX.values()}})
 
-#: launches of each CUDA kernel through its wrapper (plain runs excluded)
+#: launches of each CUDA kernel through its wrapper (plain runs excluded);
+#: ops/gate_kernels.py adds its kernels' entries when it is imported
 LAUNCHES = {"gather_two_spin": 0, "gather_rows_scaled": 0,
             "gather_reduce": 0, "gather_reduce_cols": 0, "scatter_rows": 0}
 

@@ -9,9 +9,13 @@ two SUBGRIDS:
 
     Psi[A_src x B_src]  <-cos/sin->  Psi[A_dst x B_dst]
 
-applied as row gathers, small column ops and row scatter-adds.  The gate
-step is functional (out-of-place ``index_copy`` / ``index_add``), so
-``apply`` is differentiable by autograd and torch.func.
+applied as row gathers, small column ops and row scatter-adds.  Where
+nothing records through the operands the sweeps step each gate in place
+(ops/gate_kernels.py: one kernel launch a step on the card, the plain
+``index_copy_`` / ``index_add_`` on the CPU); under autograd, a
+forward-mode dual or a torch.func transform the step is functional
+(out-of-place ``index_copy`` / ``index_add``), so ``apply`` stays
+differentiable.
 
 The optimizer's derivatives do not go through autograd: the sweeps of
 simulator/program.py (``apply_with_jacobian``, ``hessian_dot`` and, where
@@ -30,11 +34,17 @@ matching ops/grid.py; simulator/circuit.py converts to the canonical
 sorted-determinant order only at public API boundaries.
 """
 
+import math
+
 import numpy as np
 import torch
+import torch.autograd.forward_ad as _fwad
+from torch._C import _functorch
 
 from ..config import get_device
 from ..ops import fermion
+from ..ops import gate_kernels as _gk
+from ..utils import observe as _observe
 from .program import _SweepProgram
 
 
@@ -137,15 +147,59 @@ def factorize_program(program, basis_dets, ncas):
 _DENSE_SIGNS_MAX = 1 << 21
 
 
+def _pairs_disjoint(g):
+    """Whether every element of the grid is in at most one of the gate's
+    pairs: no table repeats an entry, and the source and destination pairs
+    share no row or no column (the condition under which the gate kernels
+    step the pairs in place, one thread a pair)."""
+    tabs = (g.Ai_src, g.Ai_dst, g.Bj_src, g.Bj_dst)
+    if any(np.unique(t).size != np.size(t) for t in tabs):
+        return False
+    return (np.intersect1d(g.Ai_src, g.Ai_dst).size == 0
+            or np.intersect1d(g.Bj_src, g.Bj_dst).size == 0)
+
+
+def _recorded(tensors):
+    """Whether an autograd graph, a forward-mode dual or a torch.func
+    transform records through any of ``tensors``."""
+    grad = torch.is_grad_enabled()
+    for t in tensors:
+        if t is None:
+            continue
+        if ((grad and t.requires_grad)
+                or _functorch.is_functorch_wrapped_tensor(t)
+                or _fwad.unpack_dual(t).tangent is not None):
+            return True
+    return False
+
+
+def _own(x, shape):
+    """A contiguous copy of x in ``shape``, for a sweep to step in place."""
+    return x.reshape(shape).clone(memory_format=torch.contiguous_format)
+
+
 class GridGateProgram(_SweepProgram):
     """Unrolled grid-space circuit over ``n_params`` full parameters.
 
-    Each gate's tables are O(Na + Nb) integers, held on ``device``; the
-    rank-1 sign matrices are built once per dtype on first use (dense up
-    to _DENSE_SIGNS_MAX elements, else as their two factors)."""
+    Each gate's tables (``gate_kernels.GateTables``) are O(Na + Nb)
+    integers, held on ``device``; the rank-1 sign matrices are built once
+    per dtype on first use (dense up to _DENSE_SIGNS_MAX elements, else as
+    their two factors).  Construction checks that each gate's pairs are
+    disjoint.
+
+    Where nothing records through the operands (no autograd graph, dual or
+    torch.func transform), the sweeps step the gates in place with the
+    gate kernels (ops/gate_kernels.py): each sweep copies the operands it
+    changes once at entry, never a caller's tensor, and each gate step is
+    one launch on the card.  Otherwise the functional step of
+    simulator/program.py runs (counted as ``functional_gate_steps``)."""
 
     def __init__(self, gates, n_params, init_idx, Na, Nb, device=None):
         self.gates = [g for g in gates if not g.empty]
+        for i, g in enumerate(self.gates):
+            _require(_pairs_disjoint(g),
+                     f"gate {i} (parameter {g.param}): its source and "
+                     "destination pairs overlap")
         self.n_params = int(n_params)
         self.init_idx = int(init_idx)
         self.Na = int(Na)
@@ -155,82 +209,161 @@ class GridGateProgram(_SweepProgram):
         self._shape = (self.Na, self.Nb)
         self._init_sweeps([g.half for g in self.gates],
                           [g.param for g in self.gates])
-
-        def dev(a):
-            return torch.as_tensor(np.asarray(a, dtype=np.int64),
-                                   device=self.device)
-
-        self._tabs = [(dev(g.Ai_src), dev(g.Ai_dst), dev(g.Bj_src),
-                       dev(g.Bj_dst)) for g in self.gates]
-        self._sgn = {}
+        self._gt = [_gk.GateTables(g, self.Na, self.Nb, self.device,
+                                   _DENSE_SIGNS_MAX) for g in self.gates]
+        self._max_ka = max((t.ka for t in self._gt), default=0)
 
     def device_tables(self):
         """Per gate: (Ai_src, Ai_dst, Bj_src, Bj_dst) index tensors."""
-        return self._tabs
+        return [(t.Ai_src, t.Ai_dst, t.Bj_src, t.Bj_dst) for t in self._gt]
 
     def _signs(self, dtype):
         """Per gate: the (ka, kb) sign matrix sA x sB in ``dtype``, or for
         a large gate its factors (sA (ka, 1), sB (1, kb))."""
-        hit = self._sgn.get(dtype)
-        if hit is None:
-            hit = self._sgn[dtype] = []
-            for g in self.gates:
-                a, b = (torch.as_tensor(v.astype(np.float64)).to(
-                    device=self.device, dtype=dtype) for v in (g.sA, g.sB))
-                hit.append(a[:, None] * b[None, :]
-                           if a.numel() * b.numel() <= _DENSE_SIGNS_MAX
-                           else (a[:, None], b[None, :]))
-        return hit
+        return [t.signs(dtype) for t in self._gt]
 
-    @staticmethod
-    def _sgn_mul(sgn, x):
-        """sgn * x for a sign matrix or its factors (the signs are +-1, so
-        both give the same bits)."""
-        if isinstance(sgn, tuple):
-            return (x * sgn[0]) * sgn[1]
-        return sgn * x
+    _sgn_mul = staticmethod(_gk.sgn_mul)
 
     def _blocks(self, X, gi):
         """The (va, vb) blocks of X that gate ``gi`` rotates."""
-        g = self.gates[gi]
-        Ai_src, Ai_dst, Bj_src, Bj_dst = self._tabs[gi]
-        if g.beta_identity:
-            return X.index_select(-2, Ai_src), X.index_select(-2, Ai_dst)
-        if g.alpha_identity:
-            return X.index_select(-1, Bj_src), X.index_select(-1, Bj_dst)
-        return (X.index_select(-2, Ai_src).index_select(-1, Bj_src),
-                X.index_select(-2, Ai_dst).index_select(-1, Bj_dst))
+        return _gk.blocks(X, self._gt[gi])
 
     def _put(self, X, gi, da, db, add):
         """X with the gate's blocks replaced by (add=False) or increased
         by (add=True) da / db; out of place."""
-        g = self.gates[gi]
-        Ai_src, Ai_dst, Bj_src, Bj_dst = self._tabs[gi]
-        if g.beta_identity or g.alpha_identity:
-            dim, ia, ib = ((-2, Ai_src, Ai_dst) if g.beta_identity
-                           else (-1, Bj_src, Bj_dst))
-            if add:
-                return X.index_add(dim, ia, da).index_add(dim, ib, db)
-            return X.index_copy(dim, ia, da).index_copy(dim, ib, db)
-        # subgrid: scatter the (ka, kb) blocks into zero (ka, Nb) row
-        # blocks, then row scatter-add (A_src/A_dst disjoint, or columns
-        # disjoint — a delta-add is safe in every case)
-        rows = X.shape[:-2] + (Ai_src.shape[0], self.Nb)
-        DA = torch.zeros(rows, dtype=X.dtype, device=X.device).index_copy(
-            -1, Bj_src, da)
-        DB = torch.zeros(rows, dtype=X.dtype, device=X.device).index_copy(
-            -1, Bj_dst, db)
-        return X.index_add(-2, Ai_src, DA).index_add(-2, Ai_dst, DB)
+        return _gk.put(X, self._gt[gi], da, db, add)
 
     def _gate_step(self, Psi, gi, c, s, sgn):
         """Apply gate ``gi`` with rotation (c, s) to (..., Na, Nb) grids;
         (c, -s) applies the INVERSE (the rotations are orthogonal)."""
+        _observe.count("functional_gate_steps")
         va, vb = self._blocks(Psi, gi)
         ss = self._sgn_mul(sgn, s)
-        g = self.gates[gi]
-        if g.beta_identity or g.alpha_identity:
+        if not self._gt[gi].subgrid:
             return self._put(Psi, gi, c * va - ss * vb, ss * va + c * vb,
                              add=False)
         cm1 = c - 1.0
         return self._put(Psi, gi, cm1 * va - ss * vb, ss * va + cm1 * vb,
                          add=True)
+
+    # ---- the in-place sweeps (the same sweeps as simulator/program.py's,
+    # ---- each gate step one gate-kernel launch on the card) ----------------
+
+    def _grids(self, X, per_lane=1):
+        return X.view(-1, per_lane, self.Na, self.Nb)
+
+    def _trig_rows(self, theta, dtype):
+        """(cos, sin) of every gate's half angle in ``dtype``, (n_gates, L):
+        row gi holds the L lanes' values (L = 1 for one theta)."""
+        n = len(self._half)
+        return tuple(t.reshape(n, -1).to(dtype).contiguous()
+                     for t in self._trig(theta))
+
+    def apply(self, theta, psi=None):
+        if not self._half or _recorded((theta, psi)):
+            return super().apply(theta, psi)
+        lanes = theta.shape[:-1]
+        Psi = (self.initial_state(theta.dtype, lanes) if psi is None
+               else _own(psi, lanes + (self.dim,)))
+        P = self._grids(Psi)
+        cos_t, sin_t = self._trig_rows(theta, P.dtype)
+        for gi, tab in enumerate(self._gt):
+            _gk.gate_rotate(P, tab, cos_t[gi], sin_t[gi])
+        return Psi
+
+    def apply_with_jacobian(self, theta, params_idx):
+        if not self._half or _recorded((theta,)):
+            return super().apply_with_jacobian(theta, params_idx)
+        nt = len(params_idx)
+        lanes = theta.shape[:-1]
+        psi = self.initial_state(theta.dtype, lanes)
+        J = torch.zeros(lanes + (nt, self.dim), dtype=psi.dtype,
+                        device=psi.device)
+        P, D = self._grids(psi), self._grids(J, nt)
+        cos_t, sin_t = self._trig_rows(theta, P.dtype)
+        half = self._half_dev.to(P.dtype)
+        tang = self._tangent_of_gate(params_idx)
+        for gi, tab in enumerate(self._gt):
+            ti = int(tang[gi])
+            if ti >= 0:
+                _gk.gate_generator_add(D[:, ti:ti + 1], P, tab, half[gi])
+            _gk.gate_rotate(D, tab, cos_t[gi], sin_t[gi])
+            _gk.gate_rotate(P, tab, cos_t[gi], sin_t[gi])
+        return psi, J
+
+    def apply_pair(self, theta, v, psi=None):
+        if not self._half or _recorded((theta, v, psi)):
+            return super().apply_pair(theta, v, psi)
+        psi = (self.initial_state(theta.dtype) if psi is None
+               else _own(psi, (self.dim,)))
+        P = self._grids(psi)
+        cos_t, sin_t = self._trig_rows(theta, P.dtype)
+        da, live = self._pair_coefs(v)
+        da = da.to(P.dtype)
+        delta = None
+        for gi, tab in enumerate(self._gt):
+            if live[gi]:
+                if delta is None:
+                    delta = torch.zeros_like(psi)
+                    D = self._grids(delta)
+                _gk.gate_generator_add(D, P, tab, da[gi])
+            if delta is not None:
+                _gk.gate_rotate(D, tab, cos_t[gi], sin_t[gi])
+            _gk.gate_rotate(P, tab, cos_t[gi], sin_t[gi])
+        if delta is None:
+            delta = torch.zeros_like(psi)
+        return psi, delta
+
+    def pair_row(self, theta, v, a, b, psi=None, delta=None):
+        if not self._half or _recorded((theta, v, a, b, psi, delta)):
+            return super().pair_row(theta, v, a, b, psi, delta)
+        if psi is None:
+            psi, delta = self.apply_pair(theta, v)
+        out = torch.zeros(self.n_params, dtype=psi.dtype, device=psi.device)
+        cos_t, sin_t = self._trig_rows(theta, psi.dtype)
+        da, live = self._pair_coefs(v)
+        da = da.to(psi.dtype)
+        n = len(self._half)
+        first = live.index(True) if True in live else n
+        P, Q = (self._grids(_own(x, (self.dim,))) for x in (psi, a))
+        # Delta and CtD feed nothing below the first generator term: they
+        # are copied only where a sweep reaches one
+        D = E = None
+        if first < n:
+            D, E = (self._grids(_own(x, (self.dim,))) for x in (delta, b))
+        part = psi.new_empty(self._max_ka)
+        for gi in reversed(range(n)):
+            p = int(self._param[gi])
+            _gk.gate_adjoint_step(
+                P, Q, D if gi >= first else None, E if gi >= first else None,
+                self._gt[gi], cos_t[gi], sin_t[gi],
+                out=out[p:p + 1].view(1, 1), h=self._half[gi],
+                ti=0 if live[gi] else -1, coef=da[gi], part=part)
+        return out
+
+    def hessian_dot(self, theta, w, psi, J, params_idx):
+        if not self._half or _recorded((theta, w, psi, J)):
+            return super().hessian_dot(theta, w, psi, J, params_idx)
+        nt = len(params_idx)
+        lanes = theta.shape[:-1]
+        out = torch.zeros(lanes + (nt, nt), dtype=psi.dtype,
+                          device=psi.device)
+        if nt == 0:
+            return out
+        L = math.prod(lanes)
+        P = self._grids(_own(psi, (L, self.dim)))
+        E = self._grids(_own(w, (L, self.dim)))
+        D = self._grids(_own(J, (L, nt, self.dim)), nt)
+        Q = torch.zeros_like(D)
+        O = out.view(L, nt, nt)
+        cos_t, sin_t = self._trig_rows(theta, P.dtype)
+        half = self._half_dev.to(P.dtype)
+        tang = self._tangent_of_gate(params_idx)
+        part = P.new_empty(L * nt * self._max_ka)
+        for gi in reversed(range(len(self._half))):
+            ti = int(tang[gi])
+            _gk.gate_adjoint_step(
+                P, Q, D, E, self._gt[gi], cos_t[gi], sin_t[gi],
+                out=O[:, :, ti] if ti >= 0 else None, h=self._half[gi],
+                ti=ti, coef=half[gi], part=part)
+        return out

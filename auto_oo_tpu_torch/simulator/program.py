@@ -33,7 +33,9 @@ against each program's block operations:
 
 The gate step is functional (out-of-place ``index_copy`` /
 ``index_add``), so ``apply`` is differentiable by autograd and
-torch.func.
+torch.func.  ``GridGateProgram`` runs the same sweeps in place (the gate
+kernels, ops/gate_kernels.py) wherever nothing records through the
+operands, and these functional ones where something does.
 
 ``apply``, ``apply_with_jacobian`` and ``hessian_dot`` also take a stack
 of parameter vectors theta (B, n_params), one per geometry of a batch or

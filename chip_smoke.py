@@ -6,8 +6,8 @@
 Phases, each of which must pass (any failure exits non-zero); each
 prints its seconds:
 
-1. the card's name and power limit (nvidia-smi), and the build of both
-   CUDA kernel libraries from auto_oo_tpu_torch/csrc/ (one nvcc per
+1. the card's name and power limit (nvidia-smi), and the build of the
+   three CUDA kernel libraries from auto_oo_tpu_torch/csrc/ (one nvcc per
    source, started together);
 2. each grid-gather kernel against its plain PyTorch version on the card,
    on the (10e,10o) and (12e,12o) sectors' real grid maps (B = 1, 3, 5 and
@@ -341,6 +341,21 @@ inputs and its kernel launches:
    seeded per-determinant phase: gather_two_spin launched and no other
    kernel, equal within 1e-12 to its plain version (the flat sector
    tables, element gathers, no kernel) and to the circuit's get_rdms.
+38. after phase 8's mixed run, the gate kernels (ops/gate_kernels.py) on
+   the (14e,14o) and (16e,16o) np_fabric L=1 circuits' full grids, f64,
+   one lane (auto_oo_tpu_torch.scripts.sweep_gate_kernels): on every gate
+   each kernel against its plain version (gate_rotate both ways,
+   gate_generator_add, gate_adjoint_step on (P, Q) and on (P, Q, D, E)
+   with the generator terms, nt = 14 and 2 tangents): the stepped operands
+   equal (torch.equal), the dot products within the rounding bound of
+   their sums, the same bits on a second launch; one sweep's launches of
+   each kernel timed beside its bound and its plain version; the in-place
+   state and adjoint sweeps against the functional sweeps they replaced,
+   within 1e-13 relative; and the launches of phase 8's main-path runs:
+   gate_rotate and gate_adjoint_step once a gate per (14e,14o) f64
+   energy_and_gradient and no gate_generator_add (whole sweeps of both in
+   the mixed one), and every gate kernel in the Newton iterations,
+   gate_rotate and gate_adjoint_step in whole sweeps.
 The phases that time gather_rows_scaled print its first version (one
 warp per output row) at the same shape ("was", WAS_ROWS_MS, from
 scripts/sweep_rows_scaled.py --baseline) beside its time, its bound
@@ -372,7 +387,8 @@ geometries under "batch_10e10o", the sector run_batched under
 "noise_study"; the distributed engines' calls under
 "row_sharded_16e16o", "hosted_sharded_16e16o", "grid2d_12e12o",
 "tangent_sharded_10e10o" and "batch_mesh_10e10o", the staged batch
-under "batch_12e12o"); max abs error
+under "batch_12e12o"; the gate kernels' main path is phase 8's (14e,14o)
+Newton iterations); max abs error
 against the
 plain version over every comparison; kernel and plain times and the
 bound at the (16e,16o) f64 chunk shapes for the hosted route's kernels
@@ -380,6 +396,9 @@ bound at the (16e,16o) f64 chunk shapes for the hosted route's kernels
 the column form and the scatter on the chunk's Y), at the (12e,12o)
 one-spin Phi's alpha half for gather_rows_scaled, at the (14e,14o)
 streamed shape for the row form and at the probes' ncas = 12 f64 shape;
+for the gate kernels one (14e,14o) sweep's launches: gate_rotate on the
+state, gate_adjoint_step in the circuit-Hessian sweep, gate_generator_add
+in the state + J sweep (phase 38);
 library_ms is the time of index_add_ of the scatter's contributions,
 and null for the others, which no single PyTorch call computes); the
 last line is {"ok": true, "device": {...}}.
@@ -757,7 +776,10 @@ SOURCE = {"gather_two_spin": "auto_oo_tpu_torch/csrc/grid_gather.cu",
           "scatter_rows": "auto_oo_tpu_torch/csrc/grid_gather.cu",
           "gather_a": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu",
           "gather_b": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu",
-          "gather_c": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu"}
+          "gather_c": "auto_oo_tpu_torch/csrc/gather_mechanisms.cu",
+          "gate_rotate": "auto_oo_tpu_torch/csrc/grid_gates.cu",
+          "gate_generator_add": "auto_oo_tpu_torch/csrc/grid_gates.cu",
+          "gate_adjoint_step": "auto_oo_tpu_torch/csrc/grid_gates.cu"}
 REPLACES = {"gather_two_spin": "auto_oo_tpu/ops/pallas_grid.py:110 on both "
                                "spin halves, with the callers' transposed "
                                "copies and adds at "
@@ -772,7 +794,15 @@ REPLACES = {"gather_two_spin": "auto_oo_tpu/ops/pallas_grid.py:110 on both "
                             "auto_oo_tpu/ops/grid_hosted.py:260-262",
             "gather_a": f"{_MECH_SCRIPT}:119",
             "gather_b": f"{_MECH_SCRIPT}:152",
-            "gather_c": f"{_MECH_SCRIPT}:190"}
+            "gather_c": f"{_MECH_SCRIPT}:190",
+            # no TPU kernel: the XLA gathers and scatters of the JAX
+            # package's gate steps
+            "gate_rotate": "none: auto_oo_tpu/simulator/grid_program.py:199",
+            "gate_generator_add": "none: "
+                                  "auto_oo_tpu/simulator/grid_program.py:256",
+            "gate_adjoint_step": "none: "
+                                 "auto_oo_tpu/simulator/grid_program.py:285 "
+                                 "and :199"}
 
 
 class SmokeFailure(Exception):
@@ -782,6 +812,12 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def gathers(launches):
+    """The grid gather kernels' launches (the gate kernels left out: a
+    state sweep launches gate_rotate once a gate)."""
+    return sum(v for k, v in launches.items() if not k.startswith("gate_"))
 
 
 def check_route_kernels(launches, kernels, what):
@@ -1932,8 +1968,10 @@ def unrestricted14_phase(torch, gk, pqc, theta):
           f"{ {k: v for k, v in launches.items() if v} }; spin sums - "
           f"restricted streamed {d_sum:.2e} relative; gamma_alpha - "
           f"gamma_beta {d_spin:.2e} relative")
-    check(launches["gather_rows_scaled"] == 2
-          and sum(launches.values()) == 2,
+    check(launches["gather_rows_scaled"] == 2 and gathers(launches) == 2
+          and launches["gate_rotate"] == len(pqc.grid_program.gates)
+          and launches["gate_generator_add"] == 0
+          and launches["gate_adjoint_step"] == 0,
           f"(14e,14o) get_rdms(restricted=False) launches {launches}")
     check(d_sum <= 1e-12, f"(14e,14o) spin sums differ by {d_sum:.2e}")
     check(d_spin <= 1e-12, f"(14e,14o) gamma_alpha != gamma_beta: "
@@ -3485,8 +3523,10 @@ def unrestricted_sector_phase(torch, P, gk, grid, ncas, n_layers, stats):
         theta, restricted=False))
     paths[f"{tag}_unrestricted"] = launches = dict(gk.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() - base
-    check(launches["gather_rows_scaled"] == 2
-          and sum(launches.values()) == 2,
+    check(launches["gather_rows_scaled"] == 2 and gathers(launches) == 2
+          and launches["gate_rotate"] == len(pqc.grid_program.gates)
+          and launches["gate_generator_add"] == 0
+          and launches["gate_adjoint_step"] == 0,
           f"{label} get_rdms(restricted=False) launches {launches}")
     gs, Gs = _spin_sums(gu, Gu, ncas)
     d_sum = _max_diff(((gs, gr), (Gs, Gr)))
@@ -4605,6 +4645,70 @@ def rdms_sector_state_phase(torch, P, gk):
     return launches
 
 
+def gate_kernel_phase(torch, paths):
+    """Phase 38: the gate kernels against their plain versions and timed
+    at the sweeps' shapes, the in-place sweeps against the functional
+    ones, and the main path's launches; returns the kernels' stats."""
+    from auto_oo_tpu_torch.ops import gate_kernels as gtk
+    from auto_oo_tpu_torch.scripts import sweep_gate_kernels as sgk
+    from auto_oo_tpu_torch.simulator import grid_gates
+
+    stats = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
+                 "bound_ms": None} for k in gtk.KERNELS}
+    n_gates = {}
+    for ncas, nt in ((14, 14), (16, 2)):
+        prog = grid_gates.build_direct(ncas, ncas, "np_fabric", n_layers=1,
+                                       device="cuda")
+        n_gates[ncas] = len(prog._gt)
+        errs = dict.fromkeys(gtk.KERNELS, 0.0)
+        for gi, tab in enumerate(prog._gt):
+            err, faults = sgk.compare(tab, torch.float64, 3800 + gi, L=1,
+                                      nt=nt)
+            check(not faults, f"({ncas}e,{ncas}o) gate {gi}: {faults}")
+            for k, e in err.items():
+                errs[k] = max(errs[k], e)
+                stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"], e)
+        print(f"  ({ncas}e,{ncas}o) {len(prog._gt)} gates, nt = {nt}: each "
+              f"kernel equal to its plain version, dot products within "
+              f"their bound; max abs err {errs}", flush=True)
+        del prog
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(2147483647)
+    # the kernels line's times: one (14e,14o) sweep's launches of each
+    pick = {"gate_rotate": "state sweep, one grid",
+            "gate_adjoint_step": "circuit-Hessian sweep",
+            "gate_generator_add": "the J sweep's generator terms"}
+    for ncas in (14, 16):
+        for row in sgk.measure(ncas, torch.float64, torch.device("cuda"),
+                               rng):
+            if "max_rel_diff" in row:
+                check(row["max_rel_diff"] <= 1e-13,
+                      f"({ncas}e,{ncas}o) {row['form']}: in place "
+                      f"{row['max_rel_diff']:.2e} off the functional sweep")
+            if ncas == 14 and row["form"].startswith(pick.get(row["kernel"],
+                                                              "-")):
+                stats[row["kernel"]].update(ms=row["ms"],
+                                            plain_ms=row["plain_ms"],
+                                            bound_ms=row["bound_ms"])
+        torch.cuda.empty_cache()
+    n = n_gates[14]
+    got = {k: paths["14e14o_grad"][k] for k in gtk.KERNELS}
+    print(f"  14e14o_grad (one energy_and_gradient): {got}")
+    check(got == {"gate_rotate": n, "gate_generator_add": 0,
+                  "gate_adjoint_step": n},
+          f"14e14o_grad: gate launches {got}, not {n} state-sweep and {n} "
+          "adjoint-sweep launches")
+    for path in ("14e14o", "14e14o_grad_mixed"):
+        got = {k: paths[path][k] for k in gtk.KERNELS}
+        print(f"  {path}: {got}")
+        check(got["gate_rotate"] > 0 and got["gate_adjoint_step"] > 0
+              and got["gate_rotate"] % n == 0
+              and got["gate_adjoint_step"] % n == 0
+              and (got["gate_generator_add"] > 0) == (path == "14e14o"),
+              f"{path}: gate launches {got}")
+    return stats
+
+
 def main():
     import torch
 
@@ -4617,6 +4721,7 @@ def main():
     from auto_oo_tpu_torch.ops import cuda_build, grid
     from auto_oo_tpu_torch.ops import grid_hosted as gh
     from auto_oo_tpu_torch.ops import gather_mechanisms as gm
+    from auto_oo_tpu_torch.ops import gate_kernels as gtk
     from auto_oo_tpu_torch.ops import grid_kernels as gk
     from auto_oo_tpu_torch.scripts import experiment_gather_mechanisms as exp
     import torch.distributed as dist
@@ -4626,8 +4731,8 @@ def main():
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
-    build_s = cuda_build.load_all([gk.LIBRARY, gm.LIBRARY])
-    print(f"kernel build + load (both libraries): {build_s:.2f} s")
+    build_s = cuda_build.load_all([gk.LIBRARY, gm.LIBRARY, gtk.LIBRARY])
+    print(f"kernel build + load (three libraries): {build_s:.2f} s")
     # the distributed engines' phases run on a one-rank NCCL group of this
     # process (the card's machine has one card)
     t0 = time.perf_counter()
@@ -4702,6 +4807,10 @@ def main():
             "(14e,14o) sector, mixed precision", sector14_mixed_phase,
             torch, P, gk, mol14, pqc14, energies14)
         del mol14, pqc14
+        torch.cuda.empty_cache()
+        stats.update(phase("gate kernels at the (14e,14o) and (16e,16o) "
+                           "sweeps' shapes", gate_kernel_phase, torch,
+                           paths))
         torch.cuda.empty_cache()
         phase("(2e,2o) convergence", convergence_phase, torch, P)
         phase("(2e,2o) full space, mixed precision", mixed_2e2o_phase,
@@ -4824,11 +4933,13 @@ def main():
     # each kernel's main path: the probes' entry point (the probes), the
     # (12e,12o) spin-resolved RDMs (gather_rows_scaled), the hosted
     # (16e,16o) iteration, and (14e,14o) for the row form of
-    # gather_reduce, which the hosted route does not run
+    # gather_reduce, which the hosted route does not run, and for the gate
+    # kernels (the (14e,14o) Newton iterations run all three)
     main_path = {name: ("12e12o_unrestricted"
                         if name == "gather_rows_scaled"
                         else "probes" if name in paths["probes"]
                         else "14e14o" if name == "gather_reduce"
+                        or name.startswith("gate_")
                         else "16e16o") for name in stats}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],

@@ -57,6 +57,8 @@ from auto_oo_tpu_torch.ops import cuda_build, grid, grid_hosted
 from auto_oo_tpu_torch.ops import grid_kernels as gk
 from auto_oo_tpu_torch.ops import gather_mechanisms as gm
 from auto_oo_tpu_torch.scripts import experiment_gather_mechanisms as exp
+from auto_oo_tpu_torch.scripts import sweep_gate_kernels as sgk
+from auto_oo_tpu_torch.simulator import grid_gates
 
 # the kernels of the fused and streamed routes (the hosted route runs
 # scatter_rows in place of the row form of gather_reduce)
@@ -1270,3 +1272,150 @@ def test_cuda_one_rank_nccl_newton_cores(nccl_mesh):
     got = batch.newton_steps(pqc.init_zeros(), None)
     want = plain.newton_steps(pqc.init_zeros(), None)
     assert float((got[3] - want[3]).abs().max()) < 1e-12
+
+
+# ---- the gate kernels (ops/gate_kernels.py) --------------------------------
+#
+# ``sweep_gate_kernels.compare`` holds each kernel to its plain version: the
+# stepped operands equal them as values (torch.equal) in f64 and f32, the
+# dot products of gate_adjoint_step within the rounding of their sums
+# (``dot_bound``; at the (16e,16o) row slice in f32 that is ~2e-3 on sums of
+# ~1e6 products that cancel to O(10)), and a second launch gives the same
+# bits.
+
+
+def _check_gate_kernels(tab, dtype, seed, L=2, nt=3):
+    _, faults = sgk.compare(tab, dtype, seed, L, nt)
+    assert not faults, faults
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_gate_kernels_match_plain_14e14o(cuda_device, dtype):
+    """gate_rotate (both directions), gate_generator_add and
+    gate_adjoint_step (with and without the (D, E) pair and the generator
+    terms) against their plain versions on every gate of the cells'
+    (14e,14o) np_fabric grid (3432 x 3432), 2 lanes; each launch counted."""
+    prog = grid_gates.build_direct(14, 14, "np_fabric", n_layers=1,
+                                   device=cuda_device)
+    before = dict(gk.LAUNCHES)
+    shapes = set()
+    for gi, tab in enumerate(prog._gt):
+        _check_gate_kernels(tab, dtype, 100 + gi)
+        shapes.add(sgk.gate_shape(tab))
+    assert shapes == {"beta-identity", "alpha-identity", "subgrid"}
+    n = len(prog._gt)
+    assert gk.LAUNCHES["gate_rotate"] == before["gate_rotate"] + 2 * n
+    assert gk.LAUNCHES["gate_generator_add"] == \
+        before["gate_generator_add"] + n
+    assert gk.LAUNCHES["gate_adjoint_step"] == \
+        before["gate_adjoint_step"] + 4 * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_gate_kernels_match_plain_16e16o_rows(cuda_device, dtype):
+    """The same on a row slice of the (16e,16o) grid: each gate of the
+    cells' (16e,16o) np_fabric circuit cut to 40 row pairs at its full
+    12,870-column width."""
+    prog = grid_gates.build_direct(16, 16, "np_fabric", n_layers=1,
+                                   device="cpu")
+    for gi, g in enumerate(prog.gates):
+        tab = sgk.row_slice(g, 40, prog.Na, prog.Nb, cuda_device)
+        _check_gate_kernels(tab, dtype, 200 + gi, L=1, nt=2)
+
+
+@pytest.mark.cuda
+def test_cuda_gate_sweeps_match_cpu(cuda_device):
+    """Every sweep of a (6e,6o) grid program in place on the card against
+    the functional sweeps on the CPU (f64, 1e-13 relative): apply with and
+    without lanes, apply_with_jacobian, hessian_dot with lanes, apply_pair,
+    pair_row with v = 0 (stride-0 zero cotangent) and a live v; no input
+    changed; the card's sweeps take the kernels only."""
+    from auto_oo_tpu_torch.simulator.program import _SweepProgram as Sweep
+    from auto_oo_tpu_torch.utils import observe
+
+    progs = {d: grid_gates.build_direct(6, 6, "np_fabric", n_layers=2,
+                                        device=d)
+             for d in ("cpu", cuda_device)}
+    n = progs["cpu"].n_params
+    rng = np.random.default_rng(23)
+    th = torch.from_numpy(0.4 * rng.standard_normal(n))
+    ths = torch.from_numpy(0.4 * rng.standard_normal((3, n)))
+    v = torch.from_numpy(rng.standard_normal(n))
+    a, b = (torch.from_numpy(rng.standard_normal(progs["cpu"].dim))
+            for _ in range(2))
+    pidx = list(range(0, n, 2))
+
+    def sweeps(call, to):
+        t, ts, vv, aa, bb = (to(x) for x in (th, ths, v, a, b))
+        zero = aa.new_zeros(()).expand(aa.shape)
+        psi, J = call("apply_with_jacobian", t, pidx)
+        psis, Js = call("apply_with_jacobian", ts, pidx)
+        ws = torch.stack([aa, bb, aa])
+        inputs = [t, ts, vv, aa, bb, psi, J, psis, Js, ws]
+        kept = [x.clone() for x in inputs]
+        out = dict(
+            apply=call("apply", t), apply_lanes=call("apply", ts), psi=psi,
+            J=J, hess=call("hessian_dot", ts, ws, psis, Js, pidx),
+            pair=call("apply_pair", t, vv)[1],
+            row0=call("pair_row", t, torch.zeros_like(vv), aa, zero, psi,
+                      zero),
+            row=call("pair_row", t, vv, aa, bb))
+        for x, k in zip(inputs, kept):
+            assert torch.equal(x, k), "a sweep changed its input"
+        return out
+
+    cpu = sweeps(lambda name, *args: getattr(Sweep, name)(progs["cpu"],
+                                                         *args),
+                 lambda x: x)
+    observe.clear()
+    was = observe.tracing(True)
+    try:
+        card = sweeps(lambda name, *args: getattr(progs[cuda_device], name)(
+            *args), lambda x: x.to(cuda_device))
+        torch.cuda.synchronize()
+        counts = observe.counters()
+        names = {r.name for r in observe.records()}
+    finally:
+        observe.tracing(was)
+        observe.clear()
+    for name, ref in cpu.items():
+        assert _rel_err(card[name].cpu(), ref) < 1e-13, name
+    assert counts.get("functional_gate_steps", 0) == 0
+    assert {"oo/kernel:gate_rotate", "oo/kernel:gate_generator_add",
+            "oo/kernel:gate_adjoint_step"} <= names
+
+
+@pytest.mark.cuda
+def test_cuda_gate_sweep_launch_counts(cuda_device):
+    """One launch per gate step: a state sweep launches gate_rotate once
+    a gate, the Adam step's adjoint sweep (pair_row with v = 0)
+    gate_adjoint_step once a gate; under autograd the functional step runs
+    and launches nothing."""
+    from auto_oo_tpu_torch.utils import observe
+
+    prog = grid_gates.build_direct(6, 6, "np_fabric", n_layers=1,
+                                   device=cuda_device)
+    n = len(prog._gt)
+    th = torch.full((prog.n_params,), 0.1, dtype=torch.float64,
+                    device=cuda_device)
+    before = dict(gk.LAUNCHES)
+    psi = prog.apply(th)
+    a = torch.ones_like(psi)
+    zero = a.new_zeros(()).expand(a.shape)
+    prog.pair_row(th, torch.zeros_like(th), a, zero, psi, zero)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["gate_rotate"] == before["gate_rotate"] + n
+    assert gk.LAUNCHES["gate_adjoint_step"] == \
+        before["gate_adjoint_step"] + n
+    observe.clear()
+    was = observe.tracing(True)
+    try:
+        before = dict(gk.LAUNCHES)
+        prog.apply(th.clone().requires_grad_(True)).sum().backward()
+        assert observe.counters()["functional_gate_steps"] == n
+        assert gk.LAUNCHES == before
+    finally:
+        observe.tracing(was)
+        observe.clear()
