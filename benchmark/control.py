@@ -25,12 +25,13 @@ ALTERED = 1e-7
 
 
 def readings(cell, seed, device, fault=False):
-    """The control's numbers at one seed; with ``fault``, also those of
-    the altered-energy fault."""
-    inputs = harness.Inputs(cell, seed)
+    """The control's numbers at one seed, through the cell's problem
+    module; with ``fault``, also those of the altered-energy fault."""
+    problem = cell.problem
+    inputs = problem.inputs(cell, seed)
     theta0 = np.asarray(inputs.theta0, dtype=np.float64)
-    ref = harness.reference_trajectory(cell, inputs, device, torch.float64)
-    low = harness.reference_trajectory(cell, inputs, device, torch.float32)
+    ref = problem.reference_trajectory(cell, inputs, device, torch.float64)
+    low = problem.reference_trajectory(cell, inputs, device, torch.float32)
     values = harness.compare(theta0, low, ref)
     if not fault:
         return values

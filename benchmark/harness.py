@@ -3,17 +3,23 @@ its public optimizers, a measured window, the trace, and the check.
 
 A cell is an entry of ``BENCHMARK.json``'s ``workloads``: a configuration
 (``configs/<config>.json``), a traffic mix (``traffic/<traffic>.json``)
-and the limits of its check (``checks/<cell>.json``).  Every metric is a
+and the limits of its check (``checks/<cell>.json``).  The configuration
+names its problem (``"problem"``), a module ``problems/<problem>.py``
+that holds everything particular to one kind of problem: the seed's
+draws, building and driving the program, the hooks that record its
+steps, the plain reference, and a step's FLOP count.  Every metric is a
 reader ``metrics/<name>.py`` with ``read(run)`` returning a number, or
-None where it finds nothing to read.  New cells, mixes and metrics are
-new files: nothing here names one.
+None where it finds nothing to read.  New cells, mixes, problems and
+metrics are new files: nothing here names one.
 
-A run: set-up builds the problem from the seed's inputs (``inputs``) and
-runs a warm-up solve through the window's own call; the window runs
-solves of ``steps_per_solve`` iterations (damped Newton) or steps (Adam)
-from the seeded start, one after another, and ends at the first step
-boundary past its length; the check follows the first steps of the plain
-reference once the program is freed.
+A run: set-up builds the problem from the seed's inputs and runs a
+warm-up solve through the window's own call; the window runs solves of
+``steps_per_solve`` iterations (damped Newton) or steps (Adam) from the
+seeded start, one after another, and ends at the first step boundary
+past its length; the check follows the first steps of the plain
+reference once the program is freed.  A step may carry one problem or
+a batch of them (lanes): its energy and lowest eigenvalue are then one
+number per lane, and the check holds every lane to its own reference.
 """
 
 import gc
@@ -56,6 +62,11 @@ class Cell:
         self.entry = cells[name]
         self.config = load_json(os.path.join(
             root, "configs", self.entry["config"] + ".json"))
+        if "problem" not in self.config:
+            raise ValueError(
+                f"configs/{self.entry['config']}.json names no \"problem\": "
+                "the key that picks the module problems/<problem>.py")
+        self.problem = load(root, "problems", self.config["problem"])
         self.traffic = load_json(os.path.join(
             root, "traffic", self.entry["traffic"] + ".json"))
         self.limits = load_json(os.path.join(root, "checks", name + ".json"))
@@ -70,34 +81,19 @@ class Cell:
                 if "workloads" not in m or self.name in m["workloads"]]
 
 
-def reader(root, name):
-    """The ``read`` function of ``metrics/<name>.py``."""
-    path = os.path.join(root, "metrics", name + ".py")
+def load(root, kind, name):
+    """The module ``<kind>/<name>.py`` under ``root``, loaded by path."""
+    path = os.path.join(root, kind, name + ".py")
     spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + name.replace(".", "_"), path)
+        f"benchmark_{kind}_" + name.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
 
 
-class Inputs:
-    """What the seed draws, the same for the program and the reference:
-    the chain's uniform spacing (a point of a PES scan), its geometry
-    string, the start angles, and the sign-fixed RHF orbitals that both
-    sides' circuits are written in."""
-
-    def __init__(self, cell, seed):
-        from .reference import chem
-        cfg, tr = cell.config, cell.traffic
-        rng = np.random.default_rng(int(seed))
-        lo, hi = tr["spacing_angstrom"]
-        self.spacing = round(float(rng.uniform(lo, hi)), 6)
-        self.geometry = chem.chain_geometry(cfg["atoms"], self.spacing)
-        lo, hi = tr["theta0"]
-        self.theta0 = rng.uniform(lo, hi, cfg["n_theta"])
-        S, hcore, eri, _ = chem.integrals(self.geometry)
-        self.mo_coeff = chem.fix_signs(
-            chem.rhf(S, hcore, eri, cfg["nelecas"])[1])
+def reader(root, name):
+    """The ``read`` function of ``metrics/<name>.py``."""
+    return load(root, "metrics", name).read
 
 
 class Step:
@@ -113,68 +109,16 @@ class Step:
             setattr(self, k, kw.get(k))
 
 
-class Program:
-    """The port, built for one cell and driven through ``OO_pqc``'s
-    ``full_optimization`` (damped Newton) or ``gradient_optimization``
-    (Adam), with the benchmark's recorders around its calls."""
-
-    def __init__(self, cell, inputs, device):
-        import auto_oo_tpu_torch as P
-        from auto_oo_tpu_torch.models.oo_energy import mo_ao_to_mo_oao
-        cfg = cell.config
-        self.cell = cell
-        self.mol = P.Moldata(inputs.geometry, cfg["basis"])
-        self.pqc = P.Parameterized_circuit(
-            cfg["ncas"], cfg["nelecas"], ansatz=cfg["ansatz"],
-            n_layers=cfg["n_layers"], sector=True, device=device)
-        if int(self.pqc.theta_shape) != cfg["n_theta"]:
-            raise ValueError(f"{cfg['name']}: the circuit has "
-                             f"{self.pqc.theta_shape} angles, the "
-                             f"configuration states {cfg['n_theta']}")
-        oao = mo_ao_to_mo_oao(inputs.mo_coeff, self.mol.overlap)
-        self.oo = P.OO_pqc(self.pqc, self.mol, cfg["ncas"], cfg["nelecas"],
-                           oao_mo_coeff=oao,
-                           freeze_active=cfg["freeze_active"],
-                           precision=cfg["precision"])
-        self.oao0 = self.oo.oao_mo_coeff.clone()
-        self.theta0 = torch.as_tensor(inputs.theta0, dtype=torch.float64,
-                                      device=device)
-        self.route = self.oo._core["route"]
-        self.shapes = (cfg["ncas"], int(self.pqc.state_dim),
-                       int(self.pqc.theta_shape), int(self.oo.n_kappa),
-                       int(self.oo.nao),
-                       len(self.oo._occ) + len(self.oo._act),
-                       counts.pairs_per_apply(cfg["ncas"], cfg["n_layers"]))
-
-    def solve(self, steps, monitor=None):
-        """One solve of ``steps`` from the seeded start, as a user runs it:
-        no convergence stop (a negative tolerance)."""
-        tr = self.cell.traffic
-        self.oo.oao_mo_coeff = self.oao0.clone()
-        if tr["optimizer"] == "newton":
-            self.oo.full_optimization(
-                self.theta0, max_iterations=steps, conv_tol=-1.0,
-                alpha=tr["alpha"], beta=tr["beta"], mu=tr["mu"],
-                rho=tr["rho"], lambda_min=tr["lambda_min"], monitor=monitor)
-        elif tr["optimizer"] == "adam":
-            self.oo.gradient_optimization(
-                self.theta0, max_iterations=steps,
-                learning_rate=tr["learning_rate"], conv_tol=-1.0,
-                orbital_every=0, monitor=monitor)
-        else:
-            raise ValueError(f"unknown optimizer {tr['optimizer']!r}")
-
-
 class Recorders:
-    """The benchmark's spans and counters around the program's calls, on
-    one Program's instances (the port is not edited):
+    """The benchmark's records of one run:
 
-    * the iterate and gradient of each step (``OO_pqc._nr_iteration``,
-      ``OO_pqc.energy_and_gradient``), kept as references;
-    * the energy evaluations (``Parameterized_circuit._state_impl_grid``,
-      one per trial energy of a line search and per gradient step);
-    * the Newton core's part timer (``_core["parts"]``), on in the
-      stretch that reads it;
+    * ``pending``: the iterate (``"theta"``) and gradient (``"grad"``) of
+      the step under way, kept by the problem's hooks and taken by the
+      monitor at the step's boundary;
+    * ``evaluations``: the energy evaluations the problem's hooks counted
+      (each trial energy of a line search, each gradient step);
+    * ``parts``: the program's part timer, on in the stretch that reads
+      it;
     * the arguments of each ``gather_two_spin`` and ``scatter_rows`` call
       while ``launches`` is a list."""
 
@@ -183,32 +127,11 @@ class Recorders:
         self.pending = {}
         self.evaluations = 0
         self.launches = None
-        oo, pqc = program.oo, program.pqc
-        nr, eg, st = oo._nr_iteration, oo.energy_and_gradient, \
-            pqc._state_impl_grid
-
-        def nr_iteration(theta, oao, *args):
-            out = nr(theta, oao, *args)
-            self.pending["theta"] = out[0]
-            return out
-
-        def energy_and_gradient(theta):
-            out = eg(theta)
-            self.pending["theta"], self.pending["grad"] = theta, out[1]
-            return out
-
-        def state(theta):
-            self.evaluations += 1
-            return st(theta)
-
-        oo._nr_iteration = nr_iteration
-        oo.energy_and_gradient = energy_and_gradient
-        pqc._state_impl_grid = state
         self._patched = []
 
     @property
     def parts(self):
-        return self.program.oo._core["parts"]
+        return self.program.parts
 
     def record_launches(self):
         """Wrap the kernels' Python entry points wherever the port's
@@ -267,6 +190,10 @@ class Monitor:
         self.index = 0
 
     def log(self, n, energy, lowest_hess_eig=None):
+        """A step's boundary: ``energy`` and ``lowest_hess_eig`` are each a
+        number, or one number per lane, read to the host before the
+        clock."""
+        energy, lowest_hess_eig = _host(energy), _host(lowest_hess_eig)
         now = time.perf_counter()
         rec = self.run.recorders
         parts = dict(rec.parts.seconds)
@@ -286,6 +213,15 @@ class Monitor:
         self.count += 1
         if now >= self.deadline and self.count >= self.min_steps:
             raise WindowClosed
+
+
+def _host(x):
+    """A number as it is; one number per lane as a float64 array."""
+    if x is None or isinstance(x, (int, float)):
+        return x
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+    return np.asarray(x, dtype=np.float64)
 
 
 class Run:
@@ -390,46 +326,24 @@ class Trajectory:
     them: ``energies`` (index, energy) pairs of every solve held (the
     energy after iteration index + 1, or before update index), ``lowest``
     (index, lowest Hessian eigenvalue) for damped Newton, ``theta`` the
-    angles after the checked steps and ``grad`` Adam's first gradient."""
+    angles after the checked steps and ``grad`` Adam's first gradient.
+    Of a batch, each energy and eigenvalue is an array over the lanes and
+    ``theta`` and ``grad`` have a leading lane axis."""
 
     def __init__(self, energies, theta, lowest=(), grad=None):
         self.energies, self.theta = list(energies), np.asarray(theta)
         self.lowest, self.grad = list(lowest), grad
 
 
-def program_trajectory(run):
-    """The program's Trajectory: every solve's first steps, in every
-    stretch; the angles and gradient of the window's first solve."""
-    cell = run.cell
-    k = int(cell.traffic["checked_steps"])
-    first = [s for s in run.steps if s.stretch == 0 and s.solve == 0]
-    held = [s for s in run.steps if s.index < k]
-    newton = cell.traffic["optimizer"] == "newton"
-    theta = (first[k - 1] if newton else first[k]).theta
-    grad = None if newton else first[0].grad[:cell.config["n_theta"]]
-    return Trajectory(
-        [(s.index, s.energy) for s in held],
-        theta.double().cpu().numpy(),
-        [(s.index, s.lowest) for s in held] if newton else (),
-        None if grad is None else grad.double().cpu().numpy())
+def _gap(a, b):
+    """The largest |a - b| over the lanes (a number of one problem)."""
+    return float(np.max(np.abs(np.subtract(a, b))))
 
 
-def reference_trajectory(cell, inputs, device, dtype=torch.float64):
-    """The plain reference's Trajectory from the same inputs, computed in
-    ``dtype`` (float32: the control)."""
-    from .reference.problem import Reference
-    cfg, tr = cell.config, cell.traffic
-    k = int(tr["checked_steps"])
-    ref = Reference(inputs.geometry, cfg["ncas"], cfg["n_layers"], device,
-                    dtype)
-    theta0 = np.asarray(inputs.theta0, dtype=np.float64)
-    if tr["optimizer"] == "newton":
-        out = ref.newton(theta0, k, tr["alpha"], tr["beta"], tr["mu"],
-                         tr["rho"], tr["lambda_min"])
-        return Trajectory(enumerate(o[1] for o in out), out[-1][0].numpy(),
-                          enumerate(o[2] for o in out))
-    energies, grad, theta = ref.adam(theta0, k, tr["learning_rate"])
-    return Trajectory(enumerate(energies), theta, grad=grad)
+def _lanes(*arrays):
+    """The rows of each array, lane by lane (a 1-D array is one lane; a
+    start shared by every lane is broadcast)."""
+    return zip(*np.broadcast_arrays(*map(np.atleast_2d, arrays)))
 
 
 def compare(theta0, got, ref):
@@ -438,18 +352,21 @@ def compare(theta0, got, ref):
     angles' change over the checked steps, over the reference's;
     ``grad_gap`` (Adam), the same of the first gradient's norms;
     ``eig_gap`` (damped Newton), the largest |l0 - l0_ref| of the lowest
-    Hessian eigenvalues (Ha / rad^2)."""
+    Hessian eigenvalues (Ha / rad^2).  Of a batch, every number is the
+    largest over the lanes, each lane against its own reference."""
     e_ref = dict(ref.energies)
-    values = {"energy_gap": max(abs(e - e_ref[i]) for i, e in got.energies)}
-    moved = np.linalg.norm(ref.theta - theta0)
-    values["step_gap"] = abs(np.linalg.norm(got.theta - theta0)
-                             - moved) / moved
+    values = {"energy_gap": max(_gap(e, e_ref[i]) for i, e in got.energies)}
+    values["step_gap"] = max(
+        abs(np.linalg.norm(g - t0) - np.linalg.norm(r - t0))
+        / np.linalg.norm(r - t0)
+        for g, r, t0 in _lanes(got.theta, ref.theta, theta0))
     if ref.grad is not None:
-        norm = np.linalg.norm(ref.grad)
-        values["grad_gap"] = abs(np.linalg.norm(got.grad) - norm) / norm
+        values["grad_gap"] = max(
+            abs(np.linalg.norm(g) - np.linalg.norm(r)) / np.linalg.norm(r)
+            for g, r in _lanes(got.grad, ref.grad))
     if ref.lowest:
         low = dict(ref.lowest)
-        values["eig_gap"] = max(abs(v - low[i]) for i, v in got.lowest)
+        values["eig_gap"] = max(_gap(v, low[i]) for i, v in got.lowest)
     return values
 
 
@@ -479,9 +396,10 @@ def run_cell(name, seed, seconds, trace, device, root=HERE, manifest=None,
     cell = Cell(name, root, manifest)
     run = Run(cell, seconds, trace)
     marks = [("imports", time.perf_counter())]
-    inputs = Inputs(cell, seed)
+    problem = cell.problem
+    inputs = problem.inputs(cell, seed)
     marks.append(("inputs", time.perf_counter()))
-    program = Program(cell, inputs, device)
+    program = problem.build(cell, inputs, device)
     run.shapes = program.shapes
     _sync(device)
     marks.append(("program", time.perf_counter()))
@@ -494,10 +412,11 @@ def run_cell(name, seed, seconds, trace, device, root=HERE, manifest=None,
     for label, t in marks:
         parts.append(f"{label} {t - last:.3f}")
         last = t
-    print(f"{cell.name}: route {program.route}, spacing {inputs.spacing} A, "
+    print(f"{cell.name}: route {program.route}, {inputs.describe}, "
           f"set-up {run.setup_s:.3f} s ({', '.join(parts)})", file=log,
           flush=True)
-    measure(run, program, device)
+    with program.hook(run.recorders):
+        measure(run, program, device)
     run.launch_records = run.recorders.launches or []
     run.launch_bytes = launch_bytes(run)
     cuda = torch.device(device).type == "cuda"
@@ -517,10 +436,10 @@ def run_cell(name, seed, seconds, trace, device, root=HERE, manifest=None,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    got = program_trajectory(run)
+    got = problem.program_trajectory(run)
     t_ref = time.perf_counter()
     values = compare(np.asarray(inputs.theta0, dtype=np.float64), got,
-                     reference_trajectory(cell, inputs, device))
+                     problem.reference_trajectory(cell, inputs, device))
     limits = cell.limits
     correct, lines = verdict(values, limits)
     print(f"reference {time.perf_counter() - t_ref:.2f} s; steps "

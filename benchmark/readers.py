@@ -103,16 +103,14 @@ def idle_share(run, optimizer):
 
 def mfu(run, optimizer):
     """Percent of the f64 peak over the profiled stretch (its length in
-    the trace)."""
+    the trace): the problem's frozen count of each step
+    (``step_flops``)."""
     if _optimizer(run) != optimizer or run.profiled is None:
         return None
     steps = run.steps_of(run.profiled)
     seconds = run.summary.window_s if run.summary is not None else 0.0
     if not steps or seconds <= 0.0:
         return None
-    if optimizer == "newton":
-        flops = sum(counts.nr_iteration_flops(run.shapes, s.trials)
-                    for s in steps)
-    else:
-        flops = counts.grad_step_flops(run.shapes) * len(steps)
+    step_flops = run.cell.problem.step_flops
+    flops = sum(step_flops(run.cell, run.shapes, s.trials) for s in steps)
     return 100.0 * flops / (seconds * counts.FP64_PEAK)

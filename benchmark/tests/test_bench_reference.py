@@ -3,6 +3,7 @@
 These tests import the port; the reference itself imports nothing of it
 (``test_reference_imports_nothing_of_the_program``)."""
 
+import os
 import subprocess
 import sys
 
@@ -18,6 +19,8 @@ from benchmark.reference import chem, fci
 from benchmark.reference.fabric import Fabric
 from benchmark.reference.problem import Reference
 
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 STEP = dict(alpha=1e-4, beta=0.5, mu=1e-6, rho=1.1, lambda_min=1e-6)
 
 
@@ -151,13 +154,30 @@ def test_generator_is_the_derivative_of_the_gate():
 
 
 def test_reference_imports_nothing_of_the_program():
-    code = ("import sys; import benchmark.reference.problem, "
-            "benchmark.harness, benchmark.counts, benchmark.control; "
-            "bad = sorted({m.split('.')[0] for m in sys.modules} & "
-            "{'jax', 'jaxlib', 'flax', 'auto_oo_tpu', 'auto_oo_tpu_torch'}); "
-            "print(bad); sys.exit(1 if bad else 0)")
+    """Every module under ``benchmark/reference/`` and every problem module
+    under ``benchmark/problems/``, found by glob, with the harness, the
+    counts and the control: loading them loads no module of JAX, of the
+    JAX package or of the port."""
+    code = """if True:
+        import glob, importlib, os, sys
+        import benchmark.counts, benchmark.control
+        from benchmark import harness
+        def stems(kind):
+            return sorted(os.path.basename(p)[:-3] for p in glob.glob(
+                os.path.join(harness.HERE, kind, "*.py")))
+        refs, probs = stems("reference"), stems("problems")
+        assert refs and probs
+        for name in refs:
+            importlib.import_module("benchmark.reference." + name)
+        for name in probs:
+            harness.load(harness.HERE, "problems", name)
+        bad = sorted({m.split(".")[0] for m in sys.modules} & {
+            "jax", "jaxlib", "flax", "auto_oo_tpu", "auto_oo_tpu_torch"})
+        print(refs, probs, bad)
+        sys.exit(1 if bad else 0)
+    """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True)
+                         text=True, cwd=ROOT)
     assert out.returncode == 0, out.stdout + out.stderr
 
 

@@ -1,6 +1,6 @@
 """A benchmark root of tiny cells for the CPU tests: the real metric
-readers, check limits and traffic mixes, on a hydrogen chain of a few
-atoms (the cells' configuration with its sizes cut)."""
+readers, problem modules, check limits and traffic mixes, on a hydrogen
+chain of a few atoms (the cells' configuration with its sizes cut)."""
 
 import json
 import os
@@ -17,8 +17,8 @@ def make_root(path, atoms=6):
     """Write the tiny root under ``path``; returns (root, manifest)."""
     src = harness.HERE
     root = os.path.join(path, "bench")
-    shutil.copytree(os.path.join(src, "metrics"),
-                    os.path.join(root, "metrics"))
+    for sub in ("metrics", "problems"):
+        shutil.copytree(os.path.join(src, sub), os.path.join(root, sub))
     for sub in ("configs", "traffic", "checks"):
         os.makedirs(os.path.join(root, sub))
     cfg = harness.load_json(os.path.join(
